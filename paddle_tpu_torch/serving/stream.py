@@ -1,0 +1,107 @@
+"""Per-request token streaming over the serving engine (counterpart of
+the reference's ``serving/stream.py``).
+
+``ServingEngine.submit()`` returns a :class:`ResponseStream`: an iterable
+of token ids as the pool's decode step emits them, ending with a terminal
+:class:`StreamStatus` (``stream.status`` / ``stream.result()``).  The
+queue is bounded by the request's own budget (``max_new_tokens`` + the
+terminal marker), so the producer never blocks.  The engine runs in
+synchronous ``pump()`` mode only, so iterating a stream drives the engine
+itself between reads.
+"""
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+import time
+from typing import Optional
+
+__all__ = ["RequestState", "ResponseStream", "StreamStatus"]
+
+
+class RequestState:
+    """Request lifecycle: QUEUED -> PREFILLING -> DECODING -> terminal."""
+
+    QUEUED = "QUEUED"
+    PREFILLING = "PREFILLING"
+    DECODING = "DECODING"
+    DONE = "DONE"
+    CANCELLED = "CANCELLED"
+    EXPIRED = "EXPIRED"
+    FAILED = "FAILED"
+    TERMINAL = frozenset({DONE, CANCELLED, EXPIRED, FAILED})
+
+
+# the terminal record delivered once per request: finish_reason is the
+# decode layer's eos/length for DONE, else "cancelled"; ttft_s is None
+# when the request never produced a token
+StreamStatus = collections.namedtuple(
+    "StreamStatus",
+    ["request_id", "state", "finish_reason", "tokens", "prompt_tokens",
+     "new_tokens", "ttft_s", "total_s", "error"])
+
+_TERMINAL = object()
+
+
+class ResponseStream:
+    """Iterable of one request's generated token ids + terminal status."""
+
+    def __init__(self, engine, request_id, max_new_tokens: int):
+        self._engine = engine
+        self.request_id = request_id
+        self._q: queue.Queue = queue.Queue(maxsize=int(max_new_tokens) + 1)
+        self._done = threading.Event()
+        self._status: Optional[StreamStatus] = None
+
+    # -- engine side -----------------------------------------------------
+    def _put_token(self, tok: int) -> None:
+        self._q.put_nowait(tok)
+
+    def _finalize(self, status: StreamStatus) -> None:
+        self._status = status
+        self._q.put_nowait(_TERMINAL)
+        self._done.set()
+
+    # -- consumer side ---------------------------------------------------
+    @property
+    def status(self) -> Optional[StreamStatus]:
+        """The terminal record, or None while the request is live."""
+        return self._status
+
+    @property
+    def state(self) -> str:
+        s = self._status
+        if s is not None:
+            return s.state
+        return self._engine.request_state(self.request_id)
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def __iter__(self):
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                if self._done.is_set():
+                    return
+                # synchronous mode: the consumer drives the engine
+                if not self._engine.pump(1) and not self._done.is_set():
+                    return
+                continue
+            if item is _TERMINAL:
+                return
+            yield item
+
+    def result(self, timeout_s: Optional[float] = None
+               ) -> Optional[StreamStatus]:
+        """Pump the engine until this request is terminal (or the timeout
+        passes); returns the terminal record or None."""
+        deadline = None if timeout_s is None \
+            else time.monotonic() + timeout_s
+        while not self._done.is_set() and (
+                deadline is None or time.monotonic() < deadline):
+            if not self._engine.pump(1):
+                break
+        return self._status

@@ -5,15 +5,25 @@ NVIDIA card.
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
-the port's CUDA kernels from ``paddle_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch twin, serves the full-width GPT-1.3B
-``TransformerLM`` (random weights from seed 0) through the ``ServingEngine``
-on the paged cache, then a 4-layer model of the same widths on the dense
-cache and on the int8 paged cache, checks that each run went through the
-kernels and that its greedy tokens are the argmax of an uncached forward,
-and times each kernel at the main path's shape beside its plain twin, its
-bandwidth bound and ``scaled_dot_product_attention`` (timed as a yardstick
-only; the port never calls it).
+the port's CUDA kernels from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per
+source, all started together), holds each kernel against its plain
+PyTorch twin, and drives the port's two main paths:
+
+- serving: the full-width GPT-1.3B ``TransformerLM`` (random weights from
+  seed 0) through the ``ServingEngine`` on the paged cache, then a 4-layer
+  model of the same widths on the dense cache and on the int8 paged cache;
+  each run must go through the decode kernels K1/K2 and emit the argmax of
+  an uncached forward;
+- training: the same GPT-1.3B at full width and depth in fp32 for 6
+  ``TrainStep``s (AdamW, global-norm clipping) on one repeated 2 x 2048
+  batch, every attention forward and backward through the flash kernel K3,
+  then a BERT-base encoder on a ragged batch whose padding reaches K3 as
+  key-padding lanes.
+
+It then times each kernel at its main path's shape beside its plain twin,
+its bound and the one PyTorch call that computes the same function
+(``scaled_dot_product_attention``, timed as a yardstick only; the port
+never calls it).
 
 Every phase raises on failure; the exit code is 0 only when all passed.
 The second-to-last lines are the card's name and power limit and a JSON
@@ -32,6 +42,7 @@ import time
 import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound_ms column
+# and MFU: fp32 runs on the CUDA cores, not the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
@@ -50,6 +61,13 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # of that position's max logit (fp32 cache: summation-order noise; int8
 # cache: the quantization bound the repo's int8 logit test uses)
 GREEDY_TOL = {"float32": 1e-3, "int8": 8e-2}
+# K3 vs its plain twins: fp32 differs by summation order (5e-5 on the
+# gradients, which sum over every query or key of the row); bf16 outputs
+# and gradients are rounded to bf16 by both
+FLASH_TOL = {"float32": (1e-5, 5e-5), "bfloat16": (2e-2, 2e-2)}
+# the training runs
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6  # 1 warm-up + 5 timed
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 8, 512, 3
 
 
 def log(*a):
@@ -276,6 +294,22 @@ def serve(model, rng, n_requests, new_tokens, n_layers, kernel, **kw):
     }
 
 
+def device_time_rows(prof):
+    """[(ms, kernel, calls)] of the CUDA kernels a ``torch.profiler`` run
+    recorded, longest first (one stream, so their sum is the busy time)."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue  # host ops: their device time is their kernels' time
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us / 1e3, ev.key, ev.count))
+    return sorted(rows, reverse=True)
+
+
 def profile_decode(model, rng, ticks: int = 10):
     """Where a steady decode step's time goes on the paged main path:
     8 busy slots at ~1k context; ``ticks`` pump ticks timed on the host
@@ -305,17 +339,8 @@ def profile_decode(model, rng, ticks: int = 10):
         engine.pump(ticks)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / ticks
-    from torch.autograd import DeviceType
-
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # host ops: their device time is their kernels' time
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0:
-            rows.append((us / ticks / 1e3, ev.key, ev.count // ticks))
-    rows.sort(reverse=True)
+    rows = [(ms / ticks, k, n // ticks)
+            for ms, k, n in device_time_rows(prof)]
     busy_ms = sum(r[0] for r in rows)
     while engine.pump(1):
         pass
@@ -394,6 +419,386 @@ def time_kernels(ctx: int = 1024):
     return out
 
 
+# -- K3: flash attention ------------------------------------------------------
+
+
+def flash_case(gen, b, h, lq, lk, d, dtype, causal, bias=None, seg=None):
+    """K3 inputs: q, k and v as the attention layer makes them (transposed
+    [B, L, H, D] views), an optional bias (full [B, H, Lq, Lk], broadcast
+    [1, 1, Lq, Lk] or padding-shaped [B, 1, 1, Lk]) and optional segment
+    ids: ``seg="ids"`` draws random ids whose batch row 0 masks every key;
+    ``seg="pad"`` gives the lanes ``flash_attention`` makes from a ragged
+    ``key_padding_mask`` (queries all 0, keys 0 up to each row's length
+    and 1 after it; row 0 has the full length)."""
+    import torch
+
+    dev = torch.device("cuda")
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def heads(l):
+        return rnd(b, l, h, d).to(dtype).transpose(1, 2)
+
+    case = dict(q=heads(lq), k=heads(lk), v=heads(lk), bias=None, q_seg=None,
+                kv_seg=None, causal=causal, sm_scale=d ** -0.5)
+    if bias is not None:
+        case["bias"] = rnd(*{"full": (b, h, lq, lk), "bcast": (1, 1, lq, lk),
+                             "pad": (b, 1, 1, lk)}[bias])
+    if seg == "ids":
+        case["q_seg"] = torch.randint(0, 2, (b, lq), device=dev,
+                                      generator=gen).int()
+        kv = torch.randint(0, 2, (b, lk), device=dev, generator=gen).int()
+        kv[0] = 5
+        case["kv_seg"] = kv
+    elif seg == "pad":
+        lens = torch.randint(lk // 4, lk + 1, (b,), device=dev, generator=gen)
+        lens[0] = lk
+        valid = torch.arange(lk, device=dev)[None, :] < lens[:, None]
+        case["q_seg"] = torch.zeros(b, lq, dtype=torch.int32, device=dev)
+        case["kv_seg"] = torch.where(valid, 0, 1).to(torch.int32)
+    return case, rnd(b, h, lq, d).to(dtype)
+
+
+def check_flash_kernels():
+    """K3 forward (O and stats) and backward (dQ/dK/dV, and dbias before
+    its broadcast sum) against the plain twins: causal and not, key
+    padding (segment lanes), segment ids with fully masked rows, full and
+    broadcast bias, Lq != Lk, L not a multiple of the tile, D in {64, 128},
+    f32 and bf16, and both training shapes with the strides the model
+    passes: B 2 x H 16 x L 2048 x D 128 causal (GPT) and B 8 x H 12 x
+    L 512 x D 64 non-causal with ragged key padding (BERT).  Returns the
+    GPT shape's max errors."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [dict(b=2, h=3, lq=100, lk=100, d=64, causal=True),
+              dict(b=2, h=3, lq=70, lk=130, d=64, causal=False, bias="full"),
+              dict(b=2, h=3, lq=130, lk=70, d=128, causal=True,
+                   bias="bcast"),
+              dict(b=2, h=3, lq=77, lk=77, d=128, causal=True, seg="ids"),
+              dict(b=2, h=2, lq=65, lk=90, d=128, causal=False, bias="pad",
+                   seg="ids"),
+              dict(b=2, h=3, lq=90, lk=90, d=64, causal=False, seg="pad")]
+    cases = [(sh, dt) for sh in shapes
+             for dt in (torch.float32, torch.bfloat16)]
+    main = dict(b=TRAIN_BATCH, h=16, lq=TRAIN_SEQ, lk=TRAIN_SEQ, d=128,
+                causal=True)
+    bert = dict(b=BERT_BATCH, h=12, lq=BERT_SEQ, lk=BERT_SEQ, d=64,
+                causal=False, seg="pad")
+    cases += [(main, torch.float32), (bert, torch.float32)]
+    main_err = {}
+    for shape, dtype in cases:
+        args, do = flash_case(gen, dtype=dtype, **shape)
+        bias_grad = args["bias"] is not None
+        o, stats = fk.flash_attention_forward_kernel(**args)
+        grads = fk.flash_attention_backward_kernel(
+            o=o, stats=stats, do=do, bias_grad=bias_grad, **args)
+        torch.cuda.synchronize()
+        want_o, want_stats = fk.flash_attention_forward_plain(**args)
+        want = fk.flash_attention_backward_plain(
+            o=o, stats=stats, do=do, bias_grad=bias_grad, **args)
+        fwd_tol, grad_tol = FLASH_TOL[str(dtype)[6:]]
+        errs = {"o": (o.float() - want_o.float()).abs().max().item(),
+                "stats": (stats - want_stats).abs().max().item()}
+        for name, g, w in zip(("dq", "dk", "dv", "dbias"), grads, want):
+            if w is not None:
+                errs[name] = (g.float() - w.float()).abs().max().item()
+        scale = {n: t.float().abs().max().item() for n, t in
+                 zip(("dq", "dk", "dv"), want)}
+        ok = (errs["o"] <= fwd_tol and errs["stats"] <= 1e-5
+              and all(errs[n] <= grad_tol for n in errs
+                      if n not in ("o", "stats"))
+              and bool(torch.isfinite(o).all()))
+        log("parity flash_attention %-8s %s  errs %s  grad max %s  "
+            "tol %.0e/%.0e %s"
+            % (str(dtype)[6:], shape, {n: "%.2e" % e for n, e in
+                                       errs.items()},
+               {n: "%.2f" % e for n, e in scale.items()}, fwd_tol, grad_tol,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("K3 disagrees with its plain twins: %s"
+                                 % errs)
+        if shape is main:
+            main_err = {"flash_attention_forward_kernel": max(
+                errs["o"], errs["stats"]),
+                "flash_attention_backward_kernel": max(
+                    errs["dq"], errs["dk"], errs["dv"])}
+    return main_err
+
+
+# -- training runs ---------------------------------------------------------
+
+
+def _adamw(model):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                 grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def _profile_step(step, batch, step_ms):
+    """One more step under ``torch.profiler``: device busy time (CUDA
+    kernel time, one stream) against the unprofiled step time, and the
+    kernels that take it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*batch)
+        torch.cuda.synchronize()
+    rows = device_time_rows(prof)
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        log("profile: the profiler recorded no device time (not measured)")
+    return {"device_busy_ms_per_step": busy,
+            "device_idle_share": (1 - busy / step_ms) if busy else None,
+            "top": [{"kernel": k[:80], "ms_per_step": ms, "calls": n}
+                    for ms, k, n in rows[:10]]}
+
+
+def _padding_batch(rng, vocab, b, l):
+    """ids [B, L], a ragged [B, 1, 1, L] additive padding mask (row 0 full
+    length) and labels with the pads set to the ignored -100."""
+    ids = rng.randint(0, vocab, (b, l))
+    lens = rng.randint(l // 4, l + 1, b)
+    lens[0] = l
+    valid = np.arange(l)[None, :] < lens[:, None]
+    mask = np.where(valid, 0.0, np.finfo(np.float32).min).astype(
+        np.float32)[:, None, None, :]
+    return ids, mask, np.where(valid, ids, -100), int(lens.sum())
+
+
+def check_train_small():
+    """The training path on the card against the same path on the CPU,
+    where K3 is its plain twins: 2-layer models of small widths, the same
+    weights (seed 0) and batches, 3 AdamW steps each -- a causal LM with the
+    shifted loss, and a non-causal encoder on ragged lengths (a [B, 1, 1, L]
+    padding mask, taken as key-padding lanes) with the pads ignored.  The
+    per-step losses must agree to 1e-4 relative (fp32 sums in another order
+    on each side, carried through three updates)."""
+    import torch
+
+    from paddle_tpu_torch import (TrainStep, TransformerLM,
+                                  TransformerLMCriterion)
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    cfg = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+               intermediate_size=512, max_position=256, dropout=0.0)
+    ids = np.random.RandomState(5).randint(0, 512, (2, 256))
+    pad_ids, pad_mask, pad_labels, _ = _padding_batch(
+        np.random.RandomState(6), 512, 4, 200)
+    lm, enc = (TransformerLMCriterion(shift_labels=True),
+               TransformerLMCriterion(shift_labels=False))
+    legs = {"causal": (dict(cfg), lambda m, x: lm(m(x), x), (ids,)),
+            "padded": (dict(cfg, causal=False),
+                       lambda m, x, am, y: enc(m(x, attn_mask=am), y),
+                       (pad_ids, pad_mask, pad_labels))}
+    out = {}
+    fk.reset_launch_counts()
+    for leg, (c, loss_fn, batch) in legs.items():
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            model = TransformerLM(**c, device="cuda", seed=0).to(dev)
+            step = TrainStep(model, loss_fn, _adamw(model))
+            args = [torch.from_numpy(a).to(dev) if a.dtype == np.float32
+                    else a for a in batch]
+            losses[dev] = [float(step(*args)) for _ in range(3)]
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+        log("train check %s (2 layers, 256 wide, %s): card %s vs cpu %s"
+            % (leg, "x".join(map(str, batch[0].shape)), losses["cuda"],
+               losses["cpu"]))
+        out[leg] = losses
+    counts = fk.launch_counts()
+    # card only: 2 layers x 3 steps per leg
+    assert all(n == 2 * 3 * len(legs) for n in counts.values()), counts
+    return out
+
+
+def train_gpt():
+    """The training main path: GPT-1.3B at full width and depth, fp32,
+    ``TrainStep`` with AdamW(1e-4, weight decay 0.01, global-norm clip 1.0)
+    and the shifted LM loss, on one 2 x 2048 batch (numpy seed 0) repeated
+    for 1 warm-up and 5 timed steps.  The K3 counts are set to 0 just
+    before the steps and read just after."""
+    import torch
+
+    from paddle_tpu_torch import (TrainStep, TransformerLM,
+                                  TransformerLMCriterion, gpt_1p3b_config)
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    cfg = gpt_1p3b_config()
+    t0 = time.perf_counter()
+    model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
+    log("train model: GPT-1.3B, %d layers, %.3f B params, built in %.1f s"
+        % (cfg["num_layers"], sum(p.numel() for p in model.parameters())
+           / 1e9, time.perf_counter() - t0))
+    crit = TransformerLMCriterion(shift_labels=True)
+    step = TrainStep(model, lambda m, ids: crit(m(ids), ids), _adamw(model))
+    ids = np.random.RandomState(0).randint(
+        0, cfg["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(ids)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = fk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg["num_layers"]
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    for name, n in counts.items():
+        assert n == layers * TRAIN_STEPS, (counts, layers * TRAIN_STEPS)
+    timed = step_ms[1:]
+    mean_ms = float(np.mean(timed))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tok_s = tokens / (mean_ms / 1e3)
+    out = {"layers": layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "losses": losses,
+           "warmup_step_ms": step_ms[0], "step_ms_mean": mean_ms,
+           "step_ms_p50": float(np.median(timed)), "tokens_per_s": tok_s,
+           "mfu_vs_fp32_cuda_core_peak":
+               model.flops_per_token(TRAIN_SEQ) * tok_s / FP32_FLOPS_PER_S,
+           "peak_mem_gb": peak / 2 ** 30, "launches": counts,
+           "launches_per_step": {n: c / TRAIN_STEPS
+                                 for n, c in counts.items()}}
+    out["profile"] = _profile_step(step, (ids,), mean_ms)
+    del step, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_bert():
+    """BERT-base (12 layers, 768 wide, non-causal) for 3 steps on 8 x 512
+    tokens with ragged lengths given as a [B, 1, 1, L] additive padding
+    mask; the masked LM loss ignores the pads.  K3 must take the mask as
+    key-padding (segment) lanes: the detection claims it and every K3
+    call of the run carries segment ids."""
+    import torch
+
+    from paddle_tpu_torch import (TrainStep, TransformerLM,
+                                  TransformerLMCriterion, bert_base_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    cfg = bert_base_config()
+    model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
+    ids, mask, labels, real_tokens = _padding_batch(
+        np.random.RandomState(1), cfg["vocab_size"], BERT_BATCH, BERT_SEQ)
+    mask, labels = torch.from_numpy(mask).cuda(), torch.from_numpy(
+        labels).cuda()
+    assert fa.detect_padding_additive_mask(mask) is not None
+    crit = TransformerLMCriterion(shift_labels=False)
+    step = TrainStep(model, lambda m, x, am, y: crit(m(x, attn_mask=am), y),
+                     _adamw(model))
+    with_lanes = []
+    apply = fk.FlashAttentionFunction.apply
+
+    def recording_apply(*a):
+        with_lanes.append(a[4] is not None)  # q_seg
+        return apply(*a)
+
+    fk.FlashAttentionFunction.apply = recording_apply
+    try:
+        torch.cuda.synchronize()
+        fk.reset_launch_counts()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(BERT_STEPS):
+            losses.append(float(step(ids, mask, labels)))
+        wall = time.perf_counter() - t0
+        counts = fk.launch_counts()
+    finally:
+        fk.FlashAttentionFunction.apply = apply
+    layers = cfg["num_layers"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert with_lanes and all(with_lanes), with_lanes
+    for name, n in counts.items():
+        assert n == layers * BERT_STEPS, (counts, layers * BERT_STEPS)
+    del step, model
+    torch.cuda.empty_cache()
+    return {"layers": layers, "batch": BERT_BATCH, "seq": BERT_SEQ,
+            "real_tokens": real_tokens, "losses": losses,
+            "step_ms_mean": wall * 1e3 / BERT_STEPS, "launches": counts,
+            "k3_calls_with_padding_lanes": len(with_lanes)}
+
+
+def time_flash():
+    """K3 forward and backward at the training shape (B 2 x H 16 x
+    L 2048 x D 128, causal, fp32) beside the plain twins, the bound and
+    ``scaled_dot_product_attention(is_causal=True)`` forward and backward.
+
+    Bound: the larger of the operations over 67 TFLOP/s fp32 and the bytes
+    over 3.35 TB/s.  Operations count the visible (query, key) pairs,
+    L (L + 1) / 2 per head: 4 D flops each forward (QK^T, PV), 10 D
+    backward (QK^T again, dO V^T, dV, dK, dQ).  Bytes read each input once
+    and write each output once: forward q, k, v -> o, stats; backward
+    q, k, v, o, dO, stats -> dq, dk, dv."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, h, l, d = TRAIN_BATCH, 16, TRAIN_SEQ, 128
+    args, do = flash_case(gen, b, h, l, l, d, torch.float32, causal=True)
+    o, stats = fk.flash_attention_forward_kernel(**args)
+    pairs = b * h * l * (l + 1) // 2
+    tensor_bytes = b * h * l * d * 4
+    stats_bytes = stats.numel() * 4
+    work = {"flash_attention_forward_kernel": (4 * d * pairs,
+                                               4 * tensor_bytes
+                                               + stats_bytes),
+            "flash_attention_backward_kernel": (10 * d * pairs,
+                                                8 * tensor_bytes
+                                                + stats_bytes)}
+    q, k, v = (args[n].detach().requires_grad_() for n in "qkv")
+    lib_fwd = cuda_ms(lambda: tF.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
+    lib_out = tF.scaled_dot_product_attention(q, k, v, is_causal=True)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (q, k, v), do, retain_graph=True), iters=10)
+    runs = {"flash_attention_forward_kernel":
+            (lambda: fk.flash_attention_forward_kernel(**args),
+             lambda: fk.flash_attention_forward_plain(**args), lib_fwd),
+            "flash_attention_backward_kernel":
+            (lambda: fk.flash_attention_backward_kernel(
+                o=o, stats=stats, do=do, **args),
+             lambda: fk.flash_attention_backward_plain(
+                 o=o, stats=stats, do=do, **args), lib_bwd)}
+    out = {}
+    for name, (kern, plain, lib_ms) in runs.items():
+        flops, nbytes = work[name]
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # plain, kernel, kernel, plain: compare within one call
+        p1 = cuda_ms(plain, iters=5, warmup=1)
+        k1 = cuda_ms(kern, iters=10, warmup=2)
+        k2 = cuda_ms(kern, iters=10, warmup=1)
+        p2 = cuda_ms(plain, iters=5, warmup=1)
+        rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": lib_ms, "flops": flops, "bytes": nbytes}
+        rec["achieved_tflop_s"] = flops / rec["ms"] / 1e9
+        out[name] = rec
+        log("timing %-32s B=%d H=%d L=%d D=%d causal fp32: kernel %.4f ms "
+            "(%.2f TFLOP/s), plain %.4f ms, bound %.4f ms (%s), sdpa %.4f ms"
+            % (name, b, h, l, d, rec["ms"], rec["achieved_tflop_s"],
+               rec["plain_ms"], rec["bound_ms"], rec["bound_by"], lib_ms))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -425,9 +830,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     _build.load("decode_attention")
+    _build.load("flash_attention")
     log("build: %.1f s" % (time.perf_counter() - t0))
 
     parity = check_kernels()
+    parity.update(check_flash_kernels())
 
     cfg = gpt_1p3b_config()
     rng = np.random.RandomState(0)
@@ -461,7 +868,16 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    check_train_small()
+    train = {"gpt_fp32_24l": train_gpt()}
+    log("training main path (GPT-1.3B fp32, 24 layers, 2 x 2048):",
+        json.dumps(train["gpt_fp32_24l"]))
+    train["bert_base_pad"] = train_bert()
+    log("encoder run (BERT-base, 8 x 512 ragged, key padding):",
+        json.dumps(train["bert_base_pad"]))
+
     timing = time_kernels()
+    timing.update(time_flash())
     kernels = []
     for name, tpu, run in (
             ("paged_decode_attention_kernel",
@@ -474,6 +890,17 @@ def main() -> int:
             "source": "paddle_tpu_torch/csrc/decode_attention.cu",
             "replaces": tpu,
             "launches": runs[run]["launches"][name],
+            "max_abs_err": parity[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for name in ("flash_attention_forward_kernel",
+                 "flash_attention_backward_kernel"):
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/flash_attention.py:78",
+            "launches": train["gpt_fp32_24l"]["launches"][name],
             "max_abs_err": parity[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -6,12 +6,18 @@ at the same place.  The port imports torch and never JAX or the reference
 package.  Its entry points (``TransformerLM``, ``DecodeSession``,
 ``GenerationPool``, ``ServingEngine``) run on ``cuda`` by default and raise
 on a machine without a card unless the caller passes ``device="cpu"``.
+Training goes through ``TrainStep`` (or the optimizer's eager ``step()``)
+on whatever device the model lives.
 """
+from . import optimizer  # noqa: F401
 from .convert import load_reference_params  # noqa: F401
 from .core.errors import (EnforceNotMet, InvalidArgumentError,  # noqa: F401
                           NotFoundError, PreconditionNotMetError,
                           UnavailableError)
 from .inference.generation import GenerationPool  # noqa: F401
 from .jit.decode import DecodeSession  # noqa: F401
-from .models.language_model import TransformerLM, gpt_1p3b_config  # noqa: F401
+from .jit.train_step import MultiStepTrainStep, TrainStep  # noqa: F401
+from .models.language_model import (TransformerLM,  # noqa: F401
+                                    TransformerLMCriterion, bert_base_config,
+                                    ernie_base_config, gpt_1p3b_config)
 from .serving.engine import QueueFullError, ServingEngine  # noqa: F401

@@ -32,6 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of int64
 
 # C signatures of every entry point, by source.  Pointers and the stream
 # are c_void_p: an undeclared pointer would be passed as a 32-bit int.
@@ -43,6 +44,19 @@ SIGNATURES = {
         "ptt_dense_decode_attention": [
             _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P,
             _I, _I, _I, _I, _I, _F, _P],
+    },
+    "flash_attention": {
+        "ptt_flash_attention_forward": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _LLP,
+            _I, _I, _I, _I, _I, _I, _F, _P],
+        "ptt_flash_attention_bwd_delta": [
+            _I, _P, _P, _P, _LLP, _I, _I, _I, _I, _P],
+        "ptt_flash_attention_bwd_dkdv": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP,
+            _I, _I, _I, _I, _I, _I, _F, _P],
+        "ptt_flash_attention_bwd_dq": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP,
+            _I, _I, _I, _I, _I, _I, _F, _P],
     },
 }
 

@@ -1,13 +1,23 @@
-"""Decode-time attention and int8 KV quantization, with the routing seam
-between the composition and the hand-written kernels.
+"""Attention ops with the routing seam between the composition and the
+hand-written kernels, and int8 KV quantization.
 
-Counterpart of the reference's ``ops/flash_attention.py`` (the decode
-half: ``quantize_kv``/``dequantize_kv``, ``decode_attention``,
-``paged_decode_attention``, ``_effective_qpos``, ``_qpos_bias`` and the
-route knob).  The uncached ``flash_attention`` (kernel K3 of the
-reference, the training path) is not ported yet.
+Counterpart of the reference's ``ops/flash_attention.py``:
 
-Routes, per call or ambient through :func:`decode_route`:
+- the uncached half: ``flash_attention`` (kernel K3, the training path),
+  its gate ``flash_attention_supported``, the composition
+  ``_reference_attention`` it falls back to on shapes the kernel does not
+  take, and the mask detections ``detect_causal_additive_mask`` /
+  ``detect_padding_additive_mask`` with their identity caches;
+- the decode half: ``quantize_kv``/``dequantize_kv``, ``decode_attention``,
+  ``paged_decode_attention``, ``_effective_qpos``, ``_qpos_bias`` and the
+  route knob.
+
+The flash gate is the kernel's structural limits (4-D, no dropout, f32 or
+bf16, head_dim a multiple of 8 up to 256), not the reference's TPU
+choices (backend, minimum sequence, L % 128, d in {64, 128, 256}): on a
+CUDA tensor the call launches K3, on a CPU tensor it runs K3's plain twin.
+
+Decode routes, per call or ambient through :func:`decode_route`:
 
 - ``"auto"``: the kernels' structural limits decide, not a measured
   crossover (none has been measured on the card yet).  A query chunk of at
@@ -26,16 +36,165 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+import weakref
 from typing import Optional
 
 import torch
 
 from ..core.errors import InvalidArgumentError
 from . import decode_kernels as _dk
+from . import flash_kernels as _fk
 
-__all__ = ["decode_attention", "paged_decode_attention", "quantize_kv",
+__all__ = ["flash_attention", "flash_attention_supported",
+           "detect_causal_additive_mask", "detect_padding_additive_mask",
+           "decode_attention", "paged_decode_attention", "quantize_kv",
            "dequantize_kv", "decode_route", "normalize_decode_route",
            "DECODE_ROUTES", "KV_QUANT_EPS"]
+
+
+def flash_attention_supported(q_shape, dtype, dropout_p: float = 0.0) -> bool:
+    """Gate: K3 takes 4-D [B, H, L, D] in f32 or bf16, head_dim a multiple
+    of 8 up to 256, and no attention-weight dropout (the kernel never
+    materializes the weights)."""
+    if dropout_p > 0.0 or len(q_shape) != 4:
+        return False
+    return _fk.head_dim_and_dtype_supported(q_shape[-1], dtype)
+
+
+def _reference_attention(q, k, v, bias, causal, sm_scale, segment_ids=None):
+    """The composition, op for op the reference's: masked scores replaced
+    by finfo.min, then the bias added, softmax, value product."""
+    scores = torch.matmul(q, k.transpose(-1, -2)) * torch.tensor(
+        sm_scale, dtype=q.dtype)
+    neg = torch.finfo(scores.dtype).min
+    if causal:
+        ql, kl = scores.shape[-2], scores.shape[-1]
+        allow = torch.ones(ql, kl, dtype=torch.bool,
+                           device=scores.device).tril()
+        scores = torch.where(allow, scores, neg)
+    if segment_ids is not None:
+        q_seg, kv_seg = segment_ids
+        same = q_seg[:, None, :, None] == kv_seg[:, None, None, :]
+        scores = torch.where(same, scores, neg)
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.matmul(weights, v)
+
+
+def flash_attention(q, k, v, bias=None, causal: bool = False,
+                    sm_scale: Optional[float] = None,
+                    key_padding_mask=None, segment_ids=None):
+    """[B, H, L, D] attention through K3 (its twin on the CPU), with the
+    composition for shapes the kernel does not take.
+
+    ``bias``: additive attention bias broadcastable to [B, H, Lq, Lk].
+    ``key_padding_mask``: [B, Lk] bool, True = real token; padded keys are
+    excluded from every softmax.  ``segment_ids``: ([B, Lq], [B, Lk]) ints;
+    attention is confined to equal ids.  Both are O(L) lanes: no [L, L]
+    mask is built.  Differentiable in q, k, v and bias."""
+    d = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if key_padding_mask is not None:
+        if segment_ids is not None:
+            raise ValueError(
+                "pass either key_padding_mask or segment_ids, not both")
+        # valid keys -> segment 0, pads -> 1; queries are all segment 0
+        # (their pad rows are ignored downstream)
+        valid = torch.as_tensor(key_padding_mask, device=q.device).bool()
+        kv_seg = torch.where(valid, 0, 1).to(torch.int32)
+        q_seg = torch.zeros(q.shape[0], q.shape[2], dtype=torch.int32,
+                            device=q.device)
+        segment_ids = (q_seg, kv_seg)
+    elif segment_ids is not None:
+        segment_ids = tuple(torch.as_tensor(s, device=q.device)
+                            .to(torch.int32) for s in segment_ids)
+    if not _fk.kernel_takes(q, k, v, bias):
+        return _reference_attention(q, k, v, bias, causal, sm_scale,
+                                    segment_ids)
+    q_seg, kv_seg = segment_ids if segment_ids is not None else (None, None)
+    return _fk.FlashAttentionFunction.apply(q, k, v, bias, q_seg, kv_seg,
+                                            bool(causal), float(sm_scale))
+
+
+# Mask detections run once per mask object: identity caching removes the
+# repeated device-to-host readback.  Weakrefs keep the cache from pinning
+# [L, L] masks after their models are freed, and a dead ref also
+# invalidates an entry whose id a new allocation recycled.
+_detect_cache: dict = {}
+_pad_detect_cache: dict = {}
+_DETECT_CACHE_MAX = 64
+
+
+def _cache_get(cache, mask):
+    hit = cache.get(id(mask))
+    if hit is not None and hit[0]() is mask:
+        return True, hit[1]
+    return False, None
+
+
+def _cache_put(cache, mask, verdict):
+    if len(cache) >= _DETECT_CACHE_MAX:
+        for key in [k for k, v in cache.items() if v[0]() is None]:
+            del cache[key]
+        if len(cache) >= _DETECT_CACHE_MAX:
+            cache.clear()
+    cache[id(mask)] = (weakref.ref(mask), verdict)
+    return verdict
+
+
+def detect_padding_additive_mask(mask):
+    """[B, 1, 1, Lk] additive padding mask -> [B, Lk] bool validity on the
+    mask's device, else None.  Catches the convention 0 = keep,
+    big-negative (<= finfo.min / 2) = pad, so the kernel takes O(L) segment
+    lanes instead of an [B, H, Lq, Lk] bias.  A 2-D mask means [Lq, Lk]
+    and is not claimed; a mask that requires grad is a learned bias and is
+    not claimed either.  Verdicts are identity-cached."""
+    if mask is None or not isinstance(mask, torch.Tensor) \
+            or mask.requires_grad:
+        return None
+    if mask.ndim != 4 or mask.shape[1] != 1 or mask.shape[2] != 1:
+        return None
+    found, valid = _cache_get(_pad_detect_cache, mask)
+    if found:
+        return valid
+    m = mask[:, 0, 0, :]
+    if m.dtype == torch.bool:
+        valid = m
+    else:
+        m = m.float()
+        ok = m == 0
+        pad = m <= torch.finfo(torch.float32).min / 2
+        valid = ok if bool((ok | pad).all()) else None  # else: general bias
+    return _cache_put(_pad_detect_cache, mask, valid)
+
+
+def detect_causal_additive_mask(mask, seq_len: Optional[int] = None) -> bool:
+    """True when ``mask`` is a 2-D additive causal mask (0 on and below the
+    diagonal, at most finfo.min / 2 above) of side ``seq_len``, so K3's
+    causal path can replace the materialized mask.  A mask that requires
+    grad is a learned bias and is never claimed.  Verdicts are
+    identity-cached: the check reads the mask back to the host once."""
+    if mask is None or not isinstance(mask, torch.Tensor) \
+            or mask.requires_grad:
+        return False
+    if mask.ndim != 2 or mask.shape[-1] != mask.shape[-2]:
+        return False
+    l = mask.shape[0]
+    if l < 2:  # 1x1 has an empty upper triangle: vacuously "causal"
+        return False
+    if seq_len is not None and l != seq_len:
+        return False
+    found, verdict = _cache_get(_detect_cache, mask)
+    if found:
+        return verdict
+    m = mask.float()
+    allow = torch.ones(l, l, dtype=torch.bool, device=m.device).tril()
+    neg = torch.finfo(torch.float32).min
+    lower_ok = (torch.where(allow, m, 0.0) == 0).all()
+    upper_ok = (torch.where(allow, neg, m) <= neg / 2).all()
+    return _cache_put(_detect_cache, mask, bool(lower_ok & upper_ok))
 
 # Floor for the absmax scale: an all-zero head row quantizes to zeros with
 # a tiny scale instead of dividing by zero.

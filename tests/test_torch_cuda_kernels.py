@@ -1,7 +1,8 @@
-"""The port's CUDA kernels K1 (paged) and K2 (dense) against their plain
-twins, on the card.  Skipped without a CUDA card: the kernels have no CPU
-mode (the CPU runs the twins, held against the reference by
-``test_torch_decode_attention.py``).
+"""The port's CUDA kernels against their plain twins, on the card: K1
+(paged) and K2 (dense) decode attention, and K3's flash-attention forward
+and backward.  Skipped without a CUDA card: the kernels have no CPU mode
+(the CPU runs the twins, held against the reference by
+``test_torch_decode_attention.py`` and ``test_torch_flash_attention.py``).
 
 This file imports neither JAX nor the reference package, so it also runs
 on a machine that has only PyTorch; there, skip the JAX-based
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import decode_kernels as dk
+from paddle_tpu_torch.ops import flash_kernels as fk
 from paddle_tpu_torch.ops.flash_attention import quantize_kv
 
 # fp32 (and int8, dequantized in fp32 by both) differ by summation order;
@@ -105,3 +107,98 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
         dk.paged_decode_attention_kernel(q.half(), k, v, table, qpos, 0.1)
     with pytest.raises(InvalidArgumentError):  # a pool on the CPU
         dk.paged_decode_attention_kernel(q, k.cpu(), v, table, qpos, 0.1)
+
+
+# K3: fp32 differs from its twin by summation order (5e-5 on the gradients,
+# which sum over every query or key); bf16 outputs and gradients are
+# rounded to bf16 by both
+FLASH_TOL = {torch.float32: (1e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _flash_inputs(dev, dtype, b, h, lq, lk, d, bias, seg, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def heads(l):
+        # as the attention layer makes them: transposed [B, L, H, D] views
+        return rnd(b, l, h, d).to(dtype).transpose(1, 2)
+
+    q, k, v, do = heads(lq), heads(lk), heads(lk), rnd(b, h, lq, d).to(dtype)
+    bi = {None: None, "full": lambda: rnd(b, h, lq, lk),
+          "bcast": lambda: rnd(1, 1, lq, lk),
+          "pad": lambda: rnd(b, 1, 1, lk)}[bias]
+    qs = ks = None
+    if seg == "ids":
+        qs = torch.randint(0, 2, (b, lq), device=dev, generator=gen).int()
+        ks = torch.randint(0, 2, (b, lk), device=dev, generator=gen).int()
+        ks[0] = 5  # batch row 0: every key masked
+    elif seg == "pad":
+        # the lanes flash_attention makes from a ragged key_padding_mask
+        lens = torch.randint(lk // 4, lk + 1, (b,), device=dev, generator=gen)
+        lens[0] = lk
+        qs = torch.zeros(b, lq, dtype=torch.int32, device=dev)
+        ks = (torch.arange(lk, device=dev)[None, :]
+              >= lens[:, None]).to(torch.int32)
+    return q, k, v, do, None if bi is None else bi(), qs, ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,bias,seg", [
+    (2, 3, 100, 100, 64, True, None, None),
+    (2, 3, 70, 130, 64, False, "full", None),
+    (2, 3, 130, 70, 128, True, "bcast", None),
+    (2, 3, 77, 77, 128, True, None, "ids"),
+    (2, 2, 65, 90, 128, False, "pad", "ids"),
+    (1, 2, 40, 50, 256, True, None, None),
+    (1, 2, 40, 50, 24, False, None, "ids"),
+    (8, 12, 512, 512, 64, False, None, "pad"),
+], ids=["causal-d64", "bias-lq<lk", "bcast-lq>lk", "causal-seg",
+        "pad-bias-seg", "d256", "d24-seg", "bert-key-padding"])
+def test_flash_kernels_match_plain_twins(cuda_device, dtype, b, h, lq, lk,
+                                         d, causal, bias, seg):
+    q, k, v, do, bi, qs, ks = _flash_inputs(cuda_device, dtype, b, h, lq,
+                                            lk, d, bias, seg, lq + lk)
+    scale = d ** -0.5
+    before = fk.launch_counts()
+    o, stats = fk.flash_attention_forward_kernel(q, k, v, bi, qs, ks, causal,
+                                                 scale)
+    got = fk.flash_attention_backward_kernel(q, k, v, o, stats, do, bi, qs,
+                                             ks, causal, scale, bi is not None)
+    torch.cuda.synchronize()
+    want_o, want_stats = fk.flash_attention_forward_plain(q, k, v, bi, qs, ks,
+                                                          causal, scale)
+    want = fk.flash_attention_backward_plain(q, k, v, o, stats, do, bi, qs,
+                                             ks, causal, scale,
+                                             bi is not None)
+    fwd_tol, grad_tol = FLASH_TOL[dtype]
+    assert o.stride() == q.stride()  # written through q's layout
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=0,
+                               atol=fwd_tol)
+    torch.testing.assert_close(stats, want_stats, rtol=0, atol=1e-5)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=grad_tol)
+    after = fk.launch_counts()
+    for name in after:
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+def test_flash_autograd_runs_the_kernels(cuda_device):
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, do, _, _, _ = _flash_inputs(cuda_device, torch.float32, 2, 2,
+                                         64, 64, 64, None, None, 0)
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    bias = torch.randn(1, 2, 64, 64, device=cuda_device, requires_grad=True)
+    before = fk.launch_counts()
+    flash_attention(q, k, v, bias=bias, causal=True).backward(do)
+    after = fk.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in after)
+    assert bias.grad is not None and bias.grad.shape == bias.shape

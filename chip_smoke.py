@@ -18,12 +18,18 @@ PyTorch twin, and drives the port's two main paths:
   ``TrainStep``s (AdamW, global-norm clipping) on one repeated 2 x 2048
   batch, every attention forward and backward through the flash kernel K3,
   then a BERT-base encoder on a ragged batch whose padding reaches K3 as
-  key-padding lanes.
+  key-padding lanes;
+- the custom-op door: the user kernel K4 (``scale_mul``) registered with
+  a hand-written backward through ``incubate.register_custom_op``,
+  differentiated eagerly (``.backward()``, ``grad`` with
+  ``create_graph``, a ``PyLayer``) and trained by 3 ``TrainStep``s at the
+  GPT-1.3B FFN activation's shape [2, 2048, 8192]; then host ops compiled
+  by ``utils.cpp_extension`` and called with cuda tensors.
 
 It then times each kernel at its main path's shape beside its plain twin,
 its bound and the one PyTorch call that computes the same function
-(``scaled_dot_product_attention``, timed as a yardstick only; the port
-never calls it).
+(``scaled_dot_product_attention``; for K4 ``torch.mul(x, y).mul_(2.0)``;
+timed as a yardstick only, the port never calls it).
 
 Every phase raises on failure; the exit code is 0 only when all passed.
 The second-to-last lines are the card's name and power limit and a JSON
@@ -68,6 +74,13 @@ FLASH_TOL = {"float32": (1e-5, 5e-5), "bfloat16": (2e-2, 2e-2)}
 # the training runs
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6  # 1 warm-up + 5 timed
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 8, 512, 3
+# K4 at full width: the GPT-1.3B FFN activation at the training batch
+CUSTOM_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 8192)
+CUSTOM_STEPS = 3
+# K4 vs its twin: both compute (x * y) * 2 in fp32 and round once to the
+# input dtype (a bf16/f16 product is exact in fp32), so they agree bit for
+# bit; the tolerance is 0
+CUSTOM_TOL = 0.0
 
 
 def log(*a):
@@ -799,6 +812,247 @@ def time_flash():
     return out
 
 
+# -- K4 and the custom-op door ------------------------------------------------
+
+
+def check_custom_kernel():
+    """K4 against its plain twin on the card: shapes [2], [1], [7],
+    [1000003], a misaligned ``x[1:]`` view (scalar path) and the main
+    path's [2, 2048, 8192], each in f32, bf16 and f16, plus an empty
+    input that launches nothing.  Returns the f32 main-shape max error."""
+    import torch
+
+    from paddle_tpu_torch.ops import custom_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    main_err = None
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for shape in ((2,), (1,), (7,), (1_000_003,), "x[1:]", CUSTOM_SHAPE):
+            if shape == "x[1:]":
+                base = torch.randn(4097, device="cuda", generator=gen)
+                x, y = base.to(dtype)[1:], base.flip(0).to(dtype)[1:]
+                assert x.data_ptr() % 16 != 0
+            else:
+                x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                y = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            got = ck.scale_mul(x, y)
+            torch.cuda.synchronize()
+            want = ck.scale_mul_plain(x, y)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = (err <= CUSTOM_TOL and got.dtype == dtype
+                  and got.shape == x.shape)
+            log("parity scale_mul_kernel %-8s %-16s max_abs_err=%.3g tol=%g %s"
+                % (str(dtype)[6:], shape, err, CUSTOM_TOL,
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("K4 disagrees with its plain twin: %g"
+                                     % err)
+            if shape == CUSTOM_SHAPE and dtype == torch.float32:
+                main_err = err
+    n0 = ck.scale_mul.launches
+    empty = torch.empty(0, 5, device="cuda")
+    assert ck.scale_mul(empty, empty).shape == (0, 5)
+    assert ck.scale_mul.launches == n0, "n == 0 launched a kernel"
+    return {"scale_mul_kernel": main_err}
+
+
+def _scale_mul_bwd(residuals, cot):
+    """The reference test's hand-written backward of x * y * 2."""
+    x, y = residuals
+    return 2.0 * cot * y, 2.0 * cot * x
+
+
+def custom_op_door():
+    """K4 through the port's door on the card, as the reference test drives
+    the Pallas kernel: registered with its hand-written backward, called on
+    cuda tensors and differentiated eagerly (``.backward()``, ``grad`` with
+    ``create_graph=True``), then wrapped in a ``PyLayer``.  Returns the
+    registered op."""
+    import torch
+
+    from paddle_tpu_torch import autograd, grad, incubate, to_tensor
+    from paddle_tpu_torch.ops import custom_kernels as ck
+
+    op = incubate.register_custom_op("scale_mul", ck.scale_mul,
+                                     backward=_scale_mul_bwd)
+    n0 = ck.scale_mul.launches
+    x = to_tensor([1.0, 2.0], stop_gradient=False)  # place None: the card
+    y = to_tensor([3.0, 4.0], stop_gradient=False)
+    out = op(x, y)
+    out.sum().backward()
+    assert out.device.type == "cuda" and ck.scale_mul.launches == n0 + 1
+    for got, want in ((out, [6.0, 16.0]), (x.grad, [6.0, 8.0]),
+                      (y.grad, [2.0, 4.0])):
+        np.testing.assert_array_equal(got.detach().cpu().numpy(), want)
+    # d/dx sum(2 x x) = 4x, and its derivative 4, through the op's backward
+    g = grad(op(x, x).sum(), x, create_graph=True)
+    gg = grad(g.sum(), x)
+    np.testing.assert_array_equal(g.detach().cpu().numpy(), [4.0, 8.0])
+    np.testing.assert_array_equal(gg.cpu().numpy(), [4.0, 4.0])
+
+    class ScaleMul(autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, a, b):
+            ctx.save_for_backward(a, b)
+            return ck.scale_mul(a, b)
+
+        @staticmethod
+        def backward(ctx, cot):
+            return _scale_mul_bwd(ctx.saved_tensor(), cot)
+
+    x.grad = y.grad = None
+    ScaleMul.apply(x, y).sum().backward()
+    np.testing.assert_array_equal(x.grad.cpu().numpy(), [6.0, 8.0])
+    np.testing.assert_array_equal(y.grad.cpu().numpy(), [2.0, 4.0])
+    log("custom-op door on the card: out [6, 16], x.grad [6, 8], y.grad "
+        "[2, 4]; grad and double grad [4, 8] / [4, 4]; PyLayer agrees")
+    return op
+
+
+def train_custom_op(op):
+    """The door's main path: ``TrainStep`` with SGD(0.1) over a module
+    holding w = ones([2, 2048, 8192]) with loss ``op(x, w).sum()``, x
+    uniform in [0, 1) from numpy seed 0 (positive, so the sum is well
+    conditioned), 3 steps on the card and the same 3 on the CPU (the twin).
+    The K4 count is set to 0 just before the card's steps and read just
+    after: one forward launch per step (the backward is torch ops).  The
+    losses agree within 1e-5 relative (sums in another order)."""
+    import torch
+
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch.ops import custom_kernels as ck
+    from paddle_tpu_torch.optimizer import SGD
+
+    x = np.random.RandomState(0).rand(*CUSTOM_SHAPE).astype(np.float32)
+
+    class Scaler(torch.nn.Module):
+        def __init__(self, device):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(CUSTOM_SHAPE,
+                                                   device=device))
+
+        def forward(self, a):
+            return op(a, self.w).sum()
+
+    losses, out = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = Scaler(dev)
+        step = TrainStep(model, lambda m, a: m(a),
+                         SGD(0.1, parameters=model.parameters()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+        losses[dev] = [float(step(x)) for _ in range(CUSTOM_STEPS)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            out["step_ms_mean"] = (time.perf_counter() - t0) * 1e3 \
+                / CUSTOM_STEPS
+            out["launches"] = ck.scale_mul.launches
+        del step, model
+    assert out["launches"] == CUSTOM_STEPS, out
+    assert all(np.isfinite(losses["cuda"])), losses
+    assert losses["cuda"][-1] < losses["cuda"][0], losses
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    out.update(shape=list(CUSTOM_SHAPE), steps=CUSTOM_STEPS, losses=losses)
+    torch.cuda.empty_cache()
+    return out
+
+
+_HOST_OPS = """
+#include "pt_extension.h"
+
+PT_OP(ext_scale2) {
+  long long n = 1;
+  for (int d = 0; d < ndims[0]; ++d) n *= shapes[0][d];
+  for (long long i = 0; i < n; ++i) out[i] = 2.0f * ins[0][i];
+}
+
+PT_OP(ext_dot_bias) {
+  long long n = 1;
+  for (int d = 0; d < ndims[0]; ++d) n *= shapes[0][d];
+  for (long long i = 0; i < n; ++i) out[i] = ins[0][i] + ins[1][i];
+}
+"""
+
+
+def check_cpp_extension():
+    """``utils.cpp_extension`` on the card's machine: the reference tests'
+    two host ops compiled with g++ into a temporary directory and called
+    with cuda tensors.  They compute on the host, by the reference's
+    design, and return on the input's device: 2x, x + 3x, and the
+    registered backward's gradient."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.utils import cpp_extension
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ext_") as d:
+        src = os.path.join(d, "ops.cc")
+        with open(src, "w") as f:
+            f.write(_HOST_OPS)
+        t0 = time.perf_counter()
+        mod = cpp_extension.load(
+            name="chip_smoke_ext", sources=[src], build_directory=d,
+            functions={"ext_scale2": {"out_shape": lambda s: s,
+                                      "backward": lambda r, ct: (2.0 * ct,)},
+                       "ext_dot_bias": {"out_shape": lambda s1, s2: s1}})
+        build_s = time.perf_counter() - t0
+    x = torch.linspace(-1, 1, 6, device="cuda")
+    y, z = mod.ext_scale2(x), mod.ext_dot_bias(x, x * 3)
+    assert y.device.type == z.device.type == "cuda", (y.device, z.device)
+    assert torch.equal(y, 2 * x)
+    torch.testing.assert_close(z, 4 * x)
+    xg = torch.tensor([1.0, -2.0], device="cuda", requires_grad=True)
+    (mod.ext_scale2(xg) ** 2).sum().backward()
+    assert torch.equal(xg.grad, torch.tensor([8.0, -16.0], device="cuda"))
+    log("cpp_extension: g++ build %.2f s; host ops on cuda tensors return "
+        "2x and 4x on cuda; backward 8x" % build_s)
+
+
+def time_custom_kernel():
+    """K4 at [2, 2048, 8192] in f32 and bf16 beside its plain twin, its
+    bound and ``torch.mul(x, y).mul_(2.0)`` (two launches; timed as a
+    yardstick only, the port never calls it).  Bound: 3 n itemsize bytes
+    (x and y read once, out written once) over 3.35 TB/s against 2n fp32
+    operations over 67 TFLOP/s; the bytes bound it.  The operands (134 MB
+    each in f32) exceed the 50 MB L2, so every launch reads from HBM."""
+    import torch
+
+    from paddle_tpu_torch.ops import custom_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(CUSTOM_SHAPE, device="cuda", generator=gen).to(dtype)
+        y = torch.randn(CUSTOM_SHAPE, device="cuda", generator=gen).to(dtype)
+        n = x.numel()
+        nbytes = 3 * n * x.element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * n / FP32_FLOPS_PER_S * 1e3
+        lib_ms = cuda_ms(lambda: torch.mul(x, y).mul_(2.0), iters=20)
+        # plain, kernel, kernel, plain: compare within one call
+        p1 = cuda_ms(lambda: ck.scale_mul_plain(x, y), iters=20)
+        k1 = cuda_ms(lambda: ck.scale_mul(x, y), iters=50)
+        k2 = cuda_ms(lambda: ck.scale_mul(x, y), iters=50)
+        p2 = cuda_ms(lambda: ck.scale_mul_plain(x, y), iters=20)
+        rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": lib_ms, "bytes": nbytes, "dtype": str(dtype)[6:]}
+        rec["achieved_gb_s"] = nbytes / rec["ms"] / 1e6
+        out[str(dtype)[6:]] = rec
+        log("timing scale_mul_kernel %-8s %s: kernel %.4f ms (%.0f GB/s), "
+            "plain %.4f ms, bound %.4f ms (%s), mul+mul_ %.4f ms"
+            % (str(dtype)[6:], "x".join(map(str, CUSTOM_SHAPE)), rec["ms"],
+               rec["achieved_gb_s"], rec["plain_ms"], rec["bound_ms"],
+               rec["bound_by"], lib_ms))
+        del x, y
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -831,10 +1085,18 @@ def main() -> int:
     _build.build()
     _build.load("decode_attention")
     _build.load("flash_attention")
+    _build.load("scale_mul")
     log("build: %.1f s" % (time.perf_counter() - t0))
 
     parity = check_kernels()
     parity.update(check_flash_kernels())
+    parity.update(check_custom_kernel())
+    t0 = time.perf_counter()
+    door = train_custom_op(custom_op_door())
+    log("custom-op main path (TrainStep over scale_mul, %s, SGD 0.1):"
+        % "x".join(map(str, CUSTOM_SHAPE)), json.dumps(door))
+    check_cpp_extension()
+    log("custom-op phases: %.1f s" % (time.perf_counter() - t0))
 
     cfg = gpt_1p3b_config()
     rng = np.random.RandomState(0)
@@ -878,6 +1140,7 @@ def main() -> int:
 
     timing = time_kernels()
     timing.update(time_flash())
+    timing["scale_mul_kernel"] = time_custom_kernel()
     kernels = []
     for name, tpu, run in (
             ("paged_decode_attention_kernel",
@@ -904,6 +1167,15 @@ def main() -> int:
             "max_abs_err": parity[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = timing["scale_mul_kernel"]["float32"]
+    kernels.append({
+        "name": "scale_mul_kernel", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/scale_mul.cu",
+        "replaces": "tests/test_incubate.py:77",
+        "launches": door["launches"],
+        "max_abs_err": parity["scale_mul_kernel"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -7,13 +7,21 @@ package.  Its entry points (``TransformerLM``, ``DecodeSession``,
 ``GenerationPool``, ``ServingEngine``) run on ``cuda`` by default and raise
 on a machine without a card unless the caller passes ``device="cpu"``.
 Training goes through ``TrainStep`` (or the optimizer's eager ``step()``)
-on whatever device the model lives.
+on whatever device the model lives.  ``torch.Tensor`` is the port's
+Tensor (paddle's ``stop_gradient`` is ``not requires_grad``); ``grad``,
+``autograd.PyLayer``, ``incubate.register_custom_op`` and
+``incubate.autograd`` differentiate through torch's autograd.
 """
+from . import autograd  # noqa: F401
+from . import incubate  # noqa: F401
 from . import optimizer  # noqa: F401
 from .convert import load_reference_params  # noqa: F401
 from .core.errors import (EnforceNotMet, InvalidArgumentError,  # noqa: F401
                           NotFoundError, PreconditionNotMetError,
                           UnavailableError)
+from .framework.engine import (enable_grad, grad,  # noqa: F401
+                               is_grad_enabled, no_grad, set_grad_enabled)
+from .tensor.creation import to_tensor  # noqa: F401
 from .inference.generation import GenerationPool  # noqa: F401
 from .jit.decode import DecodeSession  # noqa: F401
 from .jit.train_step import MultiStepTrainStep, TrainStep  # noqa: F401

@@ -58,6 +58,9 @@ SIGNATURES = {
             _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP,
             _I, _I, _I, _I, _I, _I, _F, _P],
     },
+    "scale_mul": {
+        "ptt_scale_mul": [_I, _P, _P, _P, _LL, _P],
+    },
 }
 
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain twins, on the card: K1
-(paged) and K2 (dense) decode attention, and K3's flash-attention forward
-and backward.  Skipped without a CUDA card: the kernels have no CPU mode
-(the CPU runs the twins, held against the reference by
-``test_torch_decode_attention.py`` and ``test_torch_flash_attention.py``).
+(paged) and K2 (dense) decode attention, K3's flash-attention forward
+and backward, and K4 (``scale_mul``, the custom-op door's kernel).
+Skipped without a CUDA card: the kernels have no CPU mode (the CPU runs
+the twins, held against the reference by ``test_torch_decode_attention.py``,
+``test_torch_flash_attention.py`` and ``test_torch_custom_op.py``).
 
 This file imports neither JAX nor the reference package, so it also runs
 on a machine that has only PyTorch; there, skip the JAX-based
@@ -14,6 +15,7 @@ on a machine that has only PyTorch; there, skip the JAX-based
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import custom_kernels as ck
 from paddle_tpu_torch.ops import decode_kernels as dk
 from paddle_tpu_torch.ops import flash_kernels as fk
 from paddle_tpu_torch.ops.flash_attention import quantize_kv
@@ -202,3 +204,56 @@ def test_flash_autograd_runs_the_kernels(cuda_device):
     after = fk.launch_counts()
     assert all(after[n] == before[n] + 1 for n in after)
     assert bias.grad is not None and bias.grad.shape == bias.shape
+
+
+# K4: (x * y) * 2 in fp32, rounded once to the input dtype, by both the
+# kernel and its twin, so they agree bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shape", [(2,), (1,), (7,), (1_000_003,),
+                                   (3, 5, 129), (2, 64, 256)])
+def test_scale_mul_matches_plain_twin(cuda_device, dtype, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(len(shape))
+    x = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    y = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    before = ck.scale_mul.launches
+    got = ck.scale_mul(x, y)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, ck.scale_mul_plain(x, y))
+    assert ck.scale_mul.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scale_mul_misaligned_views_and_empty(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    base = torch.randn(4097, device=cuda_device, generator=gen).to(dtype)
+    other = torch.randn(4097, device=cuda_device, generator=gen).to(dtype)
+    x, y = base[1:], other[:-1]  # contiguous, x 2 or 4 bytes off 16
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(ck.scale_mul(x, y), ck.scale_mul_plain(x, y))
+    strided = base[::2]  # made contiguous by the wrapper
+    assert torch.equal(ck.scale_mul(strided, strided),
+                       ck.scale_mul_plain(strided, strided))
+    before = ck.scale_mul.launches
+    empty = torch.empty(0, 3, device=cuda_device, dtype=dtype)
+    got = ck.scale_mul(empty, empty)
+    assert got.shape == (0, 3) and ck.scale_mul.launches == before
+
+
+@pytest.mark.cuda
+def test_scale_mul_refuses_what_it_cannot_take(cuda_device):
+    from paddle_tpu_torch import InvalidArgumentError
+
+    x = torch.ones(8, device=cuda_device)
+    with pytest.raises(InvalidArgumentError):  # shapes differ
+        ck.scale_mul(x, torch.ones(4, device=cuda_device))
+    with pytest.raises(InvalidArgumentError):  # dtypes differ
+        ck.scale_mul(x, x.half())
+    with pytest.raises(InvalidArgumentError):  # devices differ
+        ck.scale_mul(x, x.cpu())
+    with pytest.raises(InvalidArgumentError):  # float64: no kernel
+        ck.scale_mul(x.double(), x.double())

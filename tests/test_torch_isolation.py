@@ -13,7 +13,7 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch import (DecodeSession, GenerationPool, ServingEngine,
-                              TransformerLM, UnavailableError)
+                              TransformerLM, UnavailableError, to_tensor)
 
 PKG_DIR = os.path.dirname(os.path.abspath(paddle_tpu_torch.__file__))
 REPO = os.path.dirname(PKG_DIR)
@@ -30,7 +30,13 @@ def test_import_leaves_jax_and_reference_out():
             ", paddle_tpu_torch.ops._build, paddle_tpu_torch.ops.flash_kernels"
             ", paddle_tpu_torch.optimizer, paddle_tpu_torch.jit.train_step"
             ", paddle_tpu_torch.nn.functional.loss, paddle_tpu_torch.nn.clip"
-            ", paddle_tpu_torch.regularizer\n"
+            ", paddle_tpu_torch.regularizer, paddle_tpu_torch.framework.engine"
+            ", paddle_tpu_torch.tensor.creation, paddle_tpu_torch.autograd"
+            ", paddle_tpu_torch.incubate.custom_op"
+            ", paddle_tpu_torch.incubate.autograd"
+            ", paddle_tpu_torch.incubate.operators"
+            ", paddle_tpu_torch.ops.custom_kernels"
+            ", paddle_tpu_torch.utils.cpp_extension\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "%r)\nprint(bad)\nsys.exit(1 if bad else 0)" % (FORBIDDEN,))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -75,7 +81,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     for build in (lambda: TransformerLM(**kw),
                   lambda: DecodeSession(model, max_len=16),
                   lambda: GenerationPool(model, max_len=16),
-                  lambda: ServingEngine(model, max_len=16)):
+                  lambda: ServingEngine(model, max_len=16),
+                  lambda: to_tensor([1.0])):
         with pytest.raises(UnavailableError, match='device="cpu"'):
             build()
     # asked for explicitly, the CPU runs

@@ -29,7 +29,11 @@ PyTorch twin, and drives the port's two main paths:
 It then times each kernel at its main path's shape beside its plain twin,
 its bound and the one PyTorch call that computes the same function
 (``scaled_dot_product_attention``; for K4 ``torch.mul(x, y).mul_(2.0)``;
-timed as a yardstick only, the port never calls it).
+timed as a yardstick only, the port never calls it): K3 in fp32 and bf16,
+with its tensor-core bound and the CUDA-core one.  After the build it
+prints ``ptxas -v``'s registers and spills of every K3 kernel (and fails
+if a D 64 or D 128 one spills); after the timing, the kernels SDPA's fp32
+forward and backward launch.
 
 Every phase raises on failure; the exit code is 0 only when all passed.
 The second-to-last lines are the card's name and power limit and a JSON
@@ -48,9 +52,13 @@ import time
 import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound_ms column
-# and MFU: fp32 runs on the CUDA cores, not the tensor cores
+# and MFU: fp32 outside K3 runs on the CUDA cores, not the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# K3's products run on the tensor cores: fp32 as 3xTF32 (three TF32
+# products at 495 TFLOP/s dense each), bf16 at 989 TFLOP/s dense
+FP32_3XTF32_FLOPS_PER_S = 495e12 / 3
+BF16_TC_FLOPS_PER_S = 989e12
 
 MAIN_MAX_LEN = 2048
 MAIN_SLOTS = 8
@@ -571,6 +579,7 @@ def _profile_step(step, batch, step_ms):
         log("profile: the profiler recorded no device time (not measured)")
     return {"device_busy_ms_per_step": busy,
             "device_idle_share": (1 - busy / step_ms) if busy else None,
+            "k3_ms_per_step": sum(ms for ms, k, _ in rows if "flash_" in k),
             "top": [{"kernel": k[:80], "ms_per_step": ms, "calls": n}
                     for ms, k, n in rows[:10]]}
 
@@ -748,15 +757,19 @@ def train_bert():
 
 def time_flash():
     """K3 forward and backward at the training shape (B 2 x H 16 x
-    L 2048 x D 128, causal, fp32) beside the plain twins, the bound and
-    ``scaled_dot_product_attention(is_causal=True)`` forward and backward.
+    L 2048 x D 128, causal) in fp32 and in bf16, beside the plain twins, the
+    bounds and ``scaled_dot_product_attention(is_causal=True)`` forward and
+    backward in the same type.
 
-    Bound: the larger of the operations over 67 TFLOP/s fp32 and the bytes
-    over 3.35 TB/s.  Operations count the visible (query, key) pairs,
-    L (L + 1) / 2 per head: 4 D flops each forward (QK^T, PV), 10 D
-    backward (QK^T again, dO V^T, dV, dK, dQ).  Bytes read each input once
-    and write each output once: forward q, k, v -> o, stats; backward
-    q, k, v, o, dO, stats -> dq, dk, dv."""
+    Bound: the larger of the operations over the tensor cores' rate for
+    K3's arithmetic (fp32: 3xTF32, 495 / 3 TFLOP/s; bf16: 989 TFLOP/s) and
+    the bytes over 3.35 TB/s; ``cuda_core_bound_ms`` puts the fp32
+    operations over the CUDA cores' 67 TFLOP/s instead.  Operations count
+    the visible (query, key) pairs, L (L + 1) / 2 per head: 4 D flops each
+    forward (QK^T, PV), 10 D backward (QK^T again, dO V^T, dV, dK, dQ).
+    Bytes read each input once and write each output once: forward q, k,
+    v -> o, stats; backward q, k, v, o, dO, stats -> dq, dk, dv.  Returns
+    {name: fp32 record} and {(name, "bfloat16"): bf16 record}."""
     import torch
     import torch.nn.functional as tF
 
@@ -764,51 +777,142 @@ def time_flash():
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     b, h, l, d = TRAIN_BATCH, 16, TRAIN_SEQ, 128
-    args, do = flash_case(gen, b, h, l, l, d, torch.float32, causal=True)
-    o, stats = fk.flash_attention_forward_kernel(**args)
     pairs = b * h * l * (l + 1) // 2
-    tensor_bytes = b * h * l * d * 4
-    stats_bytes = stats.numel() * 4
-    work = {"flash_attention_forward_kernel": (4 * d * pairs,
-                                               4 * tensor_bytes
-                                               + stats_bytes),
-            "flash_attention_backward_kernel": (10 * d * pairs,
-                                                8 * tensor_bytes
-                                                + stats_bytes)}
-    q, k, v = (args[n].detach().requires_grad_() for n in "qkv")
-    lib_fwd = cuda_ms(lambda: tF.scaled_dot_product_attention(
-        q, k, v, is_causal=True), iters=20)
-    lib_out = tF.scaled_dot_product_attention(q, k, v, is_causal=True)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (q, k, v), do, retain_graph=True), iters=10)
-    runs = {"flash_attention_forward_kernel":
-            (lambda: fk.flash_attention_forward_kernel(**args),
-             lambda: fk.flash_attention_forward_plain(**args), lib_fwd),
-            "flash_attention_backward_kernel":
-            (lambda: fk.flash_attention_backward_kernel(
-                o=o, stats=stats, do=do, **args),
-             lambda: fk.flash_attention_backward_plain(
-                 o=o, stats=stats, do=do, **args), lib_bwd)}
     out = {}
-    for name, (kern, plain, lib_ms) in runs.items():
-        flops, nbytes = work[name]
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        # plain, kernel, kernel, plain: compare within one call
-        p1 = cuda_ms(plain, iters=5, warmup=1)
-        k1 = cuda_ms(kern, iters=10, warmup=2)
-        k2 = cuda_ms(kern, iters=10, warmup=1)
-        p2 = cuda_ms(plain, iters=5, warmup=1)
-        rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "library_ms": lib_ms, "flops": flops, "bytes": nbytes}
-        rec["achieved_tflop_s"] = flops / rec["ms"] / 1e9
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        args, do = flash_case(gen, b, h, l, l, d, dtype, causal=True)
+        o, stats = fk.flash_attention_forward_kernel(**args)
+        tensor_bytes = b * h * l * d * o.element_size()
+        stats_bytes = stats.numel() * 4
+        work = {"flash_attention_forward_kernel": (4 * d * pairs,
+                                                   4 * tensor_bytes
+                                                   + stats_bytes),
+                "flash_attention_backward_kernel": (10 * d * pairs,
+                                                    8 * tensor_bytes
+                                                    + stats_bytes)}
+        tc_rate = (FP32_3XTF32_FLOPS_PER_S if dtype == torch.float32
+                   else BF16_TC_FLOPS_PER_S)
+        q, k, v = (args[n].detach().requires_grad_() for n in "qkv")
+        lib_fwd = cuda_ms(lambda: tF.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=20)
+        lib_out = tF.scaled_dot_product_attention(q, k, v, is_causal=True)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (q, k, v), do, retain_graph=True), iters=10)
+        runs = {"flash_attention_forward_kernel":
+                (lambda: fk.flash_attention_forward_kernel(**args),
+                 lambda: fk.flash_attention_forward_plain(**args), lib_fwd),
+                "flash_attention_backward_kernel":
+                (lambda: fk.flash_attention_backward_kernel(
+                    o=o, stats=stats, do=do, **args),
+                 lambda: fk.flash_attention_backward_plain(
+                     o=o, stats=stats, do=do, **args), lib_bwd)}
+        for name, (kern, plain, lib_ms) in runs.items():
+            flops, nbytes = work[name]
+            t_ops = flops / tc_rate * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            # plain, kernel, kernel, plain: compare within one call
+            p1 = cuda_ms(plain, iters=5, warmup=1)
+            k1 = cuda_ms(kern, iters=10, warmup=2)
+            k2 = cuda_ms(kern, iters=10, warmup=1)
+            p2 = cuda_ms(plain, iters=5, warmup=1)
+            rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+                   "dtype": dt}
+            if dtype == torch.float32:
+                rec["cuda_core_bound_ms"] = max(
+                    flops / FP32_FLOPS_PER_S * 1e3, t_bytes)
+            rec["achieved_tflop_s"] = flops / rec["ms"] / 1e9
+            rec["vs_library"] = rec["ms"] / lib_ms
+            out[name if dtype == torch.float32 else (name, dt)] = rec
+            log("timing %-32s B=%d H=%d L=%d D=%d causal %-8s: kernel %.4f "
+                "ms (%.2f TFLOP/s), plain %.4f ms, bound %.4f ms (%s, tensor "
+                "cores)%s, sdpa %.4f ms (kernel/sdpa %.3f)"
+                % (name, b, h, l, d, dt, rec["ms"], rec["achieved_tflop_s"],
+                   rec["plain_ms"], rec["bound_ms"], rec["bound_by"],
+                   ", CUDA-core bound %.4f ms" % rec["cuda_core_bound_ms"]
+                   if "cuda_core_bound_ms" in rec else "", lib_ms,
+                   rec["vs_library"]))
+        del args, do, o, stats, q, k, v, lib_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_kernel_names():
+    """The CUDA kernels ``scaled_dot_product_attention`` launches for the
+    fp32 training shape's forward and backward, from one ``torch.profiler``
+    window: which backend the yardstick is."""
+    import torch
+    import torch.nn.functional as tF
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    args, do = flash_case(gen, TRAIN_BATCH, 16, TRAIN_SEQ, TRAIN_SEQ, 128,
+                          torch.float32, causal=True)
+    q, k, v = (args[n].detach().requires_grad_() for n in "qkv")
+    tF.scaled_dot_product_attention(q, k, v, is_causal=True).backward(do)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):  # the window's first kernel may go unrecorded
+            tF.scaled_dot_product_attention(q, k, v,
+                                            is_causal=True).backward(do)
+        torch.cuda.synchronize()
+    rows = device_time_rows(prof)
+    for ms, name, n in rows:
+        log("sdpa fp32 kernel: %.4f ms in %d calls  %s" % (ms, n, name[:160]))
+    return [name for _, name, _ in rows]
+
+
+def ptxas_report():
+    """Registers and spills of every K3 kernel from ``ptxas -v`` (kept by
+    the build beside the library); raises if a D 64 or D 128 instantiation
+    spills."""
+    import re
+    import shutil
+
+    from paddle_tpu_torch.ops import _build
+
+    text = _build.build_log("flash_attention")
+    kernels, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = kernels.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    if not kernels:
+        raise AssertionError("no ptxas -v report for flash_attention.cu")
+    names = list(kernels)
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.split("\n")[:len(kernels)]
+    out, spilled = {}, []
+    for mangled, name in zip(kernels, names):
+        rec = kernels[mangled]
+        name = re.sub(r"\(anonymous namespace\)::|_GLOBAL__N_1", "", name)
         out[name] = rec
-        log("timing %-32s B=%d H=%d L=%d D=%d causal fp32: kernel %.4f ms "
-            "(%.2f TFLOP/s), plain %.4f ms, bound %.4f ms (%s), sdpa %.4f ms"
-            % (name, b, h, l, d, rec["ms"], rec["achieved_tflop_s"],
-               rec["plain_ms"], rec["bound_ms"], rec["bound_by"], lib_ms))
+        log("ptxas %-60s registers %3s, spill stores %s, spill loads %s, "
+            "stack %s" % (name[:60], rec.get("registers"),
+                          rec.get("spill_stores"), rec.get("spill_loads"),
+                          rec.get("stack")))
+        m = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkdv)<[^,]+, (\d+),", name)
+        if m and int(m.group(1)) <= 128 and (rec.get("spill_stores")
+                                             or rec.get("spill_loads")):
+            spilled.append(name)
+    if spilled:
+        raise AssertionError("K3 instantiations at D <= 128 spill: %s"
+                             % spilled)
     return out
 
 
@@ -1087,6 +1191,7 @@ def main() -> int:
     _build.load("flash_attention")
     _build.load("scale_mul")
     log("build: %.1f s" % (time.perf_counter() - t0))
+    ptxas_report()
 
     parity = check_kernels()
     parity.update(check_flash_kernels())
@@ -1140,6 +1245,7 @@ def main() -> int:
 
     timing = time_kernels()
     timing.update(time_flash())
+    sdpa_kernel_names()
     timing["scale_mul_kernel"] = time_custom_kernel()
     kernels = []
     for name, tpu, run in (

@@ -5,7 +5,9 @@ with a plain C interface and loaded with ``ctypes`` -- no PyTorch headers,
 so a build takes seconds, not minutes.  Libraries land in the package's
 ``_build/`` directory (git-ignored), named by a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
-Nothing here runs at import time: the first kernel launch builds.
+``ptxas -v`` reports each kernel's registers, spills and shared memory;
+the report is kept beside the library (:func:`build_log`).  Nothing here
+runs at import time: the first kernel launch builds.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -95,7 +97,24 @@ def _compile(name: str, out: str) -> None:
         raise ExternalError("nvcc failed for %s.cu (exit %d):\n%s%s"
                             % (name, proc.returncode, proc.stdout,
                                proc.stderr))
+    with open(_log_path(out), "w") as f:
+        f.write(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+
+
+def _log_path(lib_path: str) -> str:
+    return lib_path[:-len(".so")] + ".log"
+
+
+def build_log(name: str) -> str:
+    """The compiler's report (``ptxas -v``: registers, spills, shared
+    memory of each kernel) from building ``csrc/<name>.cu``; empty when the
+    library was built before reports were kept."""
+    path = _log_path(_lib_path(name))
+    if not os.path.isfile(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> None:

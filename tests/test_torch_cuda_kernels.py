@@ -146,6 +146,31 @@ def _flash_inputs(dev, dtype, b, h, lq, lk, d, bias, seg, seed):
     return q, k, v, do, None if bi is None else bi(), qs, ks
 
 
+def _check_flash(q, k, v, do, bi, qs, ks, causal, scale, dtype):
+    """K3 forward and backward against the plain twins at FLASH_TOL (stats
+    at 1e-5); returns the kernels' ``(o, stats, (dq, dk, dv, ds))``."""
+    o, stats = fk.flash_attention_forward_kernel(q, k, v, bi, qs, ks, causal,
+                                                 scale)
+    got = fk.flash_attention_backward_kernel(q, k, v, o, stats, do, bi, qs,
+                                             ks, causal, scale, bi is not None)
+    torch.cuda.synchronize()
+    want_o, want_stats = fk.flash_attention_forward_plain(q, k, v, bi, qs, ks,
+                                                          causal, scale)
+    want = fk.flash_attention_backward_plain(q, k, v, o, stats, do, bi, qs,
+                                             ks, causal, scale,
+                                             bi is not None)
+    fwd_tol, grad_tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=0,
+                               atol=fwd_tol)
+    torch.testing.assert_close(stats, want_stats, rtol=0, atol=1e-5)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=grad_tol)
+    return o, stats, got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -164,31 +189,111 @@ def test_flash_kernels_match_plain_twins(cuda_device, dtype, b, h, lq, lk,
                                          d, causal, bias, seg):
     q, k, v, do, bi, qs, ks = _flash_inputs(cuda_device, dtype, b, h, lq,
                                             lk, d, bias, seg, lq + lk)
-    scale = d ** -0.5
     before = fk.launch_counts()
-    o, stats = fk.flash_attention_forward_kernel(q, k, v, bi, qs, ks, causal,
-                                                 scale)
-    got = fk.flash_attention_backward_kernel(q, k, v, o, stats, do, bi, qs,
-                                             ks, causal, scale, bi is not None)
-    torch.cuda.synchronize()
-    want_o, want_stats = fk.flash_attention_forward_plain(q, k, v, bi, qs, ks,
-                                                          causal, scale)
-    want = fk.flash_attention_backward_plain(q, k, v, o, stats, do, bi, qs,
-                                             ks, causal, scale,
-                                             bi is not None)
-    fwd_tol, grad_tol = FLASH_TOL[dtype]
+    o, _, _ = _check_flash(q, k, v, do, bi, qs, ks, causal, d ** -0.5, dtype)
     assert o.stride() == q.stride()  # written through q's layout
-    torch.testing.assert_close(o.float(), want_o.float(), rtol=0,
-                               atol=fwd_tol)
-    torch.testing.assert_close(stats, want_stats, rtol=0, atol=1e-5)
-    for g, w in zip(got, want):
-        assert (g is None) == (w is None)
-        if g is not None:
-            torch.testing.assert_close(g.float(), w.float(), rtol=0,
-                                       atol=grad_tol)
     after = fk.launch_counts()
     for name in after:
         assert after[name] == before[name] + 1
+
+
+# the tile edges of every instantiation: 64-row tiles at D 64, 128-row
+# owned tiles streaming 64 or 32 rows at D 128, 64/32-row tiles at D 256
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("lq,lk", [(1, 1), (63, 63), (64, 64), (65, 65),
+                                   (127, 129), (128, 128), (129, 127),
+                                   (1, 129), (129, 1)])
+def test_flash_kernels_tile_edges(cuda_device, dtype, d, causal, lq, lk):
+    q, k, v, do, _, _, _ = _flash_inputs(cuda_device, dtype, 1, 2, lq, lk, d,
+                                         None, None, 1000 * lq + lk + d)
+    _check_flash(q, k, v, do, None, None, None, causal, d ** -0.5, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["base+1", "row-stride"])
+def test_flash_kernels_misaligned_operands(cuda_device, dtype, layout):
+    """Operands whose rows do not start on 16 bytes take the kernels'
+    plain-load staging: a base one element off, or a row stride of D + 1."""
+    b, h, l, d = 2, 3, 80, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+
+    def operand():
+        if layout == "base+1":
+            flat = torch.randn(b * h * l * d + 1, device=cuda_device,
+                               generator=gen).to(dtype)
+            t = flat[1:].view(b, h, l, d)
+            assert t.data_ptr() % 16 != 0
+        else:
+            t = torch.randn(b, h, l, d + 1, device=cuda_device,
+                            generator=gen).to(dtype)[..., :d]
+            assert t.stride(2) * t.element_size() % 16 != 0
+        return t
+
+    q, k, v, do = operand(), operand(), operand(), operand()
+    bias = torch.randn(b, h, l, l, device=cuda_device, generator=gen)
+    for causal, bi in ((True, None), (False, bias)):
+        _check_flash(q, k, v, do, bi, None, None, causal, d ** -0.5, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,bias", [(True, None), (False, "full")],
+                         ids=["causal", "bias"])
+def test_flash_kernels_deterministic(cuda_device, dtype, causal, bias):
+    """No atomics: two calls give bit-identical outputs and gradients."""
+    q, k, v, do, bi, qs, ks = _flash_inputs(cuda_device, dtype, 2, 4, 300,
+                                            300, 128, bias, None, 5)
+    runs = []
+    for _ in range(2):
+        o, stats = fk.flash_attention_forward_kernel(q, k, v, bi, qs, ks,
+                                                     causal, 0.1)
+        grads = fk.flash_attention_backward_kernel(
+            q, k, v, o, stats, do, bi, qs, ks, causal, 0.1, bi is not None)
+        runs.append((o, stats) + tuple(g for g in grads if g is not None))
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+def _tf32_cut(x):
+    """``x`` in fp32 with the low 13 of its 23 mantissa bits cleared: the
+    10-bit mantissa of a single-pass TF32 product's operands."""
+    return (x.float().view(torch.int32) & -8192).view(torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_fp32_is_not_single_pass_tf32(cuda_device):
+    """Single-pass TF32, emulated by cutting q, k, v and P to TF32's
+    mantissa, misses the fp32 tolerance on these inputs; the kernel (3xTF32)
+    meets it."""
+    b, h, l, d = 2, 4, 256, 128
+    q, k, v, _, _, _, _ = _flash_inputs(cuda_device, torch.float32, b, h, l,
+                                        l, d, None, None, 11)
+    scale = d ** -0.5
+    fwd_tol = FLASH_TOL[torch.float32][0]
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twin in full fp32
+    try:
+        o, _ = fk.flash_attention_forward_kernel(q, k, v, None, None, None,
+                                                 True, scale)
+        want, _ = fk.flash_attention_forward_plain(q, k, v, None, None,
+                                                   None, True, scale)
+        s = torch.matmul(_tf32_cut(q), _tf32_cut(k).transpose(-1, -2)) * scale
+        causal = torch.ones(l, l, dtype=torch.bool, device=cuda_device).tril()
+        s = s.masked_fill(~causal, torch.finfo(torch.float32).min)
+        tf32_o = torch.matmul(_tf32_cut(torch.softmax(s, dim=-1)),
+                              _tf32_cut(v))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+    assert (tf32_o - want).abs().max().item() > fwd_tol
+    torch.testing.assert_close(o, want, rtol=0, atol=fwd_tol)
 
 
 @pytest.mark.cuda

@@ -41,11 +41,11 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of int64
 SIGNATURES = {
     "decode_attention": {
         "ptt_paged_decode_attention": [
-            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P,
-            _I, _I, _I, _I, _I, _I, _F, _P],
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P, _P,
+            _I, _I, _I, _I, _I, _I, _I, _F, _P],
         "ptt_dense_decode_attention": [
-            _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P,
-            _I, _I, _I, _I, _I, _F, _P],
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P, _P,
+            _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "flash_attention": {
         "ptt_flash_attention_forward": [

@@ -14,9 +14,13 @@ Dispatch is by the device of the tensors alone:
 
 Each wrapper counts its own launches in a plain integer attribute
 (``paged_decode_attention_kernel.launches``), incremented only where the
-kernel is launched, so a run can show which path it went through.
+kernel is launched, so a run can show which path it went through.  One
+wrapper call is one launch, though on the card it may run two kernels:
+the split kernel and the combine of its partials (:func:`num_splits`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -24,8 +28,9 @@ from ..core.errors import ExternalError, InvalidArgumentError
 
 __all__ = ["paged_decode_attention_kernel", "decode_attention_kernel",
            "paged_decode_attention_plain", "decode_attention_plain",
-           "MAX_KERNEL_QUERY_CHUNK", "MAX_KERNEL_HEAD_DIM", "bias_streamable",
-           "kernel_dtypes_supported", "reset_launch_counts", "launch_counts"]
+           "decode_combine_plain", "num_splits", "MAX_KERNEL_QUERY_CHUNK",
+           "MAX_KERNEL_HEAD_DIM", "bias_streamable", "kernel_dtypes_supported",
+           "reset_launch_counts", "launch_counts"]
 
 # The longest query chunk the kernels take: 1 for autoregressive decode,
 # spec_k+1 for a speculative verify chunk.  Longer chunks are prefill work.
@@ -36,6 +41,16 @@ MAX_KERNEL_HEAD_DIM = 256
 # Floor of the running max, as in the reference kernel: a fully masked
 # prefix leaves the max here, and exp(-inf - floor) == 0 keeps it out.
 _M_FLOOR = -1e30
+
+# Key splitting (flash-decoding), mirrored from csrc/decode_attention.cu:
+# spans are multiples of 32 keys, and a CTA's block-table entries must fit
+# its 2048-entry shared-memory slice.  About one wave of resident CTAs on
+# an H100 (132 SMs, 3 CTAs each by shared memory) is the target; a split
+# covers at least 64 cache positions.
+_WAVE_CTAS = 3 * 132
+_MIN_SPLIT_KEYS = 64
+_SPAN_KEYS = 32
+_MAX_TABLE_SLOTS = 2048
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
@@ -146,7 +161,50 @@ def decode_attention_plain(q, k, v, q_pos, sm_scale: float, k_scale=None,
                          q_pos, sm_scale, bias)
 
 
+def decode_combine_plain(m, l, acc):
+    """Plain combine of split partials, as the kernel's second pass does:
+    ``m``/``l`` [B, H, splits, Lq] are each split's floored running max
+    and normalizer, ``acc`` [B, H, splits, Lq, D] its unnormalized P.V.
+    Returns the fp32 output [B, H, Lq, D]; a row whose normalizer sums to
+    0 emits 0."""
+    w = torch.exp(m - m.amax(dim=2, keepdim=True))
+    norm = (w * l).sum(dim=2)
+    norm = torch.where(norm == 0, torch.ones_like(norm), norm)
+    return (w[..., None] * acc).sum(dim=2) / norm[..., None]
+
+
 # -- kernel wrappers -------------------------------------------------------
+
+
+def _table_slots(s: int, splits: int, block_size: int) -> int:
+    per = -(-s // splits)
+    span = -(-per // _SPAN_KEYS) * _SPAN_KEYS
+    return min(s // block_size, (span - 1) // block_size + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def num_splits(b: int, h: int, s: int, block_size=None) -> int:
+    """How many CTAs share one (row, head) of a decode launch: about one
+    wave of resident CTAs over the ``b * h`` pairs, at most one per 64
+    positions of the capacity ``s``; paged (``block_size`` given), enough
+    that a span's table entries fit the kernel's shared slice.  Static
+    shapes only, so a request's result never depends on which other slots
+    are live."""
+    splits = max(1, min(int(_WAVE_CTAS / (b * h) + 0.5),
+                        s // _MIN_SPLIT_KEYS))
+    if block_size is not None:
+        while _table_slots(s, splits, block_size) > _MAX_TABLE_SLOTS:
+            splits += 1
+    return splits
+
+
+def _workspace(q, splits: int):
+    """fp32 scratch for the split partials (m, l, acc), or None."""
+    if splits == 1:
+        return None
+    b, h, lq, d = q.shape
+    return torch.empty(b * h * splits * lq * (d + 2), dtype=torch.float32,
+                       device=q.device)
 
 
 def _check_cuda(named, device):
@@ -246,12 +304,14 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, table, q_pos,
     lib = load("decode_attention")
     out = torch.empty_like(q)
     b, _, lq, _ = q.shape
+    splits = num_splits(b, h, mb * bs, bs)
+    work = _workspace(q, splits)
     rc = lib.ptt_paged_decode_attention(
         _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], q.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         table.data_ptr(), q_pos.data_ptr(), _ptr(bias), sb, sh, sl,
-        out.data_ptr(), b, h, lq, d, mb, bs, float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), _ptr(work), b, h, lq, d, mb, bs, splits,
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_decode_attention_kernel")
     paged_decode_attention_kernel.launches += 1
     return out
@@ -289,11 +349,14 @@ def decode_attention_kernel(q, k, v, q_pos, sm_scale: float, k_scale=None,
 
     lib = load("decode_attention")
     out = torch.empty_like(q)
+    splits = num_splits(b, h, k.shape[2])
+    work = _workspace(q, splits)
     rc = lib.ptt_dense_decode_attention(
         _Q_CODES[q.dtype], _KV_CODES[k.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), _ptr(k_scale), _ptr(v_scale), q_pos.data_ptr(),
-        _ptr(bias), sb, sh, sl, out.data_ptr(), b, h, lq, d, k.shape[2],
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+        _ptr(bias), sb, sh, sl, out.data_ptr(), _ptr(work), b, h, lq, d,
+        k.shape[2], splits, float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "decode_attention_kernel")
     decode_attention_kernel.launches += 1
     return out

@@ -111,6 +111,130 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
         dk.paged_decode_attention_kernel(q, k.cpu(), v, table, qpos, 0.1)
 
 
+def _dense(x, table):
+    """A pool (or its scales) gathered through ``table`` into the dense
+    [B, H, S(, D)] layout K2 takes."""
+    if x is None:
+        return None
+    tbl = table.long()
+    b, mb = tbl.shape
+    g = x[tbl]  # [B, MB, H, bs(, D)]
+    g = g.permute(0, 2, 1, 3, 4) if g.ndim == 5 else g.permute(0, 2, 1, 3)
+    return g.reshape(b, g.shape[1], -1, *g.shape[4:]).contiguous()
+
+
+def _pools(dev, gen, nb, h, bs, d, kv_dtype):
+    k = torch.randn(nb, h, bs, d, device=dev, generator=gen)
+    v = torch.randn(nb, h, bs, d, device=dev, generator=gen)
+    k[0] = v[0] = 1e4  # poisoned scratch block
+    if kv_dtype == torch.int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return k, v, ks, vs
+    return k.to(kv_dtype), v.to(kv_dtype), None, None
+
+
+def _check_both(q, k, v, table, qpos, ks, vs, bias=None, scale=0.125):
+    """K1 and K2 (on the same keys laid out densely) against their twins."""
+    atol = ATOL[q.dtype]
+    got = dk.paged_decode_attention_kernel(q, k, v, table, qpos, scale, ks,
+                                           vs, bias)
+    want = dk.paged_decode_attention_plain(q, k, v, table, qpos, scale, ks,
+                                           vs, bias)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    args = (q, _dense(k, table), _dense(v, table), qpos, scale,
+            _dense(ks, table), _dense(vs, table), bias)
+    dgot = dk.decode_attention_kernel(*args)
+    torch.testing.assert_close(dgot.float(),
+                               dk.decode_attention_plain(*args).float(),
+                               rtol=0, atol=atol)
+    return got, dgot
+
+
+# capacities that no split length divides: 600 positions at block 1 and 8,
+# 19 blocks of 32 (608) at block 32
+_EDGE_MB = {1: 600, 8: 75, 32: 19}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8],
+                         ids=["f32", "int8"])
+@pytest.mark.parametrize("d", [8, 64, 128, 256])
+@pytest.mark.parametrize("bs", [1, 8, 32])
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_decode_split_edges(cuda_device, b, bs, d, kv_dtype):
+    # every row at one context: at a split boundary (all spans full), one
+    # either side, one key, and the whole capacity; row 0 sees no key when
+    # B > 1, and table entries past the context point at the poisoned
+    # scratch block, so splits past the context have no work
+    h, mb = 16, _EDGE_MB[bs]
+    s = mb * bs
+    splits = dk.num_splits(b, h, s, bs)
+    assert splits == dk.num_splits(b, h, s)  # paged and dense agree here
+    edge = splits * 32 * max(1, s // (splits * 32 * 2))
+    gen = torch.Generator(device=cuda_device).manual_seed(b * 1000 + bs + d)
+    nb = 1 + b * mb
+    k, v, ks, vs = _pools(cuda_device, gen, nb, h, bs, d, kv_dtype)
+    q = torch.randn(b, h, 1, d, device=cuda_device, generator=gen)
+    base = (torch.randperm(nb - 1, device=cuda_device, generator=gen)
+            [:b * mb].reshape(b, mb) + 1).to(torch.int32)
+    for ctx in sorted({edge - 1, edge, edge + 1, 1, s}):
+        table = base.clone()
+        table[:, -(-ctx // bs):] = 0
+        qpos = torch.full((b, 1), ctx - 1, dtype=torch.int32,
+                          device=cuda_device)
+        if b > 1:
+            qpos[0] = -1
+        got, dgot = _check_both(q, k, v, table, qpos, ks, vs)
+        if b > 1:
+            assert bool((got[0] == 0).all()) and bool((dgot[0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq", [1, 8])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.int8)], ids=["f32", "bf16", "int8"])
+def test_decode_misaligned_bases(cuda_device, q_dtype, kv_dtype, lq):
+    # pools, scales and q as contiguous views one element past a 16-byte
+    # boundary: the kernels stage them by plain loads (no 16-byte copies)
+    b, h, bs, d, mb = 8, 16, 32, 128, 8
+    q, k, v, table, qpos, ks, vs = _inputs(cuda_device, q_dtype, kv_dtype,
+                                           lq, b=b, h=h, bs=bs, d=d, mb=mb)
+
+    def shifted(x):
+        if x is None:
+            return None
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 != 0 and y.is_contiguous()
+        return y
+
+    _check_both(shifted(q), shifted(k), shifted(v), table, qpos,
+                shifted(ks), shifted(vs))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8],
+                         ids=["f32", "int8"])
+@pytest.mark.parametrize("lq", [1, 8])
+def test_decode_deterministic(cuda_device, kv_dtype, lq):
+    # one request over a long context: 25 splits and the combine pass
+    h, bs, d, mb = 16, 32, 128, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(lq)
+    k, v, ks, vs = _pools(cuda_device, gen, 1 + mb, h, bs, d, kv_dtype)
+    q = torch.randn(1, h, lq, d, device=cuda_device, generator=gen)
+    table = torch.arange(1, 1 + mb, dtype=torch.int32,
+                         device=cuda_device)[None]
+    qpos = torch.arange(mb * bs - 100, mb * bs - 100 + lq, dtype=torch.int32,
+                        device=cuda_device)[None]
+    assert dk.num_splits(1, h, mb * bs, bs) == 25
+    a1, d1 = _check_both(q, k, v, table, qpos, ks, vs)
+    a2, d2 = _check_both(q, k, v, table, qpos, ks, vs)
+    assert torch.equal(a1, a2) and torch.equal(d1, d2)
+
+
 # K3: fp32 differs from its twin by summation order (5e-5 on the gradients,
 # which sum over every query or key); bf16 outputs and gradients are
 # rounded to bf16 by both

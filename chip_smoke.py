@@ -14,6 +14,15 @@ PyTorch twin, and drives the port's two main paths:
   model of the same widths on the dense cache and on the int8 paged cache;
   each run must go through the decode kernels K1/K2 and emit the argmax of
   an uncached forward;
+- the pool's scheduler: the 24-layer model serves 16 requests sharing a
+  1024-token prefix (arriving one a tick) three ways -- chunked prefill
+  with prefix sharing, chunked prefill alone, the bucketed prefill --
+  with every prompt chunk timed alone; sharing must hit and the tokens
+  stay within the greedy limit.  Then the 4-layer model preempts two of
+  eight decoding requests for two higher-priority ones, in fp32 and int8,
+  once resuming by re-mapping the spilled blocks and once through the
+  host upload after a reclaim; the tokens must equal an uninterrupted
+  run's byte for byte;
 - training: the same GPT-1.3B at full width and depth in fp32 for 6
   ``TrainStep``s (AdamW, global-norm clipping) on one repeated 2 x 2048
   batch, every attention forward and backward through the flash kernel K3,
@@ -32,7 +41,8 @@ its bound and the one PyTorch call that computes the same function
 timed as a yardstick only, the port never calls it): K3 in fp32 and bf16,
 with its tensor-core bound and the CUDA-core one; K1/K2 at the serving
 shape in fp32 and int8, at one request, and at a short and a full
-context.  After the build it prints ``ptxas -v``'s registers and spills
+context.  K1 is also held against its twin on tables whose rows alias one
+prefix's blocks, for a decode step and for chunks of 4 and 8 queries.  After the build it prints ``ptxas -v``'s registers and spills
 of every K1/K2 and K3 kernel (and fails if a decode kernel, or a D 64 or
 D 128 K3 one, spills); after the timing, the kernels SDPA's fp32 forward
 and backward launch.
@@ -70,6 +80,18 @@ MAIN_NEW_TOKENS = 64
 SHORT_LAYERS = 4
 SHORT_REQUESTS = 8
 SHORT_NEW_TOKENS = 16
+# the shared-prefix cell: a 1024-token prefix, a 32-256 token tail, 16
+# requests arriving one a tick, 32 new tokens each, 256-token chunks
+SHARED_PREFIX = 1024
+SHARED_TAIL = (32, 256)
+SHARED_REQUESTS = 16
+SHARED_NEW_TOKENS = 32
+SHARED_CHUNK = 256
+# the preemption cell: one 480-token prompt per slot, 32 new tokens, two
+# requests preempted after 8 ticks
+PREEMPT_PROMPT = 480
+PREEMPT_NEW_TOKENS = 32
+PREEMPT_AFTER_TICKS = 8
 # kernel vs plain twin: fp32 (and int8, dequantized in fp32 by both) differ
 # only by summation order; a bf16 output is rounded to bf16 by both
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -302,6 +324,48 @@ def check_kernels():
     return main_err
 
 
+def check_aliased_tables():
+    """K1 against its twin on tables whose rows alias physical blocks, as
+    prefix sharing maps them: every row's first 32 logical blocks (a
+    1024-token prefix) name the same blocks, the rest are the row's own.
+    At the main shape (8 rows x 16 heads x D 128, block 32), fp32 and
+    int8, for a decode step (Lq 1) and for the chunks Lq in {4, 8} with
+    per-row positions starting mid-block.  Returns the max errors."""
+    import torch
+
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mb = MAIN_MAX_LEN // MAIN_BLOCK
+    shared = 1024 // MAIN_BLOCK
+    errs = {}
+    for kv_dt in (torch.float32, torch.int8):
+        for lq in (1, 4, 8):
+            case = paged_case(gen, MAIN_SLOTS, 16, 128, MAIN_BLOCK, mb, lq,
+                              torch.float32, kv_dt, ctx=MAIN_MAX_LEN)
+            table = case["table"]
+            table[:, :shared] = table[0, :shared]
+            # row b's chunk starts mid-block past the shared prefix
+            start = 1024 + 5 + 37 * torch.arange(MAIN_SLOTS, device="cuda")
+            case["q_pos"] = (start[:, None] + torch.arange(
+                lq, device="cuda")[None]).to(torch.int32)
+            label = ("aliased table kv=%s Lq=%d B=%d shared blocks=%d"
+                     % (str(kv_dt)[6:], lq, MAIN_SLOTS, shared))
+            got = dk.paged_decode_attention_kernel(**case)
+            torch.cuda.synchronize()
+            want = dk.paged_decode_attention_plain(**case)
+            err = (got - want).abs().max().item()
+            ok = err <= TOL["float32"] and bool(torch.isfinite(got).all())
+            log("parity %-30s %s  max_abs_err=%.3g tol=%.0e %s"
+                % ("paged_decode_attention_kernel", label, err,
+                   TOL["float32"], "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("K1 disagrees with its plain twin on "
+                                     "an aliased table: %g" % err)
+            errs[label] = err
+    return errs
+
+
 # -- serving runs ----------------------------------------------------------
 
 
@@ -381,6 +445,341 @@ def serve(model, rng, n_requests, new_tokens, n_layers, kernel, **kw):
         "greedy_max_gap": max(gaps), "greedy_tol": tol,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
+
+
+def shared_prefix_traffic(vocab):
+    """The shared-prefix cell's prompts: one 1024-token prefix from numpy
+    seed 0 and a unique tail of 32-256 tokens per request."""
+    rng = np.random.RandomState(0)
+    prefix = rng.randint(0, vocab, SHARED_PREFIX).astype(np.int32)
+    tails = rng.randint(SHARED_TAIL[0], SHARED_TAIL[1] + 1, SHARED_REQUESTS)
+    return [np.concatenate([prefix, rng.randint(0, vocab, int(n))
+                            .astype(np.int32)]) for n in tails]
+
+
+def drive_shared_prefix(engine, prompts):
+    """Submit ``prompts`` one a tick (32 greedy tokens each) and pump the
+    engine until every request is done; returns the streams, the times of
+    the ticks that ran no prompt work (decode steps) and the wall time."""
+    import torch
+
+    pool = engine.pool
+
+    def prompt_work():
+        return pool.prefills_total + pool.prefix_stats()[
+            "prefill_chunks_total"]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams, decode_tick_ms = [], []
+    while True:
+        if len(streams) < len(prompts):
+            streams.append(engine.submit(prompts[len(streams)],
+                                         SHARED_NEW_TOKENS))
+        n_work = prompt_work()
+        ts = time.perf_counter()
+        more = engine.pump(1)
+        dt = (time.perf_counter() - ts) * 1e3
+        if prompt_work() == n_work:
+            decode_tick_ms.append(dt)
+        if not more and len(streams) == len(prompts):
+            break
+    torch.cuda.synchronize()
+    return streams, decode_tick_ms, time.perf_counter() - t0
+
+
+def serve_shared_prefix(model, prompts, n_layers, **kw):
+    """Serve ``prompts`` through a fresh paged engine built with ``kw``;
+    returns the run's metrics and tokens.  The first pass is the measured
+    one: nothing is wrapped, and the launch counts are set to 0 just
+    before it and read just after.  A second pass of the same traffic on
+    the same engine times every prompt-work call (a chunk, or a bucketed
+    prefill) alone on the host clock, with ``torch.cuda.synchronize()`` on
+    both sides; those syncs stall the host, so that pass gives only the
+    prompt-work times."""
+    import torch
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           cache_layout="paged", block_size=MAIN_BLOCK,
+                           device="cuda", **kw)
+    pool = engine.pool
+    vocab = model.vocab_size
+    # warm-up request (a full chunk and a part one): first cuBLAS calls
+    # at these shapes
+    engine.submit(np.arange(SHARED_CHUNK + SHARED_TAIL[0]) % vocab,
+                  2).result()
+    engine.reset_prefix_stats()
+    steps0 = pool.decode_steps_total
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    streams, decode_tick_ms, wall = drive_shared_prefix(engine, prompts)
+    counts = dk.launch_counts()
+    steps = pool.decode_steps_total - steps0
+    tokens = []
+    for st in (s.status for s in streams):
+        assert st is not None and st.state == "DONE", st
+        toks = np.asarray(st.tokens)
+        assert toks.shape == (SHARED_NEW_TOKENS,), toks.shape
+        assert toks.min() >= 0 and toks.max() < vocab
+        tokens.append(toks)
+    k1 = counts["paged_decode_attention_kernel"]
+    assert k1 == n_layers * steps and k1 > 0, (counts, steps)
+    assert all(n == 0 for k, n in counts.items()
+               if k != "paged_decode_attention_kernel"), counts
+    ttft = sorted(s.status.ttft_s * 1e3 for s in streams)
+    stats = engine.prefix_stats()
+
+    work_ms, work_tokens = [], []
+
+    def timed(fn, tokens_of):
+        def call(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            work_ms.append((time.perf_counter() - t) * 1e3)
+            work_tokens.append(tokens_of(*a))
+            return out
+        return call
+
+    if pool.prefill_chunk_tokens is not None:
+        pool._prefill_chunk = timed(pool._prefill_chunk,
+                                    lambda toks, slot, start, n, s: n)
+    else:
+        pool._session.prefill = timed(pool._session.prefill,
+                                      lambda ids, s: ids.shape[1])
+    timed_streams, _, timed_wall = drive_shared_prefix(engine, prompts)
+    timed_ttft = sorted(s.status.ttft_s * 1e3 for s in timed_streams)
+    out = {
+        "requests": len(prompts),
+        "prompt_tokens": int(sum(len(p) for p in prompts)),
+        "new_tokens": len(prompts) * SHARED_NEW_TOKENS,
+        "prefill_chunk_tokens": kw.get("prefill_chunk_tokens"),
+        "prefix_sharing": bool(kw.get("prefix_sharing")),
+        "decode_steps": steps, "k1_launches": k1,
+        "ttft_ms_p50": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+        "decode_step_ms_p50": float(np.median(decode_tick_ms)),
+        "tokens_per_s": len(prompts) * SHARED_NEW_TOKENS / wall,
+        "wall_s": wall,
+        "prefix_hits": stats["hits"], "prefix_hit_rate": stats["hit_rate"],
+        "prefix_tokens_matched": stats["tokens_matched"],
+        "prompt_work_calls": len(work_ms),
+        "prompt_work_tokens": int(sum(work_tokens)),
+        "prompt_work_ms_total": float(sum(work_ms)),
+        "prompt_work_ms_per_call_p50": float(np.median(work_ms)),
+        "prompt_work_ms_per_call_mean": float(np.mean(work_ms)),
+        "prompt_work_ms_per_token": float(sum(work_ms) / sum(work_tokens)),
+        # the timing pass's own end-to-end numbers, beside the measured
+        # pass's in the same run: what the synchronize() calls cost
+        "timed_pass_ttft_ms_p50": timed_ttft[len(timed_ttft) // 2],
+        "timed_pass_ttft_ms_max": timed_ttft[-1],
+        "timed_pass_tokens_per_s": len(prompts) * SHARED_NEW_TOKENS
+        / timed_wall,
+    }
+    del engine
+    torch.cuda.empty_cache()
+    return out, tokens
+
+
+def shared_prefix_runs(model, n_layers):
+    """The shared-prefix cell three ways on the same traffic: chunking
+    with sharing, chunking alone, the bucketed prefill.  Sharing must hit,
+    and every token that differs between the runs must stay within
+    ``greedy_gap``'s limit, as must two requests of each run."""
+    prompts = shared_prefix_traffic(model.vocab_size)
+    runs, tokens = {}, {}
+    for name, kw in (
+            ("sharing", dict(prefill_chunk_tokens=SHARED_CHUNK,
+                             prefix_sharing=True)),
+            ("chunked", dict(prefill_chunk_tokens=SHARED_CHUNK)),
+            ("bucketed", {})):
+        runs[name], tokens[name] = serve_shared_prefix(model, prompts,
+                                                       n_layers, **kw)
+        log("shared-prefix run (%s, 24 layers):" % name,
+            json.dumps(runs[name]))
+    assert runs["sharing"]["prefix_hits"] > 0, runs["sharing"]
+    tol = GREEDY_TOL["float32"]
+    lens = [len(p) for p in prompts]
+    for name in runs:
+        # the shortest and the longest prompt of every run, and every
+        # request whose tokens differ from the sharing-off run's
+        check = {int(np.argmin(lens)), int(np.argmax(lens))}
+        check |= {i for i in range(len(prompts))
+                  if not np.array_equal(tokens[name][i],
+                                        tokens["chunked"][i])}
+        gaps = [greedy_gap(model, prompts[i], tokens[name][i])
+                for i in sorted(check)]
+        runs[name]["identical_to_chunked"] = sum(
+            np.array_equal(a, b)
+            for a, b in zip(tokens[name], tokens["chunked"]))
+        runs[name]["greedy_max_gap"] = max(gaps)
+        runs[name]["greedy_tol"] = tol
+        assert max(gaps) <= tol, (name, gaps, tol)
+    log("shared-prefix greedy check (requests checked: the shortest, the "
+        "longest and every one that differs from the sharing-off run):",
+        json.dumps({name: {k: runs[name][k] for k in (
+            "identical_to_chunked", "greedy_max_gap", "greedy_tol")}
+            for name in runs}))
+    return runs
+
+
+def profile_chunks(model, ticks: int = 3):
+    """Where a prompt chunk's time goes: one 256-token chunk a tick for
+    ``ticks`` ticks of one prompt that is still prefilling after them (so
+    no decode step runs), under ``torch.profiler``; its CUDA kernel times
+    (one stream) give the device's busy share of the chunk."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import ServingEngine
+
+    engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           cache_layout="paged", block_size=MAIN_BLOCK,
+                           prefill_chunk_tokens=SHARED_CHUNK, device="cuda")
+    pool = engine.pool
+    vocab = model.vocab_size
+    engine.submit(np.arange(SHARED_CHUNK + SHARED_TAIL[0]) % vocab,
+                  2).result()
+    rng = np.random.RandomState(2)
+    engine.submit(rng.randint(0, vocab, SHARED_CHUNK * (ticks + 1)
+                              + SHARED_TAIL[0]), 2)
+    engine.pump(1)  # admitted, first chunk run
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.pump(ticks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    assert pool.prefilling_count == 1 and pool.active_count == 0
+    rows = [(ms / ticks, k, n // ticks)
+            for ms, k, n in device_time_rows(prof)]
+    busy_ms = sum(r[0] for r in rows)
+    while engine.pump(1):
+        pass
+    del engine
+    torch.cuda.empty_cache()
+    if not busy_ms:
+        log("profile: the profiler recorded no device time (not measured)")
+    return {"chunk_tokens": SHARED_CHUNK, "chunks": ticks,
+            "profiled_wall_ms_per_chunk": wall_ms,
+            "device_busy_ms_per_chunk": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+            else None,
+            "top": [{"kernel": k[:80], "ms_per_chunk": ms,
+                     "calls_per_chunk": n} for ms, k, n in rows[:8]]}
+
+
+def preempt_run(model, prompts, cache_dtype, num_blocks=None,
+                interrupt=True):
+    """``prompts`` (one per slot, 32 greedy tokens each) through a fresh
+    4-layer paged engine; with ``interrupt``, after 8 ticks two decoding
+    requests are preempted and two higher-priority requests take their
+    slots.  Each preempt (its one download included) and each resume
+    (its upload included) is timed alone with ``torch.cuda.synchronize()``
+    on both sides.  Returns the metrics and the first requests' tokens."""
+    import torch
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           cache_layout="paged", block_size=MAIN_BLOCK,
+                           num_blocks=num_blocks, cache_dtype=cache_dtype,
+                           device="cuda")
+    pool = engine.pool
+    engine.submit(np.arange(64) % model.vocab_size, 2).result()  # warm-up
+    resume_ms = []
+    real_resume = pool._resume
+
+    def timed_resume(sp):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_resume(sp)
+        torch.cuda.synchronize()
+        resume_ms.append((time.perf_counter() - t) * 1e3)
+
+    pool._resume = timed_resume
+    steps0 = pool.decode_steps_total
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    streams = [engine.submit(p, PREEMPT_NEW_TOKENS, request_id=i)
+               for i, p in enumerate(prompts)]
+    extra, preempt_ms = [], []
+    engine.pump(PREEMPT_AFTER_TICKS)
+    if interrupt:
+        for rid in (1, MAIN_SLOTS // 2 + 1):
+            assert engine.request_state(rid) == "DECODING"
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engine.preempt(rid)
+            torch.cuda.synchronize()
+            preempt_ms.append((time.perf_counter() - t) * 1e3)
+            assert engine.request_state(rid) == "PREEMPTED"
+        extra = [engine.submit(p, PREEMPT_NEW_TOKENS, priority="high")
+                 for p in prompts[:2]]
+    while engine.pump(8):
+        pass
+    torch.cuda.synchronize()
+    counts = dk.launch_counts()
+    steps = pool.decode_steps_total - steps0
+    k1 = counts["paged_decode_attention_kernel"]
+    assert k1 == SHORT_LAYERS * steps and k1 > 0, (counts, steps)
+    for s in streams + extra:
+        assert s.status is not None and s.status.state == "DONE", s.status
+    spill = engine.spill_stats()
+    if interrupt:
+        assert spill["preempts_total"] == spill["resumes_total"] == 2, spill
+    out = {"cache_dtype": cache_dtype, "num_blocks": pool.cache_stats()[
+        "num_blocks"], "decode_steps": steps, "k1_launches": k1,
+        "spill_stats": spill, "preempt_ms": preempt_ms,
+        "resume_ms": resume_ms}
+    tokens = [np.asarray(s.status.tokens) for s in streams]
+    extra_tokens = [np.asarray(s.status.tokens) for s in extra]
+    del engine
+    torch.cuda.empty_cache()
+    return out, tokens, extra_tokens
+
+
+def preempt_runs(model):
+    """``preempt_4l``: fp32 and int8, each uninterrupted and then
+    interrupted twice: with the default pool (resume re-maps the spilled
+    blocks) and with a pool one free block short of the two newcomers'
+    reservations (a spilled copy is reclaimed, resume uploads it).  The
+    preempted run's tokens must equal the uninterrupted run's byte for
+    byte; the newcomers' tokens are held by ``greedy_gap``."""
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, model.vocab_size, PREEMPT_PROMPT)
+               .astype(np.int32) for _ in range(MAIN_SLOTS)]
+    per_request = -(-(PREEMPT_PROMPT + PREEMPT_NEW_TOKENS) // MAIN_BLOCK)
+    # the eight requests' reservations plus all but one block of one more:
+    # the two newcomers must reclaim a victim's spilled copy
+    tight = 1 + (MAIN_SLOTS + 1) * per_request - 1
+    out = {}
+    for dtype in ("float32", "int8"):
+        _, want, _ = preempt_run(model, prompts, dtype, interrupt=False)
+        for variant, nb in (("remap", None), ("upload", tight)):
+            rec, got, extra = preempt_run(model, prompts, dtype, nb)
+            spill = rec["spill_stats"]
+            if variant == "upload":
+                assert spill["reclaims_total"] >= 1 \
+                    and spill["upload_bytes_total"] > 0, spill
+            else:
+                assert spill["upload_bytes_total"] == 0, spill
+            same = [bool(np.array_equal(a, b)) for a, b in zip(got, want)]
+            rec["identical_requests"] = sum(same)
+            assert all(same), (dtype, variant, same)
+            gaps = [greedy_gap(model, prompts[i], extra[i])
+                    for i in range(len(extra))]
+            rec["newcomer_greedy_max_gap"] = max(gaps)
+            assert max(gaps) <= GREEDY_TOL[dtype], (gaps, dtype)
+            out["%s_%s" % (dtype, variant)] = rec
+            log("preempt run (%s, %s, 4 layers):" % (dtype, variant),
+                json.dumps(rec))
+    return out
 
 
 def device_time_rows(prof):
@@ -1306,6 +1705,7 @@ def main() -> int:
     ptxas_report()
 
     parity = check_kernels()
+    check_aliased_tables()
     parity.update(check_flash_kernels())
     parity.update(check_custom_kernel())
     t0 = time.perf_counter()
@@ -1330,6 +1730,10 @@ def main() -> int:
     log("main path (paged fp32, 24 layers):", json.dumps(runs["paged_fp32_24l"]))
     log("decode step profile (paged fp32, 24 layers, 8 slots at ~1k "
         "context):", json.dumps(profile_decode(model, rng)))
+    runs["serve_shared_prefix_24l"] = shared_prefix_runs(model,
+                                                         cfg["num_layers"])
+    log("prompt chunk profile (24 layers, 256-token chunks):",
+        json.dumps(profile_chunks(model)))
     del model
     torch.cuda.empty_cache()
 
@@ -1344,6 +1748,7 @@ def main() -> int:
         "paged_decode_attention_kernel", cache_layout="paged",
         block_size=MAIN_BLOCK, cache_dtype="int8")
     log("int8 run (paged, 4 layers):", json.dumps(runs["paged_int8_4l"]))
+    runs["preempt_4l"] = preempt_runs(model)
     del model
     torch.cuda.empty_cache()
 

@@ -1,35 +1,62 @@
 """Slot-based continuous batching over the KV-cached decode engine
-(counterpart of the reference's ``inference/generation.py``, its first
-sub-slice).
+(counterpart of the reference's ``inference/generation.py``).
 
 ``GenerationPool`` packs concurrent requests into N cache SLOTS that share
 one batched decode step (the slot-batched cache whose index is a per-row
 ``[slots]`` vector).  Per ``step()``:
 
-1. free slots are refilled from the queue, FIFO: each admitted request
-   runs a bucketed batch-1 prefill (``DecodeSession.prefill``) and its row
-   cache is spliced into the slot;
-2. one batched decode step advances every active slot a token; inactive
-   slots are masked -- their index does not advance, and on the paged
-   layout their table rows point at the scratch block for the step, so a
-   stale write can never land in a block another request now owns;
-3. the sampled ids (the one host download per step) are appended per
+1. free slots are refilled: queued requests and preempted (spilled) ones
+   compete in one ordering, ``(priority desc, deadline asc, arrival)``,
+   with an optional per-tenant slot cap.  A queued request either runs a
+   bucketed batch-1 prefill (``DecodeSession.prefill``) whose row cache is
+   spliced into the slot, or, under chunked prefill, is only admitted: its
+   table row is mapped and its prompt runs in later chunks; a spilled
+   request resumes with its K/V restored;
+2. under chunked prefill, ONE fixed-shape ``[C]`` chunk of the oldest
+   prefilling slot's prompt runs through that slot's table row;
+3. one batched decode step advances every active slot a token; inactive
+   slots (free or still prefilling) are masked -- their index does not
+   advance, and on the paged layout their table rows point at the scratch
+   block for the step, so a stale write can never land in a block another
+   request owns;
+4. the sampled ids (the one host download per step) are appended per
    request; rows that hit EOS or their budget release the slot.
 
 ``cache_layout="paged"`` keeps K/V in a global pool of fixed-size blocks
 behind a ``[slots, max_blocks]`` table, with a host-side allocator: block
 0 is the reserved scratch block and is never handed out; a request
 reserves its worst-case span at admission (so decode never runs out of
-blocks) and the queue head waits when blocks are scarce; blocks carry
-refcounts and return to the free list when a request finishes or is
-cancelled.
+blocks) and the chosen candidate waits when blocks are scarce; blocks
+carry refcounts and return to the free list when their count reaches 0.
+Three paged-only features ride that allocator:
 
-Not ported yet (later sub-slices): chunked prefill and prefix sharing,
-priority scheduling, preemption and the spill tiers, meshes, LoRA.
+- ``prefill_chunk_tokens=C``: at most C tokens of prompt work per tick,
+  written straight into the pool through the slot's table row (a batch-1
+  view of the global cache), so a long prompt never stalls the resident
+  requests' decode; only the final chunk's sample (the first token) is
+  downloaded.  No bucket is needed.
+- ``prefix_sharing=True`` (needs chunking): full prompt blocks enter a
+  chain-hashed, token-verified index as chunks complete them; a new
+  request maps the longest resident matching prefix into its table row
+  read-only (refcounts bumped) and prefills only the rest.  Writes land at
+  positions past the matched prefix only, in the request's own blocks.
+- ``preempt(rid)`` spills a decoding request: its written blocks are
+  downloaded in one batched copy (int8 scales with them), blocks it owned
+  alone stay on the device in a reclaimable SPILLED tier, shared blocks
+  stay with their other owners and unwritten ones return to the free
+  list (``free + resident + spilled + scratch == num_blocks``).  Resume
+  re-maps the device copies that survived and uploads from the host only
+  the blocks that were reclaimed meanwhile; greedy decode continues
+  byte-identically.
+
+Not ported yet: the disk spill tier and K/V export/adoption, the
+prefill-only tier, meshes (``dp == 1`` only), LoRA and the recurrent
+layout.
 """
 from __future__ import annotations
 
 import collections
+import math
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -38,7 +65,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.errors import (AlreadyExistsError, InvalidArgumentError,
-                           NotFoundError)
+                           NotFoundError, PreconditionNotMetError)
 from ..jit.cache import get_layout
 from ..jit.decode import (DecodeSession, check_sampling, classify_finish,
                           make_sampling_state, sample_logits_data)
@@ -74,26 +101,142 @@ def kv_reachable_bytes(tokens, max_len: int, num_layers: int,
     return sum(min(-(-t // bs) * bs, int(max_len)) for t in toks) * per_token
 
 
+def _gather_packed(tensors, idx):
+    """``t.index_select(0, idx)`` of every tensor, written straight into
+    ONE flat uint8 buffer on their device (each part at an 8-byte aligned
+    offset, so it views back as its dtype): one copy of the selected rows,
+    which then cross between host and device in one transfer.  Returns the
+    buffer and the ``(offset, dtype, shape)`` specs :func:`_unpack` reads
+    it with."""
+    specs, off = [], 0
+    for t in tensors:
+        shape = (idx.numel(),) + tuple(t.shape[1:])
+        specs.append((off, t.dtype, shape))
+        off += -(-math.prod(shape) * t.element_size() // 8) * 8
+    flat = torch.empty(off, dtype=torch.uint8, device=tensors[0].device)
+    for t, part in zip(tensors, _unpack(flat, specs)):
+        torch.index_select(t, 0, idx, out=part)
+    return flat, specs
+
+
+def _unpack(flat, specs):
+    out = []
+    for off, dt, shape in specs:
+        n = math.prod(shape) * torch.empty((), dtype=dt).element_size()
+        out.append(flat[off:off + n].view(dt).reshape(shape))
+    return out
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _cache_fields(c):
+    """A layer cache's per-block tensors: K, V and, for int8, their
+    scales (they move with their blocks)."""
+    return (c.k, c.v) + ((c.k_scale, c.v_scale)
+                         if c.k_scale is not None else ())
+
+
 # per-request sampling config, resolved at submit: ``seed`` is always a
 # concrete int, so the request's stream is a pure function of itself
 _SamplingConfig = collections.namedtuple(
     "_SamplingConfig", ["temperature", "top_k", "top_p", "seed"])
 
+# scheduling metadata rides every queued request: ``priority`` (higher
+# admits first), ``tenant`` (fairness-cap key), ``deadline`` (a number on
+# the caller's clock, only ever compared; None sorts last) and ``seq``
+# (arrival order, the FIFO tie-break)
 _Request = collections.namedtuple(
-    "_Request", ["rid", "ids", "max_new_tokens", "sampling"])
+    "_Request", ["rid", "ids", "max_new_tokens", "priority", "tenant",
+                 "deadline", "seq", "sampling"])
 
 
-class _SlotState:
-    """One actively decoding slot."""
+class _OfRequest:
+    """A request's state in one stage (prefilling, decoding, spilled).  It
+    holds the submitted ``_Request`` as ``req`` and reads the prompt and
+    the scheduling metadata through it; no stage copies them."""
 
-    __slots__ = ("rid", "ids", "tokens", "remaining", "sampling")
+    __slots__ = ("req",)
 
-    def __init__(self, rid, ids, tokens, remaining: int, sampling):
-        self.rid = rid
-        self.ids = ids
+    @property
+    def rid(self):
+        return self.req.rid
+
+
+class _SlotState(_OfRequest):
+    """One actively decoding slot.  ``req.ids`` (the prompt) is kept so
+    that preemption can spill and resume it: the cache index to restore is
+    ``len(req.ids) + len(tokens) - 1`` and the next draw is
+    ``len(tokens)``."""
+
+    __slots__ = ("tokens", "remaining")
+
+    def __init__(self, req: _Request, tokens, remaining: int):
+        self.req = req
         self.tokens = tokens
         self.remaining = remaining
-        self.sampling = sampling
+
+
+class _PrefillState(_OfRequest):
+    """A slot admitted under chunked prefill whose prompt is still being
+    processed: ``pos`` is the next absolute position to run (a shared
+    prefix was mapped at admission and is never run again).
+    ``indexed``/``chain_key`` track incremental prefix indexing: a full
+    block enters the index as soon as a chunk completes it."""
+
+    __slots__ = ("pos", "indexed", "chain_key")
+
+    def __init__(self, req: _Request, pos: int, matched_blocks: int = 0,
+                 chain_key=None):
+        self.req = req
+        self.pos = pos
+        # matched blocks are already indexed: indexing resumes after them,
+        # continuing their hash chain
+        self.indexed = matched_blocks
+        self.chain_key = chain_key
+
+
+class _SpillState(_OfRequest):
+    """One preempted request parked in the host spill tier.
+
+    ``host`` holds the victim's WRITTEN blocks (per layer, a tuple of CPU
+    tensors ``[written, ...block shape]``: K, V and, for int8, their
+    scales).  ``dev_blocks[j]`` is the device block that still holds block
+    ``j`` (resume re-maps it with no copy), or None once it was reclaimed
+    or when it was shared at preempt time (the host copy is then the
+    source).  ``total_blocks`` is the admission-time reservation,
+    re-acquired in full at resume."""
+
+    __slots__ = ("tokens", "remaining", "total_blocks", "written",
+                 "dev_blocks", "host", "host_bytes")
+
+    def __init__(self, st: _SlotState, total_blocks: int, written: int,
+                 host, host_bytes: int):
+        self.req = st.req
+        self.tokens = st.tokens
+        self.remaining = st.remaining
+        self.total_blocks = total_blocks
+        self.written = written
+        self.dev_blocks = [None] * written
+        self.host = host
+        self.host_bytes = host_bytes
+
+
+class _PrefixEntry:
+    """One prefix-index chain link.  ``tokens`` (the exact ids the block
+    covers) and ``parent_key`` guard against hash collisions: a match must
+    compare equal on both before its K/V are shared.  ``blocks`` lists
+    every resident block holding this content (identical prompts that
+    prefilled concurrently each wrote their own bit-identical copy); a
+    block leaves the list when its refcount reaches 0."""
+
+    __slots__ = ("blocks", "tokens", "parent_key")
+
+    def __init__(self, block: int, tokens: tuple, parent_key):
+        self.blocks = [block]
+        self.tokens = tokens
+        self.parent_key = parent_key
 
 
 class GenerationPool:
@@ -107,12 +250,45 @@ class GenerationPool:
                  top_p: float = 1.0, eos_id: Optional[int] = None,
                  cache_dtype="float32", seed: int = 0,
                  cache_layout: str = "dense", block_size: int = 32,
-                 num_blocks: Optional[int] = None, route: str = "auto",
-                 device=None):
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 prefix_sharing: bool = False,
+                 tenant_slot_cap: Optional[int] = None,
+                 route: str = "auto", device=None):
         if slots < 1:
             raise InvalidArgumentError("GenerationPool needs slots >= 1")
-        self.device = resolve_device(device)
+        if tenant_slot_cap is not None and int(tenant_slot_cap) < 1:
+            raise InvalidArgumentError(
+                "tenant_slot_cap must be >= 1 slots per tenant (or None "
+                "for no fairness cap), got %r" % (tenant_slot_cap,))
+        # the layout first, so every guard below tests its capabilities
         self._layout = get_layout(cache_layout)
+        if prefill_chunk_tokens is not None and not self._layout.paged:
+            # the chunk path writes through the block table; the dense
+            # layout keeps its one-shot bucketed prefill
+            raise InvalidArgumentError(
+                "prefill_chunk_tokens is a paged-cache knob (chunk writes "
+                "route through the block table); pass cache_layout="
+                "'paged' (got %r)" % (cache_layout,))
+        if prefill_chunk_tokens is not None \
+                and int(prefill_chunk_tokens) < 1:
+            raise InvalidArgumentError(
+                "prefill_chunk_tokens must be >= 1 tokens of prompt work "
+                "per tick, got %r" % (prefill_chunk_tokens,))
+        if prefix_sharing and not self._layout.paged:
+            raise InvalidArgumentError(
+                "prefix_sharing shares physical KV blocks through the "
+                "block table; pass cache_layout='paged' (got %r)"
+                % (cache_layout,))
+        if prefix_sharing and prefill_chunk_tokens is None:
+            # a hit skips to the unmatched suffix, and only the chunk path
+            # can start a prompt mid-way
+            raise InvalidArgumentError(
+                "prefix_sharing needs prefill_chunk_tokens: admission "
+                "skips the matched prefix and chunk-prefills only the "
+                "suffix -- pass prefill_chunk_tokens=<tokens per tick> "
+                "(e.g. the block size or a small multiple)")
+        self.device = resolve_device(device)
         # the session owns the model, the sampling defaults and the
         # bucketed batch-1 prefill; it shares the pool's layout, so a paged
         # pool gets identity-tabled row caches whose blocks splice straight
@@ -131,7 +307,7 @@ class GenerationPool:
         self.cache_layout = cache_layout
         self._block_size = int(block_size)
         self._max_blocks = -(-self.max_len // self._block_size)
-        if cache_layout == "paged":
+        if self._layout.paged:
             # default: full capacity (every slot at max_len) plus scratch
             if num_blocks is None:
                 num_blocks = 1 + self.slots * self._max_blocks
@@ -143,43 +319,78 @@ class GenerationPool:
             self._num_blocks = num_blocks
             self._free_blocks: List[int] = list(range(1, num_blocks))
             self._slot_blocks: Dict[int, List[int]] = {}
-            # refcount per resident block (absent = free); a block returns
-            # to the free list only when its count reaches 0
+            # refcount per resident block (absent = free): prefix sharing
+            # bumps it per extra table row; a block returns to the free
+            # list only when its count reaches 0
             self._block_refs: Dict[int, int] = {}
         elif num_blocks is not None:
             raise InvalidArgumentError(
                 "num_blocks is a paged-cache knob; pass cache_layout="
                 "'paged' (got %r)" % (cache_layout,))
         self._cache = self._new_cache()
+        self._chunk_tokens = (None if prefill_chunk_tokens is None
+                              else int(prefill_chunk_tokens))
+        self.prefix_sharing = bool(prefix_sharing)
+        self._prefilling: Dict[int, _PrefillState] = {}
+        # prefix index: chain-hash key -> entry naming resident full
+        # blocks, and the reverse map a freed block leaves it through.
+        # The epoch bumps on every allocator/index change; the head's
+        # match memo is valid for one epoch
+        self._prefix_index: Dict[int, _PrefixEntry] = {}
+        self._block_keys: Dict[int, int] = {}
+        self._prefix_epoch = 0
+        self._head_match = None
+        self._prefix_queries = 0
+        self._prefix_hits = 0
+        self._prefix_tokens_matched = 0
+        self._prefix_blocks_matched = 0
+        self._chunks_total = 0
+        self._chunk_tokens_total = 0
         self._sampling_seed = int(seed)
         self._seq = 0
         self._queue: collections.deque = collections.deque()
         self._active: Dict[int, _SlotState] = {}
         self._free: List[int] = list(range(self.slots))
+        # scheduling: the per-tenant cap, and the host spill tier --
+        # parked requests and the reverse map from a still-resident
+        # spilled block to its (rid, logical block)
+        self._tenant_cap = (None if tenant_slot_cap is None
+                            else int(tenant_slot_cap))
+        self._spilled: Dict[object, _SpillState] = {}
+        self._spill_owner: Dict[int, tuple] = {}
+        self._preempts_total = 0
+        self._resumes_total = 0
+        self._spill_bytes_total = 0
+        self._upload_bytes_total = 0
+        self._spill_reclaims_total = 0
         self._last_tok = np.zeros(self.slots, np.int32)
         self._results: Dict[object, np.ndarray] = {}
         self._finish_reasons: Dict[object, str] = {}
         self._used_rids: set = set()
         self._next_rid = 0
+        # True when the last refill's chosen candidate could not reserve
+        # its blocks
         self.admission_blocked = False
         # counters a caller can read to split a run into its phases
         self.prefills_total = 0
         self.decode_steps_total = 0
         # lifecycle hooks (the serving engine sets these): on_admit(rid,
-        # slot, prompt_len); on_token(rid, token) for every emitted token
-        # including the prefill's first; on_finish(rid, tokens, reason)
-        # when a request completes (not on cancel/release)
+        # slot, prompt_len) when a request takes a slot; on_token(rid,
+        # token) for every emitted token including the first;
+        # on_finish(rid, tokens, reason) when a request completes (not on
+        # cancel/release); on_resume(rid, info) when a preempted request
+        # decodes again
         self.on_admit = None
         self.on_token = None
         self.on_finish = None
+        self.on_resume = None
 
     # -- cache and allocator ---------------------------------------------
     def _new_cache(self):
         return self._model.gen_decode_cache(
             self.slots, self.max_len, self._cache_dtype, per_slot=True,
             layout=self.cache_layout, block_size=self._block_size,
-            num_blocks=(self._num_blocks if self.cache_layout == "paged"
-                        else None))
+            num_blocks=(self._num_blocks if self._layout.paged else None))
 
     def _blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
         """Blocks a request reserves at admission: its worst-case span
@@ -188,18 +399,61 @@ class GenerationPool:
         return -(-span // self._block_size)
 
     def _alloc_blocks(self, n: int) -> List[int]:
-        """Pop ``n`` free blocks at refcount 1 (callers check there are
-        enough)."""
-        blocks = [self._free_blocks.pop() for _ in range(n)]
+        """Pop ``n`` blocks at refcount 1: the free list first, then --
+        under pressure -- reclaimed spilled device copies."""
+        self._prefix_epoch += 1
+        blocks = []
+        for _ in range(n):
+            if not self._free_blocks:
+                self._reclaim_one_spilled()
+            blocks.append(self._free_blocks.pop())
         for b in blocks:
             self._block_refs[b] = 1
         return blocks
 
+    def _reclaim_one_spilled(self) -> None:
+        """Drop ONE spilled block's device copy back to the free list (its
+        owner resumes that block from the host copy).  Victim: lowest
+        priority, then oldest arrival."""
+        owners = [sp for sp in self._spilled.values()
+                  if any(b is not None for b in sp.dev_blocks)]
+        if not owners:
+            raise PreconditionNotMetError(
+                "allocator invariant broken: no free block and no "
+                "reclaimable spilled block (callers must check "
+                "availability before allocating)")
+        sp = min(owners, key=lambda s: (s.req.priority, s.req.seq))
+        j = next(i for i, b in enumerate(sp.dev_blocks) if b is not None)
+        b = sp.dev_blocks[j]
+        sp.dev_blocks[j] = None
+        self._spill_owner.pop(b, None)
+        self._free_blocks.append(b)
+        self._spill_reclaims_total += 1
+
+    def _spilled_dev_count(self) -> int:
+        """Device-resident spilled blocks (reclaimable on top of the free
+        list for admission)."""
+        return len(self._spill_owner)
+
+    def _forget_block_key(self, b: int) -> None:
+        """Remove ``b`` from the prefix index (an entry names only
+        resident blocks: freed and spilled blocks both leave it)."""
+        key = self._block_keys.pop(b, None)
+        if key is not None:
+            entry = self._prefix_index.get(key)
+            if entry is not None:
+                if b in entry.blocks:
+                    entry.blocks.remove(b)
+                if not entry.blocks:
+                    del self._prefix_index[key]
+
     def _release_blocks(self, slot: int) -> None:
         """Decref every block the slot maps; blocks at 0 return to the
-        free list."""
-        if self.cache_layout != "paged":
+        free list and leave the prefix index.  A block another slot still
+        shares stays resident."""
+        if not self._layout.paged:
             return
+        self._prefix_epoch += 1
         for b in self._slot_blocks.pop(slot, ()):
             left = self._block_refs.get(b, 1) - 1
             if left > 0:
@@ -207,11 +461,23 @@ class GenerationPool:
                 continue
             self._block_refs.pop(b, None)
             self._free_blocks.append(b)
+            self._forget_block_key(b)
+
+    def _write_row(self, slot: int, blocks, index: int) -> None:
+        """Map ``slot``'s table row (``blocks``, scratch-padded) and set
+        its cache index, in place in every layer's cache."""
+        padded = np.zeros(self._max_blocks, np.int64)
+        padded[:len(blocks)] = blocks
+        row = torch.from_numpy(padded).to(self.device)
+        for c in self._cache:
+            c.table[slot].copy_(row)
+            c.index[slot] = int(index)
 
     def _masked_tables(self, cache, active):
         """Inactive slots' table rows point at the scratch block for the
         step: a stale write must not land in blocks a refilled request now
-        owns."""
+        owns.  The rows are replaced in a copy; the real rows (which a
+        prefilling slot's chunks write through) are untouched."""
         return [c._replace(table=torch.where(active[:, None], c.table,
                                              torch.zeros_like(c.table)))
                 for c in cache]
@@ -231,8 +497,22 @@ class GenerationPool:
         return _SamplingConfig(t, k, p, int(seed) & 0xFFFFFFFF)
 
     def submit(self, input_ids, max_new_tokens: int, request_id=None,
+               priority: int = 0, tenant=None, deadline=None,
                temperature=None, top_k=None, top_p=None, seed=None):
-        """Queue one prompt (1-D ids); returns the request id."""
+        """Queue one prompt (1-D ids); returns the request id.
+
+        ``priority`` (int, higher admits first), ``tenant`` (a hashable
+        fairness-cap key) and ``deadline`` (a number on any consistent
+        clock, only compared: earlier wins within a priority, None sorts
+        last) order admission; the defaults are strict FIFO."""
+        if deadline is not None and (isinstance(deadline, bool)
+                                     or not isinstance(deadline,
+                                                       (int, float))):
+            # the ordering compares deadlines with float('inf'): a
+            # non-numeric one would raise mid-refill
+            raise InvalidArgumentError(
+                "deadline must be a number on the caller's clock (or None "
+                "for no deadline), got %r" % (deadline,))
         ids = np.asarray(input_ids)
         if ids.ndim != 1:
             raise InvalidArgumentError(
@@ -251,8 +531,10 @@ class GenerationPool:
             raise InvalidArgumentError(
                 "prompt %d + max_new_tokens %d exceeds cache max_len %d"
                 % (len(ids), max_new_tokens, self.max_len))
-        self._session._bucket_for(len(ids))
-        if self.cache_layout == "paged":
+        # chunked prefill needs no bucket: every prompt runs as [C] chunks
+        if self._chunk_tokens is None:
+            self._session._bucket_for(len(ids))
+        if self._layout.paged:
             need = self._blocks_needed(len(ids), max_new_tokens)
             if need > self._num_blocks - 1:
                 raise InvalidArgumentError(
@@ -277,23 +559,190 @@ class GenerationPool:
         self._seq += 1
         samp = self._resolve_sampling(temperature, top_k, top_p, seed)
         self._queue.append(_Request(rid, ids.astype(np.int32),
-                                    int(max_new_tokens), samp))
+                                    int(max_new_tokens), int(priority),
+                                    tenant, deadline, self._seq, samp))
         return rid
 
+    # -- admission -----------------------------------------------------------
+    def _tenant_counts(self) -> Optional[Dict]:
+        """Live slots per tenant (active + prefilling), None without a
+        fairness cap."""
+        if self._tenant_cap is None:
+            return None
+        counts: Dict = {}
+        for st in list(self._active.values()) \
+                + list(self._prefilling.values()):
+            tenant = st.req.tenant
+            if tenant is not None:
+                counts[tenant] = counts.get(tenant, 0) + 1
+        return counts
+
+    def tenant_at_cap(self, tenant) -> bool:
+        """True when ``tenant`` holds its full share of slots right now
+        (always False without a cap or for tenant-less requests)."""
+        if self._tenant_cap is None or tenant is None:
+            return False
+        return self._tenant_counts().get(tenant, 0) >= self._tenant_cap
+
+    def _pick_candidate(self, tenants):
+        """The next request a free slot serves: queued admissions and
+        parked resumes compete in ONE ordering, ``(priority desc,
+        deadline asc, arrival asc)``; tenants at their cap are skipped.
+        Returns ``("queued", _Request) | ("resume", _SpillState) |
+        None``."""
+        best = best_key = None
+        inf = float("inf")
+        cands = [("queued", r, r) for r in self._queue]
+        cands += [("resume", sp.req, sp) for sp in self._spilled.values()]
+        for kind, req, item in cands:
+            if tenants is not None and req.tenant is not None \
+                    and tenants.get(req.tenant, 0) >= self._tenant_cap:
+                continue
+            key = (-req.priority,
+                   inf if req.deadline is None else req.deadline, req.seq)
+            if best_key is None or key < best_key:
+                best, best_key = (kind, item), key
+        return best
+
+    def _match_prefix(self, ids):
+        """Longest resident block-aligned prefix of ``ids`` in the index:
+        ``(blocks, matched_tokens, last_matched_chain_key)``.  Each link
+        hashes the parent's key with the block's token ids and is verified
+        token- and parent-equal, so a hash collision cannot splice another
+        prompt's K/V.  The final prompt position is never matched: the
+        first token is sampled from its logits."""
+        bs = self._block_size
+        limit = (len(ids) - 1) // bs
+        blocks: List[int] = []
+        key = None
+        last_matched = None
+        for j in range(limit):
+            toks = tuple(int(t) for t in ids[j * bs:(j + 1) * bs])
+            parent, key = key, hash((key, toks))
+            entry = self._prefix_index.get(key)
+            if entry is None or entry.tokens != toks \
+                    or entry.parent_key != parent:
+                break
+            blocks.append(entry.blocks[-1])
+            last_matched = key
+        return blocks, len(blocks) * bs, last_matched
+
+    def _match_prefix_memo(self, req: _Request):
+        """``_match_prefix`` memoized per (candidate, epoch): a blocked
+        candidate would otherwise re-walk its chain every tick."""
+        sig = (req.rid, self._prefix_epoch)
+        if self._head_match is None or self._head_match[0] != sig:
+            self._head_match = (sig, self._match_prefix(req.ids))
+        return self._head_match[1]
+
+    def _index_full_blocks(self, slot: int, st: _PrefillState) -> None:
+        """Index every PROMPT block whose last position is now written: a
+        full block is immutable, so a shared prefix is matchable while its
+        first owner still prefills the tail.  Blocks of generated tokens
+        are never indexed."""
+        bs = self._block_size
+        blocks = self._slot_blocks.get(slot)
+        if blocks is None:
+            return
+        if (st.indexed + 1) * bs <= st.pos:
+            self._prefix_epoch += 1
+        while (st.indexed + 1) * bs <= st.pos:
+            j = st.indexed
+            toks = tuple(int(t) for t in st.req.ids[j * bs:(j + 1) * bs])
+            key = hash((st.chain_key, toks))
+            entry = self._prefix_index.get(key)
+            if entry is None:
+                self._prefix_index[key] = _PrefixEntry(
+                    blocks[j], toks, st.chain_key)
+                self._block_keys[blocks[j]] = key
+            elif entry.tokens == toks and entry.parent_key == st.chain_key:
+                # a concurrent duplicate prompt wrote its own bit-identical
+                # copy: list it, so the chain survives whichever owner
+                # frees first
+                if blocks[j] not in entry.blocks:
+                    entry.blocks.append(blocks[j])
+                    self._block_keys[blocks[j]] = key
+            else:
+                # a hash COLLISION with another chain: listing this block
+                # would serve its K/V against the entry's tokens, and the
+                # chain cannot match past this link anyway -- stop
+                # indexing this prompt
+                st.indexed = len(st.req.ids) // bs
+                return
+            st.chain_key = key
+            st.indexed += 1
+
+    def _admit_chunked(self, req: _Request, need: int, matched_blocks,
+                       matched_len: int, chain_key) -> None:
+        """Chunked admission: map the matched prefix blocks read-only
+        (refcounts bumped), allocate fresh blocks for every position this
+        request will write, set the table row and the index to
+        ``matched_len``.  No prompt forward runs here."""
+        slot = self._free.pop()
+        for b in matched_blocks:
+            self._block_refs[b] += 1
+        blocks = list(matched_blocks) + \
+            self._alloc_blocks(need - len(matched_blocks))
+        self._slot_blocks[slot] = blocks
+        self._write_row(slot, blocks, matched_len)
+        self._prefilling[slot] = _PrefillState(
+            req, matched_len, matched_blocks=len(matched_blocks),
+            chain_key=chain_key)
+        if self.prefix_sharing:
+            self._prefix_queries += 1
+            if matched_len:
+                self._prefix_hits += 1
+                self._prefix_tokens_matched += matched_len
+                self._prefix_blocks_matched += len(matched_blocks)
+        if self.on_admit is not None:
+            self.on_admit(req.rid, slot, len(req.ids))
+
     def _refill(self):
-        """Admit queued requests FIFO into free slots.  On the paged
-        layout the head waits (``admission_blocked``) until its whole
-        reservation is free -- skipping ahead would starve long prompts."""
+        """Fill free slots from the queue and the spill tier, in
+        :meth:`_pick_candidate`'s order.  On the paged layout the chosen
+        candidate waits (``admission_blocked``) until its reservation fits
+        the free list plus the reclaimable spilled blocks (matched prefix
+        blocks come off it): skipping ahead would starve long prompts."""
         self.admission_blocked = False
-        while self._queue and self._free:
-            req = self._queue[0]
-            need = 0
-            if self.cache_layout == "paged":
-                need = self._blocks_needed(len(req.ids), req.max_new_tokens)
-                if need > len(self._free_blocks):
+        while (self._queue or self._spilled) and self._free:
+            pick = self._pick_candidate(self._tenant_counts())
+            if pick is None:
+                break  # every candidate is tenant-capped right now
+            kind, item = pick
+            if kind == "resume":
+                # blocks still in the spill tier re-map for free; the
+                # tier's other entries are reclaimable on top of the list
+                own = sum(1 for b in item.dev_blocks if b is not None)
+                need_fresh = item.total_blocks - own
+                avail = len(self._free_blocks) \
+                    + self._spilled_dev_count() - own
+                if need_fresh > avail:
                     self.admission_blocked = True
                     break
-            self._queue.popleft()
+                self._spilled.pop(item.rid)
+                self._resume(item)
+                continue
+            req = item
+            need = 0
+            matched_blocks, matched_len, chain_key = [], 0, None
+            if self._layout.paged:
+                need = self._blocks_needed(len(req.ids), req.max_new_tokens)
+                if self.prefix_sharing:
+                    matched_blocks, matched_len, chain_key = \
+                        self._match_prefix_memo(req)
+                avail = len(self._free_blocks) + self._spilled_dev_count()
+                if need - len(matched_blocks) > avail:
+                    self.admission_blocked = True
+                    break
+            # remove by identity: _Request holds a numpy array
+            for i, q in enumerate(self._queue):
+                if q is req:
+                    del self._queue[i]
+                    break
+            if self._chunk_tokens is not None:
+                self._admit_chunked(req, need, matched_blocks, matched_len,
+                                    chain_key)
+                continue
             cfg = req.sampling
             samp = make_sampling_state(1, cfg.temperature, cfg.top_k,
                                        cfg.top_p, seed=cfg.seed)
@@ -302,7 +751,7 @@ class GenerationPool:
             self.prefills_total += 1
             slot = self._free.pop()
             first = int(tok[0])
-            if self.cache_layout == "paged":
+            if self._layout.paged:
                 blocks = self._alloc_blocks(need)
                 self._slot_blocks[slot] = blocks
                 # unreserved logical blocks point at scratch: never read
@@ -317,8 +766,9 @@ class GenerationPool:
             self._activate(slot, req, first)
 
     def _activate(self, slot: int, req: _Request, first: int) -> None:
-        self._active[slot] = _SlotState(req.rid, req.ids, [first],
-                                        req.max_new_tokens - 1, req.sampling)
+        """Promote a slot to decoding with ``first`` (sampled at the last
+        prompt position) committed: one path for both prefill modes."""
+        self._active[slot] = _SlotState(req, [first], req.max_new_tokens - 1)
         self._last_tok[slot] = first
         if self.on_token is not None:
             self.on_token(req.rid, first)
@@ -326,10 +776,227 @@ class GenerationPool:
                                        and first == self.eos_id):
             self._finish(slot)
 
+    # -- chunked prefill ---------------------------------------------------
+    def _prefill_chunk(self, toks, slot: int, start: int, length: int,
+                       sampling: _SamplingConfig):
+        """One fixed-shape chunk for ONE slot: run ``toks`` (``[C]``,
+        ``length`` real tokens, zero-padded) from absolute position
+        ``start`` through the slot's table row, and sample the token at
+        offset ``length - 1`` with the request's config at draw 0 (only
+        the final chunk's sample is ever read).  Returns it on the device.
+
+        The forward is a batch-1 view over the GLOBAL cache (the slot's
+        table row and a [1] index), so K/V land in the same blocks the
+        batched step reads, with no copy of the pool.  Every written
+        position is >= ``start``, and shared blocks end before it; pad
+        positions land in the request's own future positions (masked until
+        overwritten) or, past its reservation, in the scratch block."""
+        dev = self.device
+        index = torch.full((1,), int(start), dtype=torch.int32, device=dev)
+        views = [c._replace(table=c.table[slot:slot + 1], index=index)
+                 for c in self._cache]
+        logits, _ = self._session._run_model(
+            torch.from_numpy(toks).to(dev)[None], views)
+        cfg = sampling
+        tok = sample_logits_data(logits[0, length - 1:length],
+                                 [cfg.temperature], [cfg.top_k],
+                                 [cfg.top_p], [cfg.seed], [0])
+        # the layer advanced only the view's index
+        for c in self._cache:
+            c.index[slot] = int(start + length)
+        return tok[0]
+
+    def _chunk_work(self) -> None:
+        """At most ``prefill_chunk_tokens`` of prompt work this tick: one
+        chunk of the OLDEST prefilling slot.  The final chunk's sample
+        activates the slot; only that one is downloaded."""
+        if not self._prefilling:
+            return
+        slot = next(iter(self._prefilling))
+        st = self._prefilling[slot]
+        ids = st.req.ids
+        n = min(self._chunk_tokens, len(ids) - st.pos)
+        toks = np.zeros(self._chunk_tokens, np.int64)
+        toks[:n] = ids[st.pos:st.pos + n]
+        tok_dev = self._prefill_chunk(toks, slot, st.pos, n,
+                                      st.req.sampling)
+        self._chunks_total += 1
+        self._chunk_tokens_total += n
+        st.pos += n
+        if self.prefix_sharing:
+            # blocks this chunk completed are immutable now: a queued
+            # request sharing the prefix can match them at its admission
+            self._index_full_blocks(slot, st)
+        if st.pos < len(ids):
+            return
+        self._prefilling.pop(slot)
+        self._activate(slot, st.req, int(tok_dev))
+
+    # -- preemption and the host spill tier --------------------------------
+    def _preempt_guard(self, slot: int, st: _SlotState) -> None:
+        """Subclass veto point: raise a typed error when this slot cannot
+        be preempted safely."""
+
+    def can_preempt(self, request_id) -> bool:
+        """True when ``preempt(request_id)`` would succeed now: the
+        request is decoding on a spillable layout and no guard vetoes."""
+        if not self._layout.spillable:
+            return False
+        for slot, st in self._active.items():
+            if st.rid == request_id:
+                try:
+                    self._preempt_guard(slot, st)
+                except Exception:  # noqa: BLE001 - a veto, reason unused
+                    return False
+                return True
+        return False
+
+    def preempt(self, request_id) -> dict:
+        """Evict one decoding request into the host spill tier; returns
+        ``{rid, slot, blocks_spilled, blocks_freed, spill_bytes,
+        committed_tokens}``.
+
+        The victim's WRITTEN blocks (K, V and int8 scales, every layer)
+        are gathered on the device and downloaded in ONE copy -- the one
+        host sync.  Then every block it held is decref'd: blocks it owned
+        alone and wrote move to the spilled tier (device content kept,
+        reclaimable), unwritten reservation blocks return to the free
+        list, shared blocks stay with their other owners.  The slot is
+        freed; ``_refill`` resumes the request in the normal ordering."""
+        if not self._layout.spillable:
+            raise PreconditionNotMetError(
+                "preemption spills per-slot decode state to the host tier; "
+                "a dense pool has no spill granularity -- use "
+                "cache_layout='paged'")
+        slot = next((s for s, st in self._active.items()
+                     if st.rid == request_id), None)
+        if slot is None:
+            raise NotFoundError(
+                "request_id %r is not actively decoding (queued, "
+                "prefilling, already-preempted and finished requests "
+                "cannot be preempted; active: %s)"
+                % (request_id,
+                   sorted(str(st.rid) for st in self._active.values())))
+        st = self._active[slot]
+        self._preempt_guard(slot, st)
+        # K/V are written for positions [0, pos): the last committed
+        # token's K/V is the next step's input, not yet written
+        pos = len(st.req.ids) + len(st.tokens) - 1
+        written = -(-pos // self._block_size)
+        blocks = self._slot_blocks.pop(slot)
+        gather = torch.as_tensor(blocks[:written], dtype=torch.int64,
+                                 device=self.device)
+        fields = [_cache_fields(c) for c in self._cache]
+        flat, specs = _gather_packed([f for layer in fields for f in layer],
+                                     gather)
+        parts = _unpack(flat.cpu(), specs)
+        nf = len(fields[0])
+        host = [tuple(parts[i * nf:(i + 1) * nf]) for i in range(len(fields))]
+        host_bytes = sum(_nbytes(t) for t in parts)
+        self._active.pop(slot)
+        self._free.append(slot)
+        self._prefix_epoch += 1
+        sp = _SpillState(st, len(blocks), written, host, host_bytes)
+        freed = 0
+        for j, b in enumerate(blocks):
+            left = self._block_refs.get(b, 1) - 1
+            if left > 0:
+                # shared: the other owners keep it resident; the victim
+                # restores it from its host copy
+                self._block_refs[b] = left
+                continue
+            self._block_refs.pop(b, None)
+            self._forget_block_key(b)
+            if j < written:
+                self._spill_owner[b] = (st.rid, j)
+                sp.dev_blocks[j] = b
+            else:
+                self._free_blocks.append(b)
+                freed += 1
+        self._spilled[st.rid] = sp
+        self._preempts_total += 1
+        self._spill_bytes_total += host_bytes
+        return {"rid": st.rid, "slot": slot, "blocks_spilled": written,
+                "blocks_freed": freed, "spill_bytes": host_bytes,
+                "committed_tokens": len(st.tokens)}
+
+    def _resume(self, sp: _SpillState) -> None:
+        """Re-activate one parked request in a free slot: re-map its
+        still-resident spilled blocks in place, allocate fresh blocks for
+        the rest and upload into them (in one copy) the host copies of the
+        written ones, then restore the table row, the index and the
+        last-token input.  The K/V are bit-exact, so greedy decode
+        continues byte-identically; sampling continues at draw
+        ``len(tokens)``."""
+        slot = self._free.pop()
+        blocks: List[int] = []
+        upload: List[tuple] = []  # (logical j, physical block)
+        for j in range(sp.total_blocks):
+            b = sp.dev_blocks[j] if j < sp.written else None
+            if b is not None:
+                # the device copy survived: re-map it
+                self._spill_owner.pop(b, None)
+                self._block_refs[b] = 1
+                blocks.append(b)
+            else:
+                nb = self._alloc_blocks(1)[0]
+                blocks.append(nb)
+                if j < sp.written:
+                    upload.append((j, nb))
+        self._slot_blocks[slot] = blocks
+        if upload:
+            sel = torch.as_tensor([j for j, _ in upload], dtype=torch.int64)
+            ids = torch.as_tensor([b for _, b in upload], dtype=torch.int64,
+                                  device=self.device)
+            flat, specs = _gather_packed([f for layer in sp.host
+                                          for f in layer], sel)
+            dev_parts = _unpack(flat.to(self.device), specs)
+            fields = [f for c in self._cache for f in _cache_fields(c)]
+            for f, part in zip(fields, dev_parts):
+                f.index_copy_(0, ids, part)
+            self._upload_bytes_total += sum(_nbytes(t) for t in dev_parts)
+        pos = len(sp.req.ids) + len(sp.tokens) - 1
+        self._write_row(slot, blocks, pos)
+        self._active[slot] = _SlotState(sp.req, sp.tokens, sp.remaining)
+        self._last_tok[slot] = sp.tokens[-1]
+        self._prefix_epoch += 1
+        self._resumes_total += 1
+        self._on_resumed(slot, sp)
+        if self.on_resume is not None:
+            self.on_resume(sp.rid, {
+                "slot": slot,
+                "blocks_remapped": len(blocks) - len(upload)
+                - (sp.total_blocks - sp.written),
+                "blocks_uploaded": len(upload),
+                "committed_tokens": len(sp.tokens)})
+
+    def _on_resumed(self, slot: int, sp: _SpillState) -> None:
+        """Subclass hook: a preempted request decodes again in ``slot``
+        with its K/V restored."""
+
+    def spill_stats(self) -> dict:
+        """Spill-tier accounting: preempt/resume totals, parked requests,
+        reclaimable device-resident spilled blocks (part of the exact
+        free/resident/spilled/scratch partition), written blocks held on
+        the host, and the download/upload byte totals."""
+        return {
+            "enabled": self._layout.spillable,
+            "preempts_total": self._preempts_total,
+            "resumes_total": self._resumes_total,
+            "spilled_requests": len(self._spilled),
+            "spilled_blocks_device": len(self._spill_owner),
+            "spilled_blocks_host": sum(sp.written
+                                       for sp in self._spilled.values()),
+            "spill_bytes_total": self._spill_bytes_total,
+            "upload_bytes_total": self._upload_bytes_total,
+            "reclaims_total": self._spill_reclaims_total,
+        }
+
+    # -- the tick ------------------------------------------------------------
     def _step_inputs(self):
         """Host-built per-slot vectors for one step: token, active mask
-        and the sampling config (free slots decode greedily; their output
-        is discarded)."""
+        and the sampling config (free and prefilling slots decode
+        greedily; their output is discarded)."""
         active = np.zeros(self.slots, bool)
         temp = np.zeros(self.slots, np.float32)
         tk = np.zeros(self.slots, np.int32)
@@ -338,7 +1005,7 @@ class GenerationPool:
         step = np.zeros(self.slots, np.int64)
         for slot, st in self._active.items():
             active[slot] = True
-            cfg = st.sampling
+            cfg = st.req.sampling
             temp[slot], tk[slot], tp[slot], seed[slot] = cfg
             # the prefill drew step 0; the next draw is the token count
             step[slot] = len(st.tokens)
@@ -350,23 +1017,28 @@ class GenerationPool:
         layout, write into the scratch block; the original table rows are
         kept in the pool's cache."""
         cache = self._cache
-        if self.cache_layout == "paged":
+        if self._layout.paged:
             cache = self._masked_tables(cache, active)
         logits, new_cache = self._session._run_model(toks[:, None], cache)
         tok = sample_logits_data(logits[:, 0], *samp)
         new_cache = self._layout.freeze_step(new_cache, cache, active)
-        if self.cache_layout == "paged":
+        if self._layout.paged:
             new_cache = [c._replace(table=old.table)
                          for c, old in zip(new_cache, self._cache)]
         self._cache = new_cache
         return torch.where(active, tok, torch.zeros_like(tok))
 
     def step(self) -> bool:
-        """Refill free slots and run ONE batched decode step; False when
-        the pool is drained (no queued or active requests)."""
+        """Refill free slots, run at most one prefill chunk, then ONE
+        batched decode step; False when the pool is drained (nothing
+        queued, prefilling, active or spilled)."""
         self._refill()
+        if self._chunk_tokens is not None:
+            # prompt work before the decode step: a prompt whose last
+            # chunk ran this tick decodes its second token this tick too
+            self._chunk_work()
         if not self._active:
-            return bool(self._queue)
+            return bool(self._queue or self._prefilling or self._spilled)
         active, samp = self._step_inputs()
         dev = self.device
         tok = self._pool_decode(
@@ -376,7 +1048,8 @@ class GenerationPool:
         host = tok.cpu().numpy().astype(np.int32)
         self._last_tok = host
         self._deliver(host)
-        return bool(self._active or self._queue)
+        return bool(self._active or self._queue or self._prefilling
+                    or self._spilled)
 
     def _deliver(self, tok) -> None:
         """Commit the step's token to every active slot; finish rows that
@@ -406,13 +1079,16 @@ class GenerationPool:
             self.on_finish(state.rid, tokens, reason)
 
     def release(self, slot: int):
-        """Free ``slot`` (and its blocks) without recording a result;
-        returns the request id it served."""
-        state = self._active.pop(slot, None)
+        """Free ``slot`` (decoding or still prefilling) and decref its
+        blocks without recording a result; returns the request id it
+        served."""
+        state = self._active.pop(slot, None) \
+            or self._prefilling.pop(slot, None)
         if state is None:
             raise NotFoundError(
-                "slot %r is not active (active slots: %s)"
-                % (slot, sorted(self._active)))
+                "slot %r is not active or prefilling (active slots: %s, "
+                "prefilling: %s)" % (slot, sorted(self._active),
+                                     sorted(self._prefilling)))
         self._free.append(slot)
         self._release_blocks(slot)
         self._used_rids.discard(state.rid)
@@ -420,25 +1096,37 @@ class GenerationPool:
 
     def cancel(self, request_id):
         """Abort one request wherever it lives: ``"queued"``, ``"active"``
-        (slot and blocks freed mid-generation) or ``"finished"`` (the
-        uncollected result dropped).  ``on_finish`` does not fire."""
+        (slot and blocks freed mid-generation, mid-prefill included),
+        ``"preempted"`` (its spilled device blocks freed, its host copy
+        dropped) or ``"finished"`` (the uncollected result dropped).
+        ``on_finish`` does not fire."""
         for i, req in enumerate(self._queue):
             if req.rid == request_id:
                 del self._queue[i]
                 self._used_rids.discard(request_id)
                 return "queued"
-        for slot, state in list(self._active.items()):
+        for slot, state in list(self._active.items()) \
+                + list(self._prefilling.items()):
             if state.rid == request_id:
                 self.release(slot)
                 return "active"
+        sp = self._spilled.pop(request_id, None)
+        if sp is not None:
+            self._prefix_epoch += 1
+            for b in sp.dev_blocks:
+                if b is not None:
+                    self._spill_owner.pop(b, None)
+                    self._free_blocks.append(b)
+            self._used_rids.discard(request_id)
+            return "preempted"
         if request_id in self._results:
             del self._results[request_id]
             self._finish_reasons.pop(request_id, None)
             self._used_rids.discard(request_id)
             return "finished"
         raise NotFoundError(
-            "request_id %r is not queued, active, or awaiting collection"
-            % (request_id,))
+            "request_id %r is not queued, active, preempted, or awaiting "
+            "collection" % (request_id,))
 
     def collect(self, request_id):
         """Pop one finished request's ``(tokens, finish_reason)``."""
@@ -450,13 +1138,67 @@ class GenerationPool:
         self._used_rids.discard(request_id)
         return tokens, self._finish_reasons.pop(request_id, None)
 
+    def reset(self):
+        """Discard every request and all cache and allocator state --
+        queue, slots, results, free list, spill tier, prefix index and
+        the K/V themselves (the index and the spilled blocks name blocks
+        of the cache being discarded, so they go with it)."""
+        self._queue.clear()
+        self._active.clear()
+        self._prefilling.clear()
+        self._free = list(range(self.slots))
+        self._last_tok = np.zeros(self.slots, np.int32)
+        self._results.clear()
+        self._finish_reasons.clear()
+        self._used_rids.clear()
+        self._spilled.clear()
+        self._spill_owner.clear()
+        self.admission_blocked = False
+        if self._layout.paged:
+            self._free_blocks = list(range(1, self._num_blocks))
+            self._slot_blocks = {}
+            self._block_refs = {}
+            self._prefix_index.clear()
+            self._block_keys.clear()
+            self._prefix_epoch += 1
+            self._head_match = None
+        self._cache = self._new_cache()
+
+    # -- introspection -------------------------------------------------------
     @property
     def queue_depth(self) -> int:
         return len(self._queue)
 
     @property
     def active_count(self) -> int:
+        """Slots currently decoding."""
         return len(self._active)
+
+    @property
+    def prefilling_count(self) -> int:
+        """Slots whose prompt is still being chunk-prefilled."""
+        return len(self._prefilling)
+
+    @property
+    def prefill_chunk_tokens(self) -> Optional[int]:
+        """The per-tick prompt-work bound (None: one-shot prefill)."""
+        return self._chunk_tokens
+
+    @property
+    def preempted_count(self) -> int:
+        """Requests parked in the spill tier."""
+        return len(self._spilled)
+
+    @property
+    def prefill_done_count(self) -> int:
+        """Prefill-complete requests parked for export: always 0, as the
+        prefill-only tier is not ported yet."""
+        return 0
+
+    def has_prefill_done(self, request_id) -> bool:
+        """Whether ``request_id`` is parked prefill-complete: always
+        False, as the prefill-only tier is not ported yet."""
+        return False
 
     def run(self) -> Dict[object, np.ndarray]:
         """Drain queue and slots; {request_id: np.int32 tokens}."""
@@ -474,6 +1216,52 @@ class GenerationPool:
         results = self.run()
         return [results[r] for r in rids]
 
+    def _shared_block_count(self) -> int:
+        """Block references beyond each block's first owner: the memory
+        prefix sharing saves right now."""
+        if not self._layout.paged:
+            return 0
+        return sum(r - 1 for r in self._block_refs.values() if r > 1)
+
+    def reset_prefix_stats(self) -> None:
+        """Zero the cumulative hit/query/chunk counters (between a warm-up
+        and a measured run)."""
+        self._prefix_queries = self._prefix_hits = 0
+        self._prefix_tokens_matched = self._prefix_blocks_matched = 0
+        self._chunks_total = self._chunk_tokens_total = 0
+
+    def prefix_stats(self) -> dict:
+        """Prefix-sharing and chunked-prefill accounting: queries and hits
+        are cumulative over admissions; ``blocks_shared_now`` is live."""
+        q = self._prefix_queries
+        return {
+            "enabled": self.prefix_sharing,
+            "queries": q,
+            "hits": self._prefix_hits,
+            "hit_rate": (self._prefix_hits / q) if q else 0.0,
+            "tokens_matched": self._prefix_tokens_matched,
+            "blocks_matched": self._prefix_blocks_matched,
+            "blocks_shared_now": self._shared_block_count(),
+            "indexed_blocks": len(self._prefix_index),
+            "prefill_chunk_tokens": self._chunk_tokens,
+            "prefill_chunks_total": self._chunks_total,
+            "prefill_chunk_tokens_total": self._chunk_tokens_total,
+        }
+
+    def prefix_digest(self, since_epoch: Optional[int] = None
+                      ) -> Optional[dict]:
+        """The chain-hash keys in the prefix index, stamped with the
+        allocator epoch: with ``since_epoch`` equal to the current epoch
+        the key set is left out (nothing changed).  None when sharing is
+        off."""
+        if not self.prefix_sharing:
+            return None
+        d = {"epoch": self._prefix_epoch, "block_size": self._block_size,
+             "indexed_blocks": len(self._prefix_index)}
+        if since_epoch is None or since_epoch != self._prefix_epoch:
+            d["keys"] = frozenset(self._prefix_index)
+        return d
+
     def cache_stats(self) -> dict:
         """Live KV accounting: layout, allocator occupancy, and the bytes
         a decode step can reach now against a dense preallocation."""
@@ -489,17 +1277,25 @@ class GenerationPool:
                  "state_bytes_per_slot": self._layout.state_bytes_per_slot(
                      self._cache, self.slots, self.max_len),
                  "dense_equiv_bytes": dense_bytes}
-        if self.cache_layout == "paged":
+        if self._layout.paged:
             bs = self._block_size
+            # each unique resident block once (a shared block occupies its
+            # memory once), at its readable tokens: logical block j covers
+            # [j*bs, (j+1)*bs) capped at max_len
+            seen: Dict[int, int] = {}
+            for blocks in self._slot_blocks.values():
+                for j, b in enumerate(blocks):
+                    seen.setdefault(b, j)
             per_token = dense_bytes // (self.slots * self.max_len)
             reachable = per_token * sum(
                 max(0, min((j + 1) * bs, self.max_len) - j * bs)
-                for blocks in self._slot_blocks.values()
-                for j in range(len(blocks)))
+                for j in seen.values())
             stats.update(block_size=bs, num_blocks=self._num_blocks,
                          free_blocks=len(self._free_blocks),
                          mapped_blocks=len(self._block_refs),
+                         spilled_blocks=len(self._spill_owner),
                          reachable_bytes=reachable,
+                         shared_blocks=self._shared_block_count(),
                          pool_bytes=self._num_blocks * bs * per_token)
         else:
             stats.update(reachable_bytes=dense_bytes, pool_bytes=dense_bytes)

@@ -15,11 +15,18 @@ operation           who calls it / what it decides
 ``cache_dtype_str`` / ``state_bytes_per_slot``  cache_stats() accounting
 =================  ======================================================
 
+Capabilities, which the pool's guards test instead of layout names:
+
+- ``positional``: the cache addresses individual past positions (chunked
+  prefill and prefix sharing are only meaningful here);
+- ``paged``: the cache is a block pool behind a per-slot table;
+- ``spillable``: preempt/resume can move a slot's state through the host
+  spill tier.
+
 Torch tensors are written in place, so ``insert_row`` copies into the
 pool's own buffers and returns tuples that share them.  The recurrent
-layout of the reference, and with it the ``begin_prefill`` hook and the
-``positional``/``spillable`` flags that only it needs, waits for the port
-of ``nn/ssm.py``.
+layout of the reference (the only one that is not positional), and with it
+the ``begin_prefill`` hook, waits for the port of ``nn/ssm.py``.
 """
 from __future__ import annotations
 
@@ -37,8 +44,12 @@ class CacheLayout:
 
     #: registry key and the ``cache_layout=`` string users pass
     name: str = "?"
+    #: cache addresses individual past positions
+    positional: bool = True
     #: cache is a block pool behind a per-slot table
     paged: bool = False
+    #: preempt/resume can move per-slot state through the host spill tier
+    spillable: bool = False
 
     def finalize_prefill(self, cache, true_len, max_len):
         """Commit the true prompt length after the prefill forward."""
@@ -103,6 +114,7 @@ class PagedLayout(CacheLayout):
 
     name = "paged"
     paged = True
+    spillable = True
 
     def insert_row(self, pool_cache, row_cache, slot: int, length: int,
                    blocks=None):
@@ -139,6 +151,8 @@ def get_layout(name: str) -> CacheLayout:
     layout = CACHE_LAYOUTS.get(name)
     if layout is None:
         raise InvalidArgumentError(
-            "cache_layout must be one of %s, got %r"
-            % (sorted(CACHE_LAYOUTS), name))
+            "cache_layout must be one of %s, got %r%s"
+            % (sorted(CACHE_LAYOUTS), name,
+               " (the recurrent layout is not ported yet)"
+               if name == "recurrent" else ""))
     return layout

@@ -13,7 +13,8 @@ runs eagerly, so here the same two functions are plain methods:
 
 Sampling config rides each row as data (``SamplingState``: per-row
 temperature/top-k/top-p/seed and the row's draw counter), so a batch may
-mix greedy and sampled rows.  Row r draws from a ``torch.Generator`` on
+mix greedy and sampled rows (``sample_logits`` is the scalar-config
+form).  Row r draws from a ``torch.Generator`` on
 the logits' device (Philox on the card) seeded from ``(seed[r],
 step[r])``: a pure function of the request's own seed and draw index.
 It is not JAX's threefry stream, so sampled tokens are held by their
@@ -34,8 +35,9 @@ from ..nn.layer.transformer import normalize_cache_dtype
 from ..ops.flash_attention import decode_route, normalize_decode_route
 from .cache import get_layout
 
-__all__ = ["DecodeSession", "sample_logits_data", "SamplingState",
-           "make_sampling_state", "check_sampling", "default_buckets",
+__all__ = ["DecodeSession", "sample_logits", "sample_logits_data",
+           "SamplingState", "make_sampling_state", "check_sampling",
+           "default_buckets",
            "FINISH_EOS", "FINISH_LENGTH", "classify_finish",
            "truncate_at_eos"]
 
@@ -107,40 +109,74 @@ def _stream_seed(seed: int, step: int) -> int:
         & 0x7FFFFFFFFFFFFFFF
 
 
+def _filtered_probs(rows, temperature, top_k, top_p):
+    """The sampling distribution of logit rows [R, V] under per-row
+    ``temperature``/``top_k``/``top_p`` tensors [R] (temperature > 0):
+    temperature scaling, top-k truncation (ties at the k-th value keep
+    both), nucleus truncation (tokens whose exclusive prefix mass under
+    the sorted distribution already reaches ``top_p`` are dropped)."""
+    v = rows.shape[-1]
+    scaled = rows.float() / temperature[:, None]
+    sorted_desc = scaled.sort(dim=-1, descending=True).values
+    kk = top_k.clamp(1, v)
+    kth = sorted_desc.gather(1, (kk - 1)[:, None])
+    apply_k = ((top_k > 0) & (top_k < v))[:, None]
+    keep = torch.where(apply_k, scaled >= kth, torch.ones_like(scaled,
+                                                              dtype=bool))
+    probs = torch.softmax(sorted_desc, dim=-1)
+    cut = (probs.cumsum(dim=-1) - probs) >= top_p[:, None]
+    kept_min = torch.where(cut, torch.full_like(sorted_desc, float("inf")),
+                           sorted_desc).amin(dim=-1, keepdim=True)
+    keep = keep & (scaled >= kept_min)
+    masked = torch.where(keep, scaled, torch.finfo(torch.float32).min)
+    return torch.softmax(masked, dim=-1)
+
+
+def sample_logits(logits, generator=None, temperature: float = 0.0,
+                  top_k: int = 0, top_p: float = 1.0):
+    """Token ids [B] (int32, on the logits' device) from logits [B, V]
+    under ONE scalar config (the reference's ``sample_logits``; its
+    ``key`` is a ``torch.Generator`` here).
+
+    ``temperature == 0`` is greedy argmax (the generator unused);
+    otherwise temperature scaling, then optional top-k, then optional
+    nucleus truncation, then one draw per row from ``generator``."""
+    if temperature < 0.0:
+        raise InvalidArgumentError(
+            "temperature must be >= 0 (0 = greedy), got %r" % temperature)
+    if not 0.0 < top_p <= 1.0:
+        # top_p == 0 would mask EVERY token and degrade to uniform sampling
+        raise InvalidArgumentError(
+            "top_p must be in (0, 1], got %r" % top_p)
+    if temperature == 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    b, dev = logits.shape[0], logits.device
+    dist = _filtered_probs(
+        logits, torch.full((b,), float(temperature), device=dev),
+        torch.full((b,), int(top_k), dtype=torch.int64, device=dev),
+        torch.full((b,), float(top_p), device=dev))
+    return torch.multinomial(dist, 1, generator=generator)[:, 0] \
+        .to(torch.int32)
+
+
 def sample_logits_data(logits, temperature, top_k, top_p, seed, step):
     """Token ids [B] (int32, on the logits' device) from logits [B, V]
     with the config as per-row data.
 
-    ``temperature == 0`` rows are greedy argmax.  Other rows: temperature
-    scaling, top-k truncation (ties at the k-th value keep both), nucleus
-    truncation (tokens whose exclusive prefix mass under the sorted
-    distribution already reaches ``top_p`` are dropped), then one draw
-    from a generator seeded by :func:`_stream_seed`."""
+    ``temperature == 0`` rows are greedy argmax.  Other rows are filtered
+    as in :func:`sample_logits`, then draw once from a generator seeded by
+    :func:`_stream_seed`."""
     temp = np.asarray(temperature, np.float32)
     greedy = logits.argmax(dim=-1).to(torch.int32)
     rows = np.nonzero(temp > 0)[0]
     if rows.size == 0:
         return greedy
-    v = logits.shape[-1]
     dev = logits.device
     ridx = torch.as_tensor(rows, device=dev)
-    t = torch.as_tensor(temp[rows], device=dev)
-    tk = torch.as_tensor(np.asarray(top_k, np.int64)[rows], device=dev)
-    tp = torch.as_tensor(np.asarray(top_p, np.float32)[rows], device=dev)
-    scaled = logits[ridx].float() / t[:, None]
-    sorted_desc = scaled.sort(dim=-1, descending=True).values
-    kk = tk.clamp(1, v)
-    kth = sorted_desc.gather(1, (kk - 1)[:, None])
-    apply_k = ((tk > 0) & (tk < v))[:, None]
-    keep = torch.where(apply_k, scaled >= kth, torch.ones_like(scaled,
-                                                              dtype=bool))
-    probs = torch.softmax(sorted_desc, dim=-1)
-    cut = (probs.cumsum(dim=-1) - probs) >= tp[:, None]
-    kept_min = torch.where(cut, torch.full_like(sorted_desc, float("inf")),
-                           sorted_desc).amin(dim=-1, keepdim=True)
-    keep = keep & (scaled >= kept_min)
-    masked = torch.where(keep, scaled, torch.finfo(torch.float32).min)
-    dist = torch.softmax(masked, dim=-1)
+    dist = _filtered_probs(
+        logits[ridx], torch.as_tensor(temp[rows], device=dev),
+        torch.as_tensor(np.asarray(top_k, np.int64)[rows], device=dev),
+        torch.as_tensor(np.asarray(top_p, np.float32)[rows], device=dev))
     out = greedy.clone()
     seeds = np.asarray(seed, np.int64)
     steps = np.asarray(step, np.int64)
@@ -238,6 +274,11 @@ class DecodeSession:
                 m.training = t
 
     def _run_model(self, ids, cache):
+        """One forward of ``ids`` [B, L] through ``cache``.  The cache may
+        be a batch-1 VIEW of a pool's global cache -- ``table`` one slot's
+        row (``table[slot:slot+1]``) and ``index`` a [1] tensor set to the
+        chunk's start -- so a prompt chunk writes its K/V straight into
+        the pool's physical blocks; the pool then sets its own index."""
         with self._inference():
             return self._model(ids, cache=cache)
 

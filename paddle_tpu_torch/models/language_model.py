@@ -159,6 +159,9 @@ class TransformerLM(nn.Module):
         if cache is not None:
             idx = cache[0].index.to(torch.int64)
             pos = idx + step if idx.ndim == 0 else idx[:, None] + step[None]
+            # a prompt chunk's pad tail may run past the table: those
+            # positions are discarded, so clamp them as JAX's gather does
+            pos = pos.clamp(max=self.max_position - 1)
         else:
             pos = step
         h = self.word_embeddings(input_ids) + self.position_embeddings(pos)

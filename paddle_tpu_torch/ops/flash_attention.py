@@ -7,7 +7,7 @@ Counterpart of the reference's ``ops/flash_attention.py``:
   its gate ``flash_attention_supported``, the composition
   ``_reference_attention`` it falls back to on shapes the kernel does not
   take, and the mask detections ``detect_causal_additive_mask`` /
-  ``detect_padding_additive_mask`` with their identity caches;
+  ``detect_padding_additive_mask`` with their per-version caches;
 - the decode half: ``quantize_kv``/``dequantize_kv``, ``decode_attention``,
   ``paged_decode_attention``, ``_effective_qpos``, ``_qpos_bias`` and the
   route knob.
@@ -118,10 +118,13 @@ def flash_attention(q, k, v, bias=None, causal: bool = False,
                                             bool(causal), float(sm_scale))
 
 
-# Mask detections run once per mask object: identity caching removes the
-# repeated device-to-host readback.  Weakrefs keep the cache from pinning
-# [L, L] masks after their models are freed, and a dead ref also
-# invalidates an entry whose id a new allocation recycled.
+# Mask detections run once per mask version: the cache keys on the mask's
+# identity and checks its ``_version`` (torch bumps it on every in-place
+# write: ``copy_``, ``zero_``, slice assignment), so a mask rewritten in
+# place is read back again, while an unchanged mask costs no
+# device-to-host readback.  Weakrefs keep the cache from pinning [L, L]
+# masks after their models are freed, and a dead ref also invalidates an
+# entry whose id a new allocation recycled.
 _detect_cache: dict = {}
 _pad_detect_cache: dict = {}
 _DETECT_CACHE_MAX = 64
@@ -129,8 +132,8 @@ _DETECT_CACHE_MAX = 64
 
 def _cache_get(cache, mask):
     hit = cache.get(id(mask))
-    if hit is not None and hit[0]() is mask:
-        return True, hit[1]
+    if hit is not None and hit[0]() is mask and hit[1] == mask._version:
+        return True, hit[2]
     return False, None
 
 
@@ -140,7 +143,7 @@ def _cache_put(cache, mask, verdict):
             del cache[key]
         if len(cache) >= _DETECT_CACHE_MAX:
             cache.clear()
-    cache[id(mask)] = (weakref.ref(mask), verdict)
+    cache[id(mask)] = (weakref.ref(mask), mask._version, verdict)
     return verdict
 
 
@@ -150,7 +153,7 @@ def detect_padding_additive_mask(mask):
     big-negative (<= finfo.min / 2) = pad, so the kernel takes O(L) segment
     lanes instead of an [B, H, Lq, Lk] bias.  A 2-D mask means [Lq, Lk]
     and is not claimed; a mask that requires grad is a learned bias and is
-    not claimed either.  Verdicts are identity-cached."""
+    not claimed either.  Verdicts are cached per mask version."""
     if mask is None or not isinstance(mask, torch.Tensor) \
             or mask.requires_grad:
         return None
@@ -174,8 +177,9 @@ def detect_causal_additive_mask(mask, seq_len: Optional[int] = None) -> bool:
     """True when ``mask`` is a 2-D additive causal mask (0 on and below the
     diagonal, at most finfo.min / 2 above) of side ``seq_len``, so K3's
     causal path can replace the materialized mask.  A mask that requires
-    grad is a learned bias and is never claimed.  Verdicts are
-    identity-cached: the check reads the mask back to the host once."""
+    grad is a learned bias and is never claimed.  Verdicts are cached per
+    mask version: the check reads an unchanged mask back to the host
+    once."""
     if mask is None or not isinstance(mask, torch.Tensor) \
             or mask.requires_grad:
         return False

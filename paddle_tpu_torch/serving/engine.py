@@ -4,12 +4,20 @@
 A scheduling tick is one ``pool.step()``; ``pump(n)`` runs ticks inline
 on the calling thread.  Admission is bounded: past ``max_queue`` waiting
 requests ``submit`` raises the typed, retryable :class:`QueueFullError`.
-Cancellation frees the slot and its paged blocks mid-generation.  TTFT is
-observed by the pool's ``on_token`` hook at the real first-token moment.
+``priority``, ``tenant`` and ``deadline`` order admission in the pool.
+Cancellation frees the slot and its paged blocks mid-generation.
+``preempt(request_id)`` spills a decoding request to the host tier; it
+resumes by itself when the pool next has room for it.  TTFT is observed
+by the pool's ``on_token`` hook at the real first-token moment.
 
-Not ported yet: the background step loop, deadlines and shedding, the
-journal and restore, recovery from a failed step, SLOs and the
-degradation ladder, metrics, tracing, the supervisor and the fleet.
+Pool knobs, chunked prefill (``prefill_chunk_tokens``), prefix sharing
+(``prefix_sharing``) and the tenant cap (``tenant_slot_cap``) among them,
+pass through to :class:`~paddle_tpu_torch.inference.GenerationPool`.
+
+Not ported yet: the background step loop, deadline expiry and shedding,
+the automatic preemption victim and the degradation ladder, the journal
+and restore, recovery from a failed step, SLOs, metrics, logs and tracing,
+the supervisor and the fleet.
 """
 from __future__ import annotations
 
@@ -19,11 +27,32 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..core.errors import InvalidArgumentError, UnavailableError
+from ..core.errors import InvalidArgumentError, NotFoundError, \
+    UnavailableError
 from ..inference.generation import GenerationPool
 from .stream import RequestState, ResponseStream, StreamStatus
 
-__all__ = ["ServingEngine", "QueueFullError"]
+__all__ = ["ServingEngine", "QueueFullError", "PRIORITY_CLASSES"]
+
+# named priority classes; priorities are plain ints underneath (higher
+# admits first)
+PRIORITY_CLASSES = {"low": -1, "normal": 0, "high": 1}
+
+
+def _normalize_priority(priority) -> int:
+    if isinstance(priority, str):
+        if priority not in PRIORITY_CLASSES:
+            raise InvalidArgumentError(
+                "unknown priority class %r; named classes are %s, or pass "
+                "an int (higher admits first)"
+                % (priority, sorted(PRIORITY_CLASSES)))
+        return PRIORITY_CLASSES[priority]
+    if isinstance(priority, bool) or not isinstance(priority,
+                                                    (int, np.integer)):
+        raise InvalidArgumentError(
+            "priority must be an int or one of %s, got %r"
+            % (sorted(PRIORITY_CLASSES), priority))
+    return int(priority)
 
 
 class QueueFullError(UnavailableError):
@@ -35,10 +64,11 @@ class _Record:
     """Engine-side per-request state (the pool keeps only slot state)."""
 
     __slots__ = ("rid", "stream", "state", "prompt_len", "max_new",
-                 "submit_t", "first_t", "tokens")
+                 "submit_t", "first_t", "tokens", "priority", "tenant",
+                 "preempts")
 
     def __init__(self, rid, stream, prompt_len: int, max_new: int,
-                 submit_t: float):
+                 submit_t: float, priority: int = 0, tenant=None):
         self.rid = rid
         self.stream = stream
         self.state = RequestState.QUEUED
@@ -47,6 +77,9 @@ class _Record:
         self.submit_t = submit_t
         self.first_t = None
         self.tokens = []
+        self.priority = priority
+        self.tenant = tenant
+        self.preempts = 0
 
 
 class ServingEngine:
@@ -54,7 +87,8 @@ class ServingEngine:
     :class:`~paddle_tpu_torch.inference.GenerationPool`.
 
     Pool knobs (``slots``, ``buckets``, ``cache_layout``, ``block_size``,
-    ``num_blocks``, ``cache_dtype``, ``eos_id``, sampling defaults) pass
+    ``num_blocks``, ``cache_dtype``, ``eos_id``, ``prefill_chunk_tokens``,
+    ``prefix_sharing``, ``tenant_slot_cap``, sampling defaults) pass
     through ``**pool_kwargs``; ``device=None`` is ``cuda``; ``clock``
     injects a monotonic time source."""
 
@@ -73,15 +107,22 @@ class ServingEngine:
         self._pool.on_admit = self._on_admit
         self._pool.on_token = self._on_token
         self._pool.on_finish = self._on_finish
+        self._pool.on_resume = self._on_resume
 
     # -- admission -------------------------------------------------------
     def submit(self, input_ids, max_new_tokens: int, request_id=None,
-               temperature=None, top_k=None, top_p=None,
-               seed=None) -> ResponseStream:
-        """Admit one request; returns its :class:`ResponseStream`.  Raises
-        :class:`QueueFullError` past ``max_queue`` waiting requests, and
-        the pool's typed errors for invalid prompts, budgets or duplicate
-        ids."""
+               priority=0, tenant=None, deadline=None, temperature=None,
+               top_k=None, top_p=None, seed=None) -> ResponseStream:
+        """Admit one request; returns its :class:`ResponseStream`.
+
+        ``priority`` (an int, or a name in ``PRIORITY_CLASSES``; higher
+        admits first), ``tenant`` (the key of the pool's
+        ``tenant_slot_cap``) and ``deadline`` (a number on the caller's
+        clock, only compared: earlier admits first within a priority) are
+        scheduling metadata for the pool.  Raises :class:`QueueFullError`
+        past ``max_queue`` waiting requests, and the pool's typed errors
+        for invalid prompts, budgets or duplicate ids."""
+        priority = _normalize_priority(priority)
         with self._lock:
             depth = self._pool.queue_depth
             if depth >= self.max_queue:
@@ -92,12 +133,14 @@ class ServingEngine:
             ids = np.asarray(input_ids)
             now = self._clock()
             rid = self._pool.submit(ids, max_new_tokens,
-                                    request_id=request_id,
+                                    request_id=request_id, priority=priority,
+                                    tenant=tenant, deadline=deadline,
                                     temperature=temperature, top_k=top_k,
                                     top_p=top_p, seed=seed)
             stream = ResponseStream(self, rid, int(max_new_tokens))
             self._live[rid] = _Record(rid, stream, int(ids.shape[0]),
-                                      int(max_new_tokens), now)
+                                      int(max_new_tokens), now,
+                                      priority=priority, tenant=tenant)
             return stream
 
     # -- pool hooks (fire inside pool.step, under the engine lock) -------
@@ -123,6 +166,13 @@ class ServingEngine:
         self._pool.collect(rid)  # frees the rid; tokens already streamed
         self._finalize(rec, RequestState.DONE, reason)
 
+    def _on_resume(self, rid, info):
+        """A preempted request's K/V were restored and its slot
+        re-activated (fires inside the pool's refill)."""
+        rec = self._live.get(rid)
+        if rec is not None:
+            rec.state = RequestState.DECODING
+
     def _finalize(self, rec: _Record, state: str, reason: str) -> None:
         now = self._clock()
         toks = np.asarray(rec.tokens, np.int32)
@@ -136,9 +186,10 @@ class ServingEngine:
             total_s=now - rec.submit_t, error=None))
 
     def cancel(self, request_id) -> bool:
-        """Abort a live request: its slot and blocks are freed and its
-        stream ends ``CANCELLED`` with the tokens emitted so far.  False if
-        the id is not live."""
+        """Abort a live request (queued, prefilling, decoding or
+        preempted): its slot, blocks and spilled copies are freed and its
+        stream ends ``CANCELLED`` with the tokens emitted so far.  False
+        if the id is not live."""
         with self._lock:
             rec = self._live.pop(request_id, None)
             if rec is None:
@@ -146,6 +197,28 @@ class ServingEngine:
             self._pool.cancel(request_id)
             self._finalize(rec, RequestState.CANCELLED, "cancelled")
             return True
+
+    def preempt(self, request_id):
+        """Evict one decoding request into the host spill tier
+        (``GenerationPool.preempt``); it resumes byte-identically when
+        the pool next has room for it, and its state is ``PREEMPTED``
+        meanwhile.  Returns the request id.  ``NotFoundError`` for an id
+        that is not live or not decoding.  The automatic victim choice
+        (``request_id=None``) is not ported yet."""
+        if request_id is None:
+            raise InvalidArgumentError(
+                "preempt needs a request_id: the automatic victim choice "
+                "is not ported yet")
+        with self._lock:
+            rec = self._live.get(request_id)
+            if rec is None:
+                raise NotFoundError(
+                    "request_id %r is not live on this engine"
+                    % (request_id,))
+            self._pool.preempt(rec.rid)
+            rec.state = RequestState.PREEMPTED
+            rec.preempts += 1
+            return rec.rid
 
     # -- drive ------------------------------------------------------------
     def pump(self, steps: int = 1) -> bool:
@@ -175,6 +248,26 @@ class ServingEngine:
     def cache_stats(self) -> dict:
         """Live KV accounting (``GenerationPool.cache_stats``)."""
         return self._pool.cache_stats()
+
+    def prefix_stats(self) -> dict:
+        """Prefix-sharing and chunked-prefill accounting
+        (``GenerationPool.prefix_stats``)."""
+        return self._pool.prefix_stats()
+
+    def resident_prefix_digest(self, since_epoch=None):
+        """The chain-hash keys of the resident prefix blocks
+        (``GenerationPool.prefix_digest``); None when sharing is off."""
+        with self._lock:
+            return self._pool.prefix_digest(since_epoch)
+
+    def reset_prefix_stats(self) -> None:
+        """Zero the pool's cumulative prefix and chunk counters."""
+        with self._lock:
+            self._pool.reset_prefix_stats()
+
+    def spill_stats(self) -> dict:
+        """Spill-tier accounting (``GenerationPool.spill_stats``)."""
+        return self._pool.spill_stats()
 
     @property
     def pool(self) -> GenerationPool:

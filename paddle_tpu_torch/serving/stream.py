@@ -21,11 +21,16 @@ __all__ = ["RequestState", "ResponseStream", "StreamStatus"]
 
 
 class RequestState:
-    """Request lifecycle: QUEUED -> PREFILLING -> DECODING -> terminal."""
+    """Request lifecycle: QUEUED -> PREFILLING -> DECODING -> terminal.
+
+    ``PREEMPTED`` is a non-terminal detour off DECODING: the request was
+    evicted mid-decode (its K/V spilled to the host tier) and will resume;
+    its stream stays open and returns to DECODING at resume."""
 
     QUEUED = "QUEUED"
     PREFILLING = "PREFILLING"
     DECODING = "DECODING"
+    PREEMPTED = "PREEMPTED"
     DONE = "DONE"
     CANCELLED = "CANCELLED"
     EXPIRED = "EXPIRED"

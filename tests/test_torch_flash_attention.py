@@ -297,3 +297,66 @@ def test_shapes_beyond_the_kernel_take_the_composition(d, kv_heads,
     assert not calls
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
+
+
+def _rewrite_case(rng):
+    """B 2, H 2, L 8, D 16 fp32 q, k, v (the ROADMAP's reproduction)."""
+    return [torch.from_numpy(rng.randn(2, 2, 8, 16).astype(np.float32))
+            for _ in range(3)]
+
+
+def _composition(q, k, v, mask):
+    return fa._reference_attention(q, k, v, mask, False, 16 ** -0.5)
+
+
+@pytest.mark.parametrize("rewrite", ["copy_", "slice"])
+def test_padding_mask_rewritten_in_place_is_detected_again(rewrite):
+    """F1: a [B, 1, 1, L] padding mask rewritten in place (keys 6-7 padded,
+    then keys 3-7) must not keep its first verdict: the second call equals
+    the composition on the rewritten mask, and the reference's SDPA."""
+    q, k, v = _rewrite_case(np.random.RandomState(21))
+    neg = torch.finfo(torch.float32).min
+    mask = torch.zeros(2, 1, 1, 8)
+    mask[..., 6:] = neg
+    first = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    np.testing.assert_allclose(first.numpy(),
+                               _composition(q, k, v, mask).numpy(),
+                               rtol=0, atol=1e-5)
+    if rewrite == "copy_":
+        pad = torch.zeros(2, 1, 1, 8)
+        pad[..., 3:] = neg
+        mask.copy_(pad)
+    else:
+        mask[..., 3:] = neg
+    second = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    np.testing.assert_allclose(second.numpy(),
+                               _composition(q, k, v, mask).numpy(),
+                               rtol=0, atol=1e-5)
+    want, _ = _sdpa_pair({"q": q.numpy(), "k": k.numpy(), "v": v.numpy()},
+                         mask.numpy())
+    np.testing.assert_allclose(second.numpy(), want, rtol=0, atol=1e-5)
+    assert fa.detect_padding_additive_mask(mask)[0].tolist() == \
+        [True] * 3 + [False] * 5
+
+
+def test_causal_mask_zeroed_in_place_is_detected_again():
+    """F1: a causal [L, L] additive mask zeroed in place is no longer
+    causal: the second call attends every key, as the composition and the
+    reference's SDPA do."""
+    q, k, v = _rewrite_case(np.random.RandomState(22))
+    mask = torch.where(torch.ones(8, 8, dtype=torch.bool).tril(), 0.0,
+                       torch.finfo(torch.float32).min)
+    first = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    np.testing.assert_allclose(first.numpy(),
+                               _composition(q, k, v, mask).numpy(),
+                               rtol=0, atol=1e-5)
+    mask.zero_()
+    assert not fa.detect_causal_additive_mask(mask, 8)
+    second = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    np.testing.assert_allclose(second.numpy(),
+                               _composition(q, k, v, mask).numpy(),
+                               rtol=0, atol=1e-5)
+    want, _ = _sdpa_pair({"q": q.numpy(), "k": k.numpy(), "v": v.numpy()},
+                         mask.numpy())
+    np.testing.assert_allclose(second.numpy(), want, rtol=0, atol=1e-5)
+    assert float((second - first).abs().max()) > 0.1  # the rewrite mattered

@@ -1,6 +1,8 @@
 """Shared helpers of the ``test_torch_*`` files: one tiny reference
 ``TransformerLM`` built at a seed, and the port's model carrying its
-parameters (``convert.load_reference_params``), both on the CPU.
+parameters (``convert.load_reference_params``), both on the CPU; the
+margin gates of greedy agreement (fp32 and int8 caches); and the paged
+allocator's invariants.
 
 Inputs are made with numpy and handed to both packages; arrays cross
 between them as numpy."""
@@ -54,3 +56,43 @@ def greedy_margin(ref, prompt, tokens) -> float:
     steps = ref_logits(ref, seq)[0, len(prompt) - 1:-1]
     top2 = np.sort(steps, axis=-1)[:, -2:]
     return float((top2[:, 1] - top2[:, 0]).min())
+
+
+def int8_margin(port, prompt, tokens) -> float:
+    """Smallest top-2 logit margin along the int8-cache greedy path that
+    emitted ``tokens`` (teacher-forced through the port's int8 cache): an
+    int8 run's tokens are held against the reference's int8 tokens, and
+    the fp32 margin says nothing about where the int8 logits cross."""
+    cache = port.gen_decode_cache(1, len(prompt) + len(tokens), "int8")
+    steps = [torch.from_numpy(np.asarray(prompt, np.int64))[None]]
+    steps += [torch.tensor([[int(t)]]) for t in tokens[:-1]]
+    margins = []
+    with torch.no_grad():
+        for ids in steps:
+            logits, cache = port(ids, cache=cache)
+            top2 = logits[0, -1].topk(2).values
+            margins.append(float(top2[0] - top2[1]))
+    return min(margins)
+
+
+def check_allocator(pool):
+    """The allocator's invariants from host state alone (spilled device
+    copies are the third state beside free and resident)."""
+    free = pool._free_blocks
+    refs = pool._block_refs
+    spilled = pool._spill_owner
+    assert len(set(free)) == len(free), "duplicate free blocks"
+    assert not set(free) & set(refs), "block both free and referenced"
+    assert not set(spilled) & (set(free) | set(refs)), "spilled block reused"
+    assert all(r >= 1 for r in refs.values()), "refcount < 1 resident"
+    assert 0 not in refs and 0 not in free and 0 not in spilled, \
+        "scratch block leaked"
+    assert len(free) + len(refs) + len(spilled) + 1 == pool._num_blocks
+    counts = {}
+    for blocks in pool._slot_blocks.values():
+        for b in blocks:
+            counts[b] = counts.get(b, 0) + 1
+    assert counts == dict(refs), "refcounts diverged from table-row references"
+    for entry in pool._prefix_index.values():
+        for b in entry.blocks:
+            assert b in refs, "prefix index names a freed block"

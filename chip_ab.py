@@ -7,7 +7,9 @@
 paged decode step, 8 slots at ~1k context) for two checkouts, each in a
 fresh process whose imports resolve to that checkout, in the order
 other, this, this, other; each process also times 5 x 10 plain ticks and
-profiles 10 ticks with ``cProfile``.  The step is mostly host time, and
+profiles 10 ticks with ``cProfile``.  A tree whose step is a captured
+CUDA graph also reports the graph's device ms (CUDA events around each
+replay) and the sampler's (null for a tree without them).  The step is mostly host time, and
 the host's speed drifts within one run, so compare the two trees only
 within one call and read the ``cProfile`` call counts beside the times.
 Unpack the other tree with ``git archive <commit> | tar -x -C <dir>``
@@ -58,8 +60,9 @@ buf = io.StringIO()
 pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(12)
 while eng.pump(8):
     pass
-print("RESULT " + json.dumps({"profile_decode": {k: prof[k] for k in (
-    "wall_ms_per_step", "device_busy_ms_per_step", "device_idle_share")},
+print("RESULT " + json.dumps({"profile_decode": {k: prof.get(k) for k in (
+    "wall_ms_per_step", "device_busy_ms_per_step", "device_idle_share",
+    "graph_device_ms_per_step", "sampler_device_ms_per_step")},
     "ms_per_step_reps": reps, "cprofile_s_per_10_ticks": st.total_tt,
     "cprofile_calls_per_10_ticks": st.total_calls}))
 print(buf.getvalue())

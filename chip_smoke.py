@@ -23,6 +23,12 @@ PyTorch twin, and drives the port's two main paths:
   once resuming by re-mapping the spilled blocks and once through the
   host upload after a reclaim; the tokens must equal an uninterrupted
   run's byte for byte;
+- the compiled-step contract: every engine above serves its decode steps
+  (and chunks) from one captured CUDA graph per step, held by
+  ``compile_counts()``; ``captured_vs_eager`` runs 4 greedy and 4 sampled
+  requests through the 4-layer pool's graph and through its private eager
+  entry, whose tokens must be identical; a ``DecodeSession`` generates on
+  the dense and the paged cache from its captured decode step;
 - training: the same GPT-1.3B at full width and depth in fp32 for 6
   ``TrainStep``s (AdamW, global-norm clipping) on one repeated 2 x 2048
   batch, every attention forward and backward through the flash kernel K3,
@@ -395,8 +401,9 @@ def serve(model, rng, n_requests, new_tokens, n_layers, kernel, **kw):
     engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
                            device="cuda", **kw)
     vocab = model.vocab_size
-    # warm-up request: first cuBLAS calls and the kernel library load
-    engine.submit(rng.randint(0, vocab, 64), 2).result()
+    # warm-up request: first cuBLAS calls, the kernel library load, and
+    # the decode step's eager warm-up and capture (its first two calls)
+    engine.submit(rng.randint(0, vocab, 64), 3).result()
     lens = rng.randint(128, 1537, n_requests)
     prompts = [rng.randint(0, vocab, int(n)).astype(np.int32) for n in lens]
     pool = engine.pool
@@ -428,6 +435,9 @@ def serve(model, rng, n_requests, new_tokens, n_layers, kernel, **kw):
     other = [k for k in counts if k != kernel]
     assert counts[kernel] == n_layers * steps, (counts, steps)
     assert counts[kernel] > 0 and all(counts[k] == 0 for k in other), counts
+    compiled = engine.compile_counts()
+    assert compiled["pool_decode"] == 1 and pool._decode_fn.graphs() == 1, \
+        compiled
     gaps = [greedy_gap(model, prompts[i], np.asarray(statuses[i].tokens))
             for i in (int(np.argmin(lens)), int(np.argmax(lens)))]
     tol = GREEDY_TOL[kw.get("cache_dtype", "float32")]
@@ -444,6 +454,7 @@ def serve(model, rng, n_requests, new_tokens, n_layers, kernel, **kw):
         "tokens_per_s": n_requests * new_tokens / wall, "wall_s": wall,
         "greedy_max_gap": max(gaps), "greedy_tol": tol,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "compile_counts": compiled,
     }
 
 
@@ -507,10 +518,11 @@ def serve_shared_prefix(model, prompts, n_layers, **kw):
                            device="cuda", **kw)
     pool = engine.pool
     vocab = model.vocab_size
-    # warm-up request (a full chunk and a part one): first cuBLAS calls
-    # at these shapes
+    # warm-up request (a full chunk and a part one, then two decode
+    # steps): first cuBLAS calls at these shapes, and each captured step's
+    # warm-up and capture
     engine.submit(np.arange(SHARED_CHUNK + SHARED_TAIL[0]) % vocab,
-                  2).result()
+                  3).result()
     engine.reset_prefix_stats()
     steps0 = pool.decode_steps_total
     torch.cuda.synchronize()
@@ -529,6 +541,12 @@ def serve_shared_prefix(model, prompts, n_layers, **kw):
     assert k1 == n_layers * steps and k1 > 0, (counts, steps)
     assert all(n == 0 for k, n in counts.items()
                if k != "paged_decode_attention_kernel"), counts
+    compiled = engine.compile_counts()
+    assert compiled["pool_decode"] == 1 and pool._decode_fn.graphs() == 1, \
+        compiled
+    if pool.prefill_chunk_tokens is not None:
+        assert compiled["prefill_chunk"] == 1 \
+            and pool._chunk_fn.graphs() == 1, compiled
     ttft = sorted(s.status.ttft_s * 1e3 for s in streams)
     stats = engine.prefix_stats()
 
@@ -560,6 +578,7 @@ def serve_shared_prefix(model, prompts, n_layers, **kw):
         "prefill_chunk_tokens": kw.get("prefill_chunk_tokens"),
         "prefix_sharing": bool(kw.get("prefix_sharing")),
         "decode_steps": steps, "k1_launches": k1,
+        "compile_counts": compiled,
         "ttft_ms_p50": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
         "decode_step_ms_p50": float(np.median(decode_tick_ms)),
         "tokens_per_s": len(prompts) * SHARED_NEW_TOKENS / wall,
@@ -642,7 +661,7 @@ def profile_chunks(model, ticks: int = 3):
     pool = engine.pool
     vocab = model.vocab_size
     engine.submit(np.arange(SHARED_CHUNK + SHARED_TAIL[0]) % vocab,
-                  2).result()
+                  3).result()
     rng = np.random.RandomState(2)
     engine.submit(rng.randint(0, vocab, SHARED_CHUNK * (ticks + 1)
                               + SHARED_TAIL[0]), 2)
@@ -691,7 +710,8 @@ def preempt_run(model, prompts, cache_dtype, num_blocks=None,
                            num_blocks=num_blocks, cache_dtype=cache_dtype,
                            device="cuda")
     pool = engine.pool
-    engine.submit(np.arange(64) % model.vocab_size, 2).result()  # warm-up
+    # warm-up: the decode step's eager call and its capture
+    engine.submit(np.arange(64) % model.vocab_size, 3).result()
     resume_ms = []
     real_resume = pool._resume
 
@@ -736,7 +756,8 @@ def preempt_run(model, prompts, cache_dtype, num_blocks=None,
     out = {"cache_dtype": cache_dtype, "num_blocks": pool.cache_stats()[
         "num_blocks"], "decode_steps": steps, "k1_launches": k1,
         "spill_stats": spill, "preempt_ms": preempt_ms,
-        "resume_ms": resume_ms}
+        "resume_ms": resume_ms, "compile_counts": engine.compile_counts(),
+        "graphs": pool._decode_fn.graphs()}
     tokens = [np.asarray(s.status.tokens) for s in streams]
     extra_tokens = [np.asarray(s.status.tokens) for s in extra]
     del engine
@@ -760,9 +781,12 @@ def preempt_runs(model):
     tight = 1 + (MAIN_SLOTS + 1) * per_request - 1
     out = {}
     for dtype in ("float32", "int8"):
-        _, want, _ = preempt_run(model, prompts, dtype, interrupt=False)
+        plain, want, _ = preempt_run(model, prompts, dtype, interrupt=False)
         for variant, nb in (("remap", None), ("upload", tight)):
             rec, got, extra = preempt_run(model, prompts, dtype, nb)
+            # preemption is host work: no step met a new shape
+            assert rec["compile_counts"] == plain["compile_counts"] \
+                and rec["graphs"] == plain["graphs"] == 1, (rec, plain)
             spill = rec["spill_stats"]
             if variant == "upload":
                 assert spill["reclaims_total"] >= 1 \
@@ -798,12 +822,64 @@ def device_time_rows(prof):
     return sorted(rows, reverse=True)
 
 
+class _StepHook:
+    """Stands in for one of a pool's step wrappers: calls it (or, with
+    ``eager``, its private eager entry), and keeps what the caller asks
+    for -- each step's logits, or CUDA events around each call.  Any other
+    attribute (the key counts) reads through to the wrapper."""
+
+    def __init__(self, fn, eager=False, logits=False, events=False):
+        self.fn, self.eager = fn, eager
+        self.logits = [] if logits else None
+        self.events = [] if events else None
+
+    def __call__(self, *args):
+        import torch
+
+        if self.events is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = (self.fn._run_eager if self.eager else self.fn)(*args)
+        if self.events is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.events.append((start, end))
+        if self.logits is not None:
+            self.logits.append(out[1].clone())
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def event_ms(self):
+        """Device ms per call between the events (the stream is idle when
+        a decode step starts: the last tick ended on its download)."""
+        return float(np.mean([a.elapsed_time(b) for a, b in self.events]))
+
+
+def sampler_ms(slots, vocab):
+    """Device ms of one call of the branch-free sampler at the decode
+    step's shape ([slots, vocab] fp32 logits; greedy and sampled rows do
+    the same work), by CUDA graph replay."""
+    import torch
+
+    from paddle_tpu_torch.jit.decode import sample_logits_data
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    logits = torch.randn(slots, vocab, device="cuda", generator=gen)
+    cfg = [torch.tensor(v, device="cuda") for v in (
+        [0.0, 0.8] * (slots // 2), [0, 50] * (slots // 2),
+        [1.0, 0.95] * (slots // 2), list(range(slots)), [7] * slots)]
+    return graph_ms([lambda: sample_logits_data(logits, *cfg)])
+
+
 def profile_decode(model, rng, ticks: int = 10):
     """Where a steady decode step's time goes on the paged main path:
     8 busy slots at ~1k context; ``ticks`` pump ticks timed on the host
-    clock, then ``ticks`` more under ``torch.profiler``, whose CUDA
-    kernel times (one stream, so their sum is the busy time) give the
-    device's share of the unprofiled step."""
+    clock with CUDA events around each replay of the captured step, then
+    ``ticks`` more under ``torch.profiler``, whose CUDA kernel times (one
+    stream, so their sum is the busy time) give the device's share of the
+    unprofiled step; and the sampler's device time at the step's shape."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -812,15 +888,20 @@ def profile_decode(model, rng, ticks: int = 10):
     engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
                            device="cuda", cache_layout="paged",
                            block_size=MAIN_BLOCK)
+    pool = engine.pool
     for _ in range(MAIN_SLOTS):
         engine.submit(rng.randint(0, model.vocab_size, 1024), 2 * ticks + 8)
-    engine.pump(3)  # every slot prefilled and decoding
+    engine.pump(3)  # every slot prefilled; the step warmed up and captured
     assert engine.pool.active_count == MAIN_SLOTS
+    assert pool._decode_fn.graphs() == 1
+    hook = pool._decode_fn = _StepHook(pool._decode_fn, events=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.pump(ticks)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    graph_ms_per_step = hook.event_ms()
+    pool._decode_fn = hook.fn
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -832,18 +913,123 @@ def profile_decode(model, rng, ticks: int = 10):
     busy_ms = sum(r[0] for r in rows)
     while engine.pump(1):
         pass
+    assert engine.compile_counts()["pool_decode"] == 1
     # K1 is the split kernel plus, with more than one split, the combine
     k1_ms = sum(ms for ms, k, _ in rows
                 if "decode_split_kernel" in k or "decode_combine_kernel" in k)
+    samp_ms = sampler_ms(MAIN_SLOTS, model.vocab_size)
     out = {"ticks": ticks, "wall_ms_per_step": wall_ms,
+           "graph_device_ms_per_step": graph_ms_per_step,
+           "graph_idle_share": 1 - graph_ms_per_step / wall_ms,
            "profiled_wall_ms_per_step": profiled_ms,
            "device_busy_ms_per_step": busy_ms,
            "k1_device_ms_per_step": k1_ms,
+           "sampler_device_ms_per_step": samp_ms,
            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
            "top": [{"kernel": k[:80], "ms_per_step": ms, "calls_per_step": n}
                    for ms, k, n in rows[:8]]}
     if not busy_ms:
         log("profile: the profiler recorded no device time (not measured)")
+    return out
+
+
+def captured_vs_eager(model):
+    """``captured_vs_eager``: 8 slots of the 4-layer model, 4 greedy and 4
+    sampled requests (temperature 0.8, top_k 50, top_p 0.95) of 128-1023
+    prompt tokens, 32 new tokens each, through a paged engine twice: once
+    through the pool's captured decode step and once through the
+    wrapper's private eager entry.  The tokens must be identical; the
+    largest logit difference between the runs' steps is reported."""
+    import torch
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, model.vocab_size, int(n))
+               for n in rng.randint(128, 1024, MAIN_SLOTS)]
+    tokens, logits, out = {}, {}, {}
+    for mode in ("graph", "eager"):
+        engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                               cache_layout="paged", block_size=MAIN_BLOCK,
+                               device="cuda")
+        pool = engine.pool
+        hook = pool._decode_fn = _StepHook(pool._decode_fn,
+                                           eager=mode == "eager", logits=True)
+        dk.reset_launch_counts()
+        streams = [engine.submit(p, 2 * SHORT_NEW_TOKENS, **(
+            {} if i % 2 == 0 else dict(temperature=0.8, top_k=50,
+                                       top_p=0.95, seed=100 + i)))
+            for i, p in enumerate(prompts)]
+        while engine.pump(8):
+            pass
+        torch.cuda.synchronize()
+        k1 = dk.launch_counts()["paged_decode_attention_kernel"]
+        assert k1 == SHORT_LAYERS * pool.decode_steps_total, k1
+        for st in streams:
+            assert st.status.state == "DONE", st.status
+        tokens[mode] = [np.asarray(st.status.tokens) for st in streams]
+        logits[mode] = hook.logits
+        out[mode] = {"decode_steps": pool.decode_steps_total,
+                     "graphs": hook.fn.graphs(), "k1_launches": k1}
+        del engine, pool, hook
+    assert out["graph"]["graphs"] == 1 and out["eager"]["graphs"] == 0, out
+    same = [bool(np.array_equal(a, b))
+            for a, b in zip(tokens["graph"], tokens["eager"])]
+    assert len(logits["graph"]) == len(logits["eager"])
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(logits["graph"], logits["eager"]))
+    out.update(identical_requests=sum(same), requests=len(same),
+               max_abs_logit_diff=diff)
+    log("captured_vs_eager (4 layers, 4 greedy + 4 sampled):",
+        json.dumps(out))
+    assert all(same), same
+    torch.cuda.empty_cache()
+    return out
+
+
+def session_runs(model, n_layers):
+    """``DecodeSession.generate`` on the card, dense and paged: 8 prompts
+    of 512 tokens, 32 new tokens.  One bucket and one captured decode
+    step: ``compile_counts() == {"prefill": 1, "decode": 1}``; the decode
+    kernel launched ``n_layers`` times a step through the replays; row
+    0's greedy tokens within ``greedy_gap``'s limit."""
+    import torch
+
+    from paddle_tpu_torch import DecodeSession
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    ids = np.random.RandomState(5).randint(0, model.vocab_size, (8, 512))
+    out = {}
+    for layout, kernel in (("dense", "decode_attention_kernel"),
+                           ("paged", "paged_decode_attention_kernel")):
+        sess = DecodeSession(model, max_len=1024, buckets=[512],
+                             cache_layout=layout, block_size=MAIN_BLOCK,
+                             device="cuda")
+        # warm-up in the same bucket: the decode step's eager call and
+        # its capture
+        sess.generate(ids[:, :64], 3)
+        torch.cuda.synchronize()
+        dk.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = sess.generate(ids, 32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dk.launch_counts()
+        assert sess.compile_counts() == {"prefill": 1, "decode": 1}, \
+            sess.compile_counts()
+        assert sess._decode_fn.graphs() == 1
+        assert counts[kernel] == n_layers * 31 and all(
+            n == 0 for k, n in counts.items() if k != kernel), counts
+        gap = greedy_gap(model, ids[0], toks[0])
+        assert gap <= GREEDY_TOL["float32"], gap
+        out[layout] = {"wall_ms": wall * 1e3, "launches": counts,
+                       "compile_counts": sess.compile_counts(),
+                       "greedy_max_gap": gap}
+        del sess
+        torch.cuda.empty_cache()
+    log("session generate (4 layers, 8 x 512 prompts, 32 new tokens):",
+        json.dumps(out))
     return out
 
 
@@ -1749,6 +1935,8 @@ def main() -> int:
         block_size=MAIN_BLOCK, cache_dtype="int8")
     log("int8 run (paged, 4 layers):", json.dumps(runs["paged_int8_4l"]))
     runs["preempt_4l"] = preempt_runs(model)
+    runs["captured_vs_eager_4l"] = captured_vs_eager(model)
+    runs["session_4l"] = session_runs(model, SHORT_LAYERS)
     del model
     torch.cuda.empty_cache()
 

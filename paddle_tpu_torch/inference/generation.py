@@ -22,6 +22,20 @@ one batched decode step (the slot-batched cache whose index is a per-row
 4. the sampled ids (the one host download per step) are appended per
    request; rows that hit EOS or their budget release the slot.
 
+The steps follow the reference's compiled-step protocol.  Each is an
+:class:`~paddle_tpu_torch.jit.aot.AotFunction` keyed as the reference
+keys its executables: ``"pool_decode"`` by the token vector and
+``"prefill_chunk"`` by the ``[C]`` chunk, both captured as CUDA graphs on
+the card, and ``"slot_insert"``/``"slot_admit"``, which run eagerly;
+``compile_counts()`` reports them beside the session's.  The decode step's
+inputs -- the token, the active mask, the per-row sampling config and the
+draw counter -- live in static device buffers, rewritten by one upload
+only when slot membership changes (admit, finish, cancel, preempt, resume,
+reset); the step writes the sampled token and advances the draw counter
+of active rows on the device, and the per-tick host work is the one
+download of the token vector and the delivery.  The cache's tensors never
+move: every write to them, a reset's included, is in place.
+
 ``cache_layout="paged"`` keeps K/V in a global pool of fixed-size blocks
 behind a ``[slots, max_blocks]`` table, with a host-side allocator: block
 0 is the reserved scratch block and is never handed out; a request
@@ -66,9 +80,11 @@ from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.errors import (AlreadyExistsError, InvalidArgumentError,
                            NotFoundError, PreconditionNotMetError)
+from ..jit.aot import AotFunction, StaticInputs, shape_key
 from ..jit.cache import get_layout
 from ..jit.decode import (DecodeSession, check_sampling, classify_finish,
-                          make_sampling_state, sample_logits_data)
+                          make_sampling_state, sample_logits_data,
+                          step_buffers)
 
 __all__ = ["GenerationPool", "kv_reachable_bytes", "DuplicateRequestError"]
 
@@ -330,6 +346,31 @@ class GenerationPool:
         self._cache = self._new_cache()
         self._chunk_tokens = (None if prefill_chunk_tokens is None
                               else int(prefill_chunk_tokens))
+        # the decode step's static inputs, rewritten from the host only
+        # when slot membership changed
+        self._steps = step_buffers(self.slots, self.device)
+        self._membership_dirty = True
+        self._decode_fn = AotFunction(self._pool_decode, key_fn=shape_key,
+                                      name="pool_decode", capture=True)
+        self._insert_fn = AotFunction(self._layout.insert_row,
+                                      key_fn=lambda *a: "slot_insert",
+                                      name="slot_insert")
+        # the chunk path's steps exist only when the knob is on, so a
+        # plain pool's compile_counts() keys are the reference's
+        self._chunk_fn = self._admit_fn = self._chunk_in = None
+        if self._chunk_tokens is not None:
+            i32, f32 = torch.int32, torch.float32
+            self._chunk_in = StaticInputs(
+                [("toks", self._chunk_tokens, i32),
+                 ("table", self._max_blocks, i32), ("start", 1, i32),
+                 ("last", 1, i32), ("top_k", 1, i32), ("seed", 1, i32),
+                 ("step", 1, i32), ("temperature", 1, f32),
+                 ("top_p", 1, f32)], self.device)
+            self._chunk_fn = AotFunction(self._chunk_step, key_fn=shape_key,
+                                         name="prefill_chunk", capture=True)
+            self._admit_fn = AotFunction(self._write_row,
+                                         key_fn=lambda *a: "slot_admit",
+                                         name="slot_admit")
         self.prefix_sharing = bool(prefix_sharing)
         self._prefilling: Dict[int, _PrefillState] = {}
         # prefix index: chain-hash key -> entry naming resident full
@@ -463,12 +504,17 @@ class GenerationPool:
             self._free_blocks.append(b)
             self._forget_block_key(b)
 
+    def _padded_row(self, blocks) -> np.ndarray:
+        """A table row: ``blocks``, then the scratch block 0 (unreserved
+        logical blocks are never read)."""
+        row = np.zeros(self._max_blocks, np.int64)
+        row[:len(blocks)] = blocks
+        return row
+
     def _write_row(self, slot: int, blocks, index: int) -> None:
         """Map ``slot``'s table row (``blocks``, scratch-padded) and set
         its cache index, in place in every layer's cache."""
-        padded = np.zeros(self._max_blocks, np.int64)
-        padded[:len(blocks)] = blocks
-        row = torch.from_numpy(padded).to(self.device)
+        row = torch.from_numpy(self._padded_row(blocks)).to(self.device)
         for c in self._cache:
             c.table[slot].copy_(row)
             c.index[slot] = int(index)
@@ -684,7 +730,7 @@ class GenerationPool:
         blocks = list(matched_blocks) + \
             self._alloc_blocks(need - len(matched_blocks))
         self._slot_blocks[slot] = blocks
-        self._write_row(slot, blocks, matched_len)
+        self._admit_fn(slot, blocks, matched_len)
         self._prefilling[slot] = _PrefillState(
             req, matched_len, matched_blocks=len(matched_blocks),
             chain_key=chain_key)
@@ -754,13 +800,11 @@ class GenerationPool:
             if self._layout.paged:
                 blocks = self._alloc_blocks(need)
                 self._slot_blocks[slot] = blocks
-                # unreserved logical blocks point at scratch: never read
-                padded = np.zeros(self._max_blocks, np.int64)
-                padded[:need] = blocks
+                padded = self._padded_row(blocks)
             else:
                 padded = None
-            self._cache = self._layout.insert_row(self._cache, row_cache,
-                                                  slot, len(req.ids), padded)
+            self._insert_fn(self._cache, row_cache, slot, len(req.ids),
+                            padded)
             if self.on_admit is not None:
                 self.on_admit(req.rid, slot, len(req.ids))
             self._activate(slot, req, first)
@@ -770,6 +814,7 @@ class GenerationPool:
         prompt position) committed: one path for both prefill modes."""
         self._active[slot] = _SlotState(req, [first], req.max_new_tokens - 1)
         self._last_tok[slot] = first
+        self._membership_dirty = True
         if self.on_token is not None:
             self.on_token(req.rid, first)
         if req.max_new_tokens == 1 or (self.eos_id is not None
@@ -785,26 +830,37 @@ class GenerationPool:
         offset ``length - 1`` with the request's config at draw 0 (only
         the final chunk's sample is ever read).  Returns it on the device.
 
-        The forward is a batch-1 view over the GLOBAL cache (the slot's
-        table row and a [1] index), so K/V land in the same blocks the
-        batched step reads, with no copy of the pool.  Every written
-        position is >= ``start``, and shared blocks end before it; pad
-        positions land in the request's own future positions (masked until
-        overwritten) or, past its reservation, in the scratch block."""
-        dev = self.device
-        index = torch.full((1,), int(start), dtype=torch.int32, device=dev)
-        views = [c._replace(table=c.table[slot:slot + 1], index=index)
-                 for c in self._cache]
-        logits, _ = self._session._run_model(
-            torch.from_numpy(toks).to(dev)[None], views)
+        The chunk's inputs -- the tokens, a copy of the slot's table row,
+        the start, the last offset and the config -- go to the static
+        buffers in one upload, then the ``"prefill_chunk"`` step runs; the
+        slot's index is set on the host side of the step."""
         cfg = sampling
-        tok = sample_logits_data(logits[0, length - 1:length],
-                                 [cfg.temperature], [cfg.top_k],
-                                 [cfg.top_p], [cfg.seed], [0])
-        # the layer advanced only the view's index
+        self._chunk_in.upload(
+            toks=toks, table=self._padded_row(self._slot_blocks[slot]),
+            start=start, last=length - 1,
+            top_k=cfg.top_k, seed=cfg.seed, step=0,
+            temperature=cfg.temperature, top_p=cfg.top_p)
+        tok = self._chunk_fn(self._chunk_in.toks)
+        # the step advanced only the view's index
         for c in self._cache:
             c.index[slot] = int(start + length)
         return tok[0]
+
+    def _chunk_step(self, toks):
+        """The captured body of a chunk: a batch-1 view over the GLOBAL
+        cache (the static table row and a [1] start index), so K/V land
+        in the same blocks the batched step reads, with no copy of the
+        pool.  Every written position is >= the start, and shared blocks
+        end before it; pad positions land in the request's own future
+        positions (masked until overwritten) or, past its reservation, in
+        the scratch block."""
+        b = self._chunk_in
+        views = [c._replace(table=b.table[None], index=b.start)
+                 for c in self._cache]
+        logits, _ = self._session._run_model(toks[None].long(), views)
+        return sample_logits_data(logits[0].index_select(0, b.last),
+                                  b.temperature, b.top_k, b.top_p, b.seed,
+                                  b.step)
 
     def _chunk_work(self) -> None:
         """At most ``prefill_chunk_tokens`` of prompt work this tick: one
@@ -895,6 +951,7 @@ class GenerationPool:
         host_bytes = sum(_nbytes(t) for t in parts)
         self._active.pop(slot)
         self._free.append(slot)
+        self._membership_dirty = True
         self._prefix_epoch += 1
         sp = _SpillState(st, len(blocks), written, host, host_bytes)
         freed = 0
@@ -959,6 +1016,7 @@ class GenerationPool:
         self._write_row(slot, blocks, pos)
         self._active[slot] = _SlotState(sp.req, sp.tokens, sp.remaining)
         self._last_tok[slot] = sp.tokens[-1]
+        self._membership_dirty = True
         self._prefix_epoch += 1
         self._resumes_total += 1
         self._on_resumed(slot, sp)
@@ -993,40 +1051,51 @@ class GenerationPool:
         }
 
     # -- the tick ------------------------------------------------------------
-    def _step_inputs(self):
-        """Host-built per-slot vectors for one step: token, active mask
-        and the sampling config (free and prefilling slots decode
-        greedily; their output is discarded)."""
-        active = np.zeros(self.slots, bool)
-        temp = np.zeros(self.slots, np.float32)
-        tk = np.zeros(self.slots, np.int32)
-        tp = np.ones(self.slots, np.float32)
-        seed = np.zeros(self.slots, np.int64)
-        step = np.zeros(self.slots, np.int64)
+    def _sync_step_inputs(self) -> None:
+        """Rewrite the decode step's static inputs (one upload) when slot
+        membership changed since the last step; otherwise they already
+        hold what the last step fed back.  Free and prefilling slots
+        decode greedily (their output is discarded).  A slot's next draw
+        is its token count: the prefill drew step 0."""
+        if not self._membership_dirty:
+            return
+        n = self.slots
+        active = np.zeros(n, np.int32)
+        temp = np.zeros(n, np.float32)
+        tk = np.zeros(n, np.int32)
+        tp = np.ones(n, np.float32)
+        seed = np.zeros(n, np.int64)
+        step = np.zeros(n, np.int64)
         for slot, st in self._active.items():
-            active[slot] = True
-            cfg = st.req.sampling
-            temp[slot], tk[slot], tp[slot], seed[slot] = cfg
-            # the prefill drew step 0; the next draw is the token count
+            active[slot] = 1
+            temp[slot], tk[slot], tp[slot], seed[slot] = st.req.sampling
             step[slot] = len(st.tokens)
-        return active, (temp, tk, tp, seed, step)
+        self._steps.upload(tok=self._last_tok, active=active,
+                           temperature=temp, top_k=tk, top_p=tp, seed=seed,
+                           step=step)
+        self._membership_dirty = False
 
-    def _pool_decode(self, toks, active, samp):
-        """One batched decode step over every slot: inactive slots are
-        frozen (index unchanged, token forced to 0) and, on the paged
-        layout, write into the scratch block; the original table rows are
-        kept in the pool's cache."""
+    def _pool_decode(self, tok):
+        """One batched decode step over every slot (``tok`` is the static
+        token buffer): inactive slots are frozen (index unchanged, token
+        forced to 0) and, on the paged layout, write into the scratch
+        block through a masked copy of the tables, the pool's own rows
+        untouched.  The sampled token overwrites ``tok`` and active rows'
+        draw counters advance, on the device.  Returns the token buffer
+        and the step's logits [slots, V]."""
+        st = self._steps
+        active = st.active.bool()
         cache = self._cache
         if self._layout.paged:
             cache = self._masked_tables(cache, active)
-        logits, new_cache = self._session._run_model(toks[:, None], cache)
-        tok = sample_logits_data(logits[:, 0], *samp)
-        new_cache = self._layout.freeze_step(new_cache, cache, active)
-        if self._layout.paged:
-            new_cache = [c._replace(table=old.table)
-                         for c, old in zip(new_cache, self._cache)]
-        self._cache = new_cache
-        return torch.where(active, tok, torch.zeros_like(tok))
+        logits, new_cache = self._session._run_model(tok[:, None].long(),
+                                                     cache)
+        nxt = sample_logits_data(logits[:, 0], st.temperature, st.top_k,
+                                 st.top_p, st.seed, st.step)
+        self._layout.freeze_step(new_cache, self._cache, active)
+        tok.copy_(torch.where(active, nxt, torch.zeros_like(nxt)))
+        st.step.add_(st.active)
+        return tok, logits[:, 0]
 
     def step(self) -> bool:
         """Refill free slots, run at most one prefill chunk, then ONE
@@ -1039,13 +1108,11 @@ class GenerationPool:
             self._chunk_work()
         if not self._active:
             return bool(self._queue or self._prefilling or self._spilled)
-        active, samp = self._step_inputs()
-        dev = self.device
-        tok = self._pool_decode(
-            torch.from_numpy(self._last_tok).to(dev).long(),
-            torch.from_numpy(active).to(dev), samp)
+        self._sync_step_inputs()
+        tok, _ = self._decode_fn(self._steps.tok)
         self.decode_steps_total += 1
-        host = tok.cpu().numpy().astype(np.int32)
+        # the designed sync point: one download of the token vector
+        host = tok.cpu().numpy().copy()
         self._last_tok = host
         self._deliver(host)
         return bool(self._active or self._queue or self._prefilling
@@ -1067,6 +1134,7 @@ class GenerationPool:
 
     def _finish(self, slot: int):
         state = self._active.pop(slot)
+        self._membership_dirty = True
         tokens = np.asarray(state.tokens, np.int32)
         self._results[state.rid] = tokens
         reason = classify_finish(tokens, self.eos_id)
@@ -1090,6 +1158,7 @@ class GenerationPool:
                 "prefilling: %s)" % (slot, sorted(self._active),
                                      sorted(self._prefilling)))
         self._free.append(slot)
+        self._membership_dirty = True
         self._release_blocks(slot)
         self._used_rids.discard(state.rid)
         return state.rid
@@ -1142,12 +1211,16 @@ class GenerationPool:
         """Discard every request and all cache and allocator state --
         queue, slots, results, free list, spill tier, prefix index and
         the K/V themselves (the index and the spilled blocks name blocks
-        of the cache being discarded, so they go with it)."""
+        of the cache being discarded, so they go with it) -- while KEEPING
+        the steps' keys and graphs: the cache is zeroed in place, so a
+        captured step still reads it, and ``compile_counts()`` does not
+        change."""
         self._queue.clear()
         self._active.clear()
         self._prefilling.clear()
         self._free = list(range(self.slots))
         self._last_tok = np.zeros(self.slots, np.int32)
+        self._membership_dirty = True
         self._results.clear()
         self._finish_reasons.clear()
         self._used_rids.clear()
@@ -1162,7 +1235,35 @@ class GenerationPool:
             self._block_keys.clear()
             self._prefix_epoch += 1
             self._head_match = None
-        self._cache = self._new_cache()
+        for c in self._cache:
+            for t in c:
+                if t is not None:
+                    t.zero_()
+
+    # -- compiled-step contract -------------------------------------------
+    def compile_counts(self) -> dict:
+        """The shape keys each step has met: the session's ``prefill``
+        and ``decode``, ``pool_decode`` and ``slot_insert``, and with
+        chunked prefill ``prefill_chunk`` and ``slot_admit`` -- one key
+        per step shape, never one per prompt length.  On the card a key
+        of ``pool_decode``/``prefill_chunk`` holds one captured CUDA
+        graph; on the CPU a key is only a distinct shape."""
+        counts = self._session.compile_counts()
+        counts["pool_decode"] = self._decode_fn._cache_size()
+        counts["slot_insert"] = self._insert_fn._cache_size()
+        if self._chunk_fn is not None:
+            counts["prefill_chunk"] = self._chunk_fn._cache_size()
+            counts["slot_admit"] = self._admit_fn._cache_size()
+        return counts
+
+    def cost_version(self) -> int:
+        """Total keys across the pool's steps: changes only when a step
+        meets a new shape (the reference's cost report waits for its
+        port)."""
+        return self._session.cost_version() + sum(
+            fn.compiles for fn in (self._decode_fn, self._insert_fn,
+                                   self._chunk_fn, self._admit_fn)
+            if fn is not None)
 
     # -- introspection -------------------------------------------------------
     @property

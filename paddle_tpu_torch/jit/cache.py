@@ -23,8 +23,9 @@ Capabilities, which the pool's guards test instead of layout names:
 - ``spillable``: preempt/resume can move a slot's state through the host
   spill tier.
 
-Torch tensors are written in place, so ``insert_row`` copies into the
-pool's own buffers and returns tuples that share them.  The recurrent
+Every operation writes the cache's own tensors in place and returns the
+same layer caches: a captured CUDA graph reads the cache by address, so a
+K/V buffer, a table or an index is never replaced by a new tensor.  The recurrent
 layout of the reference (the only one that is not positional), and with it
 the ``begin_prefill`` hook, waits for the port of ``nn/ssm.py``.
 """
@@ -53,18 +54,22 @@ class CacheLayout:
 
     def finalize_prefill(self, cache, true_len, max_len):
         """Commit the true prompt length after the prefill forward."""
-        return [c._replace(index=torch.full_like(c.index, int(true_len)))
-                for c in cache]
+        for c in cache:
+            c.index.fill_(int(true_len))
+        return cache
 
     def insert_row(self, pool_cache, row_cache, slot: int, length: int,
                    blocks=None):
         raise NotImplementedError
 
     def freeze_step(self, new_cache, prev_cache, active):
-        """Inactive slots keep their pre-step index (only the index moves
-        per step on the positional layouts)."""
-        return [c._replace(index=torch.where(active, c.index, old.index))
-                for c, old in zip(new_cache, prev_cache)]
+        """Commit a step's index into ``prev_cache`` (the pool's own) in
+        place: active slots take the advanced index, inactive ones keep
+        theirs (only the index moves per step on the positional
+        layouts)."""
+        for c, old in zip(new_cache, prev_cache):
+            old.index.copy_(torch.where(active, c.index, old.index))
+        return prev_cache
 
     def cache_dtype_str(self, cache) -> str:
         return dtype_name(cache[0].k.dtype)
@@ -94,17 +99,14 @@ class DenseLayout(CacheLayout):
 
     def insert_row(self, pool_cache, row_cache, slot: int, length: int,
                    blocks=None):
-        out = []
         for cp, cr in zip(pool_cache, row_cache):
             cp.k[slot].copy_(cr.k[0])
             cp.v[slot].copy_(cr.v[0])
             if cp.k_scale is not None:
                 cp.k_scale[slot].copy_(cr.k_scale[0])
                 cp.v_scale[slot].copy_(cr.v_scale[0])
-            index = cp.index.clone()
-            index[slot] = int(length)
-            out.append(cp._replace(index=index))
-        return out
+            cp.index[slot] = int(length)
+        return pool_cache
 
 
 class PagedLayout(CacheLayout):
@@ -124,7 +126,6 @@ class PagedLayout(CacheLayout):
         # there, in any order, harmlessly.
         ids = torch.as_tensor(blocks, dtype=torch.int64,
                               device=pool_cache[0].k.device)
-        out = []
         for cp, cr in zip(pool_cache, row_cache):
             cp.k[ids] = cr.k[1:].to(cp.k.dtype)
             cp.v[ids] = cr.v[1:].to(cp.v.dtype)
@@ -133,12 +134,9 @@ class PagedLayout(CacheLayout):
                 # under another request's scale
                 cp.k_scale[ids] = cr.k_scale[1:]
                 cp.v_scale[ids] = cr.v_scale[1:]
-            table = cp.table.clone()
-            table[slot] = ids.to(table.dtype)
-            index = cp.index.clone()
-            index[slot] = int(length)
-            out.append(cp._replace(table=table, index=index))
-        return out
+            cp.table[slot] = ids.to(cp.table.dtype)
+            cp.index[slot] = int(length)
+        return pool_cache
 
 
 CACHE_LAYOUTS = {layout.name: layout

@@ -1,25 +1,38 @@
 """KV-cached autoregressive decoding: the bucketed prefill and the
 single-token decode step (counterpart of the reference's ``jit/decode.py``).
 
-The reference compiles exactly two functions with ``jax.jit``.  PyTorch
-runs eagerly, so here the same two functions are plain methods:
+The reference compiles exactly two functions per session with
+``jax.jit``; here they are two :class:`~.aot.AotFunction` wrappers:
 
-- ``prefill(ids)``: one causal forward over the bucket-padded prompt that
-  writes every position's K/V into a preallocated cache; the cache index
-  is then set to the TRUE length, so pad K/V is never attended, and the
-  first token is sampled at ``true_len - 1``;
-- ``_decode(cache, tok)``: one token in, one token out, with identical
-  shapes every step.
+- ``"prefill"`` (``prefill(ids)``), keyed by the bucket-padded ids: one
+  causal forward over the padded prompt that writes every position's K/V
+  into the session's cache; the cache index is then set to the TRUE
+  length, so pad K/V is never attended, and the first token is sampled at
+  ``true_len - 1``.  It runs eagerly;
+- ``"decode"``, keyed by the token vector: one token in, one token out,
+  with identical shapes every step.  On the card it is captured as a CUDA
+  graph and replayed.
 
-Sampling config rides each row as data (``SamplingState``: per-row
-temperature/top-k/top-p/seed and the row's draw counter), so a batch may
-mix greedy and sampled rows (``sample_logits`` is the scalar-config
-form).  Row r draws from a ``torch.Generator`` on
-the logits' device (Philox on the card) seeded from ``(seed[r],
-step[r])``: a pure function of the request's own seed and draw index.
-It is not JAX's threefry stream, so sampled tokens are held by their
-invariants and by this determinism, never by equality with the
-reference.
+A graph reads its tensors by address, so the session keeps ONE cache and
+one set of step buffers per batch size and resets them in place for each
+prompt; the token and the draw counter feed back on the device, in those
+buffers.
+
+Sampling config rides each row as data (per-row temperature/top-k/top-p/
+seed and the row's draw counter), so a batch may mix greedy and sampled
+rows; :func:`sample_logits` is the scalar-config form.
+:func:`sample_logits_data` is branch-free device work: it filters every
+row, draws one uniform per row from a counter-based hash of (seed, step)
+and inverts the filtered distribution's CDF, then keeps the argmax on
+greedy rows.  It is not JAX's threefry stream, so sampled tokens are held
+by their invariants and by determinism, never by equality with the
+reference:
+
+- a row's token is a pure function of (its logits row, its config, its
+  seed, its step), whatever its slot and whatever the other rows hold;
+- greedy rows and ``top_k == 1`` rows give the argmax;
+- a draw lies in the row's top-k set and its nucleus, with the filtered
+  distribution's probabilities.
 """
 from __future__ import annotations
 
@@ -33,10 +46,12 @@ from ..core.device import resolve_device, same_device
 from ..core.errors import InvalidArgumentError
 from ..nn.layer.transformer import normalize_cache_dtype
 from ..ops.flash_attention import decode_route, normalize_decode_route
+from .aot import AotFunction, StaticInputs, shape_key
 from .cache import get_layout
 
 __all__ = ["DecodeSession", "sample_logits", "sample_logits_data",
            "SamplingState", "make_sampling_state", "check_sampling",
+           "step_buffers",
            "default_buckets",
            "FINISH_EOS", "FINISH_LENGTH", "classify_finish",
            "truncate_at_eos"]
@@ -103,10 +118,33 @@ def make_sampling_state(batch: int, temperature=0.0, top_k=0, top_p=1.0,
                          vec(top_p, np.float32), s, vec(step, np.int64))
 
 
-def _stream_seed(seed: int, step: int) -> int:
-    """One 63-bit generator seed per (request seed, draw index)."""
-    return ((int(seed) & 0xFFFFFFFF) << 31 ^ (int(step) & 0x7FFFFFFF)) \
-        & 0x7FFFFFFFFFFFFFFF
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h, m: int):
+    """``h * m mod 2**32`` for int64 ``h`` in [0, 2**32) and a 32-bit
+    constant ``m``, in 16-bit halves so no product leaves int64."""
+    lo, hi = m & 0xFFFF, m >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """MurmurHash3's 32-bit finalizer: a bijection of [0, 2**32) whose
+    every output bit depends on every input bit."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _uniform(seed, step):
+    """One uniform in [0, 1) per row: a counter-based hash of the row's
+    (seed, step), its top 24 bits as a float32."""
+    s = seed.long() & _M32
+    t = step.long() & _M32
+    h = _fmix32(_fmix32(_fmix32(s) ^ t) ^ 0x9E3779B9)
+    return (h >> 8).float() * (1.0 / (1 << 24))
 
 
 def _filtered_probs(rows, temperature, top_k, top_p):
@@ -161,31 +199,42 @@ def sample_logits(logits, generator=None, temperature: float = 0.0,
 
 def sample_logits_data(logits, temperature, top_k, top_p, seed, step):
     """Token ids [B] (int32, on the logits' device) from logits [B, V]
-    with the config as per-row data.
+    with the config as per-row data (tensors or host vectors [B]).
 
-    ``temperature == 0`` rows are greedy argmax.  Other rows are filtered
-    as in :func:`sample_logits`, then draw once from a generator seeded by
-    :func:`_stream_seed`."""
-    temp = np.asarray(temperature, np.float32)
-    greedy = logits.argmax(dim=-1).to(torch.int32)
-    rows = np.nonzero(temp > 0)[0]
-    if rows.size == 0:
-        return greedy
+    Branch-free: every row is filtered as in :func:`sample_logits` (a
+    greedy row's temperature clamped to 1 first), draws one uniform from
+    :func:`_uniform` of its (seed, step) and takes the first token whose
+    cumulative filtered probability exceeds it; ``temperature == 0`` rows
+    keep the argmax instead.  No host read, so a captured step can run
+    it."""
     dev = logits.device
-    ridx = torch.as_tensor(rows, device=dev)
-    dist = _filtered_probs(
-        logits[ridx], torch.as_tensor(temp[rows], device=dev),
-        torch.as_tensor(np.asarray(top_k, np.int64)[rows], device=dev),
-        torch.as_tensor(np.asarray(top_p, np.float32)[rows], device=dev))
-    out = greedy.clone()
-    seeds = np.asarray(seed, np.int64)
-    steps = np.asarray(step, np.int64)
-    for i, r in enumerate(rows):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(_stream_seed(seeds[r], steps[r]))
-        out[int(r)] = torch.multinomial(dist[i], 1, generator=gen)[0] \
-            .to(torch.int32)
-    return out
+    temp = torch.as_tensor(temperature, device=dev).float()
+    safe_t = torch.where(temp > 0, temp, torch.ones_like(temp))
+    probs = _filtered_probs(
+        logits, safe_t, torch.as_tensor(top_k, device=dev).long(),
+        torch.as_tensor(top_p, device=dev).float())
+    cdf = probs.cumsum(dim=-1)
+    u = _uniform(torch.as_tensor(seed, device=dev),
+                 torch.as_tensor(step, device=dev))
+    drawn = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None],
+                               right=True)[:, 0]
+    # a rounding of u * total up to the total must not pick a token past
+    # the last one with mass
+    vocab = torch.arange(probs.shape[-1], device=dev)
+    last = torch.where(probs > 0, vocab, torch.zeros_like(vocab)).amax(-1)
+    drawn = torch.minimum(drawn, last)
+    greedy = logits.argmax(dim=-1)
+    return torch.where(temp > 0, drawn, greedy).to(torch.int32)
+
+
+def step_buffers(n: int, device) -> StaticInputs:
+    """The static per-row inputs of an ``n``-row decode step: the token
+    fed in, the active mask, the sampling config and the draw counter."""
+    i32, f32 = torch.int32, torch.float32
+    return StaticInputs([("tok", n, i32), ("active", n, i32),
+                         ("top_k", n, i32), ("seed", n, i32),
+                         ("step", n, i32), ("temperature", n, f32),
+                         ("top_p", n, f32)], device)
 
 
 def default_buckets(max_len: int, lo: int = 64) -> List[int]:
@@ -258,6 +307,16 @@ class DecodeSession:
                 "block_size must be >= 1, got %r" % (block_size,))
         self.cache_layout = cache_layout
         self.block_size = int(block_size)
+        # one cache and one set of step buffers per batch size, reused
+        # (reset in place) by every prompt of that size: a captured
+        # decode graph reads them by address
+        self._batches = {}
+        self._prefill_fn = AotFunction(
+            self._prefill_step, key_fn=lambda ids, *r: shape_key(ids),
+            name="prefill")
+        self._decode_fn = AotFunction(
+            self._decode_step, key_fn=shape_key, name="decode",
+            capture=True)
 
     @contextlib.contextmanager
     def _inference(self):
@@ -275,18 +334,12 @@ class DecodeSession:
 
     def _run_model(self, ids, cache):
         """One forward of ``ids`` [B, L] through ``cache``.  The cache may
-        be a batch-1 VIEW of a pool's global cache -- ``table`` one slot's
-        row (``table[slot:slot+1]``) and ``index`` a [1] tensor set to the
+        be a batch-1 VIEW of a pool's global cache -- ``table`` a [1, MB]
+        copy of one slot's row and ``index`` a [1] tensor holding the
         chunk's start -- so a prompt chunk writes its K/V straight into
         the pool's physical blocks; the pool then sets its own index."""
         with self._inference():
             return self._model(ids, cache=cache)
-
-    @staticmethod
-    def _sample(logits, samp: SamplingState):
-        tok = sample_logits_data(logits, samp.temperature, samp.top_k,
-                                 samp.top_p, samp.seed, samp.step)
-        return tok, samp._replace(step=samp.step + 1)
 
     def _bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -303,9 +356,51 @@ class DecodeSession:
         return make_sampling_state(batch, self.temperature, self.top_k,
                                    self.top_p, seed=seed)
 
+    def _batch(self, b: int):
+        """The session's cache and step buffers for batch size ``b``."""
+        st = self._batches.get(b)
+        if st is None:
+            cache = self._model.gen_decode_cache(
+                b, self.max_len, self._cache_dtype, layout=self.cache_layout,
+                block_size=self.block_size)
+            st = self._batches[b] = (cache, step_buffers(b, self.device))
+        return st
+
+    def _prefill_step(self, ids, true_len: int, cache, bufs):
+        """The prompt forward from position 0 (the index reset in place;
+        stale K/V past it are masked), the true length committed, the
+        first token sampled at ``true_len - 1`` into ``bufs.tok``."""
+        for c in cache:
+            c.index.zero_()
+        logits, _ = self._run_model(ids.long(), cache)
+        self._layout.finalize_prefill(cache, true_len, self.max_len)
+        tok = sample_logits_data(logits[:, true_len - 1], bufs.temperature,
+                                 bufs.top_k, bufs.top_p, bufs.seed,
+                                 bufs.step)
+        bufs.tok.copy_(tok)
+        bufs.step.add_(1)
+        return bufs.tok
+
+    def _decode_step(self, tok):
+        """One token in, one token out: ``tok`` (the batch's token
+        buffer) is read, then overwritten with the sampled token; the
+        index and the draw counter advance in place."""
+        cache, bufs = self._batches[tok.shape[0]]
+        logits, new = self._run_model(tok[:, None].long(), cache)
+        for c, n in zip(cache, new):
+            c.index.copy_(n.index)
+        tok.copy_(sample_logits_data(logits[:, 0], bufs.temperature,
+                                     bufs.top_k, bufs.top_p, bufs.seed,
+                                     bufs.step))
+        bufs.step.add_(1)
+        return tok
+
     def prefill(self, input_ids, sampling: Optional[SamplingState] = None):
         """The bucketed prefill: ``(cache, first_token [B] int32 on the
-        device, samp')`` with ``samp'`` advanced past the prefill draw."""
+        device, samp')`` with ``samp'`` advanced past the prefill draw.
+        The cache and the token are the session's own buffers for this
+        batch size: the next prefill or decode of that size overwrites
+        them."""
         ids = np.asarray(input_ids)
         if ids.ndim == 1:
             ids = ids[None]
@@ -314,21 +409,16 @@ class DecodeSession:
             raise InvalidArgumentError(
                 "prompt must contain at least one token")
         bucket = self._bucket_for(t)
-        padded = np.zeros((b, bucket), np.int64)
+        padded = np.zeros((b, bucket), np.int32)
         padded[:, :t] = ids
         samp = self.sampling_state(b) if sampling is None else sampling
-        cache = self._model.gen_decode_cache(
-            b, self.max_len, self._cache_dtype, layout=self.cache_layout,
-            block_size=self.block_size)
-        logits, cache = self._run_model(
-            torch.from_numpy(padded).to(self.device), cache)
-        cache = self._layout.finalize_prefill(cache, t, self.max_len)
-        return (cache,) + self._sample(logits[:, t - 1], samp)
-
-    def _decode(self, cache, tok, samp: SamplingState):
-        """One token in, one token out."""
-        logits, cache = self._run_model(tok[:, None].long(), cache)
-        return (cache,) + self._sample(logits[:, 0], samp)
+        cache, bufs = self._batch(b)
+        bufs.upload(tok=0, active=1, temperature=samp.temperature,
+                    top_k=samp.top_k, top_p=samp.top_p, seed=samp.seed,
+                    step=samp.step)
+        tok = self._prefill_fn(torch.from_numpy(padded).to(self.device), t,
+                               cache, bufs)
+        return cache, tok, samp._replace(step=samp.step + 1)
 
     def generate(self, input_ids, max_new_tokens: int, seed=None):
         """Autoregressive generation; np.int32 [B, max_new_tokens].  The
@@ -345,9 +435,20 @@ class DecodeSession:
                 "prompt %d + max_new_tokens %d exceeds cache max_len %d"
                 % (t, max_new_tokens, self.max_len))
         samp = self.sampling_state(ids.shape[0], seed=seed)
-        cache, tok, samp = self.prefill(ids, samp)
-        toks = [tok]
+        _, tok, _ = self.prefill(ids, samp)
+        toks = [tok.clone()]
         for _ in range(max_new_tokens - 1):
-            cache, tok, samp = self._decode(cache, tok, samp)
-            toks.append(tok)
+            toks.append(self._decode_fn(tok).clone())
         return torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)
+
+    def compile_counts(self) -> dict:
+        """``{"prefill": n, "decode": n}``: the shape keys each step has
+        met.  On the card a decode key holds one captured CUDA graph; on
+        the CPU a key is only a distinct shape."""
+        return {"prefill": self._prefill_fn._cache_size(),
+                "decode": self._decode_fn._cache_size()}
+
+    def cost_version(self) -> int:
+        """Total keys across the session's steps: changes only when a
+        step meets a new shape."""
+        return self._prefill_fn.compiles + self._decode_fn.compiles

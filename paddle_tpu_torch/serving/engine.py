@@ -269,6 +269,14 @@ class ServingEngine:
         """Spill-tier accounting (``GenerationPool.spill_stats``)."""
         return self._pool.spill_stats()
 
+    def compile_counts(self) -> dict:
+        """The pool's step keys (``GenerationPool.compile_counts``)."""
+        return self._pool.compile_counts()
+
+    def cost_version(self) -> int:
+        """The pool's total step keys (``GenerationPool.cost_version``)."""
+        return self._pool.cost_version()
+
     @property
     def pool(self) -> GenerationPool:
         """The pool this engine schedules over."""

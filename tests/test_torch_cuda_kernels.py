@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain twins, on the card: K1
 (paged) and K2 (dense) decode attention, K3's flash-attention forward
-and backward, and K4 (``scale_mul``, the custom-op door's kernel).
+and backward, and K4 (``scale_mul``, the custom-op door's kernel); then the captured
+steps of ``jit/aot.py``: a graph captured once and replayed, launches
+counted through replays, the pool's and the session's steps against
+their private eager entry, and a failed capture raising.
 Skipped without a CUDA card: the kernels have no CPU mode (the CPU runs
 the twins, held against the reference by ``test_torch_decode_attention.py``,
 ``test_torch_flash_attention.py`` and ``test_torch_custom_op.py``).
@@ -486,3 +489,147 @@ def test_scale_mul_refuses_what_it_cannot_take(cuda_device):
         ck.scale_mul(x, x.cpu())
     with pytest.raises(InvalidArgumentError):  # float64: no kernel
         ck.scale_mul(x.double(), x.double())
+
+
+# -- captured steps (jit/aot.py) ------------------------------------------------
+@pytest.mark.cuda
+def test_aot_function_captures_once_and_replays(cuda_device):
+    from paddle_tpu_torch.jit.aot import AotFunction, shape_key
+
+    acc = torch.zeros(4, device=cuda_device)
+
+    def step(x):
+        acc.add_(x)  # a closed-over buffer, written by address
+        return x * 2
+
+    fn = AotFunction(step, shape_key, name="step", capture=True)
+    x = torch.arange(4.0, device=cuda_device)
+    outs = [fn(x).clone() for _ in range(3)]  # eager, capture+replay, replay
+    torch.cuda.synchronize()
+    assert torch.equal(acc, 3 * x), "a call ran its step twice (or never)"
+    assert all(torch.equal(o, 2 * x) for o in outs)
+    assert fn.compiles == 1 and fn.graphs() == 1
+    x0 = x.clone()
+    other = torch.full((4,), 5.0, device=cuda_device)
+    assert torch.equal(fn(other), 2 * other)
+    assert torch.equal(acc, 3 * x0 + other)
+    assert torch.equal(x, other)  # copied into the held static input
+
+
+@pytest.mark.cuda
+def test_aot_function_counts_launches_through_replays(cuda_device):
+    from paddle_tpu_torch.jit.aot import AotFunction
+
+    q, k, v, table, qpos, _, _ = _inputs(cuda_device, torch.float32,
+                                         torch.float32, 1)
+    fn = AotFunction(lambda q_: dk.paged_decode_attention_kernel(
+        q_, k, v, table, qpos, 0.125), lambda q_: "k1", name="k1",
+        capture=True)
+    want = dk.paged_decode_attention_plain(q, k, v, table, qpos, 0.125)
+    dk.reset_launch_counts()
+    for _ in range(4):
+        got = fn(q)
+    torch.cuda.synchronize()
+    assert dk.launch_counts()["paged_decode_attention_kernel"] == 4
+    torch.testing.assert_close(got, want, atol=ATOL[torch.float32], rtol=0)
+
+
+def _tiny_lm(dev):
+    from paddle_tpu_torch import TransformerLM
+
+    return TransformerLM(vocab_size=512, hidden_size=64, num_layers=2,
+                         num_heads=4, intermediate_size=128, max_position=128,
+                         dropout=0.0, device=dev, seed=0)
+
+
+def _eager(pool, name):
+    """Route one of the pool's steps through its private eager entry."""
+    fn = getattr(pool, name)
+    setattr(pool, name, fn._run_eager)
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kernel", [
+    (dict(cache_layout="paged", block_size=8), "paged_decode_attention_kernel"),
+    # 16-token chunks: past K1's 8 queries, so the chunk runs the
+    # composition and every K1 launch is a decode step's
+    (dict(cache_layout="paged", block_size=8, prefill_chunk_tokens=16,
+          prefix_sharing=True), "paged_decode_attention_kernel"),
+    ({}, "decode_attention_kernel")], ids=["paged", "chunked", "dense"])
+def test_pool_steps_captured_match_eager(cuda_device, kw, kernel):
+    import numpy as np
+
+    from paddle_tpu_torch import GenerationPool
+
+    model = _tiny_lm(cuda_device)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 512, n) for n in (5, 11, 20, 7, 14)]
+
+    def run(eager):
+        pool = GenerationPool(model, max_len=64, slots=2, buckets=[32],
+                              device=cuda_device, **kw)
+        if eager:
+            _eager(pool, "_decode_fn")
+            if pool._chunk_fn is not None:
+                _eager(pool, "_chunk_fn")
+        for i, p in enumerate(prompts):
+            pool.submit(p, 6, request_id=i, temperature=0.8 * (i % 2),
+                        top_k=20, seed=i)
+        dk.reset_launch_counts()
+        out = pool.run()
+        return pool, out, dk.launch_counts()[kernel]
+
+    pool, got, launches = run(eager=False)
+    _, want, _ = run(eager=True)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    assert pool._decode_fn.graphs() == 1
+    assert pool.compile_counts()["pool_decode"] == 1
+    assert launches == 2 * pool.decode_steps_total
+    if pool._chunk_fn is not None:
+        assert pool._chunk_fn.graphs() == 1
+        assert pool.compile_counts()["prefill_chunk"] == 1
+    pool.reset()  # zeroed in place: the graphs still serve
+    again = pool.generate(prompts[:2], 6)
+    assert pool._decode_fn.graphs() == 1 and again[0].shape == (6,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_session_decode_captured(cuda_device, layout):
+    import numpy as np
+
+    from paddle_tpu_torch import DecodeSession
+
+    model = _tiny_lm(cuda_device)
+    sess = DecodeSession(model, max_len=64, buckets=[16], device=cuda_device,
+                         cache_layout=layout, block_size=8)
+    ids = np.random.RandomState(1).randint(0, 512, (2, 9))
+    dk.reset_launch_counts()
+    got = sess.generate(ids, 8)
+    counts = dk.launch_counts()
+    assert sess.compile_counts() == {"prefill": 1, "decode": 1}
+    assert sess._decode_fn.graphs() == 1
+    kernel = ("paged_decode_attention_kernel" if layout == "paged"
+              else "decode_attention_kernel")
+    assert counts[kernel] == 2 * 7  # two layers x seven decode steps
+    # the same tokens when every decode step runs eagerly
+    eager = DecodeSession(model, max_len=64, buckets=[16],
+                          device=cuda_device, cache_layout=layout,
+                          block_size=8)
+    eager._decode_fn = eager._decode_fn._run_eager
+    np.testing.assert_array_equal(got, eager.generate(ids, 8))
+
+
+@pytest.mark.cuda
+def test_aot_function_capture_failure_raises(cuda_device):
+    # last in the file: a failed capture leaves nothing for later tests
+    from paddle_tpu_torch.jit.aot import AotFunction, CaptureError
+
+    fn = AotFunction(lambda x: x * float(x.sum().item()), lambda x: "f",
+                     name="host_read", capture=True)
+    x = torch.ones(3, device=cuda_device)
+    fn(x)  # the eager warm-up reads the host freely
+    with pytest.raises(CaptureError):
+        fn(x)

@@ -1,6 +1,7 @@
 """A/B measurements on the card that ``chip_smoke.py`` does not make.
 
     python3 chip_ab.py decode OTHER_ROOT   # decode step: OTHER_ROOT vs this
+    python3 chip_ab.py train OTHER_ROOT    # fp32 GPT step: OTHER_ROOT vs this
     python3 chip_ab.py spill               # preempt/resume packing
 
 ``decode`` runs ``chip_smoke.profile_decode`` (the 24-layer GPT-1.3B
@@ -14,6 +15,13 @@ the host's speed drifts within one run, so compare the two trees only
 within one call and read the ``cProfile`` call counts beside the times.
 Unpack the other tree with ``git archive <commit> | tar -x -C <dir>``
 into a git-ignored directory of the checkout (``scratch_chip/``).
+
+``train`` runs ``chip_smoke.train_gpt()`` (GPT-1.3B fp32, 24 layers,
+2 x 2048, 1 warm-up and 5 timed steps, then one profiled step) for two
+checkouts in the same order and fresh processes, and reports each run's
+step times, the profiled step's device busy time and idle share, and a
+``cProfile`` of one more step: the host's calls and seconds (the step
+synchronizes at its end, so the seconds include the wait for the card).
 
 ``spill`` times the spill tier's packing at ``preempt_4l``'s fp32 shape
 (4 layers x K/V, 16 blocks of 16 heads x 32 x 128, 33.5 MB), alternated
@@ -69,17 +77,53 @@ print(buf.getvalue())
 '''
 
 
-def decode_ab(other: str) -> None:
+_TRAIN_CHILD = r'''
+import cProfile, json, os, pstats, sys
+import torch
+root = os.path.abspath(sys.argv[1]); sys.path.insert(0, root); os.chdir(root)
+import chip_smoke as cs
+from paddle_tpu_torch.ops import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.load("flash_attention")
+host = {}
+profile_step = cs._profile_step
+
+def host_profiled(step, batch, *a, **kw):
+    torch.cuda.synchronize()
+    pr = cProfile.Profile(); pr.enable(); step(*batch)
+    torch.cuda.synchronize(); pr.disable()
+    st = pstats.Stats(pr)
+    host.update(cprofile_s_per_step=st.total_tt,
+                cprofile_calls_per_step=st.total_calls)
+    return profile_step(step, batch, *a, **kw)
+
+cs._profile_step = host_profiled
+out = cs.train_gpt()
+prof = out["profile"]
+print("RESULT " + json.dumps(dict(
+    {k: out[k] for k in ("step_ms_mean", "step_ms_p50", "warmup_step_ms",
+                         "losses")},
+    **{k: prof.get(k) for k in ("device_busy_ms_per_step",
+                                "device_idle_share", "k3_ms_per_step")},
+    **host)))
+'''
+
+
+def _ab(child: str, label: str, other: str) -> None:
+    """Run ``child`` for ``other`` and this checkout, other, this, this,
+    other, each in a fresh process, printing each RESULT line as JSON."""
     here = os.path.dirname(os.path.abspath(__file__))
     for name, root in (("other", other), ("this", here), ("this", here),
                        ("other", other)):
-        r = subprocess.run([sys.executable, "-c", _DECODE_CHILD, root],
+        r = subprocess.run([sys.executable, "-c", child, root],
                            capture_output=True, text=True, timeout=600)
         line = next((ln for ln in r.stdout.splitlines()
                      if ln.startswith("RESULT ")), None)
         if line is None:
             sys.stderr.write(r.stdout + r.stderr)
-            raise SystemExit("decode A/B: the %s tree's run failed" % name)
+            raise SystemExit("%s A/B: the %s tree's run failed"
+                             % (label, name))
         print(json.dumps({"tree": name, "root": root,
                           **json.loads(line[len("RESULT "):])}), flush=True)
         print(r.stdout.split(line, 1)[1], flush=True)
@@ -151,7 +195,9 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if argv[:1] == ["decode"] and len(argv) == 2:
-        decode_ab(os.path.abspath(argv[1]))
+        _ab(_DECODE_CHILD, "decode", os.path.abspath(argv[1]))
+    elif argv[:1] == ["train"] and len(argv) == 2:
+        _ab(_TRAIN_CHILD, "train", os.path.abspath(argv[1]))
     elif argv == ["spill"]:
         spill_ab()
     else:

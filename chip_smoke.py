@@ -29,11 +29,16 @@ PyTorch twin, and drives the port's two main paths:
   requests through the 4-layer pool's graph and through its private eager
   entry, whose tokens must be identical; a ``DecodeSession`` generates on
   the dense and the paged cache from its captured decode step;
-- training: the same GPT-1.3B at full width and depth in fp32 for 6
+- training: the same GPT-1.3B at full width and depth for 6
   ``TrainStep``s (AdamW, global-norm clipping) on one repeated 2 x 2048
   batch, every attention forward and backward through the flash kernel K3,
-  then a BERT-base encoder on a ragged batch whose padding reaches K3 as
-  key-padding lanes;
+  first in fp32, then in bf16 O2 mixed precision as the reference's GPT
+  leg runs it (``amp.decorate`` O2 bf16, the loss under ``auto_cast``;
+  every K3 launch bf16), each with one more step profiled and broken down
+  by part of the step and aten op; then a BERT-base encoder on a ragged
+  batch whose padding reaches K3 as key-padding lanes, in fp32 and O2
+  bf16.  Small 2-layer models train on the card and on the CPU first, in
+  both precisions, and their losses must agree;
 - the custom-op door: the user kernel K4 (``scale_mul``) registered with
   a hand-written backward through ``incubate.register_custom_op``,
   differentiated eagerly (``.backward()``, ``grad`` with
@@ -63,6 +68,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -109,8 +115,26 @@ GREEDY_TOL = {"float32": 1e-3, "int8": 8e-2}
 # gradients, which sum over every query or key of the row); bf16 outputs
 # and gradients are rounded to bf16 by both
 FLASH_TOL = {"float32": (1e-5, 5e-5), "bfloat16": (2e-2, 2e-2)}
+# at the training shapes the largest bf16 outputs and gradients may
+# differ by two bf16 ulps: 2^-6 of the tensor's largest value
+BF16_TWO_ULPS = 2.0 ** -6
+# bf16 K3 O, dQ, dK and dV, element by element, beside the limits above:
+# both sides round the output to bf16 (one ulp is at most 2^-7 of the
+# value) and the kernel sums bf16-rounded P and dS (noise of a few 2^-9 of
+# the row's typical size), so |got - want| <= 2^-6 (|want| + rms), the rms
+# taken over the element's 64-row tile of its (batch, head) slice: the
+# size of its neighbours, not of the tensor's largest value.  A key tile
+# left out of O or a tile of dK/dV zeroed must give ratios above 1
+# (checked on the card at the GPT shape, ``_check_bf16_limit``)
+BF16_REL = 2.0 ** -6
+BF16_TILE_ROWS = 64
 # the training runs
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6  # 1 warm-up + 5 timed
+# the small training check, card against CPU over 3 AdamW steps: fp32
+# sums in another order on each side; in O2 bf16 both sides round the same
+# products to bf16 and accumulate in fp32, and the loss averages the
+# rounding of 2 x 255 or 4 x 200 positions
+SMALL_TRAIN_RTOL = {"float32": 1e-4, "bfloat16": 2e-3}
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 8, 512, 3
 # K4 at full width: the GPT-1.3B FFN activation at the training batch
 CUSTOM_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 8192)
@@ -813,8 +837,11 @@ def device_time_rows(prof):
 
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # host ops: their device time is their kernels' time
+        # host ops: their device time is their kernels' time; a profiled
+        # step's ``part:`` ranges (``_StepParts``) also show on the device,
+        # as annotations spanning their kernels
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("part:"):
+            continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0:
@@ -1173,15 +1200,61 @@ def flash_case(gen, b, h, lq, lk, d, dtype, causal, bias=None, seg=None):
     return case, rnd(b, h, lq, d).to(dtype)
 
 
+def bf16_error_ratio(got, want) -> float:
+    """The largest ``|got - want| / (BF16_REL (|want| + rms))`` over the
+    elements of [B, H, L, D] tensors, ``rms`` that of ``want`` over the
+    element's ``BF16_TILE_ROWS``-row tile of its (b, h) slice (a tile of
+    exact zeros, such as padded keys' dK, allows 1e-30): <= 1 passes."""
+    import torch
+
+    g, w = got.float(), want.float()
+    b, h, l, d = w.shape
+    tile = BF16_TILE_ROWS
+    n = -(-l // tile)
+    sq = torch.nn.functional.pad(w.square(), (0, 0, 0, n * tile - l))
+    rows = torch.full((n,), float(tile), device=w.device)
+    rows[-1] = l - (n - 1) * tile
+    rms = (sq.view(b, h, n, tile * d).sum(-1) / (rows * d)).sqrt()
+    rms = rms.repeat_interleave(tile, dim=-1)[..., :l, None]
+    limit = BF16_REL * (w.abs() + rms) + 1e-30
+    return ((g - w).abs() / limit).max().item()
+
+
+def _check_bf16_limit(args, o, grads, want_o, want):
+    """The bf16 limit rejects the faults it is there to catch, at the GPT
+    shape: O with the keys of one 64-key tile (64-127) left out of every
+    later row, and dK or dV zeroed for the last key tile.  Returns their
+    ratios, each of which must exceed 1."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    l = args["q"].shape[-2]
+    drop = torch.zeros(1, 1, l, l, device=o.device)
+    drop[..., 128:, 64:128] = torch.finfo(torch.float32).min
+    dropped_o, _ = fk.flash_attention_forward_plain(
+        **dict(args, bias=drop))
+    ratios = {"o_key_tile_dropped": bf16_error_ratio(dropped_o, want_o)}
+    for name, g, w in zip(("dk", "dv"), grads[1:3], want[1:3]):
+        cut = g.clone()
+        cut[..., -BF16_TILE_ROWS:, :] = 0
+        ratios[name + "_last_tile_zeroed"] = bf16_error_ratio(cut, w)
+    log("bf16 limit against injected faults (ratio to the limit, each "
+        "must exceed 1): %s" % {n: "%.1f" % r for n, r in ratios.items()})
+    assert all(r > 1 for r in ratios.values()), ratios
+    return ratios
+
+
 def check_flash_kernels():
     """K3 forward (O and stats) and backward (dQ/dK/dV, and dbias before
     its broadcast sum) against the plain twins: causal and not, key
     padding (segment lanes), segment ids with fully masked rows, full and
     broadcast bias, Lq != Lk, L not a multiple of the tile, D in {64, 128},
-    f32 and bf16, and both training shapes with the strides the model
-    passes: B 2 x H 16 x L 2048 x D 128 causal (GPT) and B 8 x H 12 x
-    L 512 x D 64 non-causal with ragged key padding (BERT).  Returns the
-    GPT shape's max errors."""
+    f32 and bf16, and both training shapes, in f32 and bf16, with the
+    strides the model passes: B 2 x H 16 x L 2048 x D 128 causal (GPT) and
+    B 8 x H 12 x L 512 x D 64 non-causal with ragged key padding (BERT).
+    Returns the GPT shape's max errors, the bf16 ones under names ending
+    in ``_bfloat16``."""
     import torch
 
     from paddle_tpu_torch.ops import flash_kernels as fk
@@ -1201,7 +1274,8 @@ def check_flash_kernels():
                 causal=True)
     bert = dict(b=BERT_BATCH, h=12, lq=BERT_SEQ, lk=BERT_SEQ, d=64,
                 causal=False, seg="pad")
-    cases += [(main, torch.float32), (bert, torch.float32)]
+    cases += [(main, torch.float32), (bert, torch.float32),
+              (main, torch.bfloat16), (bert, torch.bfloat16)]
     main_err = {}
     for shape, dtype in cases:
         args, do = flash_case(gen, dtype=dtype, **shape)
@@ -1221,24 +1295,40 @@ def check_flash_kernels():
                 errs[name] = (g.float() - w.float()).abs().max().item()
         scale = {n: t.float().abs().max().item() for n, t in
                  zip(("dq", "dk", "dv"), want)}
+        if dtype == torch.bfloat16 and (shape is main or shape is bert):
+            # long rows: the largest outputs and gradients reach magnitudes
+            # where two bf16 ulps (2^-6 relative) exceed the small shapes'
+            # 2e-2; the element-wise limit below bounds the rest
+            fwd_tol = max(fwd_tol, BF16_TWO_ULPS
+                          * want_o.float().abs().max().item())
+            grad_tol = max(grad_tol, BF16_TWO_ULPS * max(scale.values()))
         ok = (errs["o"] <= fwd_tol and errs["stats"] <= 1e-5
               and all(errs[n] <= grad_tol for n in errs
                       if n not in ("o", "stats"))
               and bool(torch.isfinite(o).all()))
-        log("parity flash_attention %-8s %s  errs %s  grad max %s  "
-            "tol %.0e/%.0e %s"
+        limits = "tol %.0e/%.0e" % (fwd_tol, grad_tol)
+        if dtype == torch.bfloat16:
+            ratio = {n: bf16_error_ratio(g, w) for n, g, w in
+                     zip(("o", "dq", "dk", "dv"), (o,) + tuple(grads[:3]),
+                         (want_o,) + tuple(want[:3]))}
+            ok = ok and all(r <= 1 for r in ratio.values())
+            limits += ", ratio to the element-wise bf16 limit %s" % {
+                n: "%.3f" % r for n, r in ratio.items()}
+        log("parity flash_attention %-8s %s  errs %s  %s %s"
             % (str(dtype)[6:], shape, {n: "%.2e" % e for n, e in
-                                       errs.items()},
-               {n: "%.2f" % e for n, e in scale.items()}, fwd_tol, grad_tol,
+                                       errs.items()}, limits,
                "ok" if ok else "FAIL"))
         if not ok:
             raise AssertionError("K3 disagrees with its plain twins: %s"
                                  % errs)
+        if dtype == torch.bfloat16 and shape is main:
+            _check_bf16_limit(args, o, grads, want_o, want)
         if shape is main:
-            main_err = {"flash_attention_forward_kernel": max(
-                errs["o"], errs["stats"]),
-                "flash_attention_backward_kernel": max(
-                    errs["dq"], errs["dk"], errs["dv"])}
+            suffix = "" if dtype == torch.float32 else "_bfloat16"
+            main_err["flash_attention_forward_kernel" + suffix] = max(
+                errs["o"], errs["stats"])
+            main_err["flash_attention_backward_kernel" + suffix] = max(
+                errs["dq"], errs["dk"], errs["dv"])
     return main_err
 
 
@@ -1253,27 +1343,227 @@ def _adamw(model):
                  grad_clip=ClipGradByGlobalNorm(1.0))
 
 
-def _profile_step(step, batch, step_ms):
+def _o2(model, opt):
+    """The model and optimizer ``amp.decorate``d O2 bf16, as the
+    reference's training legs (``bench.py``'s ``_lm_leg_runner``)."""
+    from paddle_tpu_torch import amp
+
+    return amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+
+def _amp_loss(loss_fn, bf16: bool):
+    """``loss_fn``, under ``auto_cast(level="O1", dtype="bfloat16")`` when
+    ``bf16``, as the reference's training legs run the loss."""
+    if not bf16:
+        return loss_fn
+    from paddle_tpu_torch import amp
+
+    def loss_under_autocast(*args):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return loss_fn(*args)
+
+    return loss_under_autocast
+
+
+def _check_k3_dtype(by_dtype, dtype: str, n: int):
+    """Each K3 wrapper launched ``n`` times in the run, all in ``dtype``."""
+    want = {name: {dt: n if dt == dtype else 0 for dt in counts}
+            for name, counts in by_dtype.items()}
+    assert by_dtype == want, (by_dtype, want)
+
+
+def _check_o2_params(model, opt) -> dict:
+    """O2's contract on a decorated model: every parameter bf16 but the
+    norms' (float32), and each bf16 parameter's optimizer state holds a
+    float32 master."""
+    import torch
+
+    from paddle_tpu_torch.optimizer import param_name
+
+    n = {"bfloat16": 0, "float32": 0}
+    for name, p in model.named_parameters():
+        norm = "norm" in name
+        assert p.dtype == (torch.float32 if norm else torch.bfloat16), \
+            (name, p.dtype)
+        st = opt._states[param_name(p)]
+        assert ("master_weight" in st) != norm, name
+        assert norm or st["master_weight"].dtype == torch.float32, name
+        n["float32" if norm else "bfloat16"] += 1
+    return n
+
+
+def _kernel_kind(name: str) -> str:
+    """"k3", "gemm" (cuBLAS and CUTLASS products, their split-K reduce) or
+    "elementwise" (everything else: pointwise, reductions, copies)."""
+    if "flash_" in name:
+        return "k3"
+    if re.search(r"gemm|gemv|xmma|cutlass|nvjet|splitK", name, re.I):
+        return "gemm"
+    return "elementwise"
+
+
+class _StepParts:
+    """Marks the parts of one training step for the profiler while it is
+    entered: each part's function runs inside a ``record_function``
+    range named ``part:<name>`` -- the model's forward, the embedding,
+    LayerNorm, the Linear products, the attention (SDPA routing and K3),
+    GELU, the tied head's matmul, the autocast casts, the loss, the
+    gradient clip and the optimizer's per-parameter update.  The port's
+    functions are looked up at call time, so the patch reaches them; on
+    leaving, everything is put back."""
+
+    def __init__(self, model, crit, opt):
+        import paddle_tpu_torch.nn.functional as F
+        import paddle_tpu_torch.tensor as T
+        from paddle_tpu_torch.framework import dispatch
+
+        self._targets = [
+            (model, "forward", "forward"), (F, "embedding", "embedding"),
+            (F, "layer_norm", "layer_norm"), (F, "linear", "linear"),
+            (F, "scaled_dot_product_attention", "attention"),
+            (F, "gelu", "gelu"), (T, "matmul", "head"),
+            (dispatch, "_cast", "cast"), (crit, "forward", "loss"),
+            (opt, "_grad_clip", "clip"), (opt, "_apply_one", "optimizer")]
+        self._saved = []
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        def marked(fn, part):
+            def run(*args, **kwargs):
+                with record_function("part:" + part):
+                    return fn(*args, **kwargs)
+            return run
+
+        for obj, attr, part in self._targets:
+            self._saved.append((obj, attr, attr in vars(obj),
+                                getattr(obj, attr)))
+            setattr(obj, attr, marked(getattr(obj, attr), part))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, own, fn in reversed(self._saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)
+        self._saved.clear()
+
+
+def _chain(ev):
+    """``ev`` and its enclosing events on its thread, innermost first."""
+    while ev is not None:
+        yield ev
+        ev = ev.cpu_parent
+
+
+def _step_breakdown(prof, busy_ms: float) -> dict:
+    """A profiled step's kernels by part (the ``part:`` range around the
+    op that launched them) and by the aten op that launched them.  A
+    backward kernel runs on the autograd thread, outside every range: it
+    goes to ``backward:<part>`` of the forward op whose autograd node
+    launched it (the node's sequence number is the forward op's).  Kernels
+    the profiler links to no op are left out; ``attributed_share`` says
+    how much of the busy time the table covers.  ``host_ms`` is a part's
+    host time under the profiler (its ranges' wall time, nested parts
+    included; the backward's parts have none)."""
+    from torch.autograd import DeviceType
+
+    def parts_of(ev):
+        return [e.name[5:] for e in _chain(ev) if e.name.startswith("part:")]
+
+    def part_of(ev):
+        return next(iter(parts_of(ev)), None)
+
+    events = prof.events()
+    # a sequence number is shared by the op that made the node and the
+    # ops before it that made none (a no-op ``to`` outside the attention's
+    # range, say): the most deeply nested part names the node
+    seq_part = {}
+    for ev in events:
+        if getattr(ev, "sequence_nr", -1) >= 0 and "Backward" not in ev.name \
+                and not ev.name.startswith("autograd::"):
+            parts = parts_of(ev)
+            if parts and len(parts) > seq_part.get(ev.sequence_nr,
+                                                   (0, None))[0]:
+                seq_part[ev.sequence_nr] = (len(parts), parts[0])
+    table = {}
+    for ev in events:
+        if not ev.kernels:
+            continue
+        op = next((e.name for e in _chain(ev) if e.name.startswith("aten::")),
+                  ev.name)
+        part = part_of(ev)
+        if part is None:
+            node = next((e for e in _chain(ev) if "Backward" in e.name
+                         or "AccumulateGrad" in e.name), None)
+            part = ("other" if node is None else "backward:%s"
+                    % seq_part.get(node.sequence_nr, (0, "unlinked"))[1])
+        for k in ev.kernels:
+            rec = table.setdefault((part, _kernel_kind(k.name), op), [0.0, 0])
+            rec[0] += k.duration / 1e3
+            rec[1] += 1
+    parts = {}
+
+    def record(part):
+        return parts.setdefault(part, {
+            "ms": 0.0, "gemm_ms": 0.0, "k3_ms": 0.0, "elementwise_ms": 0.0,
+            "elementwise_launches": 0, "host_ms": 0.0})
+
+    for ev in events:
+        if ev.name.startswith("part:") and ev.device_type == DeviceType.CPU \
+                and all(e.name != ev.name for e in _chain(ev.cpu_parent)):
+            record(ev.name[5:])["host_ms"] += ev.cpu_time_total / 1e3
+    for (part, kind, _), (ms, n) in table.items():
+        d = record(part)
+        d["ms"] += ms
+        d[kind + "_ms"] += ms
+        if kind == "elementwise":
+            d["elementwise_launches"] += n
+    elementwise = sorted(((ms, n, part, op) for (part, kind, op), (ms, n)
+                          in table.items() if kind == "elementwise"),
+                         reverse=True)
+    attributed = sum(d["ms"] for d in parts.values())
+    return {"attributed_ms": attributed,
+            "attributed_share": attributed / busy_ms if busy_ms else None,
+            "elementwise_ms": sum(r[0] for r in elementwise),
+            "elementwise_launches": sum(r[1] for r in elementwise),
+            "parts": dict(sorted(parts.items(), key=lambda kv: -kv[1]["ms"])),
+            "elementwise_top": [{"part": part, "op": op, "ms": ms,
+                                 "launches": n}
+                                for ms, n, part, op in elementwise[:20]]}
+
+
+def _profile_step(step, batch, step_ms, parts=None):
     """One more step under ``torch.profiler``: device busy time (CUDA
     kernel time, one stream) against the unprofiled step time, and the
-    kernels that take it."""
+    kernels that take it; with ``parts`` (a :class:`_StepParts`) entered
+    around it, also the step's breakdown by part and aten op."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(*batch)
-        torch.cuda.synchronize()
+    with parts or contextlib.nullcontext():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(*batch)
+            torch.cuda.synchronize()
     rows = device_time_rows(prof)
     busy = sum(r[0] for r in rows)
     if not busy:
         log("profile: the profiler recorded no device time (not measured)")
-    return {"device_busy_ms_per_step": busy,
-            "device_idle_share": (1 - busy / step_ms) if busy else None,
-            "k3_ms_per_step": sum(ms for ms, k, _ in rows if "flash_" in k),
-            "top": [{"kernel": k[:80], "ms_per_step": ms, "calls": n}
-                    for ms, k, n in rows[:10]]}
+    out = {"device_busy_ms_per_step": busy,
+           "device_idle_share": (1 - busy / step_ms) if busy else None,
+           "k3_ms_per_step": sum(ms for ms, k, _ in rows if "flash_" in k),
+           "gemm_ms_per_step": sum(ms for ms, k, _ in rows
+                                   if _kernel_kind(k) == "gemm"),
+           "top": [{"kernel": k[:80], "ms_per_step": ms, "calls": n}
+                   for ms, k, n in rows[:10]]}
+    if parts is not None:
+        out["breakdown"] = _step_breakdown(prof, busy)
+    return out
 
 
 def _padding_batch(rng, vocab, b, l):
@@ -1288,20 +1578,22 @@ def _padding_batch(rng, vocab, b, l):
     return ids, mask, np.where(valid, ids, -100), int(lens.sum())
 
 
-def check_train_small():
+def check_train_small(bf16: bool = False):
     """The training path on the card against the same path on the CPU,
     where K3 is its plain twins: 2-layer models of small widths, the same
     weights (seed 0) and batches, 3 AdamW steps each -- a causal LM with the
     shifted loss, and a non-causal encoder on ragged lengths (a [B, 1, 1, L]
-    padding mask, taken as key-padding lanes) with the pads ignored.  The
-    per-step losses must agree to 1e-4 relative (fp32 sums in another order
-    on each side, carried through three updates)."""
+    padding mask, taken as key-padding lanes) with the pads ignored.  With
+    ``bf16`` both sides run O2 bf16 (``check_train_small_bf16``) and every
+    K3 launch must be bf16.  The per-step losses must agree within
+    ``SMALL_TRAIN_RTOL``."""
     import torch
 
     from paddle_tpu_torch import (TrainStep, TransformerLM,
                                   TransformerLMCriterion)
     from paddle_tpu_torch.ops import flash_kernels as fk
 
+    dtype = "bfloat16" if bf16 else "float32"
     cfg = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
                intermediate_size=512, max_position=256, dropout=0.0)
     ids = np.random.RandomState(5).randint(0, 512, (2, 256))
@@ -1319,41 +1611,55 @@ def check_train_small():
         losses = {}
         for dev in ("cuda", "cpu"):
             model = TransformerLM(**c, device="cuda", seed=0).to(dev)
-            step = TrainStep(model, loss_fn, _adamw(model))
+            opt = _adamw(model)
+            if bf16:
+                model, opt = _o2(model, opt)
+            step = TrainStep(model, _amp_loss(loss_fn, bf16), opt)
             args = [torch.from_numpy(a).to(dev) if a.dtype == np.float32
                     else a for a in batch]
             losses[dev] = [float(step(*args)) for _ in range(3)]
-        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
-        log("train check %s (2 layers, 256 wide, %s): card %s vs cpu %s"
-            % (leg, "x".join(map(str, batch[0].shape)), losses["cuda"],
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"],
+                                   rtol=SMALL_TRAIN_RTOL[dtype])
+        log("train check %s%s (2 layers, 256 wide, %s): card %s vs cpu %s"
+            % (leg, " O2 bf16" if bf16 else "",
+               "x".join(map(str, batch[0].shape)), losses["cuda"],
                losses["cpu"]))
         out[leg] = losses
-    counts = fk.launch_counts()
     # card only: 2 layers x 3 steps per leg
-    assert all(n == 2 * 3 * len(legs) for n in counts.values()), counts
+    _check_k3_dtype(fk.launch_counts_by_dtype(), dtype, 2 * 3 * len(legs))
     return out
 
 
-def train_gpt():
-    """The training main path: GPT-1.3B at full width and depth, fp32,
+def train_gpt(bf16: bool = False):
+    """The training main path: GPT-1.3B at full width and depth,
     ``TrainStep`` with AdamW(1e-4, weight decay 0.01, global-norm clip 1.0)
     and the shifted LM loss, on one 2 x 2048 batch (numpy seed 0) repeated
-    for 1 warm-up and 5 timed steps.  The K3 counts are set to 0 just
-    before the steps and read just after."""
+    for 1 warm-up and 5 timed steps: in fp32, or with ``bf16``
+    (``train_gpt_bf16``) as the reference's GPT leg runs it, the model and
+    optimizer decorated O2 bf16 and the loss under ``auto_cast(level="O1")``
+    -- every parameter bf16 but the norms', each with a float32 master.
+    The K3 counts are set to 0 just before the steps and read just after:
+    every launch must be in the run's dtype.  One more step runs under the
+    profiler with the step's parts marked (``_StepParts``)."""
     import torch
 
     from paddle_tpu_torch import (TrainStep, TransformerLM,
                                   TransformerLMCriterion, gpt_1p3b_config)
     from paddle_tpu_torch.ops import flash_kernels as fk
 
+    dtype = "bfloat16" if bf16 else "float32"
     cfg = gpt_1p3b_config()
     t0 = time.perf_counter()
     model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
-    log("train model: GPT-1.3B, %d layers, %.3f B params, built in %.1f s"
-        % (cfg["num_layers"], sum(p.numel() for p in model.parameters())
-           / 1e9, time.perf_counter() - t0))
+    opt = _adamw(model)
+    if bf16:
+        model, opt = _o2(model, opt)
+    log("train model: GPT-1.3B %s, %d layers, %.3f B params, built in %.1f s"
+        % ("O2 bf16" if bf16 else "fp32", cfg["num_layers"],
+           sum(p.numel() for p in model.parameters()) / 1e9,
+           time.perf_counter() - t0))
     crit = TransformerLMCriterion(shift_labels=True)
-    step = TrainStep(model, lambda m, ids: crit(m(ids), ids), _adamw(model))
+    step = TrainStep(model, _amp_loss(lambda m, x: crit(m(x), x), bf16), opt)
     ids = np.random.RandomState(0).randint(
         0, cfg["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))
     torch.cuda.synchronize()
@@ -1367,37 +1673,46 @@ def train_gpt():
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
     counts = fk.launch_counts()
+    by_dtype = fk.launch_counts_by_dtype()
     peak = torch.cuda.max_memory_allocated()
     layers = cfg["num_layers"]
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
-    for name, n in counts.items():
-        assert n == layers * TRAIN_STEPS, (counts, layers * TRAIN_STEPS)
+    _check_k3_dtype(by_dtype, dtype, layers * TRAIN_STEPS)
     timed = step_ms[1:]
     mean_ms = float(np.mean(timed))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     tok_s = tokens / (mean_ms / 1e3)
-    out = {"layers": layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "steps": TRAIN_STEPS, "losses": losses,
+    flops_s = model.flops_per_token(TRAIN_SEQ) * tok_s
+    out = {"dtype": dtype, "layers": layers, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
            "warmup_step_ms": step_ms[0], "step_ms_mean": mean_ms,
            "step_ms_p50": float(np.median(timed)), "tokens_per_s": tok_s,
-           "mfu_vs_fp32_cuda_core_peak":
-               model.flops_per_token(TRAIN_SEQ) * tok_s / FP32_FLOPS_PER_S,
            "peak_mem_gb": peak / 2 ** 30, "launches": counts,
+           "launches_by_dtype": by_dtype,
            "launches_per_step": {n: c / TRAIN_STEPS
                                  for n, c in counts.items()}}
-    out["profile"] = _profile_step(step, (ids,), mean_ms)
-    del step, model
+    if bf16:
+        out["params_by_dtype"] = _check_o2_params(model, opt)
+        out["mfu_vs_bf16_tensor_core_peak"] = flops_s / BF16_TC_FLOPS_PER_S
+        out["mfu_peak_flops_per_s"] = BF16_TC_FLOPS_PER_S
+    else:
+        out["mfu_vs_fp32_cuda_core_peak"] = flops_s / FP32_FLOPS_PER_S
+        out["mfu_peak_flops_per_s"] = FP32_FLOPS_PER_S
+    out["profile"] = _profile_step(step, (ids,), mean_ms,
+                                   _StepParts(model, crit, opt))
+    del step, model, opt
     torch.cuda.empty_cache()
     return out
 
 
-def train_bert():
+def train_bert(bf16: bool = False):
     """BERT-base (12 layers, 768 wide, non-causal) for 3 steps on 8 x 512
     tokens with ragged lengths given as a [B, 1, 1, L] additive padding
     mask; the masked LM loss ignores the pads.  K3 must take the mask as
     key-padding (segment) lanes: the detection claims it and every K3
-    call of the run carries segment ids."""
+    call of the run carries segment ids.  With ``bf16``
+    (``train_bert_bf16``) the run is O2 bf16 and K3's lanes run in bf16."""
     import torch
 
     from paddle_tpu_torch import (TrainStep, TransformerLM,
@@ -1405,46 +1720,64 @@ def train_bert():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_kernels as fk
 
+    dtype = "bfloat16" if bf16 else "float32"
     cfg = bert_base_config()
     model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
+    opt = _adamw(model)
+    if bf16:
+        model, opt = _o2(model, opt)
     ids, mask, labels, real_tokens = _padding_batch(
         np.random.RandomState(1), cfg["vocab_size"], BERT_BATCH, BERT_SEQ)
     mask, labels = torch.from_numpy(mask).cuda(), torch.from_numpy(
         labels).cuda()
     assert fa.detect_padding_additive_mask(mask) is not None
     crit = TransformerLMCriterion(shift_labels=False)
-    step = TrainStep(model, lambda m, x, am, y: crit(m(x, attn_mask=am), y),
-                     _adamw(model))
-    with_lanes = []
-    apply = fk.FlashAttentionFunction.apply
+    step = TrainStep(model, _amp_loss(
+        lambda m, x, am, y: crit(m(x, attn_mask=am), y), bf16), opt)
+    calls, reads = [], []
+    apply, put = fk.FlashAttentionFunction.apply, fa._cache_put
 
     def recording_apply(*a):
-        with_lanes.append(a[4] is not None)  # q_seg
+        calls.append((a[4] is not None, str(a[0].dtype)[6:]))  # q_seg, q
         return apply(*a)
 
+    def counting_put(cache, m, verdict):
+        # a padding-mask detection that missed its cache: one readback
+        if cache is fa._pad_detect_cache:
+            reads[-1] += 1
+        return put(cache, m, verdict)
+
     fk.FlashAttentionFunction.apply = recording_apply
+    fa._cache_put = counting_put
     try:
         torch.cuda.synchronize()
         fk.reset_launch_counts()
-        losses = []
-        t0 = time.perf_counter()
+        losses, step_ms = [], []
         for _ in range(BERT_STEPS):
+            reads.append(0)
+            t0 = time.perf_counter()
             losses.append(float(step(ids, mask, labels)))
-        wall = time.perf_counter() - t0
+            step_ms.append((time.perf_counter() - t0) * 1e3)
         counts = fk.launch_counts()
+        by_dtype = fk.launch_counts_by_dtype()
     finally:
         fk.FlashAttentionFunction.apply = apply
+        fa._cache_put = put
     layers = cfg["num_layers"]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
-    assert with_lanes and all(with_lanes), with_lanes
-    for name, n in counts.items():
-        assert n == layers * BERT_STEPS, (counts, layers * BERT_STEPS)
-    del step, model
+    assert calls and all(c == (True, dtype) for c in calls), calls
+    # the layers share one converted mask: at most one readback a step
+    assert all(n <= 1 for n in reads), reads
+    _check_k3_dtype(by_dtype, dtype, layers * BERT_STEPS)
+    del step, model, opt
     torch.cuda.empty_cache()
-    return {"layers": layers, "batch": BERT_BATCH, "seq": BERT_SEQ,
-            "real_tokens": real_tokens, "losses": losses,
-            "step_ms_mean": wall * 1e3 / BERT_STEPS, "launches": counts,
-            "k3_calls_with_padding_lanes": len(with_lanes)}
+    return {"dtype": dtype, "layers": layers, "batch": BERT_BATCH,
+            "seq": BERT_SEQ, "real_tokens": real_tokens, "losses": losses,
+            "step_ms_mean": float(np.mean(step_ms)), "step_ms": step_ms,
+            "launches": counts,
+            "launches_by_dtype": by_dtype,
+            "k3_calls_with_padding_lanes": len(calls),
+            "mask_readbacks_per_step": reads}
 
 
 def time_flash():
@@ -1941,12 +2274,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     check_train_small()
+    check_train_small(bf16=True)
     train = {"gpt_fp32_24l": train_gpt()}
     log("training main path (GPT-1.3B fp32, 24 layers, 2 x 2048):",
         json.dumps(train["gpt_fp32_24l"]))
+    train["gpt_bf16_24l"] = train_gpt(bf16=True)
+    log("train_gpt_bf16 (GPT-1.3B O2 bf16, 24 layers, 2 x 2048; MFU "
+        "against the bf16 tensor-core peak, %.0f TFLOP/s):"
+        % (BF16_TC_FLOPS_PER_S / 1e12), json.dumps(train["gpt_bf16_24l"]))
     train["bert_base_pad"] = train_bert()
     log("encoder run (BERT-base, 8 x 512 ragged, key padding):",
         json.dumps(train["bert_base_pad"]))
+    train["bert_base_pad_bf16"] = train_bert(bf16=True)
+    log("train_bert_bf16 (BERT-base O2 bf16, 8 x 512 ragged, key padding):",
+        json.dumps(train["bert_base_pad_bf16"]))
 
     timing = time_kernels()
     timing.update(time_flash())
@@ -1975,15 +2316,18 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     for name in ("flash_attention_forward_kernel",
                  "flash_attention_backward_kernel"):
-        t = timing[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "paddle_tpu/ops/flash_attention.py:78",
-            "launches": train["gpt_fp32_24l"]["launches"][name],
-            "max_abs_err": parity[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        for dtype, run in (("float32", "gpt_fp32_24l"),
+                           ("bfloat16", "gpt_bf16_24l")):
+            t = timing[name if dtype == "float32" else (name, dtype)]
+            label = name if dtype == "float32" else name + "_" + dtype
+            kernels.append({
+                "name": label, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "paddle_tpu/ops/flash_attention.py:78",
+                "launches": train[run]["launches_by_dtype"][name][dtype],
+                "max_abs_err": parity[label], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     t = timing["scale_mul_kernel"]["float32"]
     kernels.append({
         "name": "scale_mul_kernel", "route": "cuda",

@@ -10,8 +10,11 @@ Training goes through ``TrainStep`` (or the optimizer's eager ``step()``)
 on whatever device the model lives.  ``torch.Tensor`` is the port's
 Tensor (paddle's ``stop_gradient`` is ``not requires_grad``); ``grad``,
 ``autograd.PyLayer``, ``incubate.register_custom_op`` and
-``incubate.autograd`` differentiate through torch's autograd.
+``incubate.autograd`` differentiate through torch's autograd.  ``amp``
+trains in bf16 (or fp16) mixed precision: ``amp.decorate(level="O2")``
+and ``amp.auto_cast`` around the loss, as the reference's training legs.
 """
+from . import amp  # noqa: F401
 from . import autograd  # noqa: F401
 from . import incubate  # noqa: F401
 from . import optimizer  # noqa: F401
@@ -21,6 +24,7 @@ from .core.errors import (EnforceNotMet, InvalidArgumentError,  # noqa: F401
                           UnavailableError)
 from .framework.engine import (enable_grad, grad,  # noqa: F401
                                is_grad_enabled, no_grad, set_grad_enabled)
+from .tensor import matmul  # noqa: F401
 from .tensor.creation import to_tensor  # noqa: F401
 from .inference.generation import GenerationPool  # noqa: F401
 from .jit.decode import DecodeSession  # noqa: F401

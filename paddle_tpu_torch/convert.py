@@ -3,7 +3,9 @@
 The port never imports JAX: the caller produces ``{name: np.ndarray}``
 from the reference model (its ``named_parameters()`` names), and this
 module copies those arrays into the port's module of the same names and
-shapes.
+shapes.  bf16 arrays (numpy dtype ``bfloat16``, as ``np.asarray`` gives
+for a bf16 JAX array) cross bit for bit, viewed through int16 so that no
+``ml_dtypes`` import is needed.
 """
 from __future__ import annotations
 
@@ -16,6 +18,14 @@ from torch import nn
 from .core.errors import InvalidArgumentError
 
 __all__ = ["load_reference_params"]
+
+
+def _as_torch(a) -> torch.Tensor:
+    """A CPU tensor holding a copy of the array ``a``; bf16 bit for bit."""
+    a = np.array(a)  # a copy: a read-only source buffer stays untouched
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def load_reference_params(model: nn.Module,
@@ -38,7 +48,6 @@ def load_reference_params(model: nn.Module,
             "missing %s, extra %s, mis-shaped %s" % (missing, extra, bad))
     with torch.no_grad():
         for name, p in params.items():
-            # np.array copies: a read-only source buffer stays untouched
-            p.copy_(torch.from_numpy(np.array(arrays[name])).to(
-                device=p.device, dtype=p.dtype))
+            p.copy_(_as_torch(arrays[name]).to(device=p.device,
+                                               dtype=p.dtype))
     return model

@@ -47,13 +47,14 @@ import numpy as np
 import torch
 
 from ..core.errors import ExternalError, InvalidArgumentError
-from ..ops import custom_kernels, decode_kernels, flash_kernels
+from ..ops import custom_kernels, decode_kernels
 
 __all__ = ["AotFunction", "CaptureError", "StaticInputs", "shape_key"]
 
-# every kernel wrapper whose ``launches`` a replay must advance
+# every kernel wrapper whose ``launches`` a replay must advance (K3's
+# wrappers are left out: the captured steps are decode steps, which never
+# run it)
 _COUNTED = (tuple(decode_kernels._WRAPPERS.values())
-            + tuple(flash_kernels._WRAPPERS.values())
             + (custom_kernels.scale_mul,))
 
 

@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import tensor as T
 from ..core.device import resolve_device
 from ..core.errors import InvalidArgumentError
 from ..nn import functional as F
@@ -178,14 +179,16 @@ class TransformerLM(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, token_type_ids=None,
                 cache=None):
-        """Logits [B, L, vocab] (tied head: h @ E^T); with ``cache``,
+        """Logits [B, L, vocab] (tied head: h @ E^T, through the installed
+        ``matmul``, a white op under autocast); with ``cache``,
         ``(logits, new_cache)``."""
+        emb = self.word_embeddings.weight
         if cache is not None:
             h, new_cache = self.encode(input_ids, attn_mask, token_type_ids,
                                        cache)
-            return torch.matmul(h, self.word_embeddings.weight.t()), new_cache
+            return T.matmul(h, emb, transpose_y=True), new_cache
         h = self.encode(input_ids, attn_mask, token_type_ids)
-        return torch.matmul(h, self.word_embeddings.weight.t())
+        return T.matmul(h, emb, transpose_y=True)
 
     def flops_per_token(self, seq_len: int) -> float:
         """Analytic fwd+bwd FLOPs/token for MFU accounting (PaLM appendix

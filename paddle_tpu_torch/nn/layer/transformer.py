@@ -24,8 +24,8 @@ from torch import nn
 
 from ...core.dtype import convert_dtype, dtype_name
 from ...core.errors import InvalidArgumentError
-from ...ops.flash_attention import (decode_attention, paged_decode_attention,
-                                    quantize_kv)
+from ...ops.flash_attention import (_cache_get, _cache_put, decode_attention,
+                                    paged_decode_attention, quantize_kv)
 from .. import functional as F
 from .common import Dropout, Linear
 from .norm import LayerNorm
@@ -57,13 +57,29 @@ def normalize_cache_dtype(dtype) -> str:
     return name
 
 
+# One converted copy per (mask version, dtype): every layer of a model
+# converts the mask it was passed, and the attention's mask detections key
+# on the converted tensor's identity, so a fresh copy in each layer (an O2
+# bf16 model given a float32 padding mask) would read the mask back to the
+# host once a layer instead of once.
+_converted_masks: dict = {}
+
+
 def _convert_attn_mask(mask, dtype):
-    """bool mask (True = keep) -> additive; numeric passes through."""
+    """bool mask (True = keep) -> additive; numeric passes through, cast to
+    ``dtype`` (a mask that requires grad is cast afresh each call)."""
     if mask is None:
         return None
-    if mask.dtype == torch.bool:
-        return (~mask).to(dtype) * -1e9
-    return mask.to(dtype)
+    if mask.dtype == dtype:
+        return mask
+    if mask.requires_grad:
+        return mask.to(dtype)
+    cache = _converted_masks.setdefault(dtype, {})
+    found, out = _cache_get(cache, mask)
+    if not found:
+        out = _cache_put(cache, mask, (~mask).to(dtype) * -1e9
+                         if mask.dtype == torch.bool else mask.to(dtype))
+    return out
 
 
 def _chunk_positions(index, b: int, length: int):

@@ -24,10 +24,14 @@ Dispatch is by the device of the tensors alone, as in ``decode_kernels``:
   ``delta = rowsum(dO * O)``, dS, then dQ/dK/dV), not autograd through the
   forward, so the CPU tests check the backward algorithm itself.
 
-Each wrapper counts its launches in a plain integer attribute
-(``flash_attention_forward_kernel.launches``), incremented only where it
-launches on the card.  The backward wrapper counts one per call; a call
-launches its three kernels (delta, dK/dV pass, dQ pass).
+Each wrapper counts its launches by the inputs' dtype in a dict attribute
+(``flash_attention_forward_kernel.launches_by_dtype``), incremented only
+where it launches on the card, so a caller can tell a bf16 training run
+from one that ran K3 in float32; ``launch_counts()`` sums the dtypes.  The
+backward wrapper counts one per call; a call launches its three kernels
+(delta, dK/dV pass, dQ pass).  No captured CUDA graph runs K3 (the
+captured steps are decode steps), so ``jit.aot``'s replays do not count
+these wrappers.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ __all__ = ["FlashAttentionFunction", "flash_attention_forward_kernel",
            "flash_attention_backward_kernel", "flash_attention_forward_plain",
            "flash_attention_backward_plain", "head_dim_and_dtype_supported",
            "kernel_takes", "MAX_HEAD_DIM", "reset_launch_counts",
-           "launch_counts"]
+           "launch_counts", "launch_counts_by_dtype"]
 
 # head_dim: a multiple of 8 (the rule the port's kernels share, kept for
 # vector loads) and at most 256 (the largest register tile the kernels
@@ -49,6 +53,7 @@ __all__ = ["FlashAttentionFunction", "flash_attention_forward_kernel",
 MAX_HEAD_DIM = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
 def head_dim_and_dtype_supported(d: int, dtype) -> bool:
@@ -256,7 +261,8 @@ def flash_attention_forward_kernel(q, k, v, bias=None, q_seg=None,
         lq, k.shape[2], d, int(bool(causal)), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_attention_forward_kernel")
-    flash_attention_forward_kernel.launches += 1
+    flash_attention_forward_kernel.launches_by_dtype[
+        _DTYPE_NAMES[q.dtype]] += 1
     return out, stats
 
 
@@ -320,12 +326,10 @@ def flash_attention_backward_kernel(q, k, v, o, stats, do, bias=None,
         dq.data_ptr(), _ptr(ds), strides, b, h, lq, lk, d,
         int(bool(causal)), float(sm_scale), stream),
         "flash_attention_backward_kernel (dQ)")
-    flash_attention_backward_kernel.launches += 1
+    flash_attention_backward_kernel.launches_by_dtype[
+        _DTYPE_NAMES[q.dtype]] += 1
     return dq, dk, dv, ds
 
-
-flash_attention_forward_kernel.launches = 0
-flash_attention_backward_kernel.launches = 0
 
 _WRAPPERS = {"flash_attention_forward_kernel": flash_attention_forward_kernel,
              "flash_attention_backward_kernel":
@@ -333,14 +337,25 @@ _WRAPPERS = {"flash_attention_forward_kernel": flash_attention_forward_kernel,
 
 
 def reset_launch_counts() -> None:
-    """Set every K3 wrapper's launch count to 0."""
+    """Set every K3 wrapper's launch counts to 0."""
     for fn in _WRAPPERS.values():
-        fn.launches = 0
+        fn.launches_by_dtype = dict.fromkeys(_DTYPE_NAMES.values(), 0)
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """{wrapper name: launches since the last reset}."""
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    return {name: sum(fn.launches_by_dtype.values())
+            for name, fn in _WRAPPERS.items()}
+
+
+def launch_counts_by_dtype() -> dict:
+    """{wrapper name: {"float32": n, "bfloat16": n}}: the launches since
+    the last reset, by the inputs' dtype."""
+    return {name: dict(fn.launches_by_dtype)
+            for name, fn in _WRAPPERS.items()}
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins, on the card: K1
 (paged) and K2 (dense) decode attention, K3's flash-attention forward
-and backward, and K4 (``scale_mul``, the custom-op door's kernel); then the captured
+and backward, and K4 (``scale_mul``, the custom-op door's kernel); a bf16 O2 training
+step (K3 in bf16) against its CPU twin; then the captured
 steps of ``jit/aot.py``: a graph captured once and replayed, launches
 counted through replays, the pool's and the session's steps against
 their private eager entry, and a failed capture raising.
@@ -436,6 +437,62 @@ def test_flash_autograd_runs_the_kernels(cuda_device):
     after = fk.launch_counts()
     assert all(after[n] == before[n] + 1 for n in after)
     assert bias.grad is not None and bias.grad.shape == bias.shape
+
+
+# O2 bf16 training, card against CPU: both sides round the same products
+# to bf16 (cuBLAS and the CPU both accumulate in fp32; K3 and its twin
+# both round P V once), so three AdamW steps part by summation order only
+O2_LOSS_RTOL = 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "padded"])
+def test_o2_bf16_train_step_matches_cpu_twin(cuda_device, causal):
+    """A 2-layer model decorated O2 bf16, its loss under auto_cast(O1),
+    3 TrainSteps of AdamW on the card and on the CPU from the same
+    weights: the losses agree, and every K3 launch of the card run is
+    bf16 (2 layers x 3 steps, forward and backward)."""
+    import numpy as np
+
+    from paddle_tpu_torch import (TrainStep, TransformerLM,
+                                  TransformerLMCriterion, amp)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rng = np.random.RandomState(0)
+    cfg = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+               intermediate_size=256, max_position=128, dropout=0.0,
+               causal=causal)
+    ids = torch.from_numpy(rng.randint(0, 512, (4, 128)))
+    lens = torch.tensor([128, 100, 77, 64])
+    valid = torch.arange(128)[None, :] < lens[:, None]
+    mask = torch.where(valid, 0.0, torch.finfo(torch.float32).min)[
+        :, None, None, :]
+    labels = torch.where(valid, ids, -100)
+    crit = TransformerLMCriterion(shift_labels=causal)
+
+    def loss_fn(m, x, am, y):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return crit(m(x, attn_mask=None if causal else am),
+                        x if causal else y)
+
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerLM(**cfg, device=cuda_device, seed=0).to(dev)
+        opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        step = TrainStep(model, loss_fn, opt)
+        fk.reset_launch_counts()
+        batch = [t.to(dev) for t in (ids, mask, labels)]
+        losses[dev] = [float(step(*batch)) for _ in range(3)]
+        if dev == "cuda":
+            counts = fk.launch_counts_by_dtype()
+        assert model.word_embeddings.weight.dtype == torch.bfloat16
+    torch.testing.assert_close(torch.tensor(losses["cuda"]),
+                               torch.tensor(losses["cpu"]),
+                               rtol=O2_LOSS_RTOL, atol=0)
+    assert counts == {n: {"float32": 0, "bfloat16": 6} for n in counts}
 
 
 # K4: (x * y) * 2 in fp32, rounded once to the input dtype, by both the

@@ -3,6 +3,7 @@
     python3 chip_ab.py decode OTHER_ROOT   # decode step: OTHER_ROOT vs this
     python3 chip_ab.py train OTHER_ROOT    # fp32 GPT step: OTHER_ROOT vs this
     python3 chip_ab.py spill               # preempt/resume packing
+    python3 chip_ab.py http                # the engine lock's handover
 
 ``decode`` runs ``chip_smoke.profile_decode`` (the 24-layer GPT-1.3B
 paged decode step, 8 slots at ~1k context) for two checkouts, each in a
@@ -29,6 +30,14 @@ synchronizes at its end, so the seconds include the wait for the card).
 ``.cpu()``) and the resume upload (gather on the host, one ``.to`` the
 card, ``index_copy_`` per field), each with ``_gather_packed`` against
 the packing it replaced (``index_select`` per part, then ``torch.cat``).
+
+``http`` serves ``chip_smoke``'s main traffic (GPT-1.3B, 24 layers, 16
+requests) over HTTP from the engine's background loop, as
+``serve_http_24l`` does, four times in one process: with the engine's
+FIFO lock, with ``threading.RLock`` in its place, again with the stdlib
+lock, and again with the FIFO one.  Each run reports both waves'
+tokens/s and the engine's and the clients' TTFT (a client's starts when
+its request is sent, so it includes the wait for the engine lock).
 
 Each prints one JSON line per result.  Needs one CUDA card.
 """
@@ -186,6 +195,39 @@ def spill_ab() -> None:
     assert torch.equal(a, download(_gather_packed))
 
 
+def http_ab() -> None:
+    import threading
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from paddle_tpu_torch import TransformerLM, gpt_1p3b_config
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load("decode_attention")
+    cfg = gpt_1p3b_config()
+    model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
+    pumped = {}
+    run = cs.serve(model, np.random.RandomState(0), cs.MAIN_REQUESTS,
+                   cs.MAIN_NEW_TOKENS, cfg["num_layers"],
+                   "paged_decode_attention_kernel", keep=pumped,
+                   cache_layout="paged", block_size=cs.MAIN_BLOCK)
+    pumped.update(run=run, compile_counts=run["compile_counts"])
+    locks = {"fifo": engine_mod._FairRLock, "stdlib": threading.RLock}
+    try:
+        for name in ("fifo", "stdlib", "stdlib", "fifo"):
+            engine_mod._FairRLock = locks[name]
+            out = cs.serve_http(model, cfg["num_layers"], pumped)
+            print(json.dumps({"phase": "http", "lock": name,
+                              "cold": out["cold"], "warm": out["warm"],
+                              "pump": out["pump"]}), flush=True)
+    finally:
+        engine_mod._FairRLock = locks["fifo"]
+
+
 def main(argv) -> int:
     import torch
 
@@ -200,6 +242,8 @@ def main(argv) -> int:
         _ab(_TRAIN_CHILD, "train", os.path.abspath(argv[1]))
     elif argv == ["spill"]:
         spill_ab()
+    elif argv == ["http"]:
+        http_ab()
     else:
         print(__doc__, file=sys.stderr)
         return 2

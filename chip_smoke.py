@@ -104,6 +104,12 @@ SHARED_CHUNK = 256
 PREEMPT_PROMPT = 480
 PREEMPT_NEW_TOKENS = 32
 PREEMPT_AFTER_TICKS = 8
+# serve_http_24l / recover_4l / trace_24l: each HTTP socket's timeout; the
+# tick at which recover_4l's transient step fault fires; the ticks each
+# trace_24l measurement covers
+HTTP_TIMEOUT_S = 300.0
+RECOVER_FAULT_AFTER = 5
+TRACE_TICKS = 10
 # kernel vs plain twin: fp32 (and int8, dequantized in fp32 by both) differ
 # only by summation order; a bf16 output is rounded to bf16 by both
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -413,10 +419,13 @@ def greedy_gap(model, prompt, tokens):
     return float((steps.max(dim=1).values - chosen).max())
 
 
-def serve(model, rng, n_requests, new_tokens, n_layers, kernel, **kw):
+def serve(model, rng, n_requests, new_tokens, n_layers, kernel, keep=None,
+          **kw):
     """Serve ``n_requests`` greedy prompts of 128-1536 tokens through a
     fresh engine; returns the run's metrics.  The kernel launch counts are
-    set to 0 just before the requests are driven and read just after."""
+    set to 0 just before the requests are driven and read just after.
+    ``keep`` (a dict) receives the warm-up and main prompts and their
+    tokens, for a later run of the same traffic."""
     import torch
 
     from paddle_tpu_torch import ServingEngine
@@ -427,7 +436,8 @@ def serve(model, rng, n_requests, new_tokens, n_layers, kernel, **kw):
     vocab = model.vocab_size
     # warm-up request: first cuBLAS calls, the kernel library load, and
     # the decode step's eager warm-up and capture (its first two calls)
-    engine.submit(rng.randint(0, vocab, 64), 3).result()
+    warmup = rng.randint(0, vocab, 64)
+    warmup_tokens = engine.submit(warmup, 3).result().tokens
     lens = rng.randint(128, 1537, n_requests)
     prompts = [rng.randint(0, vocab, int(n)).astype(np.int32) for n in lens]
     pool = engine.pool
@@ -467,6 +477,10 @@ def serve(model, rng, n_requests, new_tokens, n_layers, kernel, **kw):
     tol = GREEDY_TOL[kw.get("cache_dtype", "float32")]
     assert max(gaps) <= tol, (gaps, tol)
     ttft = sorted(st.ttft_s * 1e3 for st in statuses)
+    if keep is not None:
+        keep.update(warmup=warmup, warmup_tokens=list(warmup_tokens),
+                    prompts=prompts,
+                    tokens=[list(st.tokens) for st in statuses])
     return {
         "requests": n_requests, "prompt_tokens": int(lens.sum()),
         "new_tokens": n_requests * new_tokens,
@@ -1057,6 +1071,409 @@ def session_runs(model, n_layers):
         torch.cuda.empty_cache()
     log("session generate (4 layers, 8 x 512 prompts, 32 new tokens):",
         json.dumps(out))
+    return out
+
+
+# -- the serving host layer: HTTP, recovery, tracing ---------------------------
+def _http_generate(base, prompt, new_tokens):
+    """One ``POST /generate``; returns the status, the ndjson lines and
+    the client's seconds from sending the request to reading the first
+    token line."""
+    import urllib.request
+
+    body = json.dumps({"prompt": [int(t) for t in prompt],
+                       "max_new_tokens": int(new_tokens)}).encode()
+    req = urllib.request.Request(base + "/generate", data=body,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first, lines = None, []
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as resp:
+        for line in resp:
+            if first is None:
+                first = time.perf_counter() - t0
+            lines.append(json.loads(line))
+        return resp.status, lines, first
+
+
+def _http_get(base, path):
+    """(status, body) of one GET; an error status is returned, not
+    raised."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base + path, timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _parse_prometheus(text):
+    """{sample (with its labels): value} of a text exposition; raises on a
+    line that is neither a comment nor ``name value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        out[name] = float(value)
+    return out
+
+
+def _http_wave(base, prompts, budgets):
+    """Every prompt from its own client thread, all started together, while
+    another thread polls ``/healthz`` and ``/metrics``; returns each
+    request's final ndjson line, the wall seconds and the probe codes."""
+    import threading
+
+    finals = [None] * len(prompts)
+    errors, probes = [], []
+    stop = threading.Event()
+
+    def client(i):
+        try:
+            status, lines, first = _http_generate(base, prompts[i],
+                                                  budgets[i])
+            final = lines[-1]
+            assert status == 200 and final.get("done"), (status, final)
+            assert [x["token"] for x in lines[:-1]] == final["tokens"]
+            final["client_ttft_s"] = first
+            finals[i] = final
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append("request %d: %r" % (i, e))
+
+    def prober():
+        while not stop.is_set():
+            probes.append(_http_get(base, "/healthz")[0])
+            _parse_prometheus(_http_get(base, "/metrics")[1].decode())
+            stop.wait(0.05)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    probe = threading.Thread(target=prober, daemon=True)
+    t0 = time.perf_counter()
+    probe.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    stop.set()
+    probe.join(timeout=60)
+    assert not any(t.is_alive() for t in threads), "an HTTP client hung"
+    assert not errors, errors
+    return finals, wall, probes
+
+
+def serve_http(model, n_layers, pumped):
+    """``serve_http_24l``: the main run's traffic over HTTP.  A paged fp32
+    engine (8 slots, block 32) runs its background loop behind
+    ``ServingHTTPFrontend`` on 127.0.0.1.  The cold wave sends the
+    warm-up request and the 16 requests from 17 client threads at once, so
+    the loop meets every prefill bucket and captures its decode step while
+    the clients wait; the warm wave sends the 16 again and is the one
+    timed.  Each wave's tokens must equal the ``pump()`` run's, its K1
+    launches must be 24 per decode step, ``/healthz`` must answer 200
+    throughout; the engine's compile counts must equal the pump run's,
+    the ``/metrics`` scrape must parse and agree with the streams, and
+    ``/healthz`` must answer 503 after ``drain()``/``shutdown()``."""
+    import torch
+
+    from paddle_tpu_torch import ServingEngine, ServingHTTPFrontend
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           device="cuda", cache_layout="paged",
+                           block_size=MAIN_BLOCK).start()
+    front = ServingHTTPFrontend(engine, host="127.0.0.1", port=0).start()
+    base = "http://%s:%d" % front.address
+    pool = engine.pool
+    n = len(pumped["prompts"])
+    waves = {
+        "cold": ([pumped["warmup"]] + pumped["prompts"],
+                 [3] + [MAIN_NEW_TOKENS] * n,
+                 [pumped["warmup_tokens"]] + pumped["tokens"]),
+        "warm": (pumped["prompts"], [MAIN_NEW_TOKENS] * n, pumped["tokens"])}
+    out, finals_all = {}, []
+    try:
+        for name, (prompts, budgets, want) in waves.items():
+            torch.cuda.synchronize()  # the loop is idle between waves
+            steps0 = pool.decode_steps_total
+            dk.reset_launch_counts()
+            finals, wall, probes = _http_wave(base, prompts, budgets)
+            steps = pool.decode_steps_total - steps0
+            k1 = dk.launch_counts()["paged_decode_attention_kernel"]
+            assert k1 == n_layers * steps and k1 > 0, (k1, steps)
+            same = [f["tokens"] == [int(t) for t in w]
+                    for f, w in zip(finals, want)]
+            assert all(same), (name, same)
+            assert probes and all(c == 200 for c in probes), probes
+            # the engine's TTFT starts at its submit, the client's when
+            # the request was sent (the wait for the engine lock included)
+            ttft = sorted(f["ttft_s"] * 1e3 for f in finals[-n:])
+            client = sorted(f["client_ttft_s"] * 1e3 for f in finals[-n:])
+            out[name] = {"requests": len(prompts), "decode_steps": steps,
+                         "k1_launches": k1, "wall_s": wall,
+                         "tokens_per_s": sum(budgets) / wall,
+                         "ttft_ms_p50": ttft[len(ttft) // 2],
+                         "ttft_ms_max": ttft[-1],
+                         "client_ttft_ms_p50": client[len(client) // 2],
+                         "client_ttft_ms_max": client[-1],
+                         "healthz_probes": len(probes),
+                         "identical_requests": sum(same)}
+            if name == "cold":
+                out["compile_counts"] = engine.compile_counts()
+                assert out["compile_counts"] == pumped["compile_counts"], \
+                    (out["compile_counts"], pumped["compile_counts"])
+                assert pool._decode_fn.graphs() == 1
+            finals_all += finals
+        status, body = _http_get(base, "/metrics")
+        assert status == 200
+        scrape = _parse_prometheus(body.decode())
+        done = len(finals_all)
+        assert scrape["serving_requests_submitted_total"] == done
+        assert scrape["serving_requests_completed_total"] == done
+        assert scrape["serving_tokens_emitted_total"] == \
+            sum(f["new_tokens"] for f in finals_all)
+        assert scrape["serving_ttft_seconds_count"] == done
+        assert scrape['serving_ttft_seconds_bucket{le="+Inf"}'] == done
+        out["metrics_samples"] = len(scrape)
+        assert engine.drain(timeout_s=60) is True
+        engine.shutdown()
+        status, body = _http_get(base, "/healthz")
+        assert status == 503 and json.loads(body)["state"] == "stopped", \
+            (status, body)
+        out["healthz_after_shutdown"] = status
+    finally:
+        front.shutdown()
+        engine.shutdown(drain=False)  # bounded: cancels what is left
+    out["pump"] = {k: pumped["run"][k] for k in
+                   ("tokens_per_s", "ttft_ms_p50", "ttft_ms_max",
+                    "decode_steps")}
+    del engine, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def recover_run(model, prompts, specs=(), loop=False):
+    """``prompts`` (one per slot, ``PREEMPT_NEW_TOKENS`` greedy tokens
+    each) through a fresh 4-layer paged engine after a warm-up request,
+    with a fault plane of ``specs`` installed for the traffic; pumped (or
+    served by the background loop).  Each pump tick is timed with
+    ``torch.cuda.synchronize()`` on both sides: the tick a recovery ran in
+    and the tick after it, which re-prefills every survivor.  Returns the
+    metrics and the statuses."""
+    import torch
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.ops import decode_kernels as dk
+    from paddle_tpu_torch.serving import faults
+
+    engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           cache_layout="paged", block_size=MAIN_BLOCK,
+                           device="cuda")
+    pool = engine.pool
+    engine.submit(np.arange(64) % model.vocab_size, 3).result()
+    plane = faults.FaultPlane([faults.FaultSpec(**s) for s in specs])
+    recoveries = engine.metrics.counter("serving_recoveries_total")
+    steps0 = pool.decode_steps_total
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    tick_ms, recovery_ticks = [], []
+    t0 = time.perf_counter()
+    with faults.injected(plane):
+        streams = [engine.submit(p, PREEMPT_NEW_TOKENS) for p in prompts]
+        if loop:
+            # every request queued before the loop starts: its ticks are
+            # the pump run's, so the fault lands on the same step
+            engine.start()
+            statuses = [s.result(timeout_s=HTTP_TIMEOUT_S) for s in streams]
+            engine.shutdown(drain=False)
+        else:
+            more = True
+            while more:
+                before = recoveries.value
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                more = engine.pump(1)
+                torch.cuda.synchronize()
+                tick_ms.append((time.perf_counter() - ts) * 1e3)
+                if recoveries.value > before:
+                    recovery_ticks.append(len(tick_ms) - 1)
+            statuses = [s.result(timeout_s=0) for s in streams]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = pool.decode_steps_total - steps0
+    k1 = dk.launch_counts()["paged_decode_attention_kernel"]
+    assert k1 == SHORT_LAYERS * steps and k1 > 0, (k1, steps)
+    assert all(st is not None for st in statuses), statuses
+    snap = engine.metrics.snapshot()
+    out = {"decode_steps": steps, "k1_launches": k1, "wall_s": wall,
+           "injected": [list(x) for x in plane.injected],
+           "recoveries": snap["serving_recoveries_total"],
+           "recovered": snap["serving_requests_recovered_total"],
+           "failed": snap["serving_requests_failed_total"],
+           "compile_counts": engine.compile_counts(),
+           "graphs": pool._decode_fn.graphs()}
+    if recovery_ticks:
+        # the first tick prefills every request; the fault's tick resets
+        # the pool and resubmits; the tick after re-prefills (when any
+        # request survived)
+        i = recovery_ticks[0]
+        out["fault_tick_ms"] = tick_ms[i]
+        if i + 1 < len(tick_ms):
+            out["reprefill_tick_ms"] = tick_ms[i + 1]
+        decode = [ms for j, ms in enumerate(tick_ms)
+                  if j not in (0, i, i + 1)]
+        if decode:
+            out["decode_tick_ms_p50"] = float(np.median(decode))
+    engine.shutdown(drain=False)
+    del engine, pool
+    torch.cuda.empty_cache()
+    return out, statuses
+
+
+def recover_runs(model):
+    """``recover_4l``: 8 requests of 480 tokens (the preempt phase's
+    prompts), 32 new tokens each, fault-free; then a transient
+    ``pool.step`` fault after 5 ticks and a transient ``pool.alloc_blocks``
+    fault on the first refill's 5th admission (of 8): every request is
+    resubmitted once (prompt + committed tokens), its tokens must equal
+    the fault-free run's byte for byte, one recovery is counted and the
+    compile counts stay the fault-free run's.  A permanent step fault must
+    end every request FAILED with the error in its status; the transient
+    step fault under the background loop must still complete every
+    request with the same tokens."""
+    from paddle_tpu_torch.serving.faults import (PermanentInjectedFault,
+                                                 TransientInjectedFault)
+
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, model.vocab_size, PREEMPT_PROMPT)
+               .astype(np.int32) for _ in range(MAIN_SLOTS)]
+    plain, want = recover_run(model, prompts)
+    assert all(st.state == "DONE" for st in want)
+    want = [np.asarray(st.tokens) for st in want]
+    step_fault = dict(point="pool.step", error=TransientInjectedFault,
+                      after=RECOVER_FAULT_AFTER, times=1)
+    cases = {
+        "step": (dict(specs=[step_fault]), True),
+        "alloc": (dict(specs=[dict(point="pool.alloc_blocks",
+                                   error=TransientInjectedFault,
+                                   after=MAIN_SLOTS // 2, times=1)]), True),
+        "permanent": (dict(specs=[dict(step_fault,
+                                       error=PermanentInjectedFault)]),
+                      False),
+        "step_loop": (dict(specs=[step_fault], loop=True), True)}
+    out = {"fault_free": plain}
+    for name, (kw, transient) in cases.items():
+        rec, statuses = recover_run(model, prompts, **kw)
+        assert len(rec["injected"]) == 1, rec
+        if transient:
+            same = [st.state == "DONE" and np.array_equal(st.tokens, w)
+                    for st, w in zip(statuses, want)]
+            rec["identical_requests"] = sum(same)
+            assert all(same), (name, same, [st.error for st in statuses])
+            assert rec["recoveries"] == 1 and rec["failed"] == 0, rec
+            assert rec["recovered"] == len(prompts), rec
+            assert rec["compile_counts"] == plain["compile_counts"] \
+                and rec["graphs"] == 1, (rec, plain)
+        else:
+            for st in statuses:
+                assert st.state == "FAILED" and "permanent" in st.error \
+                    and "injected fault" in st.error, st
+            rec["error"] = statuses[0].error
+            assert rec["failed"] == len(prompts), rec
+        out[name] = rec
+        log("recover run (%s, 4 layers):" % name, json.dumps(rec))
+    return out
+
+
+def trace_decode(model, rng, graph_ms_per_step, root):
+    """``trace_24l``: 8 busy slots at ~1k context, as ``profile_decode``.
+    The seams' cost first: ``TRACE_TICKS`` untraced ticks with the pool's
+    fault and trace seams as they are, then as many with them stubbed out
+    (what a tick cost before the seams existed), alternating three times;
+    each round's tokens/s is reported.  Then ``TRACE_TICKS`` ticks under
+    ``Tracer(deep_timing=True)``: the mean ``tick.decode`` span (it ends at
+    the device edge) beside the captured step's device ms, and the Chrome
+    export, which must parse."""
+    import torch
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.inference import generation
+    from paddle_tpu_torch.serving import stream
+
+    engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           device="cuda", cache_layout="paged",
+                           block_size=MAIN_BLOCK)
+    pool = engine.pool
+    for _ in range(MAIN_SLOTS):
+        engine.submit(rng.randint(0, model.vocab_size, 1024),
+                      8 * TRACE_TICKS + 8)
+    engine.pump(3)
+    assert pool.active_count == MAIN_SLOTS and pool._decode_fn.graphs() == 1
+
+    class _NoFaults:
+        @staticmethod
+        def fire(point):
+            pass
+
+    seams = (generation._fire, generation._trace_active, stream.faults)
+    rounds = {"seams": [], "stubbed": []}
+    try:
+        for _ in range(3):
+            for mode in ("seams", "stubbed"):
+                if mode == "stubbed":
+                    generation._fire = lambda point: None
+                    generation._trace_active = lambda: None
+                    stream.faults = _NoFaults
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.pump(TRACE_TICKS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rounds[mode].append(MAIN_SLOTS * TRACE_TICKS / wall)
+                generation._fire, generation._trace_active, \
+                    stream.faults = seams
+    finally:
+        generation._fire, generation._trace_active, stream.faults = seams
+    tracer = engine.start_trace(capacity=4096, deep_timing=True)
+    try:
+        t0 = time.perf_counter()
+        engine.pump(TRACE_TICKS)
+        traced_wall = time.perf_counter() - t0
+    finally:
+        engine.stop_trace()
+    evs = tracer.recorder.snapshot()
+    spans = {}
+    for e in evs:
+        if e.dur_s is not None:
+            assert e.deep, e
+            spans.setdefault(e.name, []).append(e.dur_s * 1e3)
+    assert len(spans["tick.decode"]) == TRACE_TICKS, spans.keys()
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    path = os.path.join(root, "chiprun_out", "trace_24l.json")
+    doc = json.loads(engine.export_chrome_trace(path=path))
+    with open(path) as f:
+        assert json.load(f) == doc
+    phase = [e for e in doc["traceEvents"] if e.get("cat") == "phase"]
+    assert phase and all(e["args"]["deep"] for e in phase
+                         if e.get("ph") == "X")
+    while engine.pump(8):
+        pass
+    out = {"ticks": TRACE_TICKS,
+           "span_ms_mean": {k: float(np.mean(v)) for k, v in spans.items()},
+           "graph_device_ms_per_step": graph_ms_per_step,
+           "traced_tokens_per_s": MAIN_SLOTS * TRACE_TICKS / traced_wall,
+           "untraced_tokens_per_s": rounds,
+           "trace_events": len(evs), "export_bytes": os.path.getsize(path)}
+    seam_mean = float(np.mean(rounds["seams"]))
+    stub_mean = float(np.mean(rounds["stubbed"]))
+    spread = max(max(v) - min(v) for v in rounds.values())
+    out.update(seams_mean=seam_mean, stubbed_mean=stub_mean,
+               round_spread=spread)
+    del engine, pool
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2242,13 +2659,27 @@ def main() -> int:
         % (cfg["num_layers"], sum(p.numel() for p in model.parameters())
            / 1e9, time.perf_counter() - t0))
     runs = {}
+    pumped = {}
     runs["paged_fp32_24l"] = serve(
         model, rng, MAIN_REQUESTS, MAIN_NEW_TOKENS, cfg["num_layers"],
-        "paged_decode_attention_kernel", cache_layout="paged",
+        "paged_decode_attention_kernel", keep=pumped, cache_layout="paged",
         block_size=MAIN_BLOCK)
     log("main path (paged fp32, 24 layers):", json.dumps(runs["paged_fp32_24l"]))
+    pumped.update(run=runs["paged_fp32_24l"],
+                  compile_counts=runs["paged_fp32_24l"]["compile_counts"])
+    decode_profile = profile_decode(model, rng)
     log("decode step profile (paged fp32, 24 layers, 8 slots at ~1k "
-        "context):", json.dumps(profile_decode(model, rng)))
+        "context):", json.dumps(decode_profile))
+    t0 = time.perf_counter()
+    runs["serve_http_24l"] = serve_http(model, cfg["num_layers"], pumped)
+    log("serve_http_24l (the main traffic over HTTP, background loop):",
+        json.dumps(runs["serve_http_24l"]))
+    runs["trace_24l"] = trace_decode(
+        model, rng, decode_profile["graph_device_ms_per_step"], root)
+    log("trace_24l (deep-timed decode spans, 24 layers):",
+        json.dumps(runs["trace_24l"]))
+    log("serving host phases (24 layers): %.1f s"
+        % (time.perf_counter() - t0))
     runs["serve_shared_prefix_24l"] = shared_prefix_runs(model,
                                                          cfg["num_layers"])
     log("prompt chunk profile (24 layers, 256-token chunks):",
@@ -2268,6 +2699,9 @@ def main() -> int:
         block_size=MAIN_BLOCK, cache_dtype="int8")
     log("int8 run (paged, 4 layers):", json.dumps(runs["paged_int8_4l"]))
     runs["preempt_4l"] = preempt_runs(model)
+    t0 = time.perf_counter()
+    runs["recover_4l"] = recover_runs(model)
+    log("recover_4l: %.1f s" % (time.perf_counter() - t0))
     runs["captured_vs_eager_4l"] = captured_vs_eager(model)
     runs["session_4l"] = session_runs(model, SHORT_LAYERS)
     del model

@@ -13,11 +13,14 @@ Tensor (paddle's ``stop_gradient`` is ``not requires_grad``); ``grad``,
 ``incubate.autograd`` differentiate through torch's autograd.  ``amp``
 trains in bf16 (or fp16) mixed precision: ``amp.decorate(level="O2")``
 and ``amp.auto_cast`` around the loss, as the reference's training legs.
+A server is ``ServingEngine(model, ...).start()`` behind
+``ServingHTTPFrontend(engine).start()``.
 """
 from . import amp  # noqa: F401
 from . import autograd  # noqa: F401
 from . import incubate  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import serving  # noqa: F401
 from .convert import load_reference_params  # noqa: F401
 from .core.errors import (EnforceNotMet, InvalidArgumentError,  # noqa: F401
                           NotFoundError, PreconditionNotMetError,
@@ -32,4 +35,6 @@ from .jit.train_step import MultiStepTrainStep, TrainStep  # noqa: F401
 from .models.language_model import (TransformerLM,  # noqa: F401
                                     TransformerLMCriterion, bert_base_config,
                                     ernie_base_config, gpt_1p3b_config)
-from .serving.engine import QueueFullError, ServingEngine  # noqa: F401
+from .serving import (AdmissionTightenedError,  # noqa: F401
+                      DeadlineUnattainableError, QueueFullError,
+                      ServingEngine, ServingHTTPFrontend)

@@ -63,6 +63,12 @@ Three paged-only features ride that allocator:
   the blocks that were reclaimed meanwhile; greedy decode continues
   byte-identically.
 
+The serving layer's seams ride the tick: ``pool.step``,
+``pool.prefill``, ``pool.alloc_blocks`` and ``weights.refresh`` fire the
+fault plane (``serving/faults.py``), and with a tracer installed the tick
+phases are spans (``serving/trace.py``); with neither installed each is
+one module-attribute test.
+
 Not ported yet: the disk spill tier and K/V export/adoption, the
 prefill-only tier, meshes (``dp == 1`` only), LoRA and the recurrent
 layout.
@@ -87,6 +93,36 @@ from ..jit.decode import (DecodeSession, check_sampling, classify_finish,
                           step_buffers)
 
 __all__ = ["GenerationPool", "kv_reachable_bytes", "DuplicateRequestError"]
+
+# the serving fault plane and trace plane, bound lazily: the serving
+# package imports this module, so importing it here at module scope would
+# be circular.  After the first call each is one module-attribute read
+# that does nothing while no plane or tracer is installed
+_faults = None
+_trace = None
+
+
+def _fire(point: str) -> None:
+    global _faults
+    if _faults is None:
+        from ..serving import faults as _faults_mod
+        _faults = _faults_mod
+    _faults.fire(point)
+
+
+def _trace_active():
+    global _trace
+    if _trace is None:
+        from ..serving import trace as _trace_mod
+        _trace = _trace_mod
+    return _trace.active()
+
+
+def _device_edge(tr) -> None:
+    """Under a deep-timing tracer, end the current span at the device
+    edge: wait for the work queued on the current CUDA stream."""
+    if tr.deep and torch.cuda.is_available():
+        torch.cuda.current_stream().synchronize()
 
 
 class DuplicateRequestError(AlreadyExistsError, InvalidArgumentError):
@@ -155,9 +191,13 @@ def _cache_fields(c):
 
 
 # per-request sampling config, resolved at submit: ``seed`` is always a
-# concrete int, so the request's stream is a pure function of itself
+# concrete int, so the request's stream is a pure function of itself.
+# ``draws`` is the stream offset at this submission: 0 for a fresh
+# request, the committed token count for a prompt+committed resubmission,
+# so its first draw lands where the interrupted run would have drawn
 _SamplingConfig = collections.namedtuple(
-    "_SamplingConfig", ["temperature", "top_k", "top_p", "seed"])
+    "_SamplingConfig", ["temperature", "top_k", "top_p", "seed", "draws"],
+    defaults=(0,))
 
 # scheduling metadata rides every queued request: ``priority`` (higher
 # admits first), ``tenant`` (fairness-cap key), ``deadline`` (a number on
@@ -184,7 +224,7 @@ class _SlotState(_OfRequest):
     """One actively decoding slot.  ``req.ids`` (the prompt) is kept so
     that preemption can spill and resume it: the cache index to restore is
     ``len(req.ids) + len(tokens) - 1`` and the next draw is
-    ``len(tokens)``."""
+    ``req.sampling.draws + len(tokens)``."""
 
     __slots__ = ("tokens", "remaining")
 
@@ -387,6 +427,9 @@ class GenerationPool:
         self._prefix_blocks_matched = 0
         self._chunks_total = 0
         self._chunk_tokens_total = 0
+        # matched prefix tokens of the LAST admission (None when sharing
+        # is off), read by the engine's on_admit hook
+        self.last_admit_prefix_tokens: Optional[int] = None
         self._sampling_seed = int(seed)
         self._seq = 0
         self._queue: collections.deque = collections.deque()
@@ -544,13 +587,16 @@ class GenerationPool:
 
     def submit(self, input_ids, max_new_tokens: int, request_id=None,
                priority: int = 0, tenant=None, deadline=None,
-               temperature=None, top_k=None, top_p=None, seed=None):
+               temperature=None, top_k=None, top_p=None, seed=None,
+               _sampling=None):
         """Queue one prompt (1-D ids); returns the request id.
 
         ``priority`` (int, higher admits first), ``tenant`` (a hashable
         fairness-cap key) and ``deadline`` (a number on any consistent
         clock, only compared: earlier wins within a priority, None sorts
-        last) order admission; the defaults are strict FIFO."""
+        last) order admission; the defaults are strict FIFO.
+        ``_sampling`` is the resubmission seam: an already-resolved config
+        (with its ``draws`` offset) that is queued as it is."""
         if deadline is not None and (isinstance(deadline, bool)
                                      or not isinstance(deadline,
                                                        (int, float))):
@@ -603,11 +649,21 @@ class GenerationPool:
             self._next_rid += 1
         self._used_rids.add(rid)
         self._seq += 1
-        samp = self._resolve_sampling(temperature, top_k, top_p, seed)
+        samp = _sampling if _sampling is not None else \
+            self._resolve_sampling(temperature, top_k, top_p, seed)
         self._queue.append(_Request(rid, ids.astype(np.int32),
                                     int(max_new_tokens), int(priority),
                                     tenant, deadline, self._seq, samp))
         return rid
+
+    @staticmethod
+    def _resubmit_sampling(cfg: _SamplingConfig,
+                           committed: int) -> _SamplingConfig:
+        """The config a prompt+committed resubmission carries: the same
+        temperature, top-k, top-p and seed, with ``draws`` advanced by the
+        committed tokens, so the re-prefill draws at the stream step the
+        uninterrupted run would have used."""
+        return cfg._replace(draws=cfg.draws + int(committed))
 
     # -- admission -----------------------------------------------------------
     def _tenant_counts(self) -> Optional[Dict]:
@@ -724,6 +780,7 @@ class GenerationPool:
         (refcounts bumped), allocate fresh blocks for every position this
         request will write, set the table row and the index to
         ``matched_len``.  No prompt forward runs here."""
+        _fire("pool.alloc_blocks")
         slot = self._free.pop()
         for b in matched_blocks:
             self._block_refs[b] += 1
@@ -740,6 +797,9 @@ class GenerationPool:
                 self._prefix_hits += 1
                 self._prefix_tokens_matched += matched_len
                 self._prefix_blocks_matched += len(matched_blocks)
+            self.last_admit_prefix_tokens = matched_len
+        else:
+            self.last_admit_prefix_tokens = None
         if self.on_admit is not None:
             self.on_admit(req.rid, slot, len(req.ids))
 
@@ -791,13 +851,25 @@ class GenerationPool:
                 continue
             cfg = req.sampling
             samp = make_sampling_state(1, cfg.temperature, cfg.top_k,
-                                       cfg.top_p, seed=cfg.seed)
+                                       cfg.top_p, seed=cfg.seed,
+                                       step=cfg.draws)
             # prefill before taking the slot: a failing prefill leaks none
-            row_cache, tok, _ = self._session.prefill(req.ids[None], samp)
+            _fire("pool.prefill")
+            tr = _trace_active()
+            if tr is None:
+                row_cache, tok, _ = self._session.prefill(req.ids[None],
+                                                          samp)
+            else:
+                with tr.span("tick.prefill", rid=req.rid,
+                             prompt_tokens=len(req.ids)):
+                    row_cache, tok, _ = self._session.prefill(
+                        req.ids[None], samp)
+                    _device_edge(tr)
             self.prefills_total += 1
             slot = self._free.pop()
             first = int(tok[0])
             if self._layout.paged:
+                _fire("pool.alloc_blocks")
                 blocks = self._alloc_blocks(need)
                 self._slot_blocks[slot] = blocks
                 padded = self._padded_row(blocks)
@@ -805,6 +877,7 @@ class GenerationPool:
                 padded = None
             self._insert_fn(self._cache, row_cache, slot, len(req.ids),
                             padded)
+            self.last_admit_prefix_tokens = None
             if self.on_admit is not None:
                 self.on_admit(req.rid, slot, len(req.ids))
             self._activate(slot, req, first)
@@ -838,7 +911,7 @@ class GenerationPool:
         self._chunk_in.upload(
             toks=toks, table=self._padded_row(self._slot_blocks[slot]),
             start=start, last=length - 1,
-            top_k=cfg.top_k, seed=cfg.seed, step=0,
+            top_k=cfg.top_k, seed=cfg.seed, step=cfg.draws,
             temperature=cfg.temperature, top_p=cfg.top_p)
         tok = self._chunk_fn(self._chunk_in.toks)
         # the step advanced only the view's index
@@ -874,8 +947,17 @@ class GenerationPool:
         n = min(self._chunk_tokens, len(ids) - st.pos)
         toks = np.zeros(self._chunk_tokens, np.int64)
         toks[:n] = ids[st.pos:st.pos + n]
-        tok_dev = self._prefill_chunk(toks, slot, st.pos, n,
-                                      st.req.sampling)
+        _fire("pool.prefill")
+        tr = _trace_active()
+        if tr is None:
+            tok_dev = self._prefill_chunk(toks, slot, st.pos, n,
+                                          st.req.sampling)
+        else:
+            with tr.span("tick.prefill", rid=st.rid, chunk_tokens=n,
+                         pos=st.pos, prompt_tokens=len(ids)):
+                tok_dev = self._prefill_chunk(toks, slot, st.pos, n,
+                                              st.req.sampling)
+                _device_edge(tr)
         self._chunks_total += 1
         self._chunk_tokens_total += n
         st.pos += n
@@ -1067,9 +1149,10 @@ class GenerationPool:
         seed = np.zeros(n, np.int64)
         step = np.zeros(n, np.int64)
         for slot, st in self._active.items():
+            cfg = st.req.sampling
             active[slot] = 1
-            temp[slot], tk[slot], tp[slot], seed[slot] = st.req.sampling
-            step[slot] = len(st.tokens)
+            temp[slot], tk[slot], tp[slot], seed[slot] = cfg[:4]
+            step[slot] = cfg.draws + len(st.tokens)
         self._steps.upload(tok=self._last_tok, active=active,
                            temperature=temp, top_k=tk, top_p=tp, seed=seed,
                            step=step)
@@ -1100,8 +1183,21 @@ class GenerationPool:
     def step(self) -> bool:
         """Refill free slots, run at most one prefill chunk, then ONE
         batched decode step; False when the pool is drained (nothing
-        queued, prefilling, active or spilled)."""
-        self._refill()
+        queued, prefilling, active or spilled).
+
+        ``pool.step`` is the step's fault seam.  With a tracer installed
+        each phase is a span: ``tick.admit`` (the refill, bucketed
+        prefills included), ``tick.decode`` (the graph replay; under deep
+        timing it ends when the card finishes), ``tick.sample`` (the
+        token download) and ``tick.deliver`` (committing tokens and
+        firing the hooks)."""
+        _fire("pool.step")
+        tr = _trace_active()
+        if tr is None:
+            self._refill()
+        else:
+            with tr.span("tick.admit"):
+                self._refill()
         if self._chunk_tokens is not None:
             # prompt work before the decode step: a prompt whose last
             # chunk ran this tick decodes its second token this tick too
@@ -1109,14 +1205,35 @@ class GenerationPool:
         if not self._active:
             return bool(self._queue or self._prefilling or self._spilled)
         self._sync_step_inputs()
-        tok, _ = self._decode_fn(self._steps.tok)
+        if tr is None:
+            tok, _ = self._decode_fn(self._steps.tok)
+            # the designed sync point: one download of the token vector
+            host = tok.cpu().numpy().copy()
+        else:
+            with tr.span("tick.decode"):
+                tok, _ = self._decode_fn(self._steps.tok)
+                _device_edge(tr)
+            with tr.span("tick.sample"):
+                host = tok.cpu().numpy().copy()
         self.decode_steps_total += 1
-        # the designed sync point: one download of the token vector
-        host = tok.cpu().numpy().copy()
         self._last_tok = host
-        self._deliver(host)
+        if tr is None:
+            self._deliver(host)
+        else:
+            with tr.span("tick.deliver"):
+                self._deliver(host)
         return bool(self._active or self._queue or self._prefilling
                     or self._spilled)
+
+    def refresh_weights(self) -> None:
+        """Make later steps read the model's current weights (call after
+        changing them in place, e.g. ``load_state_dict``).  The steps read
+        the parameters by address, eagerly and inside captured graphs
+        alike, and keep no copy of their values, so beyond its
+        ``weights.refresh`` fault seam there is nothing to drop.  A
+        weight change that REPLACES a parameter tensor instead of writing
+        it in place is not seen by a captured graph."""
+        _fire("weights.refresh")
 
     def _deliver(self, tok) -> None:
         """Commit the step's token to every active slot; finish rows that

@@ -5,9 +5,16 @@ the reference's ``serving/stream.py``).
 of token ids as the pool's decode step emits them, ending with a terminal
 :class:`StreamStatus` (``stream.status`` / ``stream.result()``).  The
 queue is bounded by the request's own budget (``max_new_tokens`` + the
-terminal marker), so the producer never blocks.  The engine runs in
-synchronous ``pump()`` mode only, so iterating a stream drives the engine
-itself between reads.
+terminal marker), so the producer never blocks.
+
+Iteration follows the engine's drive mode: under the background step loop
+(``engine.start()``) it blocks on the queue the loop feeds; in synchronous
+``pump()`` mode it drives ``engine.pump(1)`` itself between reads.
+
+Delivery is the ``stream.deliver`` fault seam.  The engine delivers a
+token before it commits it, so a fault there leaves the token uncommitted
+and recovery regenerates exactly that token: delivered-once and committed
+stay equal.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import queue
 import threading
 import time
 from typing import Optional
+
+from . import faults
 
 __all__ = ["RequestState", "ResponseStream", "StreamStatus"]
 
@@ -39,8 +48,9 @@ class RequestState:
 
 
 # the terminal record delivered once per request: finish_reason is the
-# decode layer's eos/length for DONE, else "cancelled"; ttft_s is None
-# when the request never produced a token
+# decode layer's eos/length for DONE, else the scheduler's
+# cancelled/deadline/error; ttft_s is None when the request never
+# produced a token
 StreamStatus = collections.namedtuple(
     "StreamStatus",
     ["request_id", "state", "finish_reason", "tokens", "prompt_tokens",
@@ -61,6 +71,7 @@ class ResponseStream:
 
     # -- engine side -----------------------------------------------------
     def _put_token(self, tok: int) -> None:
+        faults.fire("stream.deliver")
         self._q.put_nowait(tok)
 
     def _finalize(self, status: StreamStatus) -> None:
@@ -91,22 +102,30 @@ class ResponseStream:
             except queue.Empty:
                 if self._done.is_set():
                     return
-                # synchronous mode: the consumer drives the engine
-                if not self._engine.pump(1) and not self._done.is_set():
-                    return
-                continue
+                if self._engine.is_running():
+                    item = self._q.get()  # the step loop feeds the queue
+                else:
+                    # synchronous mode: the consumer drives the engine
+                    if not self._engine.pump(1) \
+                            and not self._done.is_set():
+                        return
+                    continue
             if item is _TERMINAL:
                 return
             yield item
 
     def result(self, timeout_s: Optional[float] = None
                ) -> Optional[StreamStatus]:
-        """Pump the engine until this request is terminal (or the timeout
-        passes); returns the terminal record or None."""
+        """Wait for the terminal record, pumping the engine inline when it
+        has no background loop; None when ``timeout_s`` passes first (in
+        both drive modes)."""
         deadline = None if timeout_s is None \
             else time.monotonic() + timeout_s
-        while not self._done.is_set() and (
-                deadline is None or time.monotonic() < deadline):
-            if not self._engine.pump(1):
-                break
+        if not self._done.is_set() and not self._engine.is_running():
+            while not self._done.is_set() and (
+                    deadline is None or time.monotonic() < deadline):
+                if not self._engine.pump(1):
+                    break
+        self._done.wait(None if deadline is None
+                        else max(0.0, deadline - time.monotonic()))
         return self._status

@@ -4,7 +4,8 @@ and backward, and K4 (``scale_mul``, the custom-op door's kernel); a bf16 O2 tra
 step (K3 in bf16) against its CPU twin; then the captured
 steps of ``jit/aot.py``: a graph captured once and replayed, launches
 counted through replays, the pool's and the session's steps against
-their private eager entry, and a failed capture raising.
+their private eager entry, the engine's background loop serving client
+threads while it captures its first keys, and a failed capture raising.
 Skipped without a CUDA card: the kernels have no CPU mode (the CPU runs
 the twins, held against the reference by ``test_torch_decode_attention.py``,
 ``test_torch_flash_attention.py`` and ``test_torch_custom_op.py``).
@@ -677,6 +678,75 @@ def test_session_decode_captured(cuda_device, layout):
                           block_size=8)
     eager._decode_fn = eager._decode_fn._run_eager
     np.testing.assert_array_equal(got, eager.generate(ids, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(cache_layout="paged", block_size=8),
+    dict(cache_layout="paged", block_size=8, prefill_chunk_tokens=16)],
+    ids=["paged", "chunked"])
+def test_engine_loop_serves_threads_while_capturing(cuda_device, kw):
+    """The background loop captures its first keys while four client
+    threads submit, read their streams and poll the engine's host
+    surfaces (stats, health, metrics): every device touch is under the
+    engine lock, so no capture sees another thread's CUDA call, and the
+    tokens equal ``pump()``'s."""
+    import threading
+
+    import numpy as np
+
+    from paddle_tpu_torch import ServingEngine
+
+    model = _tiny_lm(cuda_device)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 512, n) for n in (5, 11, 20, 7)]
+    cfg = dict(max_len=64, slots=2, buckets=[32], device=cuda_device, **kw)
+    pumped = ServingEngine(model, **cfg)
+    streams = [pumped.submit(p, 6) for p in prompts]
+    while pumped.pump(8):
+        pass
+    want = [s.result(timeout_s=0).tokens for s in streams]
+    counts = pumped.compile_counts()
+
+    eng = ServingEngine(model, **cfg).start()
+    got = [None] * len(prompts)
+    errors = []
+    stop = threading.Event()
+
+    def client(i):
+        try:
+            got[i] = eng.submit(prompts[i], 6).result(timeout_s=120.0)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    def poller():
+        while not stop.is_set():
+            eng.cache_stats()
+            eng.health()
+            eng.metrics.render_prometheus()
+            stop.wait(0.001)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    watcher = threading.Thread(target=poller)
+    try:
+        watcher.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180.0)
+    finally:
+        stop.set()
+        watcher.join(timeout=30.0)
+        eng.shutdown(drain=False)  # bounded: cancels what is left
+    assert not any(t.is_alive() for t in threads + [watcher])
+    assert not errors, errors
+    for st, w in zip(got, want):
+        assert st is not None and st.state == "DONE", st
+        np.testing.assert_array_equal(st.tokens, w)
+    assert eng.compile_counts() == counts
+    assert eng.pool._decode_fn.graphs() == 1
+    assert eng.health()["last_error"] is None
 
 
 @pytest.mark.cuda

@@ -40,7 +40,13 @@ def test_import_leaves_jax_and_reference_out():
             ", paddle_tpu_torch.amp, paddle_tpu_torch.core.flags"
             ", paddle_tpu_torch.core.amp_state"
             ", paddle_tpu_torch.framework.dispatch"
-            ", paddle_tpu_torch.tensor.linalg\n"
+            ", paddle_tpu_torch.tensor.linalg"
+            ", paddle_tpu_torch.profiler, paddle_tpu_torch.profiler.visual"
+            ", paddle_tpu_torch.serving.metrics, paddle_tpu_torch.serving.slo"
+            ", paddle_tpu_torch.serving.log, paddle_tpu_torch.serving.trace"
+            ", paddle_tpu_torch.serving.faults"
+            ", paddle_tpu_torch.serving.supervisor"
+            ", paddle_tpu_torch.serving.http\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "%r)\nprint(bad)\nsys.exit(1 if bad else 0)" % (FORBIDDEN,))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -93,3 +99,46 @@ def test_entry_points_default_to_cuda(monkeypatch):
     out = GenerationPool(model, max_len=16, slots=1, buckets=[8],
                          device="cpu").generate([np.arange(1, 4)], 2)
     assert out[0].shape == (2,)
+
+
+def test_engine_loop_start_without_a_card_raises(monkeypatch):
+    """The background loop never falls back to the CPU: without a card an
+    engine built for the default device refuses before any loop exists,
+    and one built for the CPU runs its loop there only because it was
+    asked to."""
+    model = TransformerLM(vocab_size=32, hidden_size=16, num_layers=1,
+                          num_heads=2, max_position=16, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(UnavailableError, match='device="cpu"'):
+        ServingEngine(model, max_len=16, slots=1, buckets=[8]).start()
+    eng = ServingEngine(model, max_len=16, slots=1, buckets=[8],
+                        device="cpu").start()
+    try:
+        st = eng.submit(np.arange(1, 4), 2).result(timeout_s=60.0)
+        assert st is not None and st.new_tokens == 2
+    finally:
+        eng.shutdown()
+
+
+def test_engine_loop_sets_the_pools_card(monkeypatch):
+    """The current CUDA device is per thread: the loop thread sets the
+    engine's card by index (``torch.cuda.set_device`` refuses a device
+    without one) before its first tick."""
+    from torch.cuda._utils import _get_device_index
+
+    model = TransformerLM(vocab_size=32, hidden_size=16, num_layers=1,
+                          num_heads=2, max_position=16, device="cpu")
+    eng = ServingEngine(model, max_len=16, slots=1, buckets=[8],
+                        device="cpu")
+    assert eng._loop_device is None  # a CPU engine sets no card
+    seen = []
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: seen.append(_get_device_index(d)))
+    eng._loop_device = 0
+    eng.start()
+    try:
+        st = eng.submit(np.arange(1, 4), 2).result(timeout_s=60.0)
+        assert st is not None and st.new_tokens == 2
+    finally:
+        eng.shutdown()
+    assert seen == [0]

@@ -22,9 +22,9 @@ Pinned here:
    admission and resume.
 
 Left out, because their subject is not ported yet: the speculative pool
-and its runtime spec-K, the degradation ladder and the automatic victim
-choice, SLOs, metrics, logs and traces, deadline expiry, recovery, the
-deadline-shed estimator and compile counts.
+and its runtime spec-K.  The degradation ladder, the automatic victim,
+recovery and the deadline-shed estimator are held by
+``tests/test_torch_serving_host.py``.
 """
 import numpy as np
 import pytest
@@ -389,8 +389,8 @@ def test_engine_manual_preempt_and_preempted_state(model):
     assert spill["preempts_total"] == spill["resumes_total"] == 1
     with pytest.raises(NotFoundError):
         eng.preempt("ghost")
-    with pytest.raises(InvalidArgumentError, match="request_id"):
-        eng.preempt(None)
+    # the automatic victim: nothing is decoding any more
+    assert eng.preempt(None) is None
 
 
 # -- against the reference's pool --------------------------------------------

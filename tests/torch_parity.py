@@ -96,3 +96,92 @@ def check_allocator(pool):
     for entry in pool._prefix_index.values():
         for b in entry.blocks:
             assert b in refs, "prefix index names a freed block"
+
+
+# -- the serving layer, held against the reference's engine -----------------
+# the reference serving tests' model (tests/test_serving.py::_tiny_model):
+# it pins scheduler behaviour, so it is small
+SMALL = dict(vocab_size=128, hidden_size=32, num_layers=1, num_heads=2,
+             intermediate_size=64, max_position=256)
+
+
+class FakeClock:
+    """Deterministic monotonic time for deadline and supervisor tests."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += dt
+
+
+def port_greedy_margin(port, prompt, tokens) -> float:
+    """Smallest top-2 logit margin over the positions that emitted
+    ``tokens`` after ``prompt``, from one uncached forward of the PORT's
+    model (cheap next to the reference's per-length compiles)."""
+    seq = np.concatenate([np.asarray(prompt), np.asarray(tokens)])[None]
+    steps = port_logits(port, seq)[0, len(prompt) - 1:-1]
+    top2 = np.sort(steps, axis=-1)[:, -2:]
+    return float((top2[:, 1] - top2[:, 0]).min()) if len(steps) else 1.0
+
+
+def assert_greedy_equal(port, prompt, got, want, what="") -> bool:
+    """The port's greedy tokens equal the reference's, except where the
+    top-2 margin along the path is under ``MARGIN_FLOOR`` (then the two
+    packages may round to different tokens).  Returns whether they were
+    compared equal."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape == want.shape and np.array_equal(got, want):
+        return True
+    m = min(port_greedy_margin(port, prompt, want),
+            port_greedy_margin(port, prompt, got))
+    assert m < MARGIN_FLOOR, ("%s: port %s != reference %s at margin %.4g"
+                              % (what, got.tolist(), want.tolist(), m))
+    return False
+
+
+class RefEngines:
+    """Reference ``ServingEngine``s cached by configuration: the first run
+    of a configuration compiles its steps, later runs reuse them (a
+    drained engine serves the next traffic exactly as a fresh one, and a
+    recovery keeps its executables)."""
+
+    def __init__(self, model):
+        self.model = model
+        self._engines = {}
+        self.last_engine = None  # the engine of the last run()
+
+    def engine(self, **kw):
+        from paddle_tpu.serving import ServingEngine as RefEngine
+
+        key = repr(sorted(kw.items()))
+        eng = self._engines.get(key)
+        if eng is None:
+            eng = self._engines[key] = RefEngine(self.model, **kw)
+        assert eng.live_requests == 0
+        eng.metrics.reset_all()
+        return eng
+
+    def run(self, prompts, budgets, plane=None, ids=None, **kw):
+        """Submit every prompt, pump to the end (under the reference's
+        fault ``plane`` when given) and return the terminal statuses."""
+        from paddle_tpu.serving import faults as ref_faults
+
+        eng = self.last_engine = self.engine(**kw)
+        ids = ids or [None] * len(prompts)
+        if plane is not None:
+            ref_faults.install(plane)
+        try:
+            streams = [eng.submit(p, n, request_id=r)
+                       for p, n, r in zip(prompts, budgets, ids)]
+            guard = 0
+            while eng.pump(1):
+                guard += 1
+                assert guard < 1000, "reference engine failed to drain"
+        finally:
+            if plane is not None:
+                ref_faults.uninstall()
+        return [s.result(timeout_s=0) for s in streams]

@@ -29,6 +29,15 @@ PyTorch twin, and drives the port's two main paths:
   requests through the 4-layer pool's graph and through its private eager
   entry, whose tokens must be identical; a ``DecodeSession`` generates on
   the dense and the paged cache from its captured decode step;
+- speculative decoding and crash durability: the 24-layer target served
+  by a speculative pool with itself and with a 2-layer model as the draft
+  (every verify chunk through K1 at Lq 5, the draft through K2), beside
+  a plain pool on the same prompts; at 4 layers an int8 and a dense
+  target and a ``SpeculativeDecodeSession``; the main traffic with and
+  without a journal (fsync ms per tick); ``preempt_4l`` on the disk tier
+  (PTKV write MB/s); and a child ``python3 chip_smoke.py --crash-child
+  DIR`` killed with SIGKILL mid-decode, whose journal and spill
+  directory a fresh engine restores to an uninterrupted run's tokens;
 - training: the same GPT-1.3B at full width and depth for 6
   ``TrainStep``s (AdamW, global-norm clipping) on one repeated 2 x 2048
   batch, every attention forward and backward through the flash kernel K3,
@@ -52,7 +61,8 @@ its bound and the one PyTorch call that computes the same function
 timed as a yardstick only, the port never calls it): K3 in fp32 and bf16,
 with its tensor-core bound and the CUDA-core one; K1/K2 at the serving
 shape in fp32 and int8, at one request, and at a short and a full
-context.  K1 is also held against its twin on tables whose rows alias one
+context, and at a verify chunk of 5 queries (K1/K2, per-row positions).
+K1 is also held against its twin on tables whose rows alias one
 prefix's blocks, for a decode step and for chunks of 4 and 8 queries.  After the build it prints ``ptxas -v``'s registers and spills
 of every K1/K2 and K3 kernel (and fails if a decode kernel, or a D 64 or
 D 128 K3 one, spills); after the timing, the kernels SDPA's fp32 forward
@@ -110,6 +120,17 @@ PREEMPT_AFTER_TICKS = 8
 HTTP_TIMEOUT_S = 300.0
 RECOVER_FAULT_AFTER = 5
 TRACE_TICKS = 10
+# the speculative decoding and crash durability phases
+SPEC_K = 4
+VERIFY_LQ = SPEC_K + 1
+SPEC_REQUESTS = 8
+SPEC_PROMPT = 512
+SPEC_NEW_TOKENS = 64
+SPEC_DRAFT_LAYERS = 2
+SPEC_SHORT_PROMPT = 256
+SPEC_SHORT_NEW_TOKENS = 16
+CRASH_SLOTS = 4
+CRASH_NEW_TOKENS = 32
 # kernel vs plain twin: fp32 (and int8, dequantized in fp32 by both) differ
 # only by summation order; a bf16 output is rounded to bf16 by both
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -347,6 +368,17 @@ def check_kernels():
                     elif kv_dt == torch.int8:
                         main_err["paged_decode_attention_kernel_int8"] = \
                             errs["paged_decode_attention_kernel"]
+    # the speculative verify's shape: Lq = spec_k + 1 = 5 queries per row
+    # at the row's own positions idx + j (every row starts elsewhere, one
+    # at the cache's last positions), fp32 and int8, at full width
+    for kv_dt, suffix in ((torch.float32, ""), (torch.int8, "_int8")):
+        case = paged_case(gen, lq=VERIFY_LQ, q_dtype=torch.float32,
+                          kv_dtype=kv_dt, ctx=MAIN_MAX_LEN, **main)
+        case["q_pos"] = verify_qpos(gen, MAIN_SLOTS, MAIN_MAX_LEN)
+        errs = _decode_parity(dk, case, "verify Lq=%d kv=%s per-row q_pos"
+                              % (VERIFY_LQ, str(kv_dt)[6:]), TOL["float32"])
+        for name, err in errs.items():
+            main_err[name + "_verify" + suffix] = err
     # split edges at full width: 3 splits of whole 32-key chunks, so at a
     # context of 960 every span is full, at 961 the last one holds 1 key
     splits = dk.num_splits(MAIN_SLOTS, 16, MAIN_MAX_LEN, MAIN_BLOCK)
@@ -358,6 +390,19 @@ def check_kernels():
             _decode_parity(dk, case, "split edge kv=%s ctx=%d splits=%d"
                            % (str(kv_dt)[6:], ctx, splits), TOL["float32"])
     return main_err
+
+
+def verify_qpos(gen, b, s):
+    """[B, VERIFY_LQ] int32 query positions of a verify chunk: row r's
+    chunk starts at its own random index, row 0's ends at the cache's
+    last position."""
+    import torch
+
+    start = torch.randint(0, s - VERIFY_LQ + 1, (b,), device="cuda",
+                          generator=gen)
+    start[0] = s - VERIFY_LQ
+    return (start[:, None] + torch.arange(VERIFY_LQ, device="cuda")[None]) \
+        .to(torch.int32)
 
 
 def check_aliased_tables():
@@ -731,13 +776,15 @@ def profile_chunks(model, ticks: int = 3):
 
 
 def preempt_run(model, prompts, cache_dtype, num_blocks=None,
-                interrupt=True):
+                interrupt=True, **pool_kw):
     """``prompts`` (one per slot, 32 greedy tokens each) through a fresh
     4-layer paged engine; with ``interrupt``, after 8 ticks two decoding
     requests are preempted and two higher-priority requests take their
     slots.  Each preempt (its one download included) and each resume
     (its upload included) is timed alone with ``torch.cuda.synchronize()``
-    on both sides.  Returns the metrics and the first requests' tokens."""
+    on both sides; on the disk tier (``pool_kw``) each PTKV write too,
+    with the file's bytes.  Returns the metrics and the first requests'
+    tokens."""
     import torch
 
     from paddle_tpu_torch import ServingEngine
@@ -746,12 +793,22 @@ def preempt_run(model, prompts, cache_dtype, num_blocks=None,
     engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
                            cache_layout="paged", block_size=MAIN_BLOCK,
                            num_blocks=num_blocks, cache_dtype=cache_dtype,
-                           device="cuda")
+                           device="cuda", **pool_kw)
     pool = engine.pool
     # warm-up: the decode step's eager call and its capture
     engine.submit(np.arange(64) % model.vocab_size, 3).result()
-    resume_ms = []
+    resume_ms, write_ms, write_bytes = [], [], []
     real_resume = pool._resume
+    real_write = pool._spill_write
+
+    def timed_write(*a, **k):
+        t = time.perf_counter()
+        path = real_write(*a, **k)
+        write_ms.append((time.perf_counter() - t) * 1e3)
+        write_bytes.append(os.path.getsize(path))
+        return path
+
+    pool._spill_write = timed_write
 
     def timed_resume(sp):
         torch.cuda.synchronize()
@@ -795,7 +852,8 @@ def preempt_run(model, prompts, cache_dtype, num_blocks=None,
         "num_blocks"], "decode_steps": steps, "k1_launches": k1,
         "spill_stats": spill, "preempt_ms": preempt_ms,
         "resume_ms": resume_ms, "compile_counts": engine.compile_counts(),
-        "graphs": pool._decode_fn.graphs()}
+        "graphs": pool._decode_fn.graphs(), "write_ms": write_ms,
+        "write_bytes": write_bytes}
     tokens = [np.asarray(s.status.tokens) for s in streams]
     extra_tokens = [np.asarray(s.status.tokens) for s in extra]
     del engine
@@ -803,13 +861,15 @@ def preempt_run(model, prompts, cache_dtype, num_blocks=None,
     return out, tokens, extra_tokens
 
 
-def preempt_runs(model):
+def preempt_runs(model, label="host", **pool_kw):
     """``preempt_4l``: fp32 and int8, each uninterrupted and then
     interrupted twice: with the default pool (resume re-maps the spilled
     blocks) and with a pool one free block short of the two newcomers'
     reservations (a spilled copy is reclaimed, resume uploads it).  The
     preempted run's tokens must equal the uninterrupted run's byte for
-    byte; the newcomers' tokens are held by ``greedy_gap``."""
+    byte; the newcomers' tokens are held by ``greedy_gap``.  ``pool_kw``
+    (the disk tier) applies to the interrupted runs; ``label`` names the
+    tier in the log."""
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, model.vocab_size, PREEMPT_PROMPT)
                .astype(np.int32) for _ in range(MAIN_SLOTS)]
@@ -821,7 +881,8 @@ def preempt_runs(model):
     for dtype in ("float32", "int8"):
         plain, want, _ = preempt_run(model, prompts, dtype, interrupt=False)
         for variant, nb in (("remap", None), ("upload", tight)):
-            rec, got, extra = preempt_run(model, prompts, dtype, nb)
+            rec, got, extra = preempt_run(model, prompts, dtype, nb,
+                                          **pool_kw)
             # preemption is host work: no step met a new shape
             assert rec["compile_counts"] == plain["compile_counts"] \
                 and rec["graphs"] == plain["graphs"] == 1, (rec, plain)
@@ -839,8 +900,8 @@ def preempt_runs(model):
             rec["newcomer_greedy_max_gap"] = max(gaps)
             assert max(gaps) <= GREEDY_TOL[dtype], (gaps, dtype)
             out["%s_%s" % (dtype, variant)] = rec
-            log("preempt run (%s, %s, 4 layers):" % (dtype, variant),
-                json.dumps(rec))
+            log("preempt run (%s, %s, %s tier, 4 layers):"
+                % (dtype, variant, label), json.dumps(rec))
     return out
 
 
@@ -1482,16 +1543,495 @@ def trace_decode(model, rng, graph_ms_per_step, root):
 
 # (rows, context, cache dtype) of each decode timing row: the serving
 # shape in fp32 and int8, one request, a short and a full context
+# -- speculative decoding ----------------------------------------------------
+def _tokens_hold(model, prompt, got, want, tol):
+    """True when ``got`` equals ``want``; else both must be greedy
+    within ``tol`` of an uncached forward's argmax at every position (a
+    near-tie the two paths may round either way), and False is
+    returned."""
+    if np.array_equal(got, want):
+        return True
+    gaps = (greedy_gap(model, prompt, got), greedy_gap(model, prompt, want))
+    assert max(gaps) <= tol, ("tokens differ beyond the greedy limit",
+                              gaps, tol)
+    return False
+
+
+def spec_pool_run(model, draft, prompts, new_tokens, n_layers, draft_layers,
+                  kernel, **kw):
+    """One speculative pool over ``prompts`` (after a warm-up in the same
+    bucket that runs enough rounds to capture every step): the measured
+    pass with CUDA events around each round, then the same traffic with
+    ``time_split`` (the draft/verify wall split, synchronized), then 3
+    rounds under ``torch.profiler`` for the device's busy share.  Asserts
+    every launch: ``kernel`` (the target's) ``n_layers`` times a round,
+    K2 ``draft_layers * (k + 1)`` times a round for the draft (plus the
+    target's verify on a dense target)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import SpeculativePool
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    pool = SpeculativePool(model, draft, max_len=MAIN_MAX_LEN, spec_k=SPEC_K,
+                           slots=MAIN_SLOTS, device="cuda", **kw)
+    vocab = model.vocab_size
+    pool.generate([np.arange(len(prompts[0])) % vocab], 4 * VERIFY_LQ)
+    assert pool._verify_fn.graphs() == 1 and \
+        pool._draft_decode_fn.graphs() == 1 and \
+        pool._draft_fixup_fn.graphs() == 1, "a round step was not captured"
+    pool.reset_acceptance_stats()
+    hook = pool._spec_round = _StepHook(pool._spec_round, events=True)
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = pool.generate(prompts, new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dk.launch_counts()
+    acc = pool.acceptance_stats()
+    rounds = acc["rounds"]
+    draft_k2 = draft_layers * (SPEC_K + 1) * rounds
+    target = n_layers * rounds
+    if kernel == "decode_attention_kernel":
+        assert counts[kernel] == target + draft_k2, (counts, rounds)
+        assert counts["paged_decode_attention_kernel"] == 0, counts
+    else:
+        assert counts[kernel] == target and \
+            counts["decode_attention_kernel"] == draft_k2, (counts, rounds)
+    round_ms = [a.elapsed_time(b) for a, b in hook.events]
+    pool._spec_round = hook.fn
+    pool.reset_acceptance_stats()
+    pool._time_split = True
+    pool.generate(prompts, new_tokens)
+    split = pool.acceptance_stats()
+    pool._time_split = False
+    rid = [pool.submit(p, 3 * VERIFY_LQ) for p in prompts]
+    pool.step()  # admissions and prefills outside the profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            pool.step()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t1) * 1e3 / 3
+    busy = sum(r[0] for r in device_time_rows(prof)) / 3
+    while pool.step():
+        pass
+    for r in rid:
+        pool.collect(r)
+    out = {"tokens_per_s": len(prompts) * new_tokens / wall, "wall_s": wall,
+           "acceptance_rate": acc["acceptance_rate"], "rounds": rounds,
+           "tokens_per_round": len(prompts) * new_tokens / rounds,
+           "draft_time_s": split["draft_time_s"],
+           "verify_time_s": split["verify_time_s"],
+           "round_device_ms_mean": float(np.mean(round_ms)),
+           "round_device_ms_p50": float(np.median(round_ms)),
+           "profiled_round_ms": prof_ms, "device_busy_ms_per_round": busy,
+           "device_idle_share": (1 - busy / prof_ms) if busy else None,
+           "launches": counts, "draft_k2_launches": draft_k2,
+           "target_launches": target,
+           "compile_counts": pool.compile_counts(),
+           "graphs": {"verify": pool._verify_fn.graphs(),
+                      "draft_decode": pool._draft_decode_fn.graphs(),
+                      "draft_fixup": pool._draft_fixup_fn.graphs()}}
+    del pool
+    torch.cuda.empty_cache()
+    return out, tokens
+
+
+def plain_pool_run(model, prompts, new_tokens, **kw):
+    """The same traffic through a plain ``GenerationPool`` (its decode
+    step warmed up and captured first)."""
+    import torch
+
+    from paddle_tpu_torch import GenerationPool
+
+    pool = GenerationPool(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                          device="cuda", **kw)
+    pool.generate([np.arange(len(prompts[0])) % model.vocab_size], 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = pool.generate(prompts, new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"tokens_per_s": len(prompts) * new_tokens / wall, "wall_s": wall,
+           "decode_steps": pool.decode_steps_total,
+           "compile_counts": pool.compile_counts()}
+    del pool
+    torch.cuda.empty_cache()
+    return out, tokens
+
+
+def spec_budget(buckets: int) -> dict:
+    """The reference's compile budget of a bucketed speculative pool that
+    met ``buckets`` prefill buckets at one ``spec_k``."""
+    return {"prefill": buckets, "slot_insert": 1, "verify": 1,
+            "draft_prefill": buckets, "draft_decode": 1, "draft_fixup": 1,
+            "draft_insert": 1}
+
+
+def serve_spec(model, cfg):
+    """``serve_spec_24l``: the full GPT-1.3B target, paged fp32 (block 32),
+    8 slots, spec_k 4, 8 prompts of 512 tokens, 64 new tokens each, with
+    the target as its own draft (``selfdraft``) and with a 2-layer draft
+    of the same widths from seed 1 (``smalldraft``), beside a plain pool
+    on the same prompts.  Every verify chunk runs K1 at Lq 5 (24 launches
+    a round) and the draft K2 at Lq 1; the tokens must equal the plain
+    pool's (or differ only at a near-tie both sides hold within the
+    greedy limit); ``selfdraft`` accepts at least 95%; the compile counts
+    are the reference's budget."""
+    import torch
+
+    from paddle_tpu_torch import TransformerLM
+
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, model.vocab_size, SPEC_PROMPT).astype(np.int32)
+               for _ in range(SPEC_REQUESTS)]
+    paged = dict(cache_layout="paged", block_size=MAIN_BLOCK)
+    out = {}
+    out["plain"], want = plain_pool_run(model, prompts, SPEC_NEW_TOKENS,
+                                        **paged)
+    log("serve_spec_24l (plain pool, same prompts):", json.dumps(out["plain"]))
+    small = TransformerLM(**dict(cfg, num_layers=SPEC_DRAFT_LAYERS),
+                          dropout=0.0, device="cuda", seed=1)
+    for name, draft, dl in (("selfdraft", model, cfg["num_layers"]),
+                            ("smalldraft", small, SPEC_DRAFT_LAYERS)):
+        rec, got = spec_pool_run(model, draft, prompts, SPEC_NEW_TOKENS,
+                                 cfg["num_layers"], dl,
+                                 "paged_decode_attention_kernel", **paged)
+        same = [_tokens_hold(model, p, g, w, GREEDY_TOL["float32"])
+                for p, g, w in zip(prompts, got, want)]
+        rec["identical_requests"] = sum(same)
+        assert rec["compile_counts"] == spec_budget(1), rec["compile_counts"]
+        assert all(n == 1 for n in rec["graphs"].values()), rec["graphs"]
+        if name == "selfdraft":
+            assert rec["acceptance_rate"] >= 0.95, rec["acceptance_rate"]
+        out[name] = rec
+        log("serve_spec_24l (%s, paged fp32, 24-layer target):" % name,
+            json.dumps(rec))
+    del small
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_short(model, cfg):
+    """``spec_4l``: three contract checks at 4 layers, not times: a paged
+    int8 target with the 2-layer draft (K1's int8 path at Lq 5), a dense
+    fp32 target (K2 at Lq 5 for the verify and Lq 1 for the draft), each
+    against the plain pool on the same prompts; and a
+    ``SpeculativeDecodeSession`` batch-1 run against ``DecodeSession``."""
+    import torch
+
+    from paddle_tpu_torch import DecodeSession, TransformerLM
+    from paddle_tpu_torch.jit import SpeculativeDecodeSession
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    rng = np.random.RandomState(10)
+    prompts = [rng.randint(0, model.vocab_size, SPEC_SHORT_PROMPT)
+               .astype(np.int32) for _ in range(SPEC_REQUESTS)]
+    small = TransformerLM(**dict(cfg, num_layers=SPEC_DRAFT_LAYERS),
+                          dropout=0.0, device="cuda", seed=1)
+    out = {}
+    for name, kw, kernel, dtype in (
+            ("paged_int8", dict(cache_layout="paged", block_size=MAIN_BLOCK,
+                                cache_dtype="int8"),
+             "paged_decode_attention_kernel", "int8"),
+            ("dense_fp32", dict(cache_layout="dense"),
+             "decode_attention_kernel", "float32")):
+        _, want = plain_pool_run(model, prompts, SPEC_SHORT_NEW_TOKENS, **kw)
+        rec, got = spec_pool_run(model, small, prompts,
+                                 SPEC_SHORT_NEW_TOKENS, SHORT_LAYERS,
+                                 SPEC_DRAFT_LAYERS, kernel, **kw)
+        same = [_tokens_hold(model, p, g, w, GREEDY_TOL[dtype])
+                for p, g, w in zip(prompts, got, want)]
+        rec["identical_requests"] = sum(same)
+        assert rec["compile_counts"] == spec_budget(1), rec["compile_counts"]
+        out[name] = rec
+        log("spec_4l (%s target, 2-layer draft):" % name, json.dumps(rec))
+    ids = prompts[0][None]
+    ref = DecodeSession(model, max_len=1024, buckets=[SPEC_SHORT_PROMPT],
+                        device="cuda")
+    want = ref.generate(ids, SPEC_SHORT_NEW_TOKENS)
+    sess = SpeculativeDecodeSession(model, small, max_len=1024,
+                                    spec_k=SPEC_K,
+                                    buckets=[SPEC_SHORT_PROMPT],
+                                    device="cuda")
+    sess.generate(ids, SPEC_SHORT_NEW_TOKENS)  # warm-up and captures
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    got = sess.generate(ids, SPEC_SHORT_NEW_TOKENS)
+    torch.cuda.synchronize()
+    counts = dk.launch_counts()
+    acc = sess.acceptance_stats()
+    assert sess.compile_counts() == {"prefill": 1, "verify": 1,
+                                     "draft_prefill": 1, "draft_decode": 1}
+    assert counts["decode_attention_kernel"] > 0 and \
+        counts["paged_decode_attention_kernel"] == 0, counts
+    out["session"] = {"identical": _tokens_hold(
+        model, prompts[0], got[0], want[0], GREEDY_TOL["float32"]),
+        "launches": counts, "acceptance": acc,
+        "compile_counts": sess.compile_counts()}
+    log("spec_4l (SpeculativeDecodeSession, dense, batch 1):",
+        json.dumps(out["session"]))
+    del small, sess, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- crash durability ---------------------------------------------------------
+def durable_dir(root, name):
+    """A fresh directory for a phase's journal and spill files, on the
+    checkout's own disk (so an fsync is the disk's), removed by the
+    phase."""
+    import shutil
+
+    path = os.path.join(root, "scratch_chip", "durable", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def journal_runs(model, keep, root):
+    """``journal_24l``: the main traffic (``serve()``'s 16 prompts, 64 new
+    tokens) through a journaled engine (``journal_fsync="tick"``) and a
+    plain one, alternating plain, journal, journal, plain after a warm-up
+    of each; tokens/s per pass, the journal's records and bytes, and the
+    fsync ms of each tick's flush (p50, max).  Every pass must emit the
+    main run's tokens."""
+    import shutil
+
+    import torch
+
+    from paddle_tpu_torch import ServingEngine
+
+    path = durable_dir(root, "journal")
+    kw = dict(max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS, cache_layout="paged",
+              block_size=MAIN_BLOCK, device="cuda")
+    engines = {"plain": ServingEngine(model, **kw),
+               "journal": ServingEngine(
+                   model, journal_path=os.path.join(path, "wal.journal"),
+                   journal_fsync="tick", **kw)}
+    for eng in engines.values():
+        eng.submit(keep["warmup"], 3).result()
+    sync_ms = []
+    journal = engines["journal"]._journal
+    real_sync = journal.sync
+
+    def timed_sync():
+        t = time.perf_counter()
+        real_sync()
+        sync_ms.append((time.perf_counter() - t) * 1e3)
+
+    journal.sync = timed_sync
+    out = {"plain": [], "journal": []}
+    for name in ("plain", "journal", "journal", "plain"):
+        eng = engines[name]
+        n0 = len(sync_ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, MAIN_NEW_TOKENS) for p in keep["prompts"]]
+        while eng.pump(8):
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for st, want in zip(streams, keep["tokens"]):
+            assert st.status.state == "DONE" and \
+                list(st.status.tokens) == list(want), st.status
+        rec = {"tokens_per_s": len(streams) * MAIN_NEW_TOKENS / wall,
+               "wall_s": wall}
+        if name == "journal":
+            ticks = sync_ms[n0:]
+            rec.update(fsyncs=len(ticks),
+                       fsync_ms_p50=float(np.median(ticks)),
+                       fsync_ms_max=float(np.max(ticks)))
+        out[name].append(rec)
+    snap = engines["journal"].metrics.snapshot()
+    out["journal_records"] = snap["serving_journal_records_total"]
+    out["journal_bytes"] = snap["serving_journal_bytes_total"]
+    out["journal_file_bytes"] = os.path.getsize(
+        os.path.join(path, "wal.journal"))
+    out["fsync_ms_p50"] = float(np.median(sync_ms))
+    out["fsync_ms_max"] = float(np.max(sync_ms))
+    out["compile_counts"] = {n: e.compile_counts()
+                             for n, e in engines.items()}
+    assert out["compile_counts"]["plain"] == \
+        out["compile_counts"]["journal"], out["compile_counts"]
+    for eng in engines.values():
+        eng.shutdown()
+    del engines
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log("journal_24l (main traffic, journal fsync=tick vs none):",
+        json.dumps(out))
+    return out
+
+
+def disk_spill_runs(model, host, root):
+    """``disk_spill_4l``: ``preempt_4l`` with ``spill_tier="disk"`` (PTKV
+    files on the checkout's disk): per preemption the write of the file
+    (tmp file, fsync, rename) timed alone, its MB/s, and each resume --
+    in the upload variant it reads the file back -- against the host
+    tier's run of the same call (``host``).  Tokens must equal the
+    uninterrupted run's byte for byte."""
+    import shutil
+
+    path = durable_dir(root, "spill")
+    out = preempt_runs(model, label="disk", spill_tier="disk",
+                       spill_dir=path)
+    for key, rec in out.items():
+        base = host[key]
+        rec["host_preempt_ms"] = base["preempt_ms"]
+        rec["host_resume_ms"] = base["resume_ms"]
+        if rec["write_ms"]:
+            rec["write_mb_s"] = [b / 1e6 / (ms / 1e3) for b, ms in
+                                 zip(rec["write_bytes"], rec["write_ms"])]
+    shutil.rmtree(path, ignore_errors=True)
+    log("disk_spill_4l:", json.dumps(out))
+    return out
+
+
+def crash_child(workdir) -> int:
+    """The crashing engine of ``crash_restore_4l`` (``--crash-child``): the
+    4-layer model from seed 0, a journaled engine over the disk tier,
+    mixed-priority traffic with one victim spilled to disk, then SIGKILL
+    mid-decode."""
+    import signal
+
+    from paddle_tpu_torch import TransformerLM, gpt_1p3b_config
+
+    model = TransformerLM(**dict(gpt_1p3b_config(), num_layers=SHORT_LAYERS),
+                          dropout=0.0, device="cuda", seed=0)
+    eng = crash_engine(model, workdir, journal=True)
+    crash_traffic(eng, model)
+    eng.preempt()
+    eng.pump(3)
+    parked = sum(1 for r in eng._live.values() if r.state == "PREEMPTED")
+    sys.stdout.write("LIVE %d PARKED %d\n" % (eng.live_requests, parked))
+    sys.stdout.flush()
+    os.kill(os.getpid(), signal.SIGKILL)
+    return 1
+
+
+def crash_engine(model, workdir, journal):
+    from paddle_tpu_torch import ServingEngine
+
+    eng = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=CRASH_SLOTS,
+                        cache_layout="paged", block_size=MAIN_BLOCK,
+                        spill_tier="disk",
+                        spill_dir=os.path.join(workdir, "spill"),
+                        journal_path=(os.path.join(workdir, "wal.journal")
+                                      if journal else None), device="cuda")
+    # warm-up in the traffic's bucket: the decode step's capture
+    eng.submit(np.arange(PREEMPT_PROMPT) % model.vocab_size, 3).result()
+    return eng
+
+
+def crash_traffic(eng, model):
+    """Four low-priority requests decode for 3 ticks, then two high ones
+    arrive: the first takes a preempted low's slot, the second waits."""
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, model.vocab_size, PREEMPT_PROMPT)
+               .astype(np.int32) for _ in range(CRASH_SLOTS + 2)]
+    streams = [eng.submit(p, CRASH_NEW_TOKENS, request_id="low%d" % i,
+                          priority="low")
+               for i, p in enumerate(prompts[:CRASH_SLOTS])]
+    eng.pump(3)
+    streams += [eng.submit(p, CRASH_NEW_TOKENS + 16,
+                           request_id="high%d" % i, priority="high")
+                for i, p in enumerate(prompts[CRASH_SLOTS:])]
+    return streams
+
+
+def crash_restore(model, root):
+    """``crash_restore_4l``: a child ``python3 chip_smoke.py --crash-child
+    DIR`` serves mixed-priority traffic with a journal and one victim
+    spilled to disk and is killed with SIGKILL mid-decode; this process
+    builds a fresh engine (the 4-layer model from the same seed), warms
+    it, restores from the journal and the spill directory and finishes.
+    Every survivor must equal an uninterrupted run's tokens byte for
+    byte, the compile counts a clean engine's, and
+    ``serving_journal_replayed_total`` the journal's admitted minus
+    terminal records."""
+    import shutil
+    import signal
+
+    import torch
+
+    workdir = durable_dir(root, "crash")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--crash-child", workdir], capture_output=True,
+                          text=True, timeout=600, cwd=root)
+    child_s = time.perf_counter() - t0
+    assert proc.returncode == -signal.SIGKILL, (proc.returncode,
+                                                proc.stderr[-2000:])
+    assert "PARKED 1" in proc.stdout, proc.stdout
+    clean = crash_engine(model, durable_dir(root, "clean"), journal=False)
+    streams = crash_traffic(clean, model)
+    while clean.pump(8):
+        pass
+    want = {s.request_id: np.asarray(s.status.tokens) for s in streams}
+    clean_counts = clean.compile_counts()
+    clean.shutdown()
+    del clean
+    eng = crash_engine(model, workdir, journal=True)
+    counts_before = eng.compile_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    summary = eng.restore(os.path.join(workdir, "wal.journal"))
+    restore_ms = (time.perf_counter() - t1) * 1e3
+    restored = {rid: rec.stream for rid, rec in eng._live.items()}
+    while eng.pump(8):
+        pass
+    same = []
+    for rid, s in restored.items():
+        st = s.result(timeout_s=0)
+        assert st.state == "DONE", st
+        same.append(bool(np.array_equal(np.asarray(st.tokens), want[rid])))
+    snap = eng.metrics.snapshot()
+    jc = summary["journal_counts"]
+    out = {"child_s": child_s, "child_stdout": proc.stdout.strip(),
+           "restore_ms": restore_ms, "restore_s": summary["restore_s"],
+           "records_replayed": summary["records"],
+           "requests_replayed": summary["requests_replayed"],
+           "adopted_from_spill": summary["adopted_from_spill"],
+           "reprefilled": summary["requests_replayed"]
+           - summary["adopted_from_spill"] - summary["finished_at_restore"],
+           "tokens_replayed": summary["tokens_replayed"],
+           "journal_counts": jc, "identical_requests": sum(same),
+           "survivors": len(same),
+           "replayed_total": snap["serving_journal_replayed_total"],
+           "compile_counts": eng.compile_counts(),
+           "upload_bytes": eng.spill_stats()["upload_bytes_total"]}
+    log("crash_restore_4l:", json.dumps(out))
+    assert all(same), same
+    assert summary["adopted_from_spill"] == 1, summary
+    assert out["compile_counts"] == counts_before == clean_counts, \
+        (out["compile_counts"], counts_before, clean_counts)
+    assert out["replayed_total"] == jc["admitted"] - jc["terminals"], out
+    eng.shutdown()
+    del eng
+    shutil.rmtree(os.path.join(root, "scratch_chip", "durable"),
+                  ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 DECODE_TIMING_ROWS = ((MAIN_SLOTS, 1024, "float32"), (MAIN_SLOTS, 1024, "int8"),
                       (1, 1024, "float32"), (MAIN_SLOTS, 128, "float32"),
-                      (MAIN_SLOTS, MAIN_MAX_LEN - 1, "float32"))
+                      (MAIN_SLOTS, MAIN_MAX_LEN - 1, "float32"),
+                      (MAIN_SLOTS, 1024, "float32", VERIFY_LQ))
 
 
 def time_kernels(rows=DECODE_TIMING_ROWS):
     """Each decode kernel at the main path's widths (16 heads x 128, block
     32, 2048-position cache, one query) with every row at ``ctx``
     positions, beside its plain twin, SDPA on the gathered K/V and the
-    bandwidth bound.  Keyed (kernel, cache dtype, rows, ctx).
+    bandwidth bound.  Keyed (kernel, cache dtype, rows, ctx); a row with
+    a fourth field ``lq`` is a verify chunk of ``lq`` queries at positions
+    ``ctx - lq .. ctx - 1`` (keyed with ``lq`` appended).
 
     ``ms``, ``plain_ms`` and ``library_ms`` are device times from CUDA
     graph replay (:func:`graph_ms`) over copies of the inputs that
@@ -1504,17 +2044,22 @@ def time_kernels(rows=DECODE_TIMING_ROWS):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for b, ctx, kv_name in rows:
+    for row in rows:
+        b, ctx, kv_name = row[:3]
+        lq = row[3] if len(row) > 3 else 1
         kv_dt = getattr(torch, kv_name)
         case = paged_case(gen, b, 16, 128, MAIN_BLOCK,
-                          MAIN_MAX_LEN // MAIN_BLOCK, 1, torch.float32, kv_dt,
-                          ctx=ctx)
+                          MAIN_MAX_LEN // MAIN_BLOCK, lq, torch.float32,
+                          kv_dt, ctx=ctx)
+        case["q_pos"] = (ctx - lq + torch.arange(lq, device="cuda")) \
+            .to(torch.int32)[None].expand(b, lq).contiguous()
         _, h, lq, d = case["q"].shape
         item = case["k_pool"].element_size()
         kv_bytes = 2 * b * h * ctx * (d * item + (4 if kv_dt == torch.int8
                                                   else 0))
         io_bytes = 2 * case["q"].numel() * 4 + case["q_pos"].numel() * 4
-        flops = 4 * b * h * lq * ctx * d
+        # query j sees ctx - lq + 1 + j keys
+        flops = 4 * b * h * d * sum(ctx - lq + 1 + j for j in range(lq))
         # enough copies that one round reads over 3x L2 (50 MB)
         n_copies = max(1, -(-150_000_000 // kv_bytes))
         cases = [case] + [
@@ -1559,15 +2104,15 @@ def time_kernels(rows=DECODE_TIMING_ROWS):
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
-                   "kv_dtype": kv_name, "rows": b, "ctx": ctx,
+                   "kv_dtype": kv_name, "rows": b, "ctx": ctx, "lq": lq,
                    "splits": splits, "input_copies": n_copies}
             rec["achieved_gb_s"] = nbytes / rec["ms"] / 1e6
             rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-            out[(name, kv_name, b, ctx)] = rec
-            log("timing %-30s kv=%-7s B=%d H=%d D=%d ctx=%d splits=%d: "
+            out[(name, kv_name, b, ctx) + ((lq,) if lq > 1 else ())] = rec
+            log("timing %-30s kv=%-7s B=%d H=%d Lq=%d D=%d ctx=%d splits=%d: "
                 "kernel %.4f ms (%.0f GB/s, %.0f%% of bound; eager %.4f ms), "
                 "plain %.4f ms, bound %.4f ms (%s), sdpa %.4f ms"
-                % (name, kv_name, b, h, d, ctx, splits, rec["ms"],
+                % (name, kv_name, b, h, lq, d, ctx, splits, rec["ms"],
                    rec["achieved_gb_s"], 100 * rec["bound_share"], eager,
                    rec["plain_ms"], rec["bound_ms"], rec["bound_by"],
                    lib_ms))
@@ -2621,6 +3166,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, root)
+    if sys.argv[1:2] == ["--crash-child"]:
+        return crash_child(sys.argv[2])
     from paddle_tpu_torch import TransformerLM, gpt_1p3b_config
     from paddle_tpu_torch.ops import _build
 
@@ -2684,6 +3231,11 @@ def main() -> int:
                                                          cfg["num_layers"])
     log("prompt chunk profile (24 layers, 256-token chunks):",
         json.dumps(profile_chunks(model)))
+    t0 = time.perf_counter()
+    runs["serve_spec_24l"] = serve_spec(model, cfg)
+    runs["journal_24l"] = journal_runs(model, pumped, root)
+    log("speculative and journal phases (24 layers): %.1f s"
+        % (time.perf_counter() - t0))
     del model
     torch.cuda.empty_cache()
 
@@ -2699,6 +3251,12 @@ def main() -> int:
         block_size=MAIN_BLOCK, cache_dtype="int8")
     log("int8 run (paged, 4 layers):", json.dumps(runs["paged_int8_4l"]))
     runs["preempt_4l"] = preempt_runs(model)
+    t0 = time.perf_counter()
+    runs["spec_4l"] = spec_short(model, short)
+    runs["disk_spill_4l"] = disk_spill_runs(model, runs["preempt_4l"], root)
+    runs["crash_restore_4l"] = crash_restore(model, root)
+    log("speculative and durability phases (4 layers): %.1f s"
+        % (time.perf_counter() - t0))
     t0 = time.perf_counter()
     runs["recover_4l"] = recover_runs(model)
     log("recover_4l: %.1f s" % (time.perf_counter() - t0))
@@ -2762,6 +3320,28 @@ def main() -> int:
                 "max_abs_err": parity[label], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the speculative verify chunk (Lq 5): K1 on the paged 24-layer
+    # target, K2 on the dense 4-layer target (its draft's K2 launches
+    # subtracted)
+    dense_spec = runs["spec_4l"]["dense_fp32"]
+    for name, launches in (
+            ("paged_decode_attention_kernel",
+             runs["serve_spec_24l"]["selfdraft"]["launches"][
+                 "paged_decode_attention_kernel"]
+             + runs["serve_spec_24l"]["smalldraft"]["launches"][
+                 "paged_decode_attention_kernel"]),
+            ("decode_attention_kernel", dense_spec["target_launches"])):
+        t = timing[(name, "float32", MAIN_SLOTS, 1024, VERIFY_LQ)]
+        kernels.append({
+            "name": name + "_verify", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+            "replaces": ("paddle_tpu/ops/pallas_decode.py:243"
+                         if name.startswith("paged")
+                         else "paddle_tpu/ops/pallas_decode.py:320"),
+            "launches": launches,
+            "max_abs_err": parity[name + "_verify"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     t = timing["scale_mul_kernel"]["float32"]
     kernels.append({
         "name": "scale_mul_kernel", "route": "cuda",

@@ -61,22 +61,36 @@ Three paged-only features ride that allocator:
   list (``free + resident + spilled + scratch == num_blocks``).  Resume
   re-maps the device copies that survived and uploads from the host only
   the blocks that were reclaimed meanwhile; greedy decode continues
-  byte-identically.
+  byte-identically.  ``spill_tier="host"`` keeps the download in process
+  memory; ``spill_tier="disk"`` writes it to a PTKV file under
+  ``spill_dir`` (``serving/transfer.py``: tmp file, fsync, atomic
+  rename), which survives a crash: a second engine's ``adopt_spill``
+  parks the request from the file and resumes it without a re-prefill.
+  ``export_kv`` hands a finished prefill off through the same format
+  (``prefill_only=True`` parks requests after their first token).
+
+Subclass hooks: ``_on_activated`` (a slot starts decoding; the
+speculative pool prefills its draft there), ``_preempt_guard`` and
+``_adopt_guard`` (vetoes), ``_on_resumed`` (a parked request decodes
+again).  ``config_fingerprint()`` is the identity a journal or PTKV file
+is checked against; it names nothing about the backend, so files cross
+between this package and the reference at a matching configuration.
 
 The serving layer's seams ride the tick: ``pool.step``,
-``pool.prefill``, ``pool.alloc_blocks`` and ``weights.refresh`` fire the
-fault plane (``serving/faults.py``), and with a tracer installed the tick
-phases are spans (``serving/trace.py``); with neither installed each is
+``pool.prefill``, ``pool.alloc_blocks``, ``weights.refresh``,
+``spill.write`` and ``xfer.write`` fire the fault plane
+(``serving/faults.py``), and with a tracer installed the tick phases are
+spans (``serving/trace.py``); with neither installed each is
 one module-attribute test.
 
-Not ported yet: the disk spill tier and K/V export/adoption, the
-prefill-only tier, meshes (``dp == 1`` only), LoRA and the recurrent
-layout.
+Not ported yet: meshes (``dp == 1`` only), LoRA, the recurrent layout
+and the cost report.
 """
 from __future__ import annotations
 
 import collections
 import math
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -100,6 +114,7 @@ __all__ = ["GenerationPool", "kv_reachable_bytes", "DuplicateRequestError"]
 # that does nothing while no plane or tracer is installed
 _faults = None
 _trace = None
+_transfer = None
 
 
 def _fire(point: str) -> None:
@@ -116,6 +131,14 @@ def _trace_active():
         from ..serving import trace as _trace_mod
         _trace = _trace_mod
     return _trace.active()
+
+
+def _transfer_mod():
+    global _transfer
+    if _transfer is None:
+        from ..serving import transfer as _transfer_module
+        _transfer = _transfer_module
+    return _transfer
 
 
 def _device_edge(tr) -> None:
@@ -262,10 +285,11 @@ class _SpillState(_OfRequest):
     ``j`` (resume re-maps it with no copy), or None once it was reclaimed
     or when it was shared at preempt time (the host copy is then the
     source).  ``total_blocks`` is the admission-time reservation,
-    re-acquired in full at resume."""
+    re-acquired in full at resume.  On the disk tier ``host`` is None and
+    ``host_path`` names the PTKV file holding the written blocks."""
 
     __slots__ = ("tokens", "remaining", "total_blocks", "written",
-                 "dev_blocks", "host", "host_bytes")
+                 "dev_blocks", "host", "host_bytes", "host_path")
 
     def __init__(self, st: _SlotState, total_blocks: int, written: int,
                  host, host_bytes: int):
@@ -277,6 +301,7 @@ class _SpillState(_OfRequest):
         self.dev_blocks = [None] * written
         self.host = host
         self.host_bytes = host_bytes
+        self.host_path = None
 
 
 class _PrefixEntry:
@@ -310,7 +335,9 @@ class GenerationPool:
                  prefill_chunk_tokens: Optional[int] = None,
                  prefix_sharing: bool = False,
                  tenant_slot_cap: Optional[int] = None,
-                 route: str = "auto", device=None):
+                 route: str = "auto", spill_tier: str = "host",
+                 spill_dir: Optional[str] = None,
+                 prefill_only: bool = False, device=None):
         if slots < 1:
             raise InvalidArgumentError("GenerationPool needs slots >= 1")
         if tenant_slot_cap is not None and int(tenant_slot_cap) < 1:
@@ -344,6 +371,42 @@ class GenerationPool:
                 "skips the matched prefix and chunk-prefills only the "
                 "suffix -- pass prefill_chunk_tokens=<tokens per tick> "
                 "(e.g. the block size or a small multiple)")
+        # the spill tier's backend: "host" parks preempted K/V in process
+        # memory, "disk" in one PTKV file per victim under spill_dir (it
+        # survives the process, and a second engine adopts it)
+        if spill_tier not in ("host", "disk"):
+            raise InvalidArgumentError(
+                "spill_tier must be 'host' (process-RAM, dies with the "
+                "engine) or 'disk' (crash-durable PTKV files under "
+                "spill_dir), got %r" % (spill_tier,))
+        if spill_tier == "disk":
+            if not self._layout.spillable:
+                raise InvalidArgumentError(
+                    "spill_tier='disk' spills per-slot decode state "
+                    "(paged K/V blocks); a dense pool has no spill "
+                    "granularity -- pass cache_layout='paged'")
+            if spill_dir is None:
+                raise InvalidArgumentError(
+                    "spill_tier='disk' needs spill_dir= (the directory "
+                    "the per-request spill files live in; a second "
+                    "engine restores from the same directory)")
+            os.makedirs(spill_dir, exist_ok=True)
+        elif spill_dir is not None:
+            raise InvalidArgumentError(
+                "spill_dir is a spill_tier='disk' knob (got spill_dir "
+                "with spill_tier=%r)" % (spill_tier,))
+        if prefill_only and spill_tier != "disk":
+            raise InvalidArgumentError(
+                "prefill_only=True exports finished prefills over the "
+                "K/V transfer contract, which lives in the disk spill "
+                "tier -- pass spill_tier='disk' (and spill_dir=)")
+        self.spill_tier = spill_tier
+        self._spill_dir = None if spill_dir is None else str(spill_dir)
+        # the prefill tier: a request that survives its first token parks
+        # (rid -> (slot, state)) until export_kv() hands it off
+        self._prefill_only = bool(prefill_only)
+        self._prefill_done: Dict[object, tuple] = {}
+        self.on_prefill_done = None
         self.device = resolve_device(device)
         # the session owns the model, the sampling defaults and the
         # bucketed batch-1 prefill; it shares the pool's layout, so a paged
@@ -656,6 +719,12 @@ class GenerationPool:
                                     tenant, deadline, self._seq, samp))
         return rid
 
+    def advance_auto_rids(self, floor: int) -> None:
+        """Never auto-assign a request id below ``floor``: an engine that
+        opens an existing journal calls this so its own traffic cannot
+        reuse a crashed engine's auto ids."""
+        self._next_rid = max(self._next_rid, int(floor))
+
     @staticmethod
     def _resubmit_sampling(cfg: _SamplingConfig,
                            committed: int) -> _SamplingConfig:
@@ -884,15 +953,35 @@ class GenerationPool:
 
     def _activate(self, slot: int, req: _Request, first: int) -> None:
         """Promote a slot to decoding with ``first`` (sampled at the last
-        prompt position) committed: one path for both prefill modes."""
+        prompt position) committed: one path for both prefill modes, so
+        the hook order (``on_admit`` at slot-take, then
+        ``_on_activated``, then ``on_token``) is the same for both.  A
+        prefill-only pool parks the request here instead."""
         self._active[slot] = _SlotState(req, [first], req.max_new_tokens - 1)
         self._last_tok[slot] = first
         self._membership_dirty = True
+        finishes = req.max_new_tokens == 1 or (self.eos_id is not None
+                                               and first == self.eos_id)
+        if self._prefill_only and not finishes:
+            self._prefill_done[req.rid] = (slot, self._active.pop(slot))
+            if self.on_token is not None:
+                self.on_token(req.rid, first)
+            if self.on_prefill_done is not None:
+                self.on_prefill_done(req.rid)
+            return
+        if not finishes:
+            # a slot that finishes on its first token never decodes, so
+            # the subclass hook would be wasted device work
+            self._on_activated(slot, req.rid, req.ids)
         if self.on_token is not None:
             self.on_token(req.rid, first)
-        if req.max_new_tokens == 1 or (self.eos_id is not None
-                                       and first == self.eos_id):
+        if finishes:
             self._finish(slot)
+
+    def _on_activated(self, slot: int, rid, ids) -> None:
+        """Subclass hook: ``slot`` just started decoding with its first
+        token committed (both prefill modes).  The speculative pool
+        prefills its draft here."""
 
     # -- chunked prefill ---------------------------------------------------
     def _prefill_chunk(self, toks, slot: int, start: int, length: int,
@@ -1021,21 +1110,23 @@ class GenerationPool:
         # token's K/V is the next step's input, not yet written
         pos = len(st.req.ids) + len(st.tokens) - 1
         written = -(-pos // self._block_size)
-        blocks = self._slot_blocks.pop(slot)
-        gather = torch.as_tensor(blocks[:written], dtype=torch.int64,
-                                 device=self.device)
-        fields = [_cache_fields(c) for c in self._cache]
-        flat, specs = _gather_packed([f for layer in fields for f in layer],
-                                     gather)
-        parts = _unpack(flat.cpu(), specs)
-        nf = len(fields[0])
-        host = [tuple(parts[i * nf:(i + 1) * nf]) for i in range(len(fields))]
-        host_bytes = sum(_nbytes(t) for t in parts)
+        blocks = self._slot_blocks[slot]
+        host = self._download_blocks(blocks[:written])
+        host_bytes = sum(_nbytes(t) for layer in host for t in layer)
+        host_path = None
+        if self.spill_tier == "disk":
+            # the file is written before any allocator change: a failed
+            # write (the spill.write seam, or a full disk) leaves the
+            # pool as it was and the victim decoding
+            host_path = self._spill_write(st, host, written)
+            host = None  # the file is the survivor, not process memory
+        del self._slot_blocks[slot]
         self._active.pop(slot)
         self._free.append(slot)
         self._membership_dirty = True
         self._prefix_epoch += 1
         sp = _SpillState(st, len(blocks), written, host, host_bytes)
+        sp.host_path = host_path
         freed = 0
         for j, b in enumerate(blocks):
             left = self._block_refs.get(b, 1) - 1
@@ -1066,10 +1157,29 @@ class GenerationPool:
         written ones, then restore the table row, the index and the
         last-token input.  The K/V are bit-exact, so greedy decode
         continues byte-identically; sampling continues at draw
-        ``len(tokens)``."""
+        ``len(tokens)``.
+
+        A disk-tier victim's file is read BEFORE any allocator change:
+        the file can vanish or be damaged while parked, and then only
+        this victim pays, re-queued as prompt + committed under its own
+        id (byte-identical for greedy decode), never the whole pool.  The
+        file is deleted once the request decodes again."""
+        need_up = [j for j in range(sp.written) if sp.dev_blocks[j] is None]
+        host_parts = None  # flat over layers and fields: [len(need_up), ...]
+        if need_up:
+            if sp.host is not None:
+                sel = torch.as_tensor(need_up, dtype=torch.int64)
+                host_parts = [f.index_select(0, sel) for layer in sp.host
+                              for f in layer]
+            else:
+                try:
+                    host_parts = self._spill_read_rows(sp, need_up)
+                except Exception:  # noqa: BLE001 - per-victim fallback
+                    self._requeue_lost_spill(sp)
+                    return
         slot = self._free.pop()
         blocks: List[int] = []
-        upload: List[tuple] = []  # (logical j, physical block)
+        upload: List[int] = []  # physical blocks, in need_up order
         for j in range(sp.total_blocks):
             b = sp.dev_blocks[j] if j < sp.written else None
             if b is not None:
@@ -1081,19 +1191,17 @@ class GenerationPool:
                 nb = self._alloc_blocks(1)[0]
                 blocks.append(nb)
                 if j < sp.written:
-                    upload.append((j, nb))
+                    upload.append(nb)
         self._slot_blocks[slot] = blocks
         if upload:
-            sel = torch.as_tensor([j for j, _ in upload], dtype=torch.int64)
-            ids = torch.as_tensor([b for _, b in upload], dtype=torch.int64,
+            ids = torch.as_tensor(upload, dtype=torch.int64,
                                   device=self.device)
-            flat, specs = _gather_packed([f for layer in sp.host
-                                          for f in layer], sel)
-            dev_parts = _unpack(flat.to(self.device), specs)
+            dev_parts = self._upload_parts(host_parts)
             fields = [f for c in self._cache for f in _cache_fields(c)]
             for f, part in zip(fields, dev_parts):
                 f.index_copy_(0, ids, part)
             self._upload_bytes_total += sum(_nbytes(t) for t in dev_parts)
+        self._spill_drop(sp)
         pos = len(sp.req.ids) + len(sp.tokens) - 1
         self._write_row(slot, blocks, pos)
         self._active[slot] = _SlotState(sp.req, sp.tokens, sp.remaining)
@@ -1114,6 +1222,333 @@ class GenerationPool:
         """Subclass hook: a preempted request decodes again in ``slot``
         with its K/V restored."""
 
+    # -- moving blocks between the card and the host ----------------------
+    def _download_blocks(self, blocks) -> list:
+        """The K/V (and int8 scales) of ``blocks`` in every layer, as CPU
+        tensors ``[len(blocks), ...]`` per layer and field: gathered on
+        the device into one buffer, downloaded in ONE copy."""
+        gather = torch.as_tensor(blocks, dtype=torch.int64,
+                                 device=self.device)
+        fields = [_cache_fields(c) for c in self._cache]
+        flat, specs = _gather_packed([f for layer in fields for f in layer],
+                                     gather)
+        parts = _unpack(flat.cpu(), specs)
+        nf = len(fields[0])
+        return [tuple(parts[i * nf:(i + 1) * nf]) for i in range(len(fields))]
+
+    def _upload_parts(self, parts) -> list:
+        """Host tensors to the pool's device in ONE copy: packed into one
+        flat buffer (pinned when the device is a card), then viewed back
+        per part on the device."""
+        specs, off = [], 0
+        for t in parts:
+            specs.append((off, t.dtype, tuple(t.shape)))
+            off += -(-_nbytes(t) // 8) * 8
+        flat = torch.empty(off, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        for t, part in zip(parts, _unpack(flat, specs)):
+            part.copy_(t)
+        return _unpack(flat.to(self.device, non_blocking=True), specs)
+
+    # -- the disk tier and the K/V hand-off ----------------------------------
+    def _spill_path(self, rid) -> str:
+        """The PTKV file a request's spilled K/V live in: a pure function
+        of the rid (the reference's naming), so a second engine pointed
+        at the same directory finds a crashed engine's files.  The type
+        tag keeps int 1 and str "1" apart."""
+        tag = "i" if isinstance(rid, (int, np.integer)) else "s"
+        safe = "".join(c if c.isalnum() or c in "-_" else "~%02x" % ord(c)
+                       for c in str(rid))
+        return os.path.join(self._spill_dir, "spill-%s%s.npz" % (tag, safe))
+
+    def _spill_write(self, st: _SlotState, host, written: int,
+                     seam: str = "spill.write") -> str:
+        """Write one request's written blocks (``host``: per layer, CPU
+        tensors) to its PTKV file with this pool's fingerprint and the
+        resume metadata.  Fires ``seam`` (``spill.write`` for preemption,
+        ``xfer.write`` for exports); a transient failure is retried once,
+        then propagates and the caller leaves the pool untouched."""
+        arrays, names = {}, {}
+        for i, layer in enumerate(host):
+            for j, t in enumerate(layer):
+                name = "l%d_f%d" % (i, j)
+                if t.dtype == torch.bfloat16:
+                    t = t.view(torch.int16)
+                    names[name] = "bfloat16"
+                arrays[name] = t.numpy()
+        cfg = st.req.sampling
+        meta = {"rid": str(st.rid), "prompt_len": int(len(st.req.ids)),
+                "committed": len(st.tokens), "written": int(written),
+                "cache_layout": self.cache_layout,
+                "layers": len(host), "fields": len(host[0]),
+                "cache_dtype": self._layout.cache_dtype_str(self._cache),
+                # the request's own sampling config rides the header, so
+                # an adopting engine resumes its stream, not its defaults
+                "sampling": [float(cfg.temperature), int(cfg.top_k),
+                             float(cfg.top_p), int(cfg.seed),
+                             int(cfg.draws)],
+                "adapter": 0,
+                "block_size": self._block_size}
+        return _transfer_mod().write_transfer(
+            self._spill_path(st.rid), self.config_fingerprint(), meta,
+            arrays, seam=seam, rid=st.rid, dtype_names=names)
+
+    def _spill_read_rows(self, sp: _SpillState, rows) -> list:
+        """Logical blocks ``rows`` of a disk-tier victim's file, flat over
+        layers and fields, as writable CPU tensors (copied out of the
+        read-only mapping, which is closed before returning)."""
+        r = _transfer_mod().TransferReader(sp.host_path)
+        try:
+            nf = len(_cache_fields(self._cache[0]))
+            out = []
+            for i in range(len(self._cache)):
+                for j in range(nf):
+                    name = "l%d_f%d" % (i, j)
+                    arr = np.ascontiguousarray(r.arrays[name][rows])
+                    if r.dtypes[name] == "bfloat16":
+                        out.append(torch.from_numpy(arr.view(np.int16))
+                                   .view(torch.bfloat16))
+                    else:
+                        out.append(torch.from_numpy(arr))
+            return out
+        finally:
+            r.close(keep=False)
+
+    def _spill_drop(self, sp: _SpillState) -> None:
+        """Delete a spill record's disk file, if it has one (resume,
+        cancel and reset consume the parked copy)."""
+        path = sp.host_path
+        if path is not None:
+            sp.host_path = None
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+    def _requeue_lost_spill(self, sp: _SpillState) -> None:
+        """A parked victim's file could not be read: free its device
+        copies, drop the file and queue it again as prompt + committed
+        under its own id (the engine's recovery primitive, one victim)."""
+        self._prefix_epoch += 1
+        for b in sp.dev_blocks:
+            if b is not None:
+                self._spill_owner.pop(b, None)
+                self._free_blocks.append(b)
+        self._spill_drop(sp)
+        self._used_rids.discard(sp.rid)
+        ids = np.concatenate([sp.req.ids, np.asarray(sp.tokens, np.int32)])
+        self.submit(ids, sp.remaining, request_id=sp.rid,
+                    priority=sp.req.priority, tenant=sp.req.tenant,
+                    deadline=sp.req.deadline,
+                    _sampling=self._resubmit_sampling(sp.req.sampling,
+                                                      len(sp.tokens)))
+
+    def _adopt_guard(self, ids, tokens) -> None:
+        """Subclass veto for :meth:`adopt_spill` (the speculative pool
+        needs draft bucket coverage for the resume-time re-prefill)."""
+
+    def adopt_spill(self, request_id, input_ids, tokens,
+                    max_new_tokens: int, priority: int = 0, tenant=None,
+                    deadline=None) -> bool:
+        """Adopt a crashed engine's disk-spilled K/V for ``request_id``:
+        park the request in this pool's spill tier with its file as the
+        source, so the next refill resumes it through the upload path
+        with no re-prefill (the file holds bit-exact K/V for positions
+        ``[0, prompt + committed - 1)``).
+
+        Returns False -- the caller falls back to prompt+committed
+        resubmit -- whenever adoption cannot be exact: the tier is off, no
+        file, a file whose metadata disagrees with the journal's committed
+        count (STALE: deleted, it can never be adopted), a fingerprint or
+        shape/dtype/block-size mismatch with this pool (left on disk: it
+        may be another configuration's), or a subclass veto.  Never
+        raises for a bad file."""
+        if self.spill_tier != "disk" or not self._layout.spillable:
+            return False
+        if request_id in self._used_rids:
+            return False
+        ids = np.asarray(input_ids).astype(np.int32)
+        tokens = [int(t) for t in tokens]
+        if len(tokens) < 1 or int(max_new_tokens) - len(tokens) < 1:
+            return False
+        path = self._spill_path(request_id)
+        if not os.path.exists(path):
+            return False
+        first = self._cache[0]
+        bs = self._block_size
+        pos = int(len(ids)) + len(tokens) - 1
+        written = -(-pos // bs)
+        total = self._blocks_needed(len(ids), int(max_new_tokens))
+        if total > self._num_blocks - 1:
+            return False
+        nf = len(_cache_fields(first))
+        xfer = _transfer_mod()
+        from ..serving import log as _slog
+        try:
+            r = xfer.TransferReader(path)
+        except xfer.TransferVersionError as e:
+            # an OLDER format under our naming can never be adopted:
+            # delete it; a NEWER one belongs to a newer engine
+            if e.found < xfer.VERSION:
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+            _slog.emit("xfer.reject", rid=str(request_id),
+                       reason="version", found=e.found,
+                       deleted=e.found < xfer.VERSION)
+            return False
+        except xfer.TransferFormatError as e:
+            _slog.emit("xfer.reject", rid=str(request_id),
+                       reason="legacy_npz" if e.legacy_npz else "format",
+                       detail=str(e))
+            return False
+        except Exception:  # noqa: BLE001 - a bad file falls back, always
+            return False
+        try:
+            try:
+                xfer.check_fingerprint(r.fingerprint,
+                                       self.config_fingerprint())
+            except xfer.TransferFingerprintError as e:
+                _slog.emit("xfer.reject", rid=str(request_id),
+                           reason="fingerprint", keys=list(e.keys))
+                return False
+            meta = r.meta
+            if (meta.get("committed") != len(tokens)
+                    or meta.get("prompt_len") != len(ids)
+                    or meta.get("written") != written):
+                r.close(keep=False)
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+                return False
+            if not (meta.get("layers") == len(self._cache)
+                    and meta.get("fields") == nf
+                    and meta.get("cache_dtype")
+                    == self._layout.cache_dtype_str(self._cache)
+                    and meta.get("block_size") == bs
+                    and tuple(r.arrays["l0_f0"].shape)
+                    == (written,) + tuple(first.k.shape[1:])):
+                return False
+            host_bytes = int(r.nbytes)
+        except Exception:  # noqa: BLE001 - a bad file falls back, always
+            return False
+        finally:
+            r.close(keep=False)
+        try:
+            self._adopt_guard(ids, tokens)
+        except Exception:  # noqa: BLE001 - subclass veto -> resubmit
+            return False
+        if int(meta.get("adapter", 0) or 0) != 0:
+            return False  # LoRA adapters are not ported
+        msamp = meta.get("sampling")
+        sampling = (_SamplingConfig(0.0, 0, 1.0, 0) if msamp is None else
+                    _SamplingConfig(float(msamp[0]), int(msamp[1]),
+                                    float(msamp[2]), int(msamp[3]),
+                                    int(msamp[4]) if len(msamp) > 4
+                                    else 0))
+        self._seq += 1
+        req = _Request(request_id, ids, int(max_new_tokens), int(priority),
+                       tenant, deadline, self._seq, sampling)
+        st = _SlotState(req, tokens, int(max_new_tokens) - len(tokens))
+        sp = _SpillState(st, total, written, None, host_bytes)
+        sp.host_path = path
+        self._spilled[request_id] = sp
+        self._used_rids.add(request_id)
+        return True
+
+    def detach_spilled(self, request_id) -> dict:
+        """Forget a disk-parked victim but KEEP its file, for a peer
+        engine sharing the spill directory to ``adopt_spill`` under the
+        same id: its device copies return to the free list.  A victim on
+        the host tier has no file to hand over
+        (``PreconditionNotMetError``)."""
+        sp = self._spilled.get(request_id)
+        if sp is None:
+            raise NotFoundError(
+                "request_id %r is not parked in the spill tier"
+                % (request_id,))
+        if sp.host_path is None:
+            raise PreconditionNotMetError(
+                "request %r is parked on the host tier (no transfer "
+                "file) -- only disk-tier victims detach for migration"
+                % (request_id,))
+        del self._spilled[request_id]
+        self._prefix_epoch += 1
+        for b in sp.dev_blocks:
+            if b is not None:
+                self._spill_owner.pop(b, None)
+                self._free_blocks.append(b)
+        self._used_rids.discard(request_id)
+        path, sp.host_path = sp.host_path, None
+        return {"rid": request_id, "path": path,
+                "committed_tokens": len(sp.tokens),
+                "spill_bytes": sp.host_bytes}
+
+    def export_kv(self, request_id) -> dict:
+        """Hand off a parked prefill-complete request (``prefill_only``
+        pools): its written blocks are downloaded in one copy and written
+        to its PTKV file at the ``xfer.write`` seam, then its slot and
+        blocks are freed.  The file plus the returned committed state is
+        the hand-off; a peer re-parks it with :meth:`adopt_spill`.  The
+        write comes before any allocator change, so a failed write leaves
+        the request parked."""
+        parked = self._prefill_done.get(request_id)
+        if parked is None:
+            raise NotFoundError(
+                "request_id %r is not parked prefill-complete (not a "
+                "prefill_only pool, not yet prefilled, cancelled, or "
+                "already exported)" % (request_id,))
+        slot, st = parked
+        pos = len(st.req.ids) + len(st.tokens) - 1
+        written = -(-pos // self._block_size)
+        host = self._download_blocks(self._slot_blocks[slot][:written])
+        transfer_bytes = sum(_nbytes(t) for layer in host for t in layer)
+        path = self._spill_write(st, host, written, seam="xfer.write")
+        del self._prefill_done[request_id]
+        self._free.append(slot)
+        self._release_blocks(slot)
+        self._used_rids.discard(request_id)
+        self._membership_dirty = True
+        cfg = st.req.sampling
+        return {"rid": request_id, "path": path,
+                "transfer_bytes": int(transfer_bytes),
+                "blocks_written": int(written),
+                "committed_tokens": len(st.tokens),
+                "prompt_len": int(len(st.req.ids)),
+                "max_new_tokens": len(st.tokens) + st.remaining,
+                "priority": st.req.priority, "tenant": st.req.tenant,
+                "deadline": st.req.deadline,
+                "sampling": [float(cfg.temperature), int(cfg.top_k),
+                             float(cfg.top_p), int(cfg.seed),
+                             int(cfg.draws)],
+                "adapter": 0}
+
+    def config_fingerprint(self) -> dict:
+        """The JSON-stable identity byte-identical replay depends on: the
+        pool class, the sampling discipline marker (sampling is
+        per-request data, so no values), the cache layout, dtype and
+        geometry.  ``lora`` and ``mesh`` are None (neither is ported).
+        It is the reference's dict for the same configuration and names
+        nothing about the backend, so journals and PTKV files cross
+        between the two packages; a differing configuration is refused
+        with both sides named."""
+        fp = {
+            "pool_type": type(self).__name__,
+            "sampling": "per-request",
+            "lora": None,
+            "eos_id": None if self.eos_id is None else int(self.eos_id),
+            "max_len": self.max_len,
+            "slots": self.slots,
+            "vocab_size": None if self._vocab is None else int(self._vocab),
+            "cache_layout": self.cache_layout,
+            "cache_dtype": self._layout.cache_dtype_str(self._cache),
+            "mesh": None,
+        }
+        fp.update(self._layout.fingerprint_extra(self))
+        return fp
+
     def spill_stats(self) -> dict:
         """Spill-tier accounting: preempt/resume totals, parked requests,
         reclaimable device-resident spilled blocks (part of the exact
@@ -1121,6 +1556,7 @@ class GenerationPool:
         the host, and the download/upload byte totals."""
         return {
             "enabled": self._layout.spillable,
+            "spill_tier": self.spill_tier,
             "preempts_total": self._preempts_total,
             "resumes_total": self._resumes_total,
             "spilled_requests": len(self._spilled),
@@ -1203,7 +1639,8 @@ class GenerationPool:
             # chunk ran this tick decodes its second token this tick too
             self._chunk_work()
         if not self._active:
-            return bool(self._queue or self._prefilling or self._spilled)
+            return bool(self._queue or self._prefilling or self._spilled
+                        or self._prefill_done)
         self._sync_step_inputs()
         if tr is None:
             tok, _ = self._decode_fn(self._steps.tok)
@@ -1223,7 +1660,7 @@ class GenerationPool:
             with tr.span("tick.deliver"):
                 self._deliver(host)
         return bool(self._active or self._queue or self._prefilling
-                    or self._spilled)
+                    or self._spilled or self._prefill_done)
 
     def refresh_weights(self) -> None:
         """Make later steps read the model's current weights (call after
@@ -1304,7 +1741,17 @@ class GenerationPool:
                     self._spill_owner.pop(b, None)
                     self._free_blocks.append(b)
             self._used_rids.discard(request_id)
+            self._spill_drop(sp)
             return "preempted"
+        parked = self._prefill_done.pop(request_id, None)
+        if parked is not None:
+            # a prefill-complete request cancelled before its export
+            slot, _st = parked
+            self._free.append(slot)
+            self._release_blocks(slot)
+            self._used_rids.discard(request_id)
+            self._membership_dirty = True
+            return "prefill-done"
         if request_id in self._results:
             del self._results[request_id]
             self._finish_reasons.pop(request_id, None)
@@ -1341,8 +1788,13 @@ class GenerationPool:
         self._results.clear()
         self._finish_reasons.clear()
         self._used_rids.clear()
+        # disk-tier files die with the pool too: stale K/V under a
+        # recurring rid would be worse than no file
+        for sp in self._spilled.values():
+            self._spill_drop(sp)
         self._spilled.clear()
         self._spill_owner.clear()
+        self._prefill_done.clear()
         self.admission_blocked = False
         if self._layout.paged:
             self._free_blocks = list(range(1, self._num_blocks))
@@ -1409,14 +1861,13 @@ class GenerationPool:
 
     @property
     def prefill_done_count(self) -> int:
-        """Prefill-complete requests parked for export: always 0, as the
-        prefill-only tier is not ported yet."""
-        return 0
+        """Prefill-complete requests parked for export (0 unless
+        ``prefill_only=True``)."""
+        return len(self._prefill_done)
 
     def has_prefill_done(self, request_id) -> bool:
-        """Whether ``request_id`` is parked prefill-complete: always
-        False, as the prefill-only tier is not ported yet."""
-        return False
+        """Whether ``request_id`` is parked prefill-complete."""
+        return request_id in self._prefill_done
 
     def run(self) -> Dict[object, np.ndarray]:
         """Drain queue and slots; {request_id: np.int32 tokens}."""

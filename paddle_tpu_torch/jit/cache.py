@@ -13,6 +13,9 @@ operation           who calls it / what it decides
 ``freeze_step``     GenerationPool decode step: inactive slots keep their
                     pre-step index
 ``cache_dtype_str`` / ``state_bytes_per_slot``  cache_stats() accounting
+``fingerprint_extra`` config_fingerprint(): the layout's geometry
+                    (paged: block_size/num_blocks), part of the identity
+                    a journal or PTKV file is checked against
 =================  ======================================================
 
 Capabilities, which the pool's guards test instead of layout names:
@@ -73,6 +76,10 @@ class CacheLayout:
 
     def cache_dtype_str(self, cache) -> str:
         return dtype_name(cache[0].k.dtype)
+
+    def fingerprint_extra(self, pool) -> dict:
+        """Layout-private geometry for ``config_fingerprint()``."""
+        return {}
 
     def state_bytes_per_slot(self, cache, slots: int, max_len: int) -> int:
         """Decode-state bytes one slot pins at full span (scales
@@ -137,6 +144,10 @@ class PagedLayout(CacheLayout):
             cp.table[slot] = ids.to(cp.table.dtype)
             cp.index[slot] = int(length)
         return pool_cache
+
+    def fingerprint_extra(self, pool) -> dict:
+        return {"block_size": pool._block_size,
+                "num_blocks": pool._num_blocks}
 
 
 CACHE_LAYOUTS = {layout.name: layout

@@ -97,14 +97,18 @@ def _dense_write(buf, new, pos):
     positions ``pos`` [B, L], dropping positions at or past S (the
     reference's scatter ``mode="drop"``).
 
-    torch has no drop mode, so a dropped position p is redirected to
-    p - L, which lies before the row's chunk (p >= S >= L) and is
-    distinct from every other target of the row, and it rewrites the value
-    already there: no valid write can be clobbered."""
+    torch has no drop mode, so every dropped position of a row is
+    redirected to the position just before the row's chunk (clamped into
+    the buffer; a row whose whole chunk lies past S has no valid target
+    to meet) and rewrites the value already there: no valid write is
+    clobbered, and no index leaves the buffer however far past S the
+    chunk runs (a speculative verify, or a finished row's frozen index,
+    can run ``spec_k`` positions past it)."""
     b, length = pos.shape
     s = buf.shape[2]
     valid = pos < s
-    tgt = torch.where(valid, pos, pos - length)
+    before = (pos[:, :1] - 1).clamp(0, s - 1)
+    tgt = torch.where(valid, pos, before.expand(b, length))
     rows = torch.arange(b, device=buf.device)[:, None]
     vals = new.transpose(1, 2).to(buf.dtype)           # [B, L, H, ...]
     # unconditional (no host read of ``valid``): a device sync per write

@@ -325,7 +325,10 @@ def decode_attention(q, k, v, bias=None, sm_scale: Optional[float] = None,
     if _use_kernel(route, _kernel_feasible(q, k.dtype, bias, s)):
         qp = _effective_qpos(q_pos, None, q.shape[0], q.shape[2], s,
                              q.device)
-        return _dk.decode_attention_kernel(q, k, v, qp, float(sm_scale),
+        # a chunk's heads split off a [B, L, H*D] projection are strided
+        # once L > 1 (a verify chunk, a short prompt chunk)
+        return _dk.decode_attention_kernel(q.contiguous(), k, v, qp,
+                                           float(sm_scale),
                                            k_scale=k_scale, v_scale=v_scale,
                                            bias=bias)
     if k_scale is not None:
@@ -363,7 +366,8 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths=None, bias=None,
     if _use_kernel(route, _kernel_feasible(q, k_pool.dtype, bias, s)):
         qp = _effective_qpos(q_pos, lengths, b, q.shape[2], s, q.device)
         return _dk.paged_decode_attention_kernel(
-            q, k_pool, v_pool, table.to(torch.int32).contiguous(), qp,
+            q.contiguous(), k_pool, v_pool,
+            table.to(torch.int32).contiguous(), qp,
             float(sm_scale), k_scale=k_scale, v_scale=v_scale, bias=bias)
     tbl = table.long()
     k = k_pool[tbl].permute(0, 2, 1, 3, 4).reshape(b, h, s, d)

@@ -1,11 +1,10 @@
 """The serving layer (counterpart of ``paddle_tpu.serving``): the engine
 with its background loop, deadlines, recovery and degradation ladder,
 token streams, metrics, SLOs, structured logs, tracing, the fault plane,
-the supervisor and the HTTP front end.
-
-The request journal, the K/V transfer contract, disaggregated tiers and
-the fleet are not ported yet."""
-from . import faults, log, slo, trace  # noqa: F401
+the supervisor, the HTTP front end, the request journal with
+checkpoint/restore, and the PTKV transfer format.  Disaggregated tiers
+and the fleet are not ported yet."""
+from . import faults, journal, log, slo, trace, transfer  # noqa: F401
 from .engine import (PRIORITY_CLASSES, AdmissionTightenedError,  # noqa: F401
                      DeadlineUnattainableError, QueueFullError,
                      ServingEngine)
@@ -28,5 +27,5 @@ __all__ = [
     "faults", "Supervisor", "EngineHealth",
     "trace", "Tracer", "FlightRecorder", "TraceEvent",
     "slo", "Objective", "SLOTracker",
-    "log", "JsonLinesLogger",
+    "log", "JsonLinesLogger", "journal", "transfer",
 ]

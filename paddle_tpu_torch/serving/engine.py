@@ -33,8 +33,25 @@ serving metrics.
   to the host tier (automatic victim: the lowest priority, youngest
   first).  With ``degrade=True`` the SLO tracker's burn alert steps a
   ladder down (1 preempt low priority for waiting higher priority, 2
-  reduce spec-K, a no-op on a pool without speculation, 3 tighten
-  admission) and back up when it clears.  Degraded is healthy.
+  reduce spec-K to 1 on a speculative pool, restored to the operator's
+  setting when the rung disengages, 3 tighten admission) and back up when
+  it clears.  Degraded is healthy.
+- **Speculative decoding.**  ``draft_model=`` (and ``spec_k=``) puts the
+  engine on :class:`~paddle_tpu_torch.inference.speculative.SpeculativePool`:
+  the lifecycle is unchanged (a tick commits 1 to ``spec_k + 1`` tokens
+  per slot) and the engine gains the ``serving_acceptance_rate`` gauge.
+- **Crash durability.**  With ``journal_path=`` every admission and each
+  tick's committed-token batch land in an append-only CRC-framed
+  write-ahead journal (``serving/journal.py``) whose header carries the
+  pool's config fingerprint; ``checkpoint()`` compacts it to one snapshot
+  record and ``restore(path)`` lets a fresh process (or a second engine
+  with the same weights) adopt it: victims spilled to the disk tier are
+  re-parked from their PTKV files, every other survivor is resubmitted as
+  prompt + committed, so every greedy survivor finishes byte-identically
+  with no new capture on warmed steps.  While replaying the engine is
+  RESTORING: ``health()`` is unhealthy with a Retry-After hint and
+  submits are deferred, never dropped.  Under write faults the journal
+  falls behind (records stay pending), never wrong.
 - **Observability.**  Every tick stamps a lock-free heartbeat
   (``supervisor.EngineHealth``) that ``health()`` reads without the
   engine lock; metrics come from the real path; with a tracer installed
@@ -51,27 +68,30 @@ in progress.  ``health()`` and the metrics registry read host state only.
 The loop thread sets the pool's device as its current device before its
 first tick.
 
-Not ported here (the reference's later pieces): the request journal with
-``checkpoint``/``restore`` and its RESTORING state, the speculative pool
-(``draft_model``/``spec_k``), disaggregated roles, fleet migration, LoRA
-adapters and the cost report.
+Not ported here (the reference's later pieces): disaggregated roles and
+the export sweep, fleet migration (``adopt_transfer``, ``migrate_out``),
+LoRA adapters and the cost report.
 """
 from __future__ import annotations
 
 import collections
+import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..core.errors import (InvalidArgumentError, NotFoundError,
                            PreconditionNotMetError, UnavailableError)
-from ..inference.generation import GenerationPool
+from ..inference.generation import (DuplicateRequestError, GenerationPool,
+                                    _SamplingConfig)
 from ..profiler import StepTimer
 from . import faults, trace
 from . import log as slog
+from .journal import (FingerprintMismatchError, JournalWriteError,
+                      JournalWriter, read_journal, replay)
 from .metrics import MetricsRegistry
 from .stream import RequestState, ResponseStream, StreamStatus
 from .supervisor import EngineHealth
@@ -82,6 +102,33 @@ __all__ = ["ServingEngine", "QueueFullError", "DeadlineUnattainableError",
 # named priority classes; priorities are plain ints underneath (higher
 # admits first, ties broken by deadline then arrival)
 PRIORITY_CLASSES = {"low": -1, "normal": 0, "high": 1}
+
+
+def _jsonable_rid(rid):
+    """Request ids round-trip the journal as JSON values: ints and
+    strings verbatim (numpy ints normalized); anything else is refused at
+    the submit edge by ``_check_journal_rid``."""
+    if isinstance(rid, np.integer):
+        return int(rid)
+    return rid
+
+
+def _samp_json(cfg):
+    """A resolved sampling config as its journal form, the 5-list
+    ``[temperature, top_k, top_p, seed, draws]`` (None passes through)."""
+    if cfg is None:
+        return None
+    return [float(cfg.temperature), int(cfg.top_k), float(cfg.top_p),
+            int(cfg.seed), int(cfg.draws)]
+
+
+def _samp_from_json(val):
+    """Inverse of :func:`_samp_json`; a 4-list replays at draw 0."""
+    if val is None:
+        return None
+    return _SamplingConfig(
+        float(val[0]), int(val[1]), float(val[2]), int(val[3]),
+        int(val[4]) if len(val) > 4 else 0)
 
 
 def _normalize_priority(priority) -> int:
@@ -219,16 +266,22 @@ class ServingEngine:
     through ``**pool_kwargs``; ``device=None`` is ``cuda``.  ``clock``
     injects a monotonic time source (deadline tests); ``metrics`` shares a
     registry; ``slo`` is an :class:`~.slo.SLOTracker`, required by
-    ``degrade=True``."""
+    ``degrade=True``.  ``draft_model`` (with ``spec_k``, default 4)
+    serves through the speculative pool; ``journal_path`` (with
+    ``journal_fsync`` ``"tick"``, ``"always"`` or ``"never"``) makes the
+    engine crash-durable."""
 
     def __init__(self, model, max_len: int, slots: int = 4,
                  max_queue: int = 64, clock=None,
                  metrics: Optional[MetricsRegistry] = None,
+                 draft_model=None, spec_k: Optional[int] = None,
                  max_retries: int = 2, slo=None, degrade: bool = False,
                  degrade_max_level: int = 3,
                  degrade_dwell_ticks: int = 2,
                  degrade_clear_ticks: int = 3,
-                 degrade_admit_floor=1, device=None, **pool_kwargs):
+                 degrade_admit_floor=1,
+                 journal_path: Optional[str] = None,
+                 journal_fsync: str = "tick", device=None, **pool_kwargs):
         if int(max_queue) < 1:
             raise InvalidArgumentError(
                 "max_queue must be >= 1, got %r" % (max_queue,))
@@ -252,8 +305,23 @@ class ServingEngine:
                 "degrade_dwell_ticks and degrade_clear_ticks must be "
                 ">= 1 tick, got %r / %r"
                 % (degrade_dwell_ticks, degrade_clear_ticks))
-        self._pool = GenerationPool(model, max_len, slots=slots,
-                                    device=device, **pool_kwargs)
+        if draft_model is not None:
+            from ..inference.speculative import SpeculativePool
+
+            self._pool = SpeculativePool(model, draft_model, max_len,
+                                         spec_k=4 if spec_k is None
+                                         else spec_k, slots=slots,
+                                         device=device, **pool_kwargs)
+        elif spec_k is not None:
+            # spec_k without a draft would silently run un-speculated
+            raise InvalidArgumentError(
+                "spec_k=%r was given without draft_model: speculative "
+                "decoding needs the draft -- pass draft_model= (spec_k "
+                "then defaults to 4), or drop spec_k for a plain "
+                "engine" % (spec_k,))
+        else:
+            self._pool = GenerationPool(model, max_len, slots=slots,
+                                        device=device, **pool_kwargs)
         # the current CUDA device is per thread: the loop thread sets the
         # pool's card, resolved here (``cuda`` without an index is the
         # constructing thread's current card)
@@ -280,7 +348,32 @@ class ServingEngine:
         self._degrade_ticks_since_change = 1 << 30
         self._degrade_clean_ticks = 0
         self._degrade_transitions = 0
+        self._spec_k_full = getattr(self._pool, "spec_k", None)
+        # the runtime spec-K the ladder found when it engaged the reduce
+        # rung (None while disengaged): the rung restores the operator's
+        # setting, not the construction-time ceiling
+        self._spec_k_saved = None
         self._live: Dict[object, _Record] = {}
+        # the write-ahead journal: admissions are durable before they can
+        # commit tokens, token batches ride one commit record a tick,
+        # terminals close them.  The writer validates an existing file's
+        # fingerprint and truncates a torn tail
+        self._journal = None if journal_path is None else JournalWriter(
+            journal_path, self._pool.config_fingerprint(),
+            fsync=journal_fsync)
+        if self._journal is not None \
+                and self._journal.max_int_rid is not None:
+            # same-path restart: the adopted journal's auto ids are taken
+            self._pool.advance_auto_rids(self._journal.max_int_rid + 1)
+        # this tick's committed-token deltas and the record backlog a
+        # failed append leaves behind
+        self._jl_tick_toks: Dict[object, List[int]] = {}
+        self._jl_pending: List[dict] = []
+        # RESTORING: health() unhealthy with a Retry-After hint, submits
+        # deferred (parked with a live stream, admitted when replay ends)
+        self._restoring = False
+        self._restore_retry_after_s = 1.0
+        self._deferred_submits: List[tuple] = []
         # one reentrant lock serializes every pool access (see the module
         # docstring); uncontended in pump mode
         self._lock = _FairRLock()
@@ -363,6 +456,28 @@ class ServingEngine:
             "degradation ladder level (0 normal, 1 preempt, "
             "2 +reduce-spec-K, 3 +tighten-admission)") \
             if self._degrade_on else None
+        self._c_journal_records = m.counter(
+            "serving_journal_records_total",
+            "records appended to the write-ahead request journal")
+        self._c_journal_bytes = m.counter(
+            "serving_journal_bytes_total",
+            "framed bytes appended to the request journal")
+        self._c_journal_errors = m.counter(
+            "serving_journal_errors_total",
+            "journal append/sync failures caught (each is retried or "
+            "left pending -- the journal falls behind, never lies)")
+        self._c_journal_truncated = m.counter(
+            "serving_journal_truncated_records_total",
+            "records dropped by torn-tail truncation during replay")
+        self._c_checkpoints = m.counter(
+            "serving_checkpoints_total",
+            "checkpoint snapshots written (journal compactions)")
+        self._c_replayed = m.counter(
+            "serving_journal_replayed_total",
+            "live requests reconstructed from a journal by restore()")
+        self._c_restores = m.counter(
+            "serving_restores_total",
+            "journal restore operations completed on this engine")
         self._c_trace_dropped = m.counter(
             "serving_trace_events_dropped_total",
             "flight-recorder ring overflow: trace events evicted before "
@@ -402,6 +517,10 @@ class ServingEngine:
             "most prefill_chunk_tokens of prompt work per tick)") \
             if self._pool.prefill_chunk_tokens is not None else None
         self._chunks_seen = 0
+        self._g_accept = m.gauge(
+            "serving_acceptance_rate",
+            "accepted draft tokens / drafted (speculative pool)") \
+            if hasattr(self._pool, "acceptance_stats") else None
         self._g_tps = m.gauge(
             "serving_tokens_per_sec",
             "tokens emitted / cumulative step time (StepTimer)")
@@ -418,6 +537,18 @@ class ServingEngine:
         self._pool.on_token = self._on_token
         self._pool.on_finish = self._on_finish
         self._pool.on_resume = self._on_resume
+        # a torn tail the writer truncated when it re-opened an existing
+        # file is surfaced now that the metric and log planes exist
+        if self._journal is not None and self._journal.truncated_bytes:
+            self._c_journal_truncated.inc(self._journal.truncated_records)
+            trace.instant(
+                "journal.truncated",
+                dropped_records=self._journal.truncated_records,
+                dropped_bytes=self._journal.truncated_bytes)
+            slog.emit(
+                "journal.truncated", path=self._journal.path,
+                dropped_records=self._journal.truncated_records,
+                dropped_bytes=self._journal.truncated_bytes, at="open")
 
     # -- admission -------------------------------------------------------
     def submit(self, input_ids, max_new_tokens: int, request_id=None,
@@ -439,7 +570,12 @@ class ServingEngine:
         Raises :class:`QueueFullError`, :class:`DeadlineUnattainableError`
         and :class:`AdmissionTightenedError` (all retryable), the pool's
         typed errors for invalid prompts, budgets or duplicate ids, and
-        ``PreconditionNotMetError`` once draining."""
+        ``PreconditionNotMetError`` once draining.  A journaled engine
+        makes the admission durable first and rejects it with the
+        retryable ``JournalWriteError`` when it cannot.  While RESTORING
+        the request is deferred: the stream is live, and an automatic
+        ``request_id`` is None until the admission after the replay
+        assigns it."""
         priority = _normalize_priority(priority)
         if deadline_s is not None and not (float(deadline_s) > 0):
             # `not (x > 0)`: a NaN deadline fails it too
@@ -453,6 +589,10 @@ class ServingEngine:
                     "stopped (drain()/shutdown() was called)")
             samp = self._pool._resolve_sampling(temperature, top_k, top_p,
                                                 seed)
+            if self._restoring:
+                return self._defer_submit(input_ids, max_new_tokens,
+                                          request_id, deadline_s, priority,
+                                          tenant, samp)
             if self._degrade_level >= 3 and priority < self._degrade_floor:
                 self._c_tightened.inc()
                 trace.instant("req.shed", rid=request_id,
@@ -497,6 +637,8 @@ class ServingEngine:
             now = self._clock()
             deadline_abs = None if deadline_s is None \
                 else now + float(deadline_s)
+            if self._journal is not None:
+                self._check_journal_rid(request_id)
             rid = self._pool.submit(ids, max_new_tokens,
                                     request_id=request_id,
                                     priority=priority, tenant=tenant,
@@ -506,6 +648,22 @@ class ServingEngine:
                 rid, stream, ids.astype(np.int32), int(max_new_tokens),
                 deadline_abs, now, priority=priority, tenant=tenant,
                 sampling=samp)
+            if self._journal is not None:
+                # write-ahead: the admission is durable before the
+                # request can commit a token, or it is rejected
+                try:
+                    self._journal_admit(rid, ids, max_new_tokens,
+                                        deadline_s, priority, tenant,
+                                        sampling=samp)
+                except Exception as e:  # noqa: BLE001 - reject, typed
+                    self._pool.cancel(rid)
+                    self._live.pop(rid, None)
+                    raise JournalWriteError(
+                        "admission rejected: the request journal could "
+                        "not record it (%s: %s); retry -- an admission "
+                        "the journal cannot replay would be silently "
+                        "non-durable" % (type(e).__name__,
+                                         str(e)[:200])) from e
             self._c_submitted.inc()
             trace.instant("req.queued", rid=rid,
                           prompt_tokens=int(ids.shape[0]),
@@ -514,6 +672,38 @@ class ServingEngine:
                           priority=priority or None, tenant=tenant)
             self._g_queue.set(self._pool.queue_depth)
         self._wake.set()
+        return stream
+
+    def _defer_submit(self, input_ids, max_new_tokens, request_id,
+                      deadline_s, priority, tenant, samp) -> ResponseStream:
+        """Park a submit that arrived while RESTORING (the caller holds
+        the lock).  The deferral has the wait queue's bound; a duplicate
+        explicit id is refused now with the normal typed error.  The
+        deadline is anchored at this submit, so the replay's wait counts
+        against it."""
+        if len(self._deferred_submits) >= self.max_queue:
+            self._c_rejected.inc()
+            raise QueueFullError(
+                "restore in progress and the deferred-submit queue is full "
+                "(%d waiting >= max_queue=%d); back off and retry after "
+                "the restore" % (len(self._deferred_submits),
+                                 self.max_queue))
+        if request_id is not None and (
+                request_id in self._live or any(
+                    e[0] == request_id for e in self._deferred_submits)):
+            raise DuplicateRequestError(
+                "request_id %r is already live or deferred on this "
+                "restoring engine" % (request_id,))
+        ids = np.asarray(input_ids)
+        if self._journal is not None:
+            self._check_journal_rid(request_id)
+        stream = ResponseStream(self, request_id, int(max_new_tokens))
+        self._deferred_submits.append(
+            (request_id, ids.astype(np.int32), int(max_new_tokens),
+             (None if deadline_s is None
+              else self._clock() + float(deadline_s)),
+             priority, tenant, samp, stream))
+        trace.instant("req.deferred", rid=request_id, restoring=True)
         return stream
 
     # -- pool hooks (fire inside pool.step, under the engine lock) -------
@@ -555,6 +745,10 @@ class ServingEngine:
                 self._slo.observe_latency("inter_token", now - rec.last_t)
         rec.last_t = now
         rec.tokens.append(int(tok))
+        if self._journal is not None:
+            # buffered: the tick's deltas ride ONE commit record at the
+            # tick's flush
+            self._jl_tick_toks.setdefault(rec.rid, []).append(int(tok))
         self._c_tokens.inc()
         self._tokens_total += 1
 
@@ -670,15 +864,31 @@ class ServingEngine:
             self._preempt_for_priority()
 
     def _set_degrade_level(self, level: int, alerting) -> None:
-        """Move the ladder to ``level``.  Rung 2 (reduce spec-K) acts only
-        on a speculative pool, which the port does not have yet: here it
-        is the reference's no-op for a pool without ``set_spec_k``."""
+        """Move the ladder to ``level``.  Rung 2 (reduce spec-K) acts on
+        a speculative pool: engaging it remembers the runtime setting and
+        drops to 1; disengaging restores that setting, unless an operator
+        re-tuned meanwhile.  On a plain pool it does nothing."""
         prev, self._degrade_level = self._degrade_level, level
         self._degrade_ticks_since_change = 0
         self._degrade_transitions += 1
         actions = []
         if level >= 1:
             actions.append("preempt-low-priority")
+        spec = getattr(self._pool, "set_spec_k", None)
+        if spec is not None and self._spec_k_full is not None \
+                and self._spec_k_full > 1:
+            if level >= 2 and prev < 2:
+                self._spec_k_saved = self._pool.spec_k_active
+                if self._spec_k_saved != 1:
+                    spec(1)
+                    actions.append("spec_k->1")
+            elif level < 2 and prev >= 2 \
+                    and self._spec_k_saved is not None:
+                if self._pool.spec_k_active == 1 \
+                        and self._spec_k_saved != 1:
+                    spec(self._spec_k_saved)
+                    actions.append("spec_k->%d" % self._spec_k_saved)
+                self._spec_k_saved = None
         if level >= 3:
             actions.append("admission-floor>=%d" % self._degrade_floor)
         if self._g_degrade is not None:
@@ -717,14 +927,18 @@ class ServingEngine:
     def degradation_snapshot(self) -> dict:
         """The ladder's state (folded into ``GET /slo``);
         ``enabled=False`` with zeros when no ladder is configured."""
-        return {"enabled": self._degrade_on,
-                "level": self._degrade_level,
-                "max_level": self._degrade_max,
-                "admit_floor": self._degrade_floor,
-                "transitions": self._degrade_transitions,
-                "preempted_requests": sum(
-                    1 for r in self._live.values()
-                    if r.state == RequestState.PREEMPTED)}
+        out = {"enabled": self._degrade_on,
+               "level": self._degrade_level,
+               "max_level": self._degrade_max,
+               "admit_floor": self._degrade_floor,
+               "transitions": self._degrade_transitions,
+               "preempted_requests": sum(
+                   1 for r in self._live.values()
+                   if r.state == RequestState.PREEMPTED)}
+        if self._spec_k_full is not None:
+            out["spec_k_active"] = self._pool.spec_k_active
+            out["spec_k_full"] = self._spec_k_full
+        return out
 
     # -- lifecycle transitions -------------------------------------------
     def _finalize(self, rec: _Record, state: str, reason: str, tokens,
@@ -735,6 +949,13 @@ class ServingEngine:
         toks = np.asarray(tokens if tokens is not None else rec.tokens,
                           np.int32)
         rec.state = state
+        if self._journal is not None:
+            # commit before terminal: this rid's same-tick deltas must
+            # reach the journal before the record that stops its replay
+            self._materialize_tick_commits()
+            self._jl_pending.append(
+                {"t": "terminal", "rid": _jsonable_rid(rec.rid),
+                 "state": state, "reason": reason})
         trace.instant("req." + state.lower(), rid=rec.rid, reason=reason,
                       new_tokens=int(toks.size), error=error)
         if self._slo is not None:
@@ -761,11 +982,27 @@ class ServingEngine:
         with self._lock:
             rec = self._live.pop(request_id, None)
             if rec is None:
+                if request_id is not None:
+                    # a submit deferred while RESTORING is cancellable
+                    for i, entry in enumerate(self._deferred_submits):
+                        if entry[0] == request_id:
+                            (rid, ids, max_new, _dl, priority, tenant,
+                             samp, stream) = entry
+                            del self._deferred_submits[i]
+                            rec = _Record(rid, stream, ids, max_new, None,
+                                          self._clock(), priority=priority,
+                                          tenant=tenant, sampling=samp)
+                            self._c_cancelled.inc()
+                            self._finalize(rec, RequestState.CANCELLED,
+                                           "cancelled", [])
+                            return True
                 return False
             self._pool.cancel(request_id)
             self._c_cancelled.inc()
             self._finalize(rec, RequestState.CANCELLED, "cancelled",
                            rec.tokens)
+            # an out-of-tick terminal is made durable now
+            self._journal_flush()
             return True
 
     def _expire(self) -> None:
@@ -851,6 +1088,436 @@ class ServingEngine:
         slog.emit("engine.recovery", kind=kind, survivors=len(survivors),
                   resubmitted=resubmitted, error=str(exc)[:200])
 
+    # -- crash durability: journal, checkpoint, restore -------------------
+    def _check_journal_rid(self, request_id) -> None:
+        """A journaled engine only accepts JSON-round-trippable request
+        ids (int or str): anything else could not replay under the same
+        identity."""
+        if request_id is None or isinstance(request_id, str):
+            return
+        if isinstance(request_id, (int, np.integer)) \
+                and not isinstance(request_id, bool):
+            return
+        raise InvalidArgumentError(
+            "a journaled engine needs a JSON-safe request_id (int or "
+            "str, or None for auto-assignment) -- got %r; the journal "
+            "must replay the request under the same identity"
+            % (request_id,))
+
+    def _journal_admit(self, rid, ids, max_new, deadline_s, priority,
+                       tenant, sampling=None) -> None:
+        """Make ONE admission durable: drain any backlog first (journal
+        order is replay correctness: a reused rid must not see an old
+        request's stranded commits replayed onto it), then append and
+        sync the admit record.  On failure a closing terminal is queued
+        (if the admit frame landed and only the sync failed, restore must
+        not resurrect a request its caller was told was rejected) and the
+        error propagates."""
+        try:
+            if self._jl_pending or self._jl_tick_toks:
+                self._journal_flush()
+                if self._jl_pending:
+                    raise JournalWriteError(
+                        "the journal has a backlog of %d unflushed "
+                        "records (append failures) that must land "
+                        "before a new admit record can -- retry"
+                        % (len(self._jl_pending),))
+            self._journal_append(
+                {"t": "admit", "rid": _jsonable_rid(rid),
+                 "ids": [int(t) for t in ids],
+                 "max_new": int(max_new),
+                 "priority": int(priority), "tenant": tenant,
+                 "deadline_s": (None if deadline_s is None
+                                else float(deadline_s)),
+                 "sampling": _samp_json(sampling),
+                 "adapter": 0,
+                 # wall clock (engine clocks do not cross processes):
+                 # restore deducts the elapsed time from the deadline
+                 "ts": time.time()})
+            self._journal.sync()
+        except Exception:
+            self._jl_pending.append(
+                {"t": "terminal", "rid": _jsonable_rid(rid),
+                 "state": RequestState.FAILED,
+                 "reason": "admit-unjournaled"})
+            self._journal_flush()
+            raise
+
+    def _materialize_tick_commits(self) -> None:
+        """Fold this tick's buffered token deltas into ONE pending commit
+        record."""
+        if self._jl_tick_toks:
+            self._jl_pending.append(
+                {"t": "commit",
+                 "toks": [[_jsonable_rid(r), ts] for r, ts
+                          in self._jl_tick_toks.items()]})
+            self._jl_tick_toks = {}
+
+    def _journal_append(self, rec: dict) -> int:
+        """Append one record, retrying once on a transient failure.  Each
+        caught fault emits a ``journal.error`` trace event and log line
+        and bumps ``serving_journal_errors_total`` (so injected
+        ``journal.append`` faults reconcile with the recorder); a second
+        failure propagates."""
+        for attempt in (0, 1):
+            try:
+                n = self._journal.append(rec)
+            except Exception as e:  # noqa: BLE001 - classify + retry
+                retry = attempt == 0 \
+                    and faults.classify_error(e) == "transient"
+                self._c_journal_errors.inc()
+                trace.instant("journal.error", record=rec.get("t"),
+                              error=type(e).__name__, retried=retry)
+                slog.emit("journal.error", record=rec.get("t"),
+                          error=str(e)[:200], retried=retry)
+                if not retry:
+                    raise
+                continue
+            self._c_journal_records.inc()
+            self._c_journal_bytes.inc(n)
+            return n
+        raise AssertionError("unreachable")  # pragma: no cover
+
+    def _journal_flush(self) -> None:
+        """Drain this tick's commit batch and any backlog into the
+        journal in order, stopping (not raising) at a persistent append
+        failure: the journal falls behind and catches up later.  One
+        fsync a flush under ``journal_fsync="tick"``."""
+        j = self._journal
+        if j is None:
+            return
+        self._materialize_tick_commits()
+        if not self._jl_pending:
+            return
+        while self._jl_pending:
+            try:
+                self._journal_append(self._jl_pending[0])
+            except Exception:  # noqa: BLE001 - stays pending, serve on
+                break
+            self._jl_pending.pop(0)
+        try:
+            j.sync()
+        except OSError as e:
+            self._c_journal_errors.inc()
+            trace.instant("journal.error", record="sync",
+                          error=type(e).__name__, retried=False)
+            slog.emit("journal.error", record="sync", error=str(e)[:200],
+                      retried=False)
+
+    def checkpoint(self, path: Optional[str] = None) -> dict:
+        """Snapshot the live request set at a tick boundary (the engine
+        lock) and COMPACT the journal to header + one checkpoint record
+        (tmp file, fsync, atomic rename).  With ``path=None`` the engine's
+        own journal is compacted in place (needs ``journal_path=``); with
+        a path, a standalone snapshot journal is written there and the
+        live journal is left alone.  Returns ``{"path", "bytes",
+        "records", "live_requests"}``."""
+        with self._lock:
+            if self._journal is None and path is None:
+                raise PreconditionNotMetError(
+                    "checkpoint() needs either a journaled engine "
+                    "(journal_path= at construction) or an explicit "
+                    "path to write the snapshot journal to")
+            self._journal_flush()
+            now = self._clock()
+            live = []
+            for rec in self._live.values():
+                live.append({
+                    "rid": _jsonable_rid(rec.rid),
+                    "ids": [int(t) for t in rec.prompt],
+                    "tokens": list(rec.tokens),
+                    "max_new": rec.max_new,
+                    "priority": rec.priority,
+                    "tenant": rec.tenant,
+                    # the REMAINING budget: absolute stamps on this
+                    # engine's clock mean nothing in another process
+                    "deadline_s": (None if rec.deadline_abs is None
+                                   else max(0.001,
+                                            rec.deadline_abs - now)),
+                    "ts": time.time(),
+                    "sampling": _samp_json(rec.sampling),
+                    "adapter": 0,
+                    "retries": rec.retries})
+            ckpt = {"t": "checkpoint", "live": live}
+            if self._journal is not None:
+                info = self._journal.compact([ckpt], path=path)
+                if path is None or os.path.abspath(path) \
+                        == os.path.abspath(self._journal.path):
+                    # the snapshot supersedes any stranded backlog: its
+                    # tokens are in rec.tokens already, and appending
+                    # them after it would double-apply at replay
+                    self._jl_pending = []
+                    self._jl_tick_toks = {}
+            else:
+                w = JournalWriter(path, self._pool.config_fingerprint())
+                try:
+                    info = w.compact([ckpt])
+                finally:
+                    w.close()
+            self._c_checkpoints.inc()
+            trace.instant("journal.checkpoint", live=len(live),
+                          bytes=info["bytes"])
+            slog.emit("journal.checkpoint", path=info["path"],
+                      live_requests=len(live), bytes=info["bytes"])
+            info["live_requests"] = len(live)
+            return info
+
+    def _begin_restore(self, retry_after_s: float = 1.0) -> None:
+        """Enter RESTORING: ``health()`` reports it and submits are
+        deferred until ``_end_restore``."""
+        with self._lock:
+            self._restoring = True
+            self._restore_retry_after_s = float(retry_after_s)
+
+    def _end_restore(self) -> None:
+        """Leave RESTORING and admit every deferred submit through the
+        normal path, under one lock acquisition (no foreign submit can
+        interleave)."""
+        with self._lock:
+            self._restoring = False
+            deferred, self._deferred_submits = self._deferred_submits, []
+            for args in deferred:
+                self._admit_deferred(*args)
+        if deferred:
+            self._wake.set()
+
+    def _admit_deferred(self, rid, ids, max_new, deadline_abs, priority,
+                        tenant, samp, stream) -> None:
+        """Admit one deferred submit.  A failure finalizes its stream
+        FAILED: its caller holds the stream, so the error travels
+        there."""
+        with self._lock:
+            now = self._clock()
+            try:
+                if self._draining:
+                    raise PreconditionNotMetError(
+                        "engine drained while the submit was deferred")
+                if self._pool.queue_depth >= self.max_queue:
+                    raise QueueFullError(
+                        "queue filled while the submit was deferred; "
+                        "back off and resubmit")
+                rid = self._pool.submit(ids, int(max_new), request_id=rid,
+                                        priority=priority, tenant=tenant,
+                                        deadline=deadline_abs,
+                                        _sampling=samp)
+            except Exception as e:  # noqa: BLE001 - to the stream
+                rec = _Record(rid, stream, ids, int(max_new), deadline_abs,
+                              now, priority=priority, tenant=tenant,
+                              sampling=samp)
+                self._c_failed.inc()
+                self._finalize(rec, RequestState.FAILED, "error", [],
+                               error="deferred admission failed: %s: %s"
+                               % (type(e).__name__, str(e)[:200]))
+                return
+            # an automatic id exists from here: the stream learns it
+            # before any token can flow
+            stream.request_id = rid
+            rec = _Record(rid, stream, ids, int(max_new), deadline_abs,
+                          now, priority=priority, tenant=tenant,
+                          sampling=samp)
+            self._live[rid] = rec
+            if self._journal is not None:
+                try:
+                    self._journal_admit(
+                        rid, ids, max_new,
+                        (None if deadline_abs is None
+                         else max(0.001, deadline_abs - now)),
+                        priority, tenant, sampling=samp)
+                except Exception as e:  # noqa: BLE001 - to the stream
+                    self._pool.cancel(rid)
+                    self._live.pop(rid, None)
+                    self._c_failed.inc()
+                    self._finalize(
+                        rec, RequestState.FAILED, "error", [],
+                        error="deferred admission not journalable: %s"
+                        % (str(e)[:200],))
+                    return
+            self._c_submitted.inc()
+            trace.instant("req.queued", rid=rid, deferred=True,
+                          prompt_tokens=int(ids.shape[0]),
+                          max_new_tokens=int(max_new))
+
+    @staticmethod
+    def _fingerprint_upgrade(fp: dict, mine: dict):
+        """Triage of a journal whose header predates per-request sampling
+        (its fingerprint carries pool-global ``temperature``/``top_k``/
+        ``top_p``/``sampling_seed`` where this engine's carries the
+        ``"sampling": "per-request"`` marker).  When the two agree on
+        every other field, the journal replays through the resubmit path
+        with the old global config applied per request: returns that
+        config, or None when they genuinely disagree."""
+        v1_keys = ("temperature", "top_k", "top_p", "sampling_seed")
+        if "sampling" in fp or not all(k in fp for k in v1_keys):
+            return None
+        if mine.get("sampling") != "per-request" \
+                or mine.get("lora") is not None:
+            return None
+        rest = {k: v for k, v in fp.items() if k not in v1_keys}
+        mine_rest = {k: v for k, v in mine.items()
+                     if k not in ("sampling", "lora")}
+        if rest != mine_rest:
+            return None
+        return _SamplingConfig(
+            float(fp["temperature"]), int(fp["top_k"]),
+            float(fp["top_p"]), int(fp["sampling_seed"]) & 0xFFFFFFFF)
+
+    def restore(self, path: str) -> dict:
+        """Adopt the journal at ``path``: check its fingerprint against
+        this engine's (``FingerprintMismatchError`` naming both sides),
+        replay its longest valid prefix, and rebuild every live request.
+        A PREEMPTED request whose disk-spill file is present and exact is
+        re-parked in the spill tier (its K/V page back in at resume, no
+        re-prefill); everything else resubmits as prompt + committed, so
+        every greedy survivor finishes byte-identically with no new
+        capture on warmed steps.  A request whose journaled history
+        already ended (a torn tail ate its terminal) is finalized.
+
+        The engine must be fresh.  While the replay runs it is RESTORING
+        (submits deferred).  A journaled engine compacts the adopted
+        state into its own journal afterwards.  Returns ``{
+        "requests_replayed", "adopted_from_spill", "finished_at_restore",
+        "tokens_replayed", "records", "records_dropped", "truncated",
+        "journal_counts", "restore_s"}``."""
+        t0 = time.perf_counter()
+        with self._lock:
+            if self._draining:
+                raise PreconditionNotMetError(
+                    "engine is draining/shut down: build a fresh engine "
+                    "to restore into")
+            if self._restoring:
+                raise PreconditionNotMetError(
+                    "a restore is already in progress on this engine: a "
+                    "second concurrent replay would fail every duplicate "
+                    "resubmit")
+            if self._live or self._pool.queue_depth \
+                    or self._pool.active_count:
+                raise PreconditionNotMetError(
+                    "restore() needs a fresh engine: %d live requests "
+                    "are already being served (restore rebuilds the "
+                    "live set from the journal, it does not merge)"
+                    % (len(self._live),))
+            self._restoring = True
+            self._restore_retry_after_s = 1.0
+        adopted = finished = replayed = tokens_replayed = 0
+        try:
+            with self._lock:
+                fp, records, stats = read_journal(path)
+                if stats["truncated"]:
+                    self._c_journal_truncated.inc(stats["records_dropped"])
+                    trace.instant("journal.truncated",
+                                  dropped_records=stats["records_dropped"],
+                                  dropped_bytes=stats["bytes_dropped"])
+                    slog.emit("journal.truncated", path=path,
+                              dropped_records=stats["records_dropped"],
+                              dropped_bytes=stats["bytes_dropped"])
+                mine = self._pool.config_fingerprint()
+                legacy_samp = None
+                if fp != mine:
+                    legacy_samp = self._fingerprint_upgrade(fp, mine)
+                    if legacy_samp is None:
+                        raise FingerprintMismatchError(fp, mine)
+                    slog.emit("journal.upgrade", path=path,
+                              temperature=legacy_samp.temperature,
+                              top_k=legacy_samp.top_k,
+                              top_p=legacy_samp.top_p,
+                              seed=legacy_samp.seed)
+                live, counts = replay(records)
+                now = self._clock()
+                eos = self._pool.eos_id
+                for entry in live:
+                    rid = entry["rid"]
+                    ids = np.asarray(entry["ids"], np.int32)
+                    toks = entry["tokens"]
+                    max_new = entry["max_new"]
+                    deadline_s = entry["deadline_s"]
+                    if deadline_s is not None and entry.get("ts"):
+                        # the REMAINING budget: deduct the wall-clock
+                        # time burned since the record was written
+                        deadline_s = max(
+                            0.001, float(deadline_s)
+                            - max(0.0, time.time() - entry["ts"]))
+                    deadline_abs = None if deadline_s is None \
+                        else now + float(deadline_s)
+                    msamp = entry.get("sampling")
+                    if msamp is not None:
+                        samp = _samp_from_json(msamp)
+                    elif legacy_samp is not None:
+                        samp = legacy_samp._replace(
+                            seed=(legacy_samp.seed + replayed)
+                            & 0xFFFFFFFF)
+                    else:
+                        samp = self._pool._resolve_sampling(
+                            0.0, None, None, 0)
+                    stream = ResponseStream(self, rid, max_new)
+                    rec = _Record(rid, stream, ids, max_new, deadline_abs,
+                                  now, priority=entry["priority"],
+                                  tenant=entry["tenant"], sampling=samp)
+                    rec.retries = entry["retries"]
+                    rec.tokens = list(toks)
+                    # the committed history replays into the fresh
+                    # stream: its consumer sees the whole token stream
+                    for t in toks:
+                        stream._put_token(int(t))
+                    if toks:
+                        rec.first_t = rec.last_t = now
+                    self._c_replayed.inc()
+                    replayed += 1
+                    tokens_replayed += len(toks)
+                    if len(toks) >= max_new or (
+                            eos is not None and toks and toks[-1] == eos):
+                        self._c_done.inc()
+                        self._finalize(rec, RequestState.DONE,
+                                       ("eos" if eos is not None
+                                        and toks and toks[-1] == eos
+                                        else "length"), rec.tokens)
+                        finished += 1
+                        continue
+                    if legacy_samp is None and self._pool.adopt_spill(
+                            rid, ids, toks, max_new,
+                            priority=entry["priority"],
+                            tenant=entry["tenant"],
+                            deadline=deadline_abs):
+                        rec.state = RequestState.PREEMPTED
+                        rec.preempted_at = now
+                        self._live[rid] = rec
+                        adopted += 1
+                        continue
+                    try:
+                        self._resubmit_record(rec)
+                    except Exception as e:  # noqa: BLE001 - per victim
+                        self._fail_record(rec, e, "restore resubmit failed")
+                        continue
+                    self._live[rid] = rec
+                self._c_restores.inc()
+                restore_s = time.perf_counter() - t0
+                self._health.note_restore(restore_s)
+                if self._journal is not None:
+                    # a second crash replays from here
+                    self.checkpoint()
+                trace.instant("engine.restore", replayed=replayed,
+                              adopted=adopted, finished=finished,
+                              tokens=tokens_replayed)
+                slog.emit("engine.restore", path=path,
+                          requests_replayed=replayed,
+                          adopted_from_spill=adopted,
+                          finished_at_restore=finished,
+                          tokens_replayed=tokens_replayed,
+                          records=stats["records"],
+                          records_dropped=stats["records_dropped"],
+                          restore_s=round(restore_s, 6))
+        finally:
+            self._end_restore()
+        self._wake.set()
+        return {"requests_replayed": replayed,
+                "adopted_from_spill": adopted,
+                "finished_at_restore": finished,
+                "tokens_replayed": tokens_replayed,
+                "records": stats["records"],
+                "records_dropped": stats["records_dropped"],
+                "truncated": stats["truncated"],
+                "journal_counts": counts,
+                "restore_s": time.perf_counter() - t0}
+
     # -- the tick (one code path for both drive modes) --------------------
     def _tick(self) -> bool:
         tr = trace.active()
@@ -909,6 +1576,10 @@ class ServingEngine:
             self._observe_gauges()
             return bool(self._live)
         finally:
+            # the tick's journal flush: commits and terminals of a
+            # recovered tick are recorded too, and a flush failure leaves
+            # records pending -- the engine never dies for it
+            self._journal_flush()
             # the heartbeat closes even when recovery re-raises (a dead
             # loop is the supervisor's signal, not a stall), and the SLO
             # windows roll on every tick, idle ones included
@@ -923,6 +1594,8 @@ class ServingEngine:
         self._g_occupancy.set(pool.active_count / pool.slots)
         stats = pool.cache_stats()
         self._g_kv_bytes.set(stats["reachable_bytes"])
+        if self._g_accept is not None:
+            self._g_accept.set(pool.acceptance_stats()["acceptance_rate"])
         self._g_kv_resident.set(stats["pool_bytes"])
         if self._g_kv_free is not None:
             self._g_kv_free.set(stats["free_blocks"])
@@ -1050,14 +1723,17 @@ class ServingEngine:
         LOCK-FREE on purpose: a wedged tick holds the engine lock, and
         health is exactly what is asked during a wedge.  Every field is a
         single-writer plain attribute.  ``healthy`` is False while a stall
-        episode is open, while a started loop is dead, and once stopped.
-        ``restoring`` is always False: the journal's restore is not
-        ported."""
+        episode is open, while a started loop is dead, while RESTORING
+        (with ``retry_after_s``, the back-off hint), and once stopped."""
         h = self._health
         t = self._thread
         loop_alive = None if t is None else t.is_alive()
         if h.stall_open:
             state = "wedged"
+        elif self._restoring:
+            # transient by construction: the probe backs off instead of
+            # killing an engine that is adopting its journal
+            state = "restoring"
         elif loop_alive is False and not self._draining \
                 and not self._stop.is_set():
             state = "loop-dead"
@@ -1081,7 +1757,9 @@ class ServingEngine:
                "preempted_requests": self._pool.preempted_count,
                "started_at": self._started_at,
                "uptime_s": max(0.0, now - self._started_at),
-               "restoring": False}
+               "restoring": self._restoring}
+        if self._restoring:
+            out["retry_after_s"] = self._restore_retry_after_s
         if self._slo is not None:
             out["slo"] = self._slo.health_summary()
         out.update(h.snapshot())
@@ -1172,6 +1850,11 @@ class ServingEngine:
             # timelines so an export never ends a request mid-span
             for rid in list(self._live):
                 trace.instant("req.aborted", rid=rid, reason="shutdown")
+            # the final durability point: buffered records are drained
+            # and the handle closed
+            self._journal_flush()
+            if self._journal is not None:
+                self._journal.close()
 
     # -- tracing / flight recorder ---------------------------------------
     def start_trace(self, capacity: int = 4096,
@@ -1305,6 +1988,14 @@ class ServingEngine:
         """Spill-tier accounting (``GenerationPool.spill_stats``)."""
         with self._lock:
             return self._pool.spill_stats()
+
+    def acceptance_stats(self) -> Optional[dict]:
+        """Speculative acceptance accounting
+        (``SpeculativePool.acceptance_stats``); None on a plain pool."""
+        if not hasattr(self._pool, "acceptance_stats"):
+            return None
+        with self._lock:
+            return self._pool.acceptance_stats()
 
     def compile_counts(self) -> dict:
         """The pool's step keys (``GenerationPool.compile_counts``): a

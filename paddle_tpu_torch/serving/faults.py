@@ -14,9 +14,9 @@ schedules or a seeded chaos mode:
 - ``spill.write``      -- the disk spill tier's K/V file write
 - ``xfer.write``       -- the K/V hand-off's transfer-file write
 
-The last three keep the vocabulary equal to the reference's; the port
-has no code that fires them yet (the journal, the disk spill tier and
-the tier hand-off are not ported).
+The last three fire at the reference's call sites (the journal writer's
+append, the PTKV writer of a preemption spill and of ``export_kv``), so
+one chaos seed injects at the same hits in both packages.
 
 The plane is OFF by default: ``fire(point)`` is one module-global ``is
 None`` test -- no allocation, no lock, no device work.  Injected faults

@@ -17,7 +17,8 @@ serving work, this module maps HTTP onto it.
 - ``GET /healthz`` -- the engine's lock-free ``health()`` snapshot: 200
   while healthy (idle, serving, draining, degraded), 503 while a tick is
   wedged past the supervisor's stall timeout, the loop thread is dead,
-  or the engine was shut down.
+  the engine was shut down, or it is RESTORING from a journal (then with
+  the engine's ``Retry-After`` hint).
 - ``GET /slo`` -- the SLO tracker's snapshot (404 without one).
 - ``GET /debug/trace?rid=<id>`` -- one request's trace timeline (400
   without ``rid``, 404 for an unknown id or when no tracer was ever
@@ -176,7 +177,15 @@ def _make_handler(engine: ServingEngine, quiet: bool = True):
                 # restart/stall counters, flight-recorder dump), not
                 # just a status code
                 h = engine.health()
-                self._send_json(200 if h["healthy"] else 503, h)
+                headers = ()
+                if h.get("state") == "restoring":
+                    # transient: the probe gets the engine's back-off
+                    # hint and waits out the journal replay
+                    ra = h.get("retry_after_s") or 1.0
+                    headers = (("Retry-After",
+                                str(max(1, int(-(-ra // 1))))),)
+                self._send_json(200 if h["healthy"] else 503, h,
+                                headers=headers)
                 return
             if path == "/debug/trace":
                 rid = parse_qs(query).get("rid", [None])[0]

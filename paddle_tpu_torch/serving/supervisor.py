@@ -51,8 +51,6 @@ class EngineHealth:
         self.restarts = 0
         self.recoveries = 0
         self.requests_recovered = 0
-        # the journal's restore is not ported: these stay 0 and None,
-        # kept so the snapshot has the reference's fields
         self.restores = 0
         self.last_restore_s: Optional[float] = None
         self.stalls = 0
@@ -84,6 +82,12 @@ class EngineHealth:
     def note_recovery(self, resubmitted: int) -> None:
         self.recoveries += 1
         self.requests_recovered += resubmitted
+
+    def note_restore(self, duration_s: float) -> None:
+        """A journal restore completed on this engine: the count and the
+        last restore's wall time ride every health snapshot."""
+        self.restores += 1
+        self.last_restore_s = duration_s
 
     def note_restart(self, now: float) -> None:
         self.restarts += 1

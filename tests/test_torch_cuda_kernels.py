@@ -760,3 +760,55 @@ def test_aot_function_capture_failure_raises(cuda_device):
     fn(x)  # the eager warm-up reads the host freely
     with pytest.raises(CaptureError):
         fn(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kernel", [
+    (dict(cache_layout="paged", block_size=8), "paged_decode_attention_kernel"),
+    (dict(cache_layout="paged", block_size=8, cache_dtype="int8"),
+     "paged_decode_attention_kernel"),
+    (dict(cache_layout="dense"), "decode_attention_kernel"),
+])
+def test_speculative_pool_captured_round_matches_eager(cuda_device, kw,
+                                                       kernel):
+    """The speculative round's three captured steps (draft decode, verify
+    at Lq = spec_k + 1, draft fixup) give the tokens of the same steps run
+    eagerly and of the plain pool; one graph each, and the target's kernel
+    launched once a layer a round (the draft, dense, on K2 at Lq 1)."""
+    import numpy as np
+
+    from paddle_tpu_torch import GenerationPool
+    from paddle_tpu_torch.inference import SpeculativePool
+
+    model = _tiny_lm(cuda_device)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 512, n) for n in (5, 11, 20, 7, 14)]
+
+    def run(eager, draft):
+        pool = SpeculativePool(model, draft, max_len=64, spec_k=3, slots=2,
+                               buckets=[32], device=cuda_device, **kw)
+        if eager:
+            for name in ("_draft_decode_fn", "_verify_fn",
+                         "_draft_fixup_fn"):
+                _eager(pool, name)
+        dk.reset_launch_counts()
+        out = pool.generate(prompts, 9)
+        return pool, out, dk.launch_counts()
+
+    plain = GenerationPool(model, max_len=64, slots=2, buckets=[32],
+                           device=cuda_device, **kw).generate(prompts, 9)
+    for draft in (model, _tiny_lm(cuda_device)):
+        pool, got, counts = run(False, draft)
+        _, want, _ = run(True, draft)
+        for g, w, p in zip(got, want, plain):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, p)
+        rounds = pool.acceptance_stats()["rounds"]
+        assert pool._verify_fn.graphs() == pool._draft_decode_fn.graphs() \
+            == pool._draft_fixup_fn.graphs() == 1
+        draft_k2 = 2 * 4 * rounds
+        if kernel == "decode_attention_kernel":
+            assert counts[kernel] == 2 * rounds + draft_k2, counts
+        else:
+            assert counts[kernel] == 2 * rounds, counts
+            assert counts["decode_attention_kernel"] == draft_k2, counts

@@ -1,7 +1,7 @@
 """The port's fault plane, request-level recovery, deadline shedding,
 supervision and the seeded chaos harness, re-pointed from the reference's
-``tests/test_faults_recovery.py`` (without its speculative-engine case:
-the speculative pool is not ported) and ``tests/test_chaos_serving.py``,
+``tests/test_faults_recovery.py`` (its speculative-engine case is in
+``tests/test_torch_speculative.py``) and ``tests/test_chaos_serving.py``,
 and held against the reference's engine on the same weights (CPU).
 
 - The plane is the reference's: the same points, schedules and seeded

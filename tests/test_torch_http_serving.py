@@ -1,7 +1,6 @@
 """The port's stdlib HTTP front end, re-pointed from the reference's
-``tests/test_http_serving.py`` (without its RESTORING case: the journal's
-restore is not ported) and held against the reference's front end on the
-same weights (CPU).
+``tests/test_http_serving.py`` and held against the reference's front end
+on the same weights (CPU).
 
 Most requests run through the handler class against an in-memory socket,
 so the handler thread is the test thread and the engine runs in pump mode
@@ -368,6 +367,38 @@ def test_healthz_stays_200_while_degraded_and_carries_the_level(model):
     assert json.loads(payload)["retryable"] is True
     assert b"tightened" in payload or b"ladder" in payload
     assert eng.metrics.snapshot()["serving_admission_tightened_total"] == 1
+    while eng.pump(8):
+        pass
+    assert stream.result(timeout_s=0).state == "DONE"
+
+
+def test_healthz_restoring_503_retry_after_then_200(pair):
+    """While a journal replay owns the engine, /healthz answers 503 WITH
+    the engine's Retry-After hint (a rollout controller waits instead of
+    killing it), submits are deferred with a live stream, and the flip
+    back to 200 happens when the replay ends -- as the reference's front
+    end does."""
+    ref_model, model = pair
+    eng = _engine(model, max_len=64, slots=1, buckets=[16])
+    ref_eng = RefEngine(ref_model, max_len=64, slots=1, buckets=[16])
+    for e in (eng, ref_eng):
+        e._begin_restore(retry_after_s=2.5)
+    ref_out = []
+    code, headers, payload = _both(eng, ref_eng, "GET", "/healthz",
+                                   ref_out=ref_out)
+    body = json.loads(payload)
+    assert code == 503
+    assert body["state"] == "restoring" and body["healthy"] is False
+    assert body["restoring"] is True and body["retry_after_s"] == 2.5
+    assert headers.get("Retry-After") == ref_out[0][1]["Retry-After"] == "3"
+    stream = eng.submit(np.zeros(4, np.int32), 3)
+    assert eng.live_requests == 0 and eng.queue_depth == 0
+    for e in (eng, ref_eng):
+        e._end_restore()
+    code, headers, payload = _both(eng, ref_eng, "GET", "/healthz")
+    assert code == 200 and "Retry-After" not in headers
+    assert json.loads(payload)["restoring"] is False
+    assert eng.live_requests == 1
     while eng.pump(8):
         pass
     assert stream.result(timeout_s=0).state == "DONE"

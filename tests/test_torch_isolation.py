@@ -142,3 +142,145 @@ def test_engine_loop_sets_the_pools_card(monkeypatch):
     finally:
         eng.shutdown()
     assert seen == [0]
+
+
+# -- the speculative and durability modules ----------------------------------
+def test_new_modules_import_without_jax_or_reference():
+    code = ("import sys, paddle_tpu_torch.jit.speculative"
+            ", paddle_tpu_torch.inference.speculative"
+            ", paddle_tpu_torch.serving.journal"
+            ", paddle_tpu_torch.serving.transfer\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r)\nprint(bad)\nsys.exit(1 if bad else 0)" % (FORBIDDEN,))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_speculative_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from paddle_tpu_torch.inference import SpeculativePool
+    from paddle_tpu_torch.jit import SpeculativeDecodeSession
+
+    kw = dict(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2,
+              max_position=32)
+    model = TransformerLM(device="cpu", **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (
+            lambda: SpeculativePool(model, model, max_len=16),
+            lambda: SpeculativeDecodeSession(model, model, max_len=16),
+            lambda: ServingEngine(model, max_len=16, draft_model=model),
+            lambda: ServingEngine(model, max_len=16,
+                                  journal_path=str(tmp_path / "j"))):
+        with pytest.raises(UnavailableError, match='device="cpu"'):
+            build()
+    pool = SpeculativePool(model, model, max_len=16, slots=1, buckets=[8],
+                           device="cpu")
+    assert pool.generate([np.arange(1, 4)], 3)[0].shape == (3,)
+
+
+def _chaos_run(ref, model, tmp_path, seed):
+    """One chaos run of the durability seams in one package: a journaled
+    engine over the disk tier (``journal.append``, ``spill.write``) and a
+    prefill-only pool's exports (``xfer.write``), all under ONE seeded
+    plane.  Returns the plane's injections, the engine's tokens and the
+    exported-and-adopted tokens."""
+    if ref:
+        from paddle_tpu.inference import GenerationPool as Pool
+        from paddle_tpu.serving import ServingEngine as Engine
+        from paddle_tpu.serving import faults as fmod
+        from paddle_tpu.serving.journal import JournalWriteError as JWE
+        dev = {}
+    else:
+        from paddle_tpu_torch.serving import faults as fmod
+        from paddle_tpu_torch.serving.journal import JournalWriteError as JWE
+        Pool, Engine, dev = GenerationPool, ServingEngine, {"device": "cpu"}
+    tag = "ref" if ref else "port"
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, 128, (n,)).astype("int32")
+               for n in (5, 9, 7, 4)]
+    budgets = (6, 5, 7, 4)
+    paged = dict(max_len=64, slots=2, buckets=[32], cache_layout="paged",
+                 block_size=8)
+    plane = fmod.FaultPlane(
+        chaos_seed=seed, chaos_p=0.35,
+        chaos_points=("journal.append", "spill.write", "xfer.write"),
+        max_faults=8)
+    eng = Engine(model, journal_path=str(tmp_path / (tag + ".journal")),
+                 spill_tier="disk", spill_dir=str(tmp_path / (tag + "-s")),
+                 **paged, **dev)
+    streams = []
+    exported = {}
+    with fmod.injected(plane):
+        for i, (p, n) in enumerate(zip(prompts, budgets)):
+            for _attempt in range(12):
+                try:
+                    streams.append(eng.submit(p, n, request_id="r%d" % i))
+                    break
+                except JWE:
+                    continue
+        eng.pump(2)
+        try:
+            eng.preempt()
+        except fmod.InjectedFaultError:
+            pass
+        ticks = 0
+        while eng.pump(1):
+            ticks += 1
+            assert ticks < 400, "chaos run failed to drain"
+        xdir = str(tmp_path / (tag + "-x"))
+        pre = Pool(model, prefill_only=True, spill_tier="disk",
+                   spill_dir=xdir, **paged, **dev)
+        rids = [pre.submit(p, 6, request_id="x%d" % i)
+                for i, p in enumerate(prompts[:3])]
+        committed = {}
+        guard = 0
+        while len(exported) < len(rids):
+            guard += 1
+            assert guard < 100, "prefill tier failed to drain"
+            pre.step()
+            for rid in rids:
+                if rid in exported or not pre.has_prefill_done(rid):
+                    continue
+                committed[rid] = [int(t) for t in
+                                  pre._prefill_done[rid][1].tokens]
+                for _attempt in range(12):
+                    try:
+                        exported[rid] = pre.export_kv(rid)
+                        break
+                    except fmod.InjectedFaultError:
+                        continue
+    assert set(exported) == set(rids)
+    dec = Pool(model, spill_tier="disk", spill_dir=xdir, **paged, **dev)
+    for rid, p in zip(rids, prompts):
+        assert dec.adopt_spill(rid, p, committed[rid], 6)
+    adopted = {rid: np.concatenate([committed[rid], toks])
+               for rid, toks in dec.run().items()}
+    streams_out = {s.request_id: np.asarray(s.result(timeout_s=0).tokens)
+                   for s in streams}
+    assert all(s.result(timeout_s=0).state == "DONE" for s in streams)
+    return list(plane.injected), streams_out, adopted
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chaos_durability_seams_hit_alike_in_both_packages(tmp_path, seed):
+    """One chaos seed over ``journal.append``, ``spill.write`` and
+    ``xfer.write`` injects at the same hits in the port and the reference
+    (the seams fire at the same call sites), and both recover to the same
+    greedy tokens (margin-gated)."""
+    from torch_parity import SMALL, assert_greedy_equal, build_pair
+
+    ref_model, port_model = build_pair(**SMALL)
+    want = _chaos_run(True, ref_model, tmp_path, seed)
+    got = _chaos_run(False, port_model, tmp_path, seed)
+    assert got[0] == want[0]
+    assert any(p == "journal.append" for p, _, _ in got[0])
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, 128, (n,)).astype("int32")
+               for n in (5, 9, 7, 4)]
+    for i, p in enumerate(prompts):
+        assert_greedy_equal(port_model, p, got[1]["r%d" % i],
+                            want[1]["r%d" % i], what="r%d" % i)
+    for i, p in enumerate(prompts[:3]):
+        assert_greedy_equal(port_model, p, got[2]["x%d" % i],
+                            want[2]["x%d" % i], what="x%d" % i)

@@ -21,8 +21,8 @@ Pinned here:
    ``spill_stats()`` byte counts and the same slot and blocks for every
    admission and resume.
 
-Left out, because their subject is not ported yet: the speculative pool
-and its runtime spec-K.  The degradation ladder, the automatic victim,
+The speculative pool and its runtime spec-K are held by
+``tests/test_torch_speculative.py``.  The degradation ladder, the automatic victim,
 recovery and the deadline-shed estimator are held by
 ``tests/test_torch_serving_host.py``.
 """

@@ -9,9 +9,9 @@ the same weights (CPU).
 Greedy tokens are compared with the reference's run of the same traffic
 (``torch_parity.assert_greedy_equal``: equal unless the top-2 margin is
 under the floor); metric names, health fields and SLO snapshot fields are
-compared with the reference engine's.  The port has no journal, no
-speculative pool and no cost report yet: their metric names are the only
-ones the reference has and the port lacks.
+compared with the reference engine's.  The port has no cost report yet:
+its metric names are the only ones the reference has and the port
+lacks.
 """
 import io
 import json
@@ -41,12 +41,9 @@ from paddle_tpu_torch.serving import (AdmissionTightenedError, Histogram,
                                       ServingEngine, SLOTracker, faults)
 from paddle_tpu_torch.serving import log as slog
 
-# metric names of reference features the port does not have yet
+# metric names of reference features the port does not have yet (the
+# cost report)
 NOT_PORTED_METRICS = {
-    "serving_journal_records_total", "serving_journal_bytes_total",
-    "serving_journal_errors_total",
-    "serving_journal_truncated_records_total", "serving_checkpoints_total",
-    "serving_journal_replayed_total", "serving_restores_total",
     "serving_step_flops", "serving_step_bytes_accessed",
     "serving_hbm_reserved_bytes"}
 

@@ -1,6 +1,6 @@
 """The port's request-scoped tracing and tick flight recorder,
-re-pointed from the reference's ``tests/test_trace.py`` (without its
-speculative-engine case: the speculative pool is not ported) and held
+re-pointed from the reference's ``tests/test_trace.py`` (its
+speculative-engine case is in ``tests/test_torch_speculative.py``) and held
 against the reference's engine on the same weights (CPU).
 
 1. tracing OFF is a no-op: an uninstalled tracer stays untouched by a

@@ -38,16 +38,24 @@ PyTorch twin, and drives the port's two main paths:
   (PTKV write MB/s); and a child ``python3 chip_smoke.py --crash-child
   DIR`` killed with SIGKILL mid-decode, whose journal and spill
   directory a fresh engine restores to an uninterrupted run's tokens;
+- weights replaced under a captured graph (``refresh_24l``): the
+  24-layer pool's parameters swapped for another seed's with
+  ``load_state_dict(..., assign=True)``, ``refresh_weights()``, and the
+  pool must serve a fresh pool's tokens on the new weights;
 - training: the same GPT-1.3B at full width and depth for 6
   ``TrainStep``s (AdamW, global-norm clipping) on one repeated 2 x 2048
   batch, every attention forward and backward through the flash kernel K3,
   first in fp32, then in bf16 O2 mixed precision as the reference's GPT
   leg runs it (``amp.decorate`` O2 bf16, the loss under ``auto_cast``;
-  every K3 launch bf16), each with one more step profiled and broken down
-  by part of the step and aten op; then a BERT-base encoder on a ragged
-  batch whose padding reaches K3 as key-padding lanes, in fp32 and O2
-  bf16.  Small 2-layer models train on the card and on the CPU first, in
-  both precisions, and their losses must agree;
+  every K3 launch bf16).  Each precision runs twice from the same
+  weights: eagerly (``capture=False``, one more step profiled and broken
+  down by part of the step and aten op) and as one captured CUDA graph a
+  step (the warm-up, the capture, replays; one replay profiled), whose
+  losses must equal the eager ones; then a BERT-base encoder on ragged
+  batches, each step its own padding (key-padding lanes eagerly, a
+  broadcast bias in the graph), the same two ways, in fp32 and O2 bf16.
+  Small 2-layer models train on the card (captured) and on the CPU first,
+  in both precisions, and their losses must agree;
 - the custom-op door: the user kernel K4 (``scale_mul``) registered with
   a hand-written backward through ``incubate.register_custom_op``,
   differentiated eagerly (``.backward()``, ``grad`` with
@@ -76,6 +84,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -156,13 +165,24 @@ BF16_TWO_ULPS = 2.0 ** -6
 BF16_REL = 2.0 ** -6
 BF16_TILE_ROWS = 64
 # the training runs
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6  # 1 warm-up + 5 timed
+# each training cell runs its steps twice from the same weights: eagerly
+# (``capture=False``: 1 warm-up + 5 timed) and captured (the warm-up, the
+# capture, 4 timed replays)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
+# captured against eager on the card: the same kernels in the same order
+# (fp32 to its rounding); a BERT padding mask reaches K3 as a bias under
+# capture and as key-padding lanes eagerly, which add the same exact
+# zeros, and in O2 bf16 a loss averages bf16-rounded products over
+# thousands of positions
+CAPTURED_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # the small training check, card against CPU over 3 AdamW steps: fp32
 # sums in another order on each side; in O2 bf16 both sides round the same
 # products to bf16 and accumulate in fp32, and the loss averages the
 # rounding of 2 x 255 or 4 x 200 positions
 SMALL_TRAIN_RTOL = {"float32": 1e-4, "bfloat16": 2e-3}
-BERT_BATCH, BERT_SEQ, BERT_STEPS = 8, 512, 3
+# BERT: every step a batch with its own padding, so the captured step's
+# replays run on other padding than the capture's
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 8, 512, 5
 # K4 at full width: the GPT-1.3B FFN activation at the training batch
 CUSTOM_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 8192)
 CUSTOM_STEPS = 3
@@ -214,10 +234,15 @@ def graph_ms(fns, reps: int = 10) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            for f in fns:
-                f()
+    gc.collect()  # a graph freed by the collector would void the capture
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                for f in fns:
+                    f()
+    finally:
+        gc.enable()
     graph.replay()
     torch.cuda.synchronize()
     best = float("inf")
@@ -2294,6 +2319,50 @@ def check_flash_kernels():
     return main_err
 
 
+def refresh_weights_run(model, cfg):
+    """``refresh_24l``: a paged pool of the 24-layer model serves 4
+    prompts (its decode step captured), then every parameter is REPLACED
+    by a seed-1 model's (``load_state_dict(..., assign=True)``: new
+    tensors, so the graph's recorded addresses are stale) and
+    ``refresh_weights()`` drops the graph.  The pool then serves the same
+    prompts again: the tokens must equal a fresh pool's on the seed-1
+    model and differ from the first pass's, and ``compile_counts()`` must
+    not move.  The model is left on the seed-1 weights."""
+    import torch
+
+    from paddle_tpu_torch import GenerationPool, TransformerLM
+
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg["vocab_size"], n) for n in (64, 96, 128,
+                                                             160)]
+    kw = dict(max_len=512, slots=4, buckets=[256], device="cuda",
+              cache_layout="paged", block_size=MAIN_BLOCK)
+    pool = GenerationPool(model, **kw)
+    first = pool.generate(prompts, 16)
+    counts = pool.compile_counts()
+    graphs = pool._decode_fn.graphs()
+    other = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=1)
+    model.load_state_dict(other.state_dict(), assign=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool.refresh_weights()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    dropped = graphs - pool._decode_fn.graphs()
+    got = pool.generate(prompts, 16)
+    want = GenerationPool(other, **kw).generate(prompts, 16)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert any(not np.array_equal(a, b) for a, b in zip(first, got))
+    assert pool.compile_counts() == counts, (pool.compile_counts(), counts)
+    assert graphs == 1 and dropped == 1 and pool._decode_fn.graphs() == 1
+    del pool, other
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prompts": len(prompts), "new_tokens": 16,
+            "graphs_dropped": dropped, "refresh_ms": refresh_ms,
+            "compile_counts": counts, "tokens_equal_fresh_pool": True}
+
+
 # -- training runs ---------------------------------------------------------
 
 
@@ -2370,7 +2439,8 @@ class _StepParts:
     range named ``part:<name>`` -- the model's forward, the embedding,
     LayerNorm, the Linear products, the attention (SDPA routing and K3),
     GELU, the tied head's matmul, the autocast casts, the loss, the
-    gradient clip and the optimizer's per-parameter update.  The port's
+    gradient clip and the optimizer's grouped update.  A captured replay
+    runs none of these functions, so only an eager step is broken down.  The port's
     functions are looked up at call time, so the patch reaches them; on
     leaving, everything is put back."""
 
@@ -2385,7 +2455,7 @@ class _StepParts:
             (F, "scaled_dot_product_attention", "attention"),
             (F, "gelu", "gelu"), (T, "matmul", "head"),
             (dispatch, "_cast", "cast"), (crit, "forward", "loss"),
-            (opt, "_grad_clip", "clip"), (opt, "_apply_one", "optimizer")]
+            (opt, "_grad_clip", "clip"), (opt, "_apply_group", "optimizer")]
         self._saved = []
 
     def __enter__(self):
@@ -2426,7 +2496,10 @@ def _step_breakdown(prof, busy_ms: float) -> dict:
     goes to ``backward:<part>`` of the forward op whose autograd node
     launched it (the node's sequence number is the forward op's).  Kernels
     the profiler links to no op are left out; ``attributed_share`` says
-    how much of the busy time the table covers.  ``host_ms`` is a part's
+    how much of the busy time the table covers.  Above 1 it over-counts:
+    on the full-size GPT steps the grouped optimizer's list kernels are
+    linked to more than their op (1.5-2.5 on the card), so read the
+    update's cost from ``_update_cost`` there.  ``host_ms`` is a part's
     host time under the profiler (its ranges' wall time, nested parts
     included; the backward's parts have none)."""
     from torch.autograd import DeviceType
@@ -2518,9 +2591,16 @@ def _profile_step(step, batch, step_ms, parts=None):
         log("profile: the profiler recorded no device time (not measured)")
     out = {"device_busy_ms_per_step": busy,
            "device_idle_share": (1 - busy / step_ms) if busy else None,
+           "launches": sum(n for _, _, n in rows),
            "k3_ms_per_step": sum(ms for ms, k, _ in rows if "flash_" in k),
            "gemm_ms_per_step": sum(ms for ms, k, _ in rows
                                    if _kernel_kind(k) == "gemm"),
+           # the tensor-list kernels: the optimizer's and the clip's
+           # grouped updates (their per-tensor ops are not counted here)
+           "foreach_ms_per_step": sum(ms for ms, k, _ in rows
+                                      if "multi_tensor_apply" in k),
+           "foreach_launches_per_step": sum(n for _, k, n in rows
+                                            if "multi_tensor_apply" in k),
            "top": [{"kernel": k[:80], "ms_per_step": ms, "calls": n}
                    for ms, k, n in rows[:10]]}
     if parts is not None:
@@ -2543,7 +2623,8 @@ def _padding_batch(rng, vocab, b, l):
 def check_train_small(bf16: bool = False):
     """The training path on the card against the same path on the CPU,
     where K3 is its plain twins: 2-layer models of small widths, the same
-    weights (seed 0) and batches, 3 AdamW steps each -- a causal LM with the
+    weights (seed 0) and batches, 3 AdamW steps each (on the card the
+    step is captured: the warm-up, the capture, a replay) -- a causal LM with the
     shifted loss, and a non-causal encoder on ragged lengths (a [B, 1, 1, L]
     padding mask, taken as key-padding lanes) with the pads ignored.  With
     ``bf16`` both sides run O2 bf16 (``check_train_small_bf16``) and every
@@ -2580,6 +2661,8 @@ def check_train_small(bf16: bool = False):
             args = [torch.from_numpy(a).to(dev) if a.dtype == np.float32
                     else a for a in batch]
             losses[dev] = [float(step(*args)) for _ in range(3)]
+            # the card's steps: the warm-up, the capture, one replay
+            assert step._fn.graphs() == (dev == "cuda")
         np.testing.assert_allclose(losses["cuda"], losses["cpu"],
                                    rtol=SMALL_TRAIN_RTOL[dtype])
         log("train check %s%s (2 layers, 256 wide, %s): card %s vs cpu %s"
@@ -2592,154 +2675,265 @@ def check_train_small(bf16: bool = False):
     return out
 
 
-def train_gpt(bf16: bool = False):
-    """The training main path: GPT-1.3B at full width and depth,
-    ``TrainStep`` with AdamW(1e-4, weight decay 0.01, global-norm clip 1.0)
-    and the shifted LM loss, on one 2 x 2048 batch (numpy seed 0) repeated
-    for 1 warm-up and 5 timed steps: in fp32, or with ``bf16``
-    (``train_gpt_bf16``) as the reference's GPT leg runs it, the model and
-    optimizer decorated O2 bf16 and the loss under ``auto_cast(level="O1")``
-    -- every parameter bf16 but the norms', each with a float32 master.
-    The K3 counts are set to 0 just before the steps and read just after:
-    every launch must be in the run's dtype.  One more step runs under the
-    profiler with the step's parts marked (``_StepParts``)."""
+def _update_cost(model, opt):
+    """The step's update alone, on the model's parameters with random
+    gradients: the clip, then clip + optimizer, each captured and timed
+    by graph replay (``graph_ms``: device time, the host out of it), and
+    the kernels one eager call of each launches.  It moves the weights:
+    call it last on a model."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grads = [torch.randn(p.shape, generator=gen, device="cuda",
+                         dtype=p.dtype) * 1e-3 for p in params]
+    lr = torch.full((), 1e-4, device="cuda")
+    pairs = list(zip(params, grads))
+    fns = {"clip": lambda: opt._grad_clip(pairs),
+           "update": lambda: opt._functional_step(params, grads, lr)}
+    out = {}
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[name + "_launches"] = sum(n for _, _, n in
+                                      device_time_rows(prof))
+        out[name + "_graph_ms"] = graph_ms([fn], reps=2)
+    out["optimizer_graph_ms"] = out["update_graph_ms"] - out["clip_graph_ms"]
+    out["optimizer_launches"] = out["update_launches"] - out["clip_launches"]
+    n = sum(p.numel() for p in params)
+    # the AdamW floor: 28 bytes a parameter (ISSUE's count: fp32 master or
+    # weight, m1 and m2 read and written, the gradient read, the model
+    # weight written)
+    out["optimizer_bound_ms"] = 28.0 * n / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def _train_leg(build, loss_fn, batches, capture, dtype, layers, seq,
+               crit=None):
+    """``build()``'s model and optimizer trained by one ``TrainStep``
+    over ``batches`` (one call each), captured or eager; the K3 counts are
+    set to 0 just before the steps and read just after (every launch in
+    ``dtype``, ``layers`` a step).  Steps are timed from the first replay
+    (captured) or the second step (eager).  One more step runs under the
+    profiler: an eager one with its parts marked (``crit`` given), a
+    captured one as one replay."""
     import torch
 
-    from paddle_tpu_torch import (TrainStep, TransformerLM,
-                                  TransformerLMCriterion, gpt_1p3b_config)
+    from paddle_tpu_torch import TrainStep
     from paddle_tpu_torch.ops import flash_kernels as fk
 
-    dtype = "bfloat16" if bf16 else "float32"
-    cfg = gpt_1p3b_config()
-    t0 = time.perf_counter()
-    model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
-    opt = _adamw(model)
-    if bf16:
-        model, opt = _o2(model, opt)
-    log("train model: GPT-1.3B %s, %d layers, %.3f B params, built in %.1f s"
-        % ("O2 bf16" if bf16 else "fp32", cfg["num_layers"],
-           sum(p.numel() for p in model.parameters()) / 1e9,
-           time.perf_counter() - t0))
-    crit = TransformerLMCriterion(shift_labels=True)
-    step = TrainStep(model, _amp_loss(lambda m, x: crit(m(x), x), bf16), opt)
-    ids = np.random.RandomState(0).randint(
-        0, cfg["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))
+    model, opt = build()
+    # batches[i][0] is the [B, L] ids: flops of one step
+    flops = model.flops_per_token(seq) * int(np.prod(np.shape(
+        batches[0][0])))
+    step = TrainStep(model, loss_fn, opt, capture=capture)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fk.reset_launch_counts()
     losses, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
+    for batch in batches:
         t0 = time.perf_counter()
-        loss = step(ids)
+        loss = step(*batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    counts = fk.launch_counts()
     by_dtype = fk.launch_counts_by_dtype()
     peak = torch.cuda.max_memory_allocated()
-    layers = cfg["num_layers"]
-    assert all(np.isfinite(losses)), losses
-    assert losses[-1] < losses[0], losses
-    _check_k3_dtype(by_dtype, dtype, layers * TRAIN_STEPS)
-    timed = step_ms[1:]
+    _check_k3_dtype(by_dtype, dtype, layers * len(batches))
+    assert step.compile_counts() == {"train_step": 1}
+    assert step._fn.graphs() == int(capture)
+    timed = step_ms[2:] if capture else step_ms[1:]
     mean_ms = float(np.mean(timed))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    tok_s = tokens / (mean_ms / 1e3)
-    flops_s = model.flops_per_token(TRAIN_SEQ) * tok_s
-    out = {"dtype": dtype, "layers": layers, "batch": TRAIN_BATCH,
-           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
-           "warmup_step_ms": step_ms[0], "step_ms_mean": mean_ms,
-           "step_ms_p50": float(np.median(timed)), "tokens_per_s": tok_s,
-           "peak_mem_gb": peak / 2 ** 30, "launches": counts,
-           "launches_by_dtype": by_dtype,
-           "launches_per_step": {n: c / TRAIN_STEPS
-                                 for n, c in counts.items()}}
-    if bf16:
-        out["params_by_dtype"] = _check_o2_params(model, opt)
-        out["mfu_vs_bf16_tensor_core_peak"] = flops_s / BF16_TC_FLOPS_PER_S
-        out["mfu_peak_flops_per_s"] = BF16_TC_FLOPS_PER_S
-    else:
-        out["mfu_vs_fp32_cuda_core_peak"] = flops_s / FP32_FLOPS_PER_S
-        out["mfu_peak_flops_per_s"] = FP32_FLOPS_PER_S
-    out["profile"] = _profile_step(step, (ids,), mean_ms,
-                                   _StepParts(model, crit, opt))
+    peak_flops = BF16_TC_FLOPS_PER_S if dtype == "bfloat16" \
+        else FP32_FLOPS_PER_S
+    out = {"capture": capture, "losses": losses,
+           "warmup_step_ms": step_ms[0], "step_ms": step_ms,
+           "step_ms_mean": mean_ms, "step_ms_p50": float(np.median(timed)),
+           "peak_mem_gb": peak / 2 ** 30,
+           "mfu": flops / (mean_ms / 1e3) / peak_flops,
+           "launches_by_dtype": by_dtype}
+    parts = None if capture or crit is None else _StepParts(model, crit,
+                                                            opt)
+    out["profile"] = _profile_step(step, batches[-1], mean_ms, parts)
+    out["launches_per_step"] = out["profile"].pop("launches")
+    if not capture:
+        out["update"] = _update_cost(model, opt)
     del step, model, opt
+    gc.collect()  # the step's wrappers hold it in reference cycles
     torch.cuda.empty_cache()
     return out
 
 
-def train_bert(bf16: bool = False):
-    """BERT-base (12 layers, 768 wide, non-causal) for 3 steps on 8 x 512
-    tokens with ragged lengths given as a [B, 1, 1, L] additive padding
-    mask; the masked LM loss ignores the pads.  K3 must take the mask as
-    key-padding (segment) lanes: the detection claims it and every K3
-    call of the run carries segment ids.  With ``bf16``
-    (``train_bert_bf16``) the run is O2 bf16 and K3's lanes run in bf16."""
+def _eager_beside(captured, eager) -> dict:
+    """The captured run, with the eager run's figures beside it."""
+    keys = ("step_ms_mean", "launches_per_step", "peak_mem_gb", "mfu",
+            "update")
+    out = dict(captured)
+    out["eager"] = {k: eager[k] for k in keys}
+    out["eager"]["device_idle_share"] = eager["profile"]["device_idle_share"]
+    out["eager"]["profile"] = eager["profile"]
+    out["eager_losses"] = eager["losses"]
+    return out
+
+
+def train_gpt(bf16: bool = False):
+    """The training main path: GPT-1.3B at full width and depth,
+    ``TrainStep`` with AdamW(1e-4, weight decay 0.01, global-norm clip 1.0)
+    and the shifted LM loss, on one 2 x 2048 batch (numpy seed 0) repeated
+    for 6 steps: in fp32, or with ``bf16`` (``train_gpt_bf16``) as the
+    reference's GPT leg runs it, the model and optimizer decorated O2 bf16
+    and the loss under ``auto_cast(level="O1")`` -- every parameter bf16
+    but the norms', each with a float32 master.  The steps run twice from
+    the same weights (seed 0): eagerly (``capture=False``), with one more
+    step profiled and broken down by part (``_StepParts``), then captured
+    -- the warm-up, the capture, and replays, one CUDA graph for the whole
+    step, one key -- with one replay profiled.  The captured losses must
+    equal the eager ones within ``CAPTURED_RTOL``; each run's K3 launches
+    are 24 a step forward and backward in the run's dtype."""
     import torch
 
-    from paddle_tpu_torch import (TrainStep, TransformerLM,
-                                  TransformerLMCriterion, bert_base_config)
+    from paddle_tpu_torch import (TransformerLM, TransformerLMCriterion,
+                                  gpt_1p3b_config)
+
+    dtype = "bfloat16" if bf16 else "float32"
+    cfg = gpt_1p3b_config()
+
+    def build():
+        model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
+        opt = _adamw(model)
+        return _o2(model, opt) if bf16 else (model, opt)
+
+    crit = TransformerLMCriterion(shift_labels=True)
+    loss_fn = _amp_loss(lambda m, x: crit(m(x), x), bf16)
+    ids = np.random.RandomState(0).randint(
+        0, cfg["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))
+    batches = [(ids,)] * TRAIN_STEPS
+    model, opt = build()
+    params = sum(p.numel() for p in model.parameters())
+    for p in model.parameters():
+        opt._state_for(p)  # as TrainStep makes them: masters under O2
+    by_param_dtype = _check_o2_params(model, opt) if bf16 else None
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = cfg["num_layers"]
+    eager = _train_leg(build, loss_fn, batches, False, dtype, layers,
+                       TRAIN_SEQ, crit)
+    captured = _train_leg(build, loss_fn, batches, True, dtype, layers,
+                          TRAIN_SEQ)
+    losses = captured["losses"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    np.testing.assert_allclose(losses, eager["losses"],
+                               rtol=CAPTURED_RTOL[dtype])
+    out = _eager_beside(captured, eager)
+    out.update(dtype=dtype, layers=layers, params_b=params / 1e9,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+               / (captured["step_ms_mean"] / 1e3),
+               mfu_peak_flops_per_s=(BF16_TC_FLOPS_PER_S if bf16
+                                     else FP32_FLOPS_PER_S))
+    if bf16:
+        out["params_by_dtype"] = by_param_dtype
+    return out
+
+
+def train_bert(bf16: bool = False):
+    """BERT-base (12 layers, 768 wide, non-causal) on 8 x 512 tokens, each
+    of 5 steps a batch with its own ragged lengths given as a [B, 1, 1, L]
+    additive padding mask; the masked LM loss ignores the pads.  Run
+    eagerly, then captured, from the same weights, as ``train_gpt``.
+    Eagerly, K3 takes every mask as key-padding (segment) lanes (the
+    detection claims it, at most one readback a step); captured, the
+    warm-up does too, while the capture never claims the mask, a graph
+    input, so K3 takes it as a broadcast bias and each replay reads the
+    padding it is given.  The captured losses, on batches whose padding
+    differs from the capture's, must equal the eager ones within
+    ``CAPTURED_RTOL``.  With ``bf16`` (``train_bert_bf16``) the run is O2
+    bf16 and K3 runs in bf16."""
+    import torch
+
+    from paddle_tpu_torch import (TransformerLM, TransformerLMCriterion,
+                                  bert_base_config)
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_kernels as fk
 
     dtype = "bfloat16" if bf16 else "float32"
     cfg = bert_base_config()
-    model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
-    opt = _adamw(model)
-    if bf16:
-        model, opt = _o2(model, opt)
-    ids, mask, labels, real_tokens = _padding_batch(
-        np.random.RandomState(1), cfg["vocab_size"], BERT_BATCH, BERT_SEQ)
-    mask, labels = torch.from_numpy(mask).cuda(), torch.from_numpy(
-        labels).cuda()
-    assert fa.detect_padding_additive_mask(mask) is not None
+
+    def build():
+        model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
+        opt = _adamw(model)
+        return _o2(model, opt) if bf16 else (model, opt)
+
+    rng = np.random.RandomState(1)
+    batches, real = [], []
+    for _ in range(BERT_STEPS):
+        ids, mask, labels, n = _padding_batch(rng, cfg["vocab_size"],
+                                              BERT_BATCH, BERT_SEQ)
+        batches.append((ids, torch.from_numpy(mask).cuda(),
+                        torch.from_numpy(labels).cuda()))
+        real.append(n)
+    assert fa.detect_padding_additive_mask(batches[0][1]) is not None
     crit = TransformerLMCriterion(shift_labels=False)
-    step = TrainStep(model, _amp_loss(
-        lambda m, x, am, y: crit(m(x, attn_mask=am), y), bf16), opt)
+    loss_fn = _amp_loss(lambda m, x, am, y: crit(m(x, attn_mask=am), y),
+                        bf16)
+    layers = cfg["num_layers"]
     calls, reads = [], []
     apply, put = fk.FlashAttentionFunction.apply, fa._cache_put
 
     def recording_apply(*a):
-        calls.append((a[4] is not None, str(a[0].dtype)[6:]))  # q_seg, q
+        # (bias given, segment lanes given, q's dtype)
+        calls[-1].append((a[3] is not None, a[4] is not None,
+                          str(a[0].dtype)[6:]))
         return apply(*a)
 
     def counting_put(cache, m, verdict):
         # a padding-mask detection that missed its cache: one readback
-        if cache is fa._pad_detect_cache:
-            reads[-1] += 1
+        if cache is fa._pad_detect_cache and not fa._capturing(m):
+            reads[-1][-1] += 1
         return put(cache, m, verdict)
 
+    legs = {}
     fk.FlashAttentionFunction.apply = recording_apply
     fa._cache_put = counting_put
     try:
-        torch.cuda.synchronize()
-        fk.reset_launch_counts()
-        losses, step_ms = [], []
-        for _ in range(BERT_STEPS):
-            reads.append(0)
-            t0 = time.perf_counter()
-            losses.append(float(step(ids, mask, labels)))
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-        counts = fk.launch_counts()
-        by_dtype = fk.launch_counts_by_dtype()
+        for capture in (False, True):
+            calls.append([])
+            reads.append([])
+
+            def counted(*args, _fn=loss_fn):
+                reads[-1].append(0)
+                return _fn(*args)
+
+            legs[capture] = _train_leg(build, counted, batches, capture,
+                                       dtype, layers, BERT_SEQ,
+                                       None if capture else crit)
     finally:
         fk.FlashAttentionFunction.apply = apply
         fa._cache_put = put
-    layers = cfg["num_layers"]
-    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
-    assert calls and all(c == (True, dtype) for c in calls), calls
-    # the layers share one converted mask: at most one readback a step
-    assert all(n <= 1 for n in reads), reads
-    _check_k3_dtype(by_dtype, dtype, layers * BERT_STEPS)
-    del step, model, opt
-    torch.cuda.empty_cache()
-    return {"dtype": dtype, "layers": layers, "batch": BERT_BATCH,
-            "seq": BERT_SEQ, "real_tokens": real_tokens, "losses": losses,
-            "step_ms_mean": float(np.mean(step_ms)), "step_ms": step_ms,
-            "launches": counts,
-            "launches_by_dtype": by_dtype,
-            "k3_calls_with_padding_lanes": len(calls),
-            "mask_readbacks_per_step": reads}
+    eager, captured = legs[False], legs[True]
+    lanes, bias = (False, True, dtype), (True, False, dtype)
+    # eager: every step (and the profiled one) takes lanes
+    assert calls[0] and all(c == lanes for c in calls[0]), calls[0]
+    # captured: the warm-up takes lanes, the capture the bias; replays and
+    # the profiled replay call no Python
+    assert calls[1] == [lanes] * layers + [bias] * layers, calls[1]
+    # at most one readback a step, none while capturing
+    assert all(n <= 1 for r in reads for n in r), reads
+    assert reads[1][1:] == [0] * (len(reads[1]) - 1), reads
+    losses = captured["losses"]
+    assert all(np.isfinite(losses)), losses
+    np.testing.assert_allclose(losses, eager["losses"],
+                               rtol=CAPTURED_RTOL[dtype])
+    out = _eager_beside(captured, eager)
+    out.update(dtype=dtype, layers=layers, batch=BERT_BATCH, seq=BERT_SEQ,
+               steps=BERT_STEPS, real_tokens=real,
+               k3_calls_eager=len(calls[0]), k3_calls_captured=len(calls[1]),
+               mask_readbacks_per_step=reads)
+    return out
 
 
 def time_flash():
@@ -3236,7 +3430,11 @@ def main() -> int:
     runs["journal_24l"] = journal_runs(model, pumped, root)
     log("speculative and journal phases (24 layers): %.1f s"
         % (time.perf_counter() - t0))
+    runs["refresh_24l"] = refresh_weights_run(model, cfg)
+    log("refresh_24l (weights replaced under captured graphs, 24 layers):",
+        json.dumps(runs["refresh_24l"]))
     del model
+    gc.collect()
     torch.cuda.empty_cache()
 
     short = dict(cfg, num_layers=SHORT_LAYERS)

@@ -100,7 +100,7 @@ from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.errors import (AlreadyExistsError, InvalidArgumentError,
                            NotFoundError, PreconditionNotMetError)
-from ..jit.aot import AotFunction, StaticInputs, shape_key
+from ..jit.aot import AotFunction, StaticInputs, module_tensors, shape_key
 from ..jit.cache import get_layout
 from ..jit.decode import (DecodeSession, check_sampling, classify_finish,
                           make_sampling_state, sample_logits_data,
@@ -453,8 +453,10 @@ class GenerationPool:
         # when slot membership changed
         self._steps = step_buffers(self.slots, self.device)
         self._membership_dirty = True
+        weights = lambda: module_tensors(model)  # noqa: E731
         self._decode_fn = AotFunction(self._pool_decode, key_fn=shape_key,
-                                      name="pool_decode", capture=True)
+                                      name="pool_decode", capture=True,
+                                      watch=weights)
         self._insert_fn = AotFunction(self._layout.insert_row,
                                       key_fn=lambda *a: "slot_insert",
                                       name="slot_insert")
@@ -470,7 +472,8 @@ class GenerationPool:
                  ("step", 1, i32), ("temperature", 1, f32),
                  ("top_p", 1, f32)], self.device)
             self._chunk_fn = AotFunction(self._chunk_step, key_fn=shape_key,
-                                         name="prefill_chunk", capture=True)
+                                         name="prefill_chunk", capture=True,
+                                         watch=weights)
             self._admit_fn = AotFunction(self._write_row,
                                          key_fn=lambda *a: "slot_admit",
                                          name="slot_admit")
@@ -1663,14 +1666,24 @@ class GenerationPool:
                     or self._spilled or self._prefill_done)
 
     def refresh_weights(self) -> None:
-        """Make later steps read the model's current weights (call after
-        changing them in place, e.g. ``load_state_dict``).  The steps read
-        the parameters by address, eagerly and inside captured graphs
-        alike, and keep no copy of their values, so beyond its
-        ``weights.refresh`` fault seam there is nothing to drop.  A
-        weight change that REPLACES a parameter tensor instead of writing
-        it in place is not seen by a captured graph."""
+        """Make later steps serve the model's current weights (call after
+        changing them, e.g. ``load_state_dict``).  The steps read the
+        parameters by address, eagerly and inside captured graphs alike:
+        weights written in place need nothing more, and a captured graph
+        whose parameters or buffers were REPLACED (``load_state_dict(...,
+        assign=True)``, ``param.data = ...``, ``module.to``) is dropped, so
+        its key's next call warms up and captures again on the new tensors;
+        ``compile_counts()`` does not move.  A changed shape or dtype
+        raises ``InvalidArgumentError``: a step keeps the shapes and dtypes
+        it was captured with, as the reference's executables do."""
         _fire("weights.refresh")
+        for fn in self._captured_steps():
+            fn.drop_moved()
+
+    def _captured_steps(self) -> list:
+        """The capturing steps that read the model's weights."""
+        return [fn for fn in (self._decode_fn, self._chunk_fn,
+                              self._session._decode_fn) if fn is not None]
 
     def _deliver(self, tok) -> None:
         """Commit the step's token to every active slot; finish rows that

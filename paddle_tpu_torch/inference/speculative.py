@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..core.errors import InvalidArgumentError
-from ..jit.aot import AotFunction, shape_key
+from ..jit.aot import AotFunction, module_tensors, shape_key
 from ..jit.cache import get_layout
 from ..jit.decode import DecodeSession, truncate_at_eos
 from ..jit.speculative import (acceptance_summary, check_draft_compatible,
@@ -119,17 +119,19 @@ class SpeculativePool(GenerationPool):
                                     device=self.device)
         self._k_dev = torch.full((1,), self.spec_k, dtype=i32,
                                  device=self.device)
+        drafts = lambda: module_tensors(draft_model)  # noqa: E731
         self._draft_decode_fn = AotFunction(
             self._draft_decode, key_fn=lambda chunk: shape_key(chunk[:, -1]),
-            name="draft_decode", capture=True)
+            name="draft_decode", capture=True, watch=drafts)
         self._draft_fixup_fn = AotFunction(
             self._draft_fixup, key_fn=lambda chunk: shape_key(chunk[:, -1]),
-            name="draft_fixup", capture=True)
+            name="draft_fixup", capture=True, watch=drafts)
         self._draft_insert_fn = AotFunction(
             get_layout("dense").insert_row, key_fn=lambda *a: "draft_insert",
             name="draft_insert")
-        self._verify_fn = AotFunction(self._pool_verify, key_fn=shape_key,
-                                      name="verify", capture=True)
+        self._verify_fn = AotFunction(
+            self._pool_verify, key_fn=shape_key, name="verify", capture=True,
+            watch=lambda: module_tensors(model))
         # the RUNTIME spec-K (<= the spec_k ceiling): the serving ladder
         # steps it down under SLO burn and back up when the alert clears
         self._spec_k_active = self.spec_k
@@ -417,6 +419,13 @@ class SpeculativePool(GenerationPool):
         a measured run)."""
         self._drafted = self._accepted = self._rounds = 0
         self._draft_time_s = self._verify_time_s = 0.0
+
+    def _captured_steps(self) -> list:
+        """The base pool's steps and the round's: ``refresh_weights()``
+        drops those whose target or draft weights moved."""
+        return super()._captured_steps() + [
+            self._verify_fn, self._draft_decode_fn, self._draft_fixup_fn,
+            self._draft_session._decode_fn]
 
     def compile_counts(self) -> dict:
         """The base pool's keys without its unused 1-token steps, plus

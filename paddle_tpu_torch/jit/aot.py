@@ -33,29 +33,96 @@ the keys the same way.  What a key holds depends on the device:
 
 A kernel wrapper counts its launches where it launches, and a replay
 launches without calling it: the wrapper records how far each count rose
-during the capture, puts the counts back, and adds that rise on every
-replay, so the counts stay the number of kernels run.
+during the capture (K3's counts per dtype), puts the counts back, and adds
+that rise on every replay, so the counts stay the number of kernels run.
+
+A graph also reads by address every tensor it closes over: the model's
+parameters and buffers, a train step's optimizer state.  An owner that
+passes ``watch=`` (a callable returning those tensors) has their
+``data_ptr()``, shape and dtype recorded at each capture;
+:meth:`AotFunction.drop_moved` drops exactly the graphs whose recorded
+tensors moved (``load_state_dict(..., assign=True)``, ``param.data =``,
+``module.to``, ``amp.decorate``'s cast), and the key's next call warms up
+and captures again.  The key stays counted, so ``compile_counts()`` does
+not move.  A changed shape or dtype is an error unless the owner allows
+it (a train step re-captures; a serving step's executable is fixed to its
+shapes and dtypes, as the reference's).
 
 The reference's compile-time cost attribution (``cost_report``) is not
 ported yet.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import gc
+import itertools
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
 from ..core.errors import ExternalError, InvalidArgumentError
-from ..ops import custom_kernels, decode_kernels
+from ..ops import custom_kernels, decode_kernels, flash_kernels
+from ..ops.flash_attention import capturing_inputs
 
-__all__ = ["AotFunction", "CaptureError", "StaticInputs", "shape_key"]
+__all__ = ["AotFunction", "CaptureError", "StaticInputs", "module_tensors",
+           "shape_key"]
 
-# every kernel wrapper whose ``launches`` a replay must advance (K3's
-# wrappers are left out: the captured steps are decode steps, which never
-# run it)
+# every kernel wrapper whose launch count a replay must advance: K1/K2 and
+# K4 count in ``launches``, K3's two wrappers per dtype in
+# ``launches_by_dtype``
 _COUNTED = (tuple(decode_kernels._WRAPPERS.values())
-            + (custom_kernels.scale_mul,))
+            + (custom_kernels.scale_mul,)
+            + tuple(flash_kernels._WRAPPERS.values()))
+
+
+def _read_counts() -> list:
+    return [dict(fn.launches_by_dtype) if hasattr(fn, "launches_by_dtype")
+            else fn.launches for fn in _COUNTED]
+
+
+def _write_counts(counts) -> None:
+    for fn, n in zip(_COUNTED, counts):
+        if isinstance(n, dict):
+            fn.launches_by_dtype = dict(n)
+        else:
+            fn.launches = n
+
+
+def _advance_counts(rise) -> None:
+    for fn, n in zip(_COUNTED, rise):
+        if isinstance(n, dict):
+            for dt, k in n.items():
+                fn.launches_by_dtype[dt] += k
+        else:
+            fn.launches += n
+
+
+def _count_rise(before, after) -> list:
+    return [{dt: a[dt] - b[dt] for dt in a} if isinstance(a, dict)
+            else a - b for b, a in zip(before, after)]
+
+
+def module_tensors(*modules) -> list:
+    """Every parameter and buffer of ``modules``: what a step over them
+    reads by address (the ``watch=`` of their captured steps)."""
+    out = []
+    for m in modules:
+        out.extend(m.parameters())
+        out.extend(m.buffers())
+    return out
+
+
+def _addresses(tensors) -> tuple:
+    return tuple(t.data_ptr() for t in tensors)
+
+
+def _layouts(tensors) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+# a key whose next call runs eagerly (its first, or the one after its graph
+# was dropped): the warm-up is the real step
+_COLD = object()
 
 
 class CaptureError(ExternalError):
@@ -75,13 +142,14 @@ def shape_key(arr) -> str:
 
 
 class _Graph:
-    __slots__ = ("graph", "inputs", "outputs", "launches")
+    __slots__ = ("graph", "inputs", "outputs", "launches", "watched")
 
-    def __init__(self, graph, inputs, outputs, launches):
+    def __init__(self, graph, inputs, outputs, launches, watched):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.launches = launches
+        self.watched = watched
 
 
 class AotFunction:
@@ -93,22 +161,25 @@ class AotFunction:
     key functions are declared next to the call site's shape contract."""
 
     def __init__(self, fn: Callable, key_fn: Callable[..., str],
-                 name: str = "", capture: bool = False):
+                 name: str = "", capture: bool = False,
+                 watch: Optional[Callable[[], Iterable]] = None):
         self._fn = fn
         self._key_fn = key_fn
         self.name = name
         self._capture = bool(capture)
-        # key -> None (seen, eager) or the key's captured graph
+        self._watch = watch
+        # key -> _COLD (counted; the next call warms up), None (warm, the
+        # next call on the card captures) or the key's captured graph
         self._keys: Dict[str, object] = {}
 
     def __call__(self, *args):
         key = self._key_fn(*args)
-        if key not in self._keys:
+        entry = self._keys.get(key, _COLD)
+        if entry is _COLD:
             self._keys[key] = None
-            return self._fn(*args)  # the warm-up is the real step
+            return self._warm_up(args)  # the warm-up is the real step
         if not (self._capture and _on_cuda(args)):
             return self._fn(*args)
-        entry = self._keys[key]
         if entry is None:
             entry = self._keys[key] = self._capture_key(key, args)
         else:
@@ -122,9 +193,11 @@ class AotFunction:
                         "%r; only tensors may vary between replays"
                         % (self.name, arg, held))
         entry.graph.replay()
-        for fn, n in zip(_COUNTED, entry.launches):
-            fn.launches += n
+        _advance_counts(entry.launches)
         return entry.outputs
+
+    def _warm_up(self, args):
+        return self._fn(*args)
 
     def _run_eager(self, *args):
         """Run the step eagerly, outside the cache: no key is counted and
@@ -133,9 +206,14 @@ class AotFunction:
 
     def _capture_key(self, key: str, args) -> _Graph:
         graph = torch.cuda.CUDAGraph()
-        before = [fn.launches for fn in _COUNTED]
+        before = _read_counts()
+        # no cyclic garbage collection while capturing: a dead owner's
+        # graph freed then (its destructor destroys a CUDA graph) is an
+        # operation capture forbids, and invalidates this capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with capturing_inputs(args), torch.cuda.graph(graph):
                 outputs = self._fn(*args)
         except Exception as e:  # noqa: BLE001 - re-raised typed
             raise CaptureError(
@@ -143,10 +221,49 @@ class AotFunction:
                 "step reads a value on the host, or calls an API capture "
                 "forbids)" % (self.name, key, type(e).__name__, e)) from e
         finally:
-            launches = [fn.launches - n for fn, n in zip(_COUNTED, before)]
-            for fn, n in zip(_COUNTED, before):
-                fn.launches = n
-        return _Graph(graph, tuple(args), outputs, launches)
+            if collecting:
+                gc.enable()
+            launches = _count_rise(before, _read_counts())
+            _write_counts(before)
+        watched = None
+        if self._watch is not None:
+            tensors = list(self._watch())
+            watched = (_addresses(tensors), _layouts(tensors))
+        return _Graph(graph, tuple(args), outputs, launches, watched)
+
+    def drop_moved(self, allow_retype: bool = False) -> list:
+        """Drop every captured graph whose watched tensors moved since its
+        capture; the key's next call warms up and captures again, and the
+        key stays counted.  Returns the dropped keys.  A watched tensor
+        whose shape or dtype changed raises ``InvalidArgumentError``
+        unless ``allow_retype``."""
+        if self._watch is None:
+            return []
+        now = None
+        dropped = []
+        for key, entry in self._keys.items():
+            if not isinstance(entry, _Graph):
+                continue
+            if now is None:
+                tensors = list(self._watch())
+                now = _addresses(tensors)
+                layouts = None if allow_retype else _layouts(tensors)
+            if entry.watched[0] == now and (
+                    allow_retype or entry.watched[1] == layouts):
+                continue
+            if not allow_retype:
+                for i, (was, got) in enumerate(itertools.zip_longest(
+                        entry.watched[1], layouts)):
+                    if was != got:
+                        raise InvalidArgumentError(
+                            "%s: watched tensor %d changed from %s to %s "
+                            "(shape, dtype); a captured step keeps the "
+                            "shapes and dtypes it was captured with"
+                            % (self.name, i, was, got))
+            dropped.append(key)
+        for key in dropped:
+            self._keys[key] = _COLD
+        return dropped
 
     # the observable behind the one-executable-per-shape contract: one
     # entry per key, never evicted
@@ -160,7 +277,7 @@ class AotFunction:
 
     def graphs(self) -> int:
         """Keys that hold a captured CUDA graph (0 on the CPU)."""
-        return sum(1 for e in self._keys.values() if e is not None)
+        return sum(1 for e in self._keys.values() if isinstance(e, _Graph))
 
 
 def _on_cuda(args) -> bool:

@@ -46,7 +46,7 @@ from ..core.device import resolve_device, same_device
 from ..core.errors import InvalidArgumentError
 from ..nn.layer.transformer import normalize_cache_dtype
 from ..ops.flash_attention import decode_route, normalize_decode_route
-from .aot import AotFunction, StaticInputs, shape_key
+from .aot import AotFunction, StaticInputs, module_tensors, shape_key
 from .cache import get_layout
 
 __all__ = ["DecodeSession", "sample_logits", "sample_logits_data",
@@ -316,7 +316,7 @@ class DecodeSession:
             name="prefill")
         self._decode_fn = AotFunction(
             self._decode_step, key_fn=shape_key, name="decode",
-            capture=True)
+            capture=True, watch=lambda: module_tensors(self._model))
 
     @contextlib.contextmanager
     def _inference(self):

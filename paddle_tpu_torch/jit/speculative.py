@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..core.errors import InvalidArgumentError
-from .aot import AotFunction, shape_key
+from .aot import AotFunction, module_tensors, shape_key
 from .decode import DecodeSession, truncate_at_eos
 
 __all__ = ["SpeculativeDecodeSession", "check_draft_compatible",
@@ -151,8 +151,9 @@ class SpeculativeDecodeSession:
         self.max_len = self._target.max_len
         self.cache_layout = cache_layout
         # one verify key: the [1, K+1] chunk; captured on the card
-        self._verify_fn = AotFunction(self._verify, key_fn=shape_key,
-                                      name="verify", capture=True)
+        self._verify_fn = AotFunction(
+            self._verify, key_fn=shape_key, name="verify", capture=True,
+            watch=lambda: module_tensors(target_model))
         self._drafted = 0
         self._accepted = 0
         self._rounds = 0

@@ -129,8 +129,43 @@ _detect_cache: dict = {}
 _pad_detect_cache: dict = {}
 _DETECT_CACHE_MAX = 64
 
+# While a step is captured as a CUDA graph nothing is read back, and what
+# a detection returns is baked into the graph: a verdict (or, for padding,
+# the ``valid`` lanes) cached for a graph input would be replayed against
+# whatever a later call copies into that input.  So while the current
+# stream captures, a mask sharing storage with an input of the captured
+# call is never claimed (it reaches K3 as a broadcast bias, as the
+# reference's traced masks take the general bias path), any other mask is
+# claimed only from its cached verdict (the model's own causal mask, cached
+# by the warm-up), and nothing new is cached.
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def capturing_inputs(args):
+    """Name the tensors of ``args`` as the inputs of the call being
+    captured on this thread (``jit.aot`` wraps each capture in it)."""
+    prev = getattr(_capture, "storages", None)
+    _capture.storages = {a.untyped_storage().data_ptr() for a in args
+                         if torch.is_tensor(a) and a.is_cuda}
+    try:
+        yield
+    finally:
+        _capture.storages = prev
+
+
+def _capturing(mask) -> bool:
+    return mask.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def _graph_input(mask) -> bool:
+    return _capturing(mask) and mask.untyped_storage().data_ptr() in (
+        getattr(_capture, "storages", None) or ())
+
 
 def _cache_get(cache, mask):
+    if _graph_input(mask):
+        return False, None
     hit = cache.get(id(mask))
     if hit is not None and hit[0]() is mask and hit[1] == mask._version:
         return True, hit[2]
@@ -138,6 +173,8 @@ def _cache_get(cache, mask):
 
 
 def _cache_put(cache, mask, verdict):
+    if _capturing(mask):
+        return verdict
     if len(cache) >= _DETECT_CACHE_MAX:
         for key in [k for k, v in cache.items() if v[0]() is None]:
             del cache[key]
@@ -153,14 +190,16 @@ def detect_padding_additive_mask(mask):
     big-negative (<= finfo.min / 2) = pad, so the kernel takes O(L) segment
     lanes instead of an [B, H, Lq, Lk] bias.  A 2-D mask means [Lq, Lk]
     and is not claimed; a mask that requires grad is a learned bias and is
-    not claimed either.  Verdicts are cached per mask version."""
+    not claimed either.  Verdicts are cached per mask version; while a
+    CUDA graph is captured, only a cached verdict for a mask that is not
+    an input of the captured call is claimed."""
     if mask is None or not isinstance(mask, torch.Tensor) \
             or mask.requires_grad:
         return None
     if mask.ndim != 4 or mask.shape[1] != 1 or mask.shape[2] != 1:
         return None
     found, valid = _cache_get(_pad_detect_cache, mask)
-    if found:
+    if found or _capturing(mask):
         return valid
     m = mask[:, 0, 0, :]
     if m.dtype == torch.bool:
@@ -179,7 +218,8 @@ def detect_causal_additive_mask(mask, seq_len: Optional[int] = None) -> bool:
     causal path can replace the materialized mask.  A mask that requires
     grad is a learned bias and is never claimed.  Verdicts are cached per
     mask version: the check reads an unchanged mask back to the host
-    once."""
+    once.  While a CUDA graph is captured, only a cached verdict for a mask
+    that is not an input of the captured call is claimed."""
     if mask is None or not isinstance(mask, torch.Tensor) \
             or mask.requires_grad:
         return False
@@ -191,8 +231,8 @@ def detect_causal_additive_mask(mask, seq_len: Optional[int] = None) -> bool:
     if seq_len is not None and l != seq_len:
         return False
     found, verdict = _cache_get(_detect_cache, mask)
-    if found:
-        return verdict
+    if found or _capturing(mask):
+        return bool(verdict)
     m = mask.float()
     allow = torch.ones(l, l, dtype=torch.bool, device=m.device).tril()
     neg = torch.finfo(torch.float32).min

@@ -1932,7 +1932,8 @@ class ServingEngine:
     # -- passthroughs / introspection ------------------------------------
     def refresh_weights(self) -> None:
         """Weight swap between steps (``GenerationPool.refresh_weights``):
-        call after writing new weights into the model in place."""
+        call after changing the model's weights, in place or by replacing
+        the tensors; later steps serve the new weights."""
         with self._lock:
             self._pool.refresh_weights()
             trace.instant("weights.refresh")

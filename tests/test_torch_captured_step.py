@@ -34,7 +34,8 @@ from paddle_tpu.jit import DecodeSession as RefSession
 from paddle_tpu.serving import ServingEngine as RefEngine
 from torch_parity import MARGIN_FLOOR, build_pair, greedy_margin
 
-from paddle_tpu_torch import DecodeSession, GenerationPool, ServingEngine
+from paddle_tpu_torch import (DecodeSession, GenerationPool,
+                              InvalidArgumentError, ServingEngine)
 from paddle_tpu_torch.jit.aot import AotFunction, shape_key
 from paddle_tpu_torch.jit.decode import _filtered_probs, sample_logits_data
 
@@ -69,6 +70,129 @@ def test_shape_key_strings_and_cpu_counting():
     fn._run_eager(torch.zeros(7))
     assert fn._cache_size() == fn.compiles == 2
     assert fn.graphs() == 0 and len(calls) == 5  # the CPU never captures
+
+
+class _FakeGraph:
+    """A stand-in for ``torch.cuda.CUDAGraph`` on the CPU: "capture" runs
+    the step once (as the real capture records it), a replay counts."""
+
+    replays = 0
+
+    def replay(self):
+        _FakeGraph.replays += 1
+
+
+@pytest.fixture
+def fake_capture(monkeypatch):
+    """``AotFunction`` captures on the CPU with :class:`_FakeGraph`: the
+    bookkeeping around a graph (keys, watched addresses, launch counts)
+    runs as on the card."""
+    import contextlib
+
+    from paddle_tpu_torch.jit import aot
+
+    monkeypatch.setattr(aot, "_on_cuda", lambda args: True)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g: contextlib.nullcontext())
+    _FakeGraph.replays = 0
+    return aot
+
+
+def test_moved_weights_drop_only_their_graphs(fake_capture):
+    """F3's bookkeeping: a graph records the addresses of the tensors its
+    owner watches; after a parameter is replaced, ``drop_moved`` drops the
+    graph captured before (and not one captured after), the key's next
+    call warms up eagerly and the one after captures again; the key
+    count never moves.  A dtype change is refused unless allowed."""
+    lin = torch.nn.Linear(4, 4)
+    calls = []
+    fn = AotFunction(lambda x: calls.append(x.shape) or lin(x), shape_key,
+                     name="f", capture=True,
+                     watch=lambda: list(lin.parameters()))
+    a, b = torch.zeros(2, 4), torch.zeros(3, 4)
+    fn(a), fn(a)  # warm-up, capture (+ one replay)
+    assert fn.graphs() == 1 and _FakeGraph.replays == 1
+    lin.weight = torch.nn.Parameter(lin.weight.detach().clone())  # moved
+    fn(b), fn(b)  # key b captured after the move
+    assert fn.graphs() == 2 and fn.compiles == 2
+    assert fn.drop_moved() == ["2x4_float32"]
+    assert fn.graphs() == 1 and fn.compiles == 2
+    assert fn.drop_moved() == []  # nothing else moved
+    n = len(calls)
+    fn(a)  # the dropped key warms up again: an eager call
+    assert len(calls) == n + 1 and fn.graphs() == 1
+    fn(a)  # and captures again
+    assert fn.graphs() == 2 and fn.compiles == 2
+    lin.weight = torch.nn.Parameter(lin.weight.detach().double())
+    with pytest.raises(InvalidArgumentError, match="watched tensor 0"):
+        fn.drop_moved()
+    assert sorted(fn.drop_moved(allow_retype=True)) == ["2x4_float32",
+                                                        "3x4_float32"]
+    assert fn.graphs() == 0 and fn.compiles == 2
+
+
+def test_no_garbage_collection_while_capturing(fake_capture):
+    """A graph freed by the cyclic collector during another capture would
+    invalidate that capture: collection is off while a step is captured
+    and back on after, also when the capture fails."""
+    import gc
+
+    seen = []
+
+    def step(x):
+        seen.append(gc.isenabled())
+        if x.shape[0] == 2 and not gc.isenabled():
+            raise RuntimeError("a host read while capturing")
+        return x
+
+    fn = AotFunction(step, shape_key, name="gc", capture=True)
+    fn(torch.zeros(1)), fn(torch.zeros(1))  # warm-up, capture
+    fn(torch.zeros(2))  # warm-up
+    with pytest.raises(fake_capture.CaptureError, match="host read"):
+        fn(torch.zeros(2))
+    assert seen == [True, False, True, False] and gc.isenabled()
+
+
+def test_replays_advance_k3_counts_by_dtype(fake_capture):
+    """K3's wrappers count per dtype: the rise during a capture is taken
+    back and re-added, per dtype, on every replay."""
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    fwd = fk.flash_attention_forward_kernel
+
+    def step(x):
+        fwd.launches_by_dtype["bfloat16"] += 2  # what a launch records
+        return x
+
+    fn = AotFunction(step, shape_key, name="k3", capture=True)
+    fk.reset_launch_counts()
+    x = torch.zeros(2)
+    for _ in range(4):  # warm-up, capture + replay, replay, replay
+        fn(x)
+    counts = fk.launch_counts_by_dtype()["flash_attention_forward_kernel"]
+    assert counts == {"float32": 0, "bfloat16": 8}
+    fk.reset_launch_counts()
+
+
+def test_refresh_weights_checks_every_captured_step(pair):
+    """``refresh_weights()`` runs the address check over the pool's
+    capturing steps (the speculative pool's draft steps too); on the CPU
+    none holds a graph, so nothing drops and serving goes on."""
+    from paddle_tpu_torch.inference import SpeculativePool
+
+    _, port = pair
+    pool = GenerationPool(port, max_len=64, slots=2, buckets=[16],
+                          device="cpu")
+    spec = SpeculativePool(port, port, max_len=64, spec_k=2, slots=2,
+                           buckets=[16], device="cpu")
+    assert len(pool._captured_steps()) == 2
+    assert len(spec._captured_steps()) == 6
+    assert all(fn._watch is not None for fn in spec._captured_steps())
+    for p in (pool, spec):
+        before = p.compile_counts()
+        p.refresh_weights()
+        assert p.compile_counts() == before
 
 
 # -- compile_counts() against the reference --------------------------------

@@ -812,3 +812,283 @@ def test_speculative_pool_captured_round_matches_eager(cuda_device, kw,
         else:
             assert counts[kernel] == 2 * rounds, counts
             assert counts["decode_attention_kernel"] == draft_k2, counts
+
+
+# -- F3: a weight swap that replaces the parameter tensors ---------------------
+def _lm(dev, seed, layers=2):
+    from paddle_tpu_torch import TransformerLM
+
+    return TransformerLM(vocab_size=512, hidden_size=64, num_layers=layers,
+                         num_heads=4, intermediate_size=128, max_position=128,
+                         dropout=0.0, device=dev, seed=seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "speculative"])
+def test_refresh_weights_serves_replaced_weights(cuda_device, spec):
+    """Serve, swap the model (and the draft) to other seeds' weights with
+    ``load_state_dict(..., assign=True)`` -- new tensors, so every
+    captured graph's parameter addresses are stale -- ``refresh_weights()``
+    and serve again: the tokens (and a speculative pool's acceptance) are a
+    fresh pool's on the new weights, and ``compile_counts()`` does not
+    move."""
+    import numpy as np
+
+    from paddle_tpu_torch import GenerationPool
+    from paddle_tpu_torch.inference import SpeculativePool
+
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 512, n) for n in (5, 11, 20, 7, 14)]
+    cfg = dict(max_len=64, slots=2, buckets=[32], device=cuda_device,
+               cache_layout="paged", block_size=8)
+
+    def make(model, draft):
+        if spec:
+            return SpeculativePool(model, draft, spec_k=3, **cfg)
+        return GenerationPool(model, **cfg)
+
+    model, draft = _lm(cuda_device, 0), _lm(cuda_device, 1, layers=1)
+    pool = make(model, draft)
+    pool.generate(prompts, 9)
+    counts = pool.compile_counts()
+    steps = pool._captured_steps()
+    assert sum(fn.graphs() for fn in steps) >= 1
+    model.load_state_dict(_lm(cuda_device, 2).state_dict(), assign=True)
+    draft.load_state_dict(_lm(cuda_device, 3, layers=1).state_dict(),
+                          assign=True)
+    pool.refresh_weights()
+    assert sum(fn.graphs() for fn in steps) == 0  # every graph dropped
+    if spec:
+        pool.reset_acceptance_stats()
+    got = pool.generate(prompts, 9)
+    fresh = make(_lm(cuda_device, 2), _lm(cuda_device, 3, layers=1))
+    want = fresh.generate(prompts, 9)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    if spec:
+        assert pool.acceptance_stats() == fresh.acceptance_stats()
+    assert pool.compile_counts() == counts
+    assert sum(fn.graphs() for fn in steps) >= 1  # captured again
+
+
+# -- the captured train step (jit/train_step.py) --------------------------------
+# Captured against eager, the same kernels in the same order on the same
+# card: fp32 agrees to its rounding.  A padding mask passed to a captured
+# step reaches K3 as a bias (a graph input is never claimed) where the eager
+# step takes it as key-padding lanes; both add exact zeros to the kept
+# scores, and in O2 bf16 the losses average bf16-rounded products over
+# 2 x 4 x 96 positions: 1e-3 relative
+CAPTURED_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _train_model(dev, causal, dropout=0.0):
+    from paddle_tpu_torch import TransformerLM
+
+    return TransformerLM(vocab_size=512, hidden_size=128, num_layers=2,
+                         num_heads=2, intermediate_size=256,
+                         max_position=128, dropout=dropout, causal=causal,
+                         device=dev, seed=0)
+
+
+def _train_batches(dev, n, seed=0, b=4, l=96):
+    """``n`` (ids, [B,1,1,L] additive padding mask, labels) batches, each
+    with its own ragged lengths (row 0 full)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = torch.from_numpy(rng.randint(0, 512, (b, l)))
+        lens = torch.from_numpy(rng.randint(l // 4, l + 1, b))
+        lens[0] = l
+        valid = torch.arange(l)[None, :] < lens[:, None]
+        mask = torch.where(valid, 0.0, torch.finfo(torch.float32).min)[
+            :, None, None, :]
+        out.append(tuple(t.to(dev) for t in (ids, mask,
+                                             torch.where(valid, ids, -100))))
+    return out
+
+
+def _train_loss(causal, bf16):
+    from paddle_tpu_torch import TransformerLMCriterion, amp
+
+    crit = TransformerLMCriterion(shift_labels=causal)
+
+    def loss_fn(m, x, am, y):
+        with amp.auto_cast(enable=bf16[0], level="O1", dtype="bfloat16"):
+            if causal:
+                return crit(m(x), x)
+            return crit(m(x, attn_mask=am), y)
+
+    return loss_fn
+
+
+def _adamw(model, lr=1e-3):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return AdamW(lr, parameters=model.parameters(), weight_decay=0.01,
+                 grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "o2_bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["gpt", "bert"])
+def test_captured_train_step_matches_eager(cuda_device, causal, dtype):
+    """Four AdamW steps (warm-up, capture, two replays) on a 2-layer GPT
+    and a 2-layer BERT, each batch with its own padding, captured and
+    eager from the same weights: the losses agree, one key and one graph,
+    and K3 ran 2 layers x 4 steps forward and backward in the run's dtype
+    under replay as eagerly."""
+    from paddle_tpu_torch import TrainStep, amp
+
+    bf16 = dtype == torch.bfloat16
+    batches = _train_batches(cuda_device, 4)
+    losses, counts = {}, {}
+    for capture in (True, False):
+        model = _train_model(cuda_device, causal)
+        opt = _adamw(model)
+        if bf16:
+            model, opt = amp.decorate(model, opt, level="O2",
+                                      dtype="bfloat16")
+        step = TrainStep(model, _train_loss(causal, [bf16]), opt,
+                         capture=capture)
+        fk.reset_launch_counts()
+        losses[capture] = [step(*b) for b in batches]
+        torch.cuda.synchronize()
+        counts[capture] = fk.launch_counts_by_dtype()
+        assert step.compile_counts() == {"train_step": 1}
+        assert step._fn.graphs() == int(capture)
+    # every call returned its own loss tensor (none aliases the graph's)
+    assert len({l.data_ptr() for l in losses[True]}) == 4
+    torch.testing.assert_close(torch.stack(losses[True]),
+                               torch.stack(losses[False]),
+                               rtol=CAPTURED_RTOL[dtype], atol=0)
+    name = "bfloat16" if bf16 else "float32"
+    want = {n: {dt: 8 if dt == name else 0 for dt in c}
+            for n, c in counts[False].items()}
+    assert counts[True] == counts[False] == want
+
+
+@pytest.mark.cuda
+def test_captured_dropout_draws_a_fresh_mask_each_replay(cuda_device):
+    """Dropout 0.1 and learning rate 0: the weights never change, so only
+    the dropout masks can tell the steps apart, and every replay's loss
+    differs from the one before."""
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch.optimizer import SGD
+
+    model = _train_model(cuda_device, True, dropout=0.1)
+    step = TrainStep(model, _train_loss(True, [False]),
+                     SGD(0.0, parameters=model.parameters()))
+    batch = _train_batches(cuda_device, 1)[0]
+    losses = [float(step(*batch)) for _ in range(4)]
+    assert step._fn.graphs() == 1
+    assert len(set(losses)) == 4, losses
+
+
+@pytest.mark.cuda
+def test_decorate_after_build_recaptures(cuda_device):
+    """``amp.decorate`` after the step captured replaces every parameter's
+    storage: the next call drops the graph (no stale read), warms up and
+    captures again, and the losses still equal the eager twin's; the key
+    is counted once."""
+    from paddle_tpu_torch import TrainStep, amp
+
+    batches = _train_batches(cuda_device, 6, seed=1)
+    losses, counts = {}, {}
+    for capture in (True, False):
+        model = _train_model(cuda_device, True)
+        opt = _adamw(model)
+        bf16 = [False]
+        step = TrainStep(model, _train_loss(True, bf16), opt,
+                         capture=capture)
+        got = [float(step(*b)) for b in batches[:3]]
+        amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        bf16[0] = True
+        fk.reset_launch_counts()
+        got += [float(step(*b)) for b in batches[3:]]
+        losses[capture] = got
+        counts[capture] = fk.launch_counts_by_dtype()
+        assert model.word_embeddings.weight.dtype == torch.bfloat16
+        assert step.compile_counts() == {"train_step": 1}
+        assert step._fn.graphs() == int(capture)
+    torch.testing.assert_close(torch.tensor(losses[True]),
+                               torch.tensor(losses[False]),
+                               rtol=CAPTURED_RTOL[torch.bfloat16], atol=0)
+    assert counts[True] == counts[False]
+    assert all(c["bfloat16"] == 6 and c["float32"] == 0
+               for c in counts[True].values())
+
+
+@pytest.mark.cuda
+def test_multi_step_train_step_is_one_replay_a_call(cuda_device,
+                                                    monkeypatch):
+    """``MultiStepTrainStep(K=4)``: the K steps are one graph and each call
+    after the warm-up is one replay; the losses equal four eager
+    ``TrainStep``s each."""
+    from paddle_tpu_torch import MultiStepTrainStep, TrainStep
+
+    batches = _train_batches(cuda_device, 12, seed=2)
+    stacked = [tuple(torch.stack([b[i] for b in batches[c * 4:c * 4 + 4]])
+                     for i in range(3)) for c in range(3)]
+    replays = []
+    replay = torch.cuda.CUDAGraph.replay
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay",
+                        lambda g: replays.append(1) or replay(g))
+    model = _train_model(cuda_device, True)
+    multi = MultiStepTrainStep(model, _train_loss(True, [False]),
+                               _adamw(model), steps_per_call=4)
+    fk.reset_launch_counts()
+    got = torch.cat([multi(*s) for s in stacked])
+    torch.cuda.synchronize()
+    assert len(replays) == 2  # calls 2 and 3; call 1 is the warm-up
+    assert multi._fn.graphs() == 1
+    assert multi.compile_counts() == {"train_step": 1}
+    assert fk.launch_counts()["flash_attention_forward_kernel"] == 2 * 12
+    twin = _train_model(cuda_device, True)
+    single = TrainStep(twin, _train_loss(True, [False]), _adamw(twin),
+                       capture=False)
+    want = torch.stack([single(*b) for b in batches])
+    torch.testing.assert_close(got, want, rtol=CAPTURED_RTOL[torch.float32],
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_host_op_loss_refuses_capture(cuda_device, tmp_path):
+    """A loss through a ``utils.cpp_extension`` host op cannot be captured:
+    the step's second call raises ``CaptureError`` naming ``capture=False``
+    (nothing falls back to eager), and with ``capture=False`` it trains.
+    Last in the file: a failed capture leaves nothing for later tests."""
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch.jit.aot import CaptureError
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.utils import cpp_extension
+
+    src = tmp_path / "ops.cc"
+    src.write_text('#include "pt_extension.h"\n'
+                   "PT_OP(capture_scale2) {\n"
+                   "  long long n = 1;\n"
+                   "  for (int d = 0; d < ndims[0]; ++d) n *= shapes[0][d];\n"
+                   "  for (long long i = 0; i < n; ++i) out[i] = 2.0f * "
+                   "ins[0][i];\n}\n")
+    mod = cpp_extension.load(
+        name="capture_refusal_ext", sources=[str(src)],
+        build_directory=str(tmp_path),
+        functions={"capture_scale2": {"out_shape": lambda s: s,
+                                      "backward": lambda r, ct: (2.0 * ct,)}})
+    x = torch.randn(8, 16, device=cuda_device)
+
+    def loss_fn(m, x_):
+        return mod.capture_scale2(m(x_)).square().mean()
+
+    lin = torch.nn.Linear(16, 4, device=cuda_device)
+    step = TrainStep(lin, loss_fn, SGD(0.1, parameters=lin.parameters()))
+    step(x)  # the warm-up runs eagerly: the host op works there
+    with pytest.raises(CaptureError, match="capture=False"):
+        step(x)
+    eager = TrainStep(lin, loss_fn, SGD(0.1, parameters=lin.parameters()),
+                      capture=False)
+    losses = [float(eager(x)) for _ in range(3)]
+    assert losses[-1] < losses[0], losses

@@ -38,6 +38,20 @@ PyTorch twin, and drives the port's two main paths:
   (PTKV write MB/s); and a child ``python3 chip_smoke.py --crash-child
   DIR`` killed with SIGKILL mid-decode, whose journal and spill
   directory a fresh engine restores to an uninterrupted run's tokens;
+- serving beyond one engine, and cost attribution: the main engine's
+  ``cost_report()`` (``cost_24l``: the KV bytes reconcile with the pool,
+  the decode step's FLOPs within 5% of the model's analytic count, the
+  three gauges equal to the report, which adds no key; the decode graph's
+  achieved FLOP/s and bytes/s against the card's peaks); the reference's
+  disaggregated traffic (16 zipf prompts of 32-384 tokens, 24 new) through
+  a ``DisaggregatedServing`` prefill tier and decode tier beside a fused
+  engine, in fp32 at 24 layers (``disagg_24l``) and int8 at 4
+  (``disagg_int8_4l``): identical tokens, every request a PTKV hand-off,
+  none degraded; and the reference's fleet traffic (24 requests over 4
+  zipf-drawn shared heads) through ``ServingFleet``s of 1, 2 and 4
+  engines, a retired engine, an abandoned one replaced, and HTTP
+  (``fleet_24l``: identical tokens, affinity routing, the dead engine's
+  card memory given back);
 - weights replaced under a captured graph (``refresh_24l``): the
   24-layer pool's parameters swapped for another seed's with
   ``load_state_dict(..., assign=True)``, ``refresh_weights()``, and the
@@ -140,6 +154,14 @@ SPEC_SHORT_PROMPT = 256
 SPEC_SHORT_NEW_TOKENS = 16
 CRASH_SLOTS = 4
 CRASH_NEW_TOKENS = 32
+# serving beyond one engine: the reference's serving_disagg and
+# serving_fleet legs (bench.py:1904, :2085) at the full depth; prompt
+# lengths and prefix groups are drawn zipf(ZIPF_A)
+ZIPF_A = 1.1
+DISAGG_SHORT, DISAGG_LONG, DISAGG_NEW = 32, 384, 24
+DISAGG_REQUESTS, DISAGG_SLOTS, DISAGG_CHUNK = 16, 4, 64
+FLEET_GROUPS, FLEET_HEAD, FLEET_TAIL, FLEET_NEW = 4, 64, (16, 96), 24
+FLEET_REQUESTS, FLEET_SLOTS, FLEET_CHUNK = 24, 4, 64
 # kernel vs plain twin: fp32 (and int8, dequantized in fp32 by both) differ
 # only by summation order; a bf16 output is rounded to bf16 by both
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -549,7 +571,7 @@ def serve(model, rng, n_requests, new_tokens, n_layers, kernel, keep=None,
     ttft = sorted(st.ttft_s * 1e3 for st in statuses)
     if keep is not None:
         keep.update(warmup=warmup, warmup_tokens=list(warmup_tokens),
-                    prompts=prompts,
+                    prompts=prompts, engine=engine,
                     tokens=[list(st.tokens) for st in statuses])
     return {
         "requests": n_requests, "prompt_tokens": int(lens.sum()),
@@ -2050,6 +2072,508 @@ DECODE_TIMING_ROWS = ((MAIN_SLOTS, 1024, "float32"), (MAIN_SLOTS, 1024, "int8"),
                       (MAIN_SLOTS, 1024, "float32", VERIFY_LQ))
 
 
+
+# -- serving beyond one engine: tiers, the fleet, cost attribution ----------
+
+
+def _wrap_times(obj, name, values):
+    """Wrap ``obj.name`` so each call's host seconds land in ``values``."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        values.append(time.perf_counter() - t)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _record_observations(hist, values):
+    """Keep every value a histogram observes from now on (a histogram's
+    quantiles are bucket bounds; the phases report the values' own)."""
+    observe = hist.observe
+
+    def both(v):
+        values.append(float(v))
+        observe(v)
+
+    hist.observe = both
+
+
+def _p50_max_ms(values):
+    if not values:
+        return None, None
+    v = sorted(values)
+    return v[len(v) // 2] * 1e3, v[-1] * 1e3
+
+
+def _burst(target, prompts, new_tokens, warm, after_warm=None,
+           between=None):
+    """Serve ``warm`` (3 new tokens: every step warmed up and captured),
+    then the timed burst of ``prompts`` through ``target`` (an engine, a
+    disaggregated front or a fleet), the K1/K2 counts set to 0 just
+    before it and read just after; ``between`` pumps that many ticks after
+    each submit (wave arrival).  Returns the statuses, the burst's wall
+    seconds, its launch counts and its front-observed inter-token gaps."""
+    import torch
+
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    for w in warm:
+        w()
+    _settle(target)
+    if after_warm is not None:
+        after_warm()
+    itl = []
+    _record_observations(target._h_itl, itl)
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = []
+    for i, p in enumerate(prompts):
+        streams.append(target.submit(p, new_tokens, request_id="r%d" % i))
+        if between:
+            target.pump(between)
+    while target.pump(4):
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dk.launch_counts()
+    statuses = [s.result(timeout_s=0) for s in streams]
+    for st in statuses:
+        assert st is not None and st.state == "DONE", st
+        assert len(st.tokens) == new_tokens, st
+    return statuses, wall, launches, itl
+
+
+def _latency(statuses, wall, itl, new_tokens):
+    out = {"requests": len(statuses), "wall_s": wall,
+           "tokens_per_s": len(statuses) * new_tokens / wall}
+    out["ttft_ms_p50"], out["ttft_ms_max"] = _p50_max_ms(
+        [st.ttft_s for st in statuses])
+    out["itl_ms_p50"], out["itl_ms_max"] = _p50_max_ms(itl)
+    return out
+
+
+def disagg_traffic(vocab):
+    """The reference's ``serving_disagg`` traffic (``bench.py:1938-1957``):
+    16 prompt lengths drawn zipf(1.1) over 4 ranks evenly spaced in 32..384
+    (short interactive prompts dominate, a tail of long prefills), numpy
+    seed 0; plus one 384-token warm-up prompt."""
+    rng = np.random.RandomState(0)
+    ranks = np.linspace(DISAGG_SHORT, DISAGG_LONG, 4).astype(int)
+    probs = 1.0 / np.arange(1, len(ranks) + 1) ** ZIPF_A
+    probs /= probs.sum()
+    choices = rng.choice(len(ranks), size=DISAGG_REQUESTS, p=probs)
+    prompts = [rng.randint(0, vocab, (int(ranks[c]),)).astype(np.int32)
+               for c in choices]
+    return prompts, rng.randint(0, vocab, (DISAGG_LONG,)).astype(np.int32)
+
+
+def disagg_run(model, root, n_layers, cache_dtype="float32"):
+    """``disagg_24l`` / ``disagg_int8_4l``: the reference's serving_disagg
+    leg (``bench.py:1904``) on the card.  A fused ``ServingEngine`` (8
+    slots, the pair's total) and a ``DisaggregatedServing`` front over a
+    prefill tier and a decode tier (4 slots each, one shared model) serve
+    the same 16 zipf prompts, 24 greedy tokens each, chunk 64, block 32,
+    paged.  Holds: the pair's tokens equal the fused engine's (the same
+    kernels on the same card), 16 transfers in the burst and none
+    degraded, the per-role step keys (no ``prefill_chunk`` on the decode
+    tier, ``pool_decode`` 0 on the prefill tier, one key and one graph
+    each otherwise), K1 launched ``n_layers`` times a decode-tier step and
+    K2 never, and the transfer directory empty afterwards."""
+    import shutil
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.serving import DisaggregatedServing
+
+    prompts, warm = disagg_traffic(model.vocab_size)
+    max_len = DISAGG_LONG + DISAGG_NEW
+    shared = dict(cache_layout="paged", block_size=MAIN_BLOCK,
+                  buckets=[max_len], cache_dtype=cache_dtype, device="cuda")
+    fused = ServingEngine(model, max_len=max_len, slots=2 * DISAGG_SLOTS,
+                          max_queue=2 * DISAGG_REQUESTS,
+                          prefill_chunk_tokens=DISAGG_CHUNK, **shared)
+    st, wall, launches, itl = _burst(
+        fused, prompts, DISAGG_NEW, [lambda: fused.submit(warm, 3)])
+    want = {s.request_id: list(s.tokens) for s in st}
+    fused_out = _latency(st, wall, itl, DISAGG_NEW)
+    fused.release_device()
+    del fused
+
+    xdir = durable_dir(root, "disagg-" + cache_dtype)
+    front = DisaggregatedServing(
+        model, max_len, transfer_dir=xdir, prefill_chunk_tokens=DISAGG_CHUNK,
+        prefill_slots=DISAGG_SLOTS, decode_slots=DISAGG_SLOTS,
+        max_queue=2 * DISAGG_REQUESTS, **shared)
+    pool = front.decode.pool
+    exports, waits, base = [], [], {}
+
+    def after_warm():
+        base.update(xfers=front._c_transfers.value,
+                    bytes=front._c_transfer_bytes.value,
+                    steps=pool.decode_steps_total)
+        _wrap_times(front.prefill.pool, "export_kv", exports)
+        _record_observations(front._h_handoff, waits)
+
+    st, wall, launches, itl = _burst(
+        front, prompts, DISAGG_NEW, [lambda: front.submit(warm, 3)],
+        after_warm=after_warm)
+    out = _latency(st, wall, itl, DISAGG_NEW)
+    steps = pool.decode_steps_total - base["steps"]
+    same = sum(list(s.tokens) == want[s.request_id] for s in st)
+    assert same == len(want), ("tokens differ from the fused engine's",
+                               same)
+    transfers = front._c_transfers.value - base["xfers"]
+    moved = front._c_transfer_bytes.value - base["bytes"]
+    assert transfers == DISAGG_REQUESTS, transfers
+    assert front._c_degraded.value == 0, front._c_degraded.value
+    cc = front.compile_counts()
+    assert "prefill_chunk" not in cc["decode"], cc
+    assert cc["prefill"].get("pool_decode", 0) == 0, cc
+    assert cc["prefill"]["prefill_chunk"] == 1, cc
+    assert cc["decode"]["pool_decode"] == 1, cc
+    assert front.prefill.pool._chunk_fn.graphs() == 1
+    assert pool._decode_fn.graphs() == 1
+    k1 = launches["paged_decode_attention_kernel"]
+    assert k1 > 0 and k1 == n_layers * steps, (k1, steps)
+    assert launches["decode_attention_kernel"] == 0, launches
+    front.shutdown()
+    assert os.listdir(xdir) == [], os.listdir(xdir)
+    front.prefill.release_device()
+    front.decode.release_device()
+    shutil.rmtree(xdir, ignore_errors=True)
+    out.update(
+        cache_dtype=cache_dtype, identical_requests=same,
+        prompt_tokens=int(sum(len(p) for p in prompts)),
+        kv_transfers=int(transfers),
+        handoffs_degraded=int(front._c_degraded.value),
+        kv_transfer_bytes=int(moved),
+        handoff_wait_ms_p50=_p50_max_ms(waits)[0],
+        handoff_wait_ms_max=_p50_max_ms(waits)[1],
+        export_ms_p50=_p50_max_ms(exports)[0],
+        export_ms_max=_p50_max_ms(exports)[1],
+        ptkv_write_mb_s=moved / 1e6 / sum(exports),
+        decode_tier_steps=steps, k1_launches=k1, compile_counts=cc,
+        fused=fused_out)
+    return out
+
+
+def fleet_traffic(vocab):
+    """The reference's ``serving_fleet`` traffic (``bench.py:2118-2143``):
+    4 shared 64-token heads drawn zipf(1.1), each of 24 requests with its
+    own 16-96-token tail, numpy seed 0."""
+    rng = np.random.RandomState(0)
+    heads = [rng.randint(0, vocab, (FLEET_HEAD,)).astype(np.int32)
+             for _ in range(FLEET_GROUPS)]
+    probs = 1.0 / np.arange(1, FLEET_GROUPS + 1) ** ZIPF_A
+    probs /= probs.sum()
+    groups = rng.choice(FLEET_GROUPS, size=FLEET_REQUESTS, p=probs)
+    prompts = [np.concatenate([heads[g], rng.randint(
+        0, vocab, (int(rng.randint(*FLEET_TAIL)),)).astype(np.int32)])
+        for g in groups]
+    warm = rng.randint(0, vocab, (FLEET_HEAD + FLEET_TAIL[1],)) \
+        .astype(np.int32)
+    return prompts, warm
+
+
+def _fleet(model, spill, engines, min_engines=1):
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.serving import ServingFleet
+
+    max_len = FLEET_HEAD + FLEET_TAIL[1] + FLEET_NEW
+
+    def factory(engine_id, registry):
+        return ServingEngine(
+            model, max_len=max_len, slots=FLEET_SLOTS,
+            max_queue=2 * FLEET_REQUESTS, cache_layout="paged",
+            block_size=MAIN_BLOCK, prefill_chunk_tokens=FLEET_CHUNK,
+            prefix_sharing=True, spill_tier="disk", spill_dir=spill,
+            metrics=registry, device="cuda")
+
+    return ServingFleet(factory, engines=engines, min_engines=min_engines)
+
+
+def _warm_each(fleet, warm):
+    """Warm every engine directly (the router would pile warm traffic on
+    one engine and leave another to capture inside the measurement)."""
+    return [lambda e=e: e.submit(warm, 3) for e in fleet.engines().values()]
+
+
+def _settle(target):
+    """Pump until nothing is live: the front's own requests and, on a
+    fleet, the warm requests its engines were given directly (which the
+    fleet's ``pump`` does not count)."""
+    from paddle_tpu_torch.serving import ServingFleet
+
+    engines = target.engines if isinstance(target, ServingFleet) else dict
+    while target.pump(8) or any(e.live_requests
+                                for e in engines().values()):
+        pass
+
+
+def _fleet_down(fleet):
+    fleet.shutdown(drain=False)
+    for eng in fleet.engines().values():
+        eng.release_device()
+
+
+def _decode_steps(fleet):
+    return sum(e.pool.decode_steps_total for e in fleet.engines().values())
+
+
+def fleet_run(model, root, n_layers):
+    """``fleet_24l``: the reference's serving_fleet leg (``bench.py:2085``)
+    on the card.  The 24 prefix-group requests arrive in a wave (one tick
+    between submits) at fleets of 1, 2 and 4 engines sharing one model
+    (4 slots an engine, chunk 64, block 32, prefix sharing, a disk spill
+    tier per fleet); then, on 2 engines each: ``retire`` (``retire_engine``
+    of the owner of a live request mid-burst, its requests migrated
+    through their transfer files), ``chaos`` (``hard_abandon`` of one
+    engine mid-burst with ``min_engines=2``, so its replacement is
+    spawned) and ``http`` (the wave from 24 client threads through
+    ``ServingHTTPFrontend(fleet)``, ``/metrics`` parsed).  Holds: every
+    run's tokens equal the 1-engine run's (no token lost), K1 launched
+    ``n_layers`` times a decode step, a survivor's step keys unchanged by
+    a migration, and after the abandon and the respawn
+    ``torch.cuda.memory_allocated()`` no higher than before the abandon
+    plus one engine's pool and graphs."""
+    import shutil
+
+    import torch
+
+    from paddle_tpu_torch import ServingHTTPFrontend
+
+    prompts, warm = fleet_traffic(model.vocab_size)
+    n = len(prompts)
+    out = {}
+    want = None
+    for engines in (1, 2, 4):
+        spill = durable_dir(root, "fleet-%d" % engines)
+        fleet = _fleet(model, spill, engines)
+        base = {}
+
+        def after_warm(fleet=fleet, base=base):
+            base["routed"] = {k: c.value for k, c in fleet._routed.items()}
+            base["steps"] = _decode_steps(fleet)
+
+        st, wall, launches, itl = _burst(
+            fleet, prompts, FLEET_NEW, _warm_each(fleet, warm),
+            after_warm=after_warm, between=1)
+        steps = _decode_steps(fleet) - base["steps"]
+        k1 = launches["paged_decode_attention_kernel"]
+        assert k1 > 0 and k1 == n_layers * steps, (k1, steps)
+        assert launches["decode_attention_kernel"] == 0, launches
+        got = {s.request_id: list(s.tokens) for s in st}
+        if want is None:
+            want = got
+        same = sum(got[r] == want[r] for r in want)
+        assert same == n, ("tokens differ from one engine's", engines, same)
+        routed = {k: int(c.value - base["routed"][k])
+                  for k, c in fleet._routed.items()}
+        sub = _latency(st, wall, itl, FLEET_NEW)
+        sub.update(engines=engines, identical_requests=same,
+                   routed=routed, k1_launches=k1, decode_steps=steps,
+                   prefix_affinity_hit_rate=routed["affinity"] / n,
+                   prefix_hits=sum(e.prefix_stats()["hits"]
+                                   for e in fleet.engines().values()))
+        out["engines_%d" % engines] = sub
+        _fleet_down(fleet)
+        shutil.rmtree(spill, ignore_errors=True)
+
+    # retire: the owner of a live request drained out mid-burst
+    spill = durable_dir(root, "fleet-retire")
+    fleet = _fleet(model, spill, 2)
+    for w in _warm_each(fleet, warm):
+        w()
+    _settle(fleet)
+    streams = []
+    for i, p in enumerate(prompts):
+        streams.append(fleet.submit(p, FLEET_NEW, request_id="r%d" % i))
+        fleet.pump(1)
+    victim = next(r.engine_id for r in fleet._records.values())
+    survivor = "e1" if victim == "e0" else "e0"
+    keys = fleet.engines()[survivor].compile_counts()
+    donor = fleet.engines()[victim]
+    # every DECODING victim must travel through its PTKV file (a failed
+    # preempt or write would fall back to a resubmit with the same
+    # tokens): its written blocks, ceil((prompt + committed - 1) / block)
+    decoding = [r for r in donor._live.values()
+                if r.rid in fleet._records
+                and donor.request_state(r.rid) == "DECODING"]
+    stats = donor.cache_stats()
+    block_bytes = stats["pool_bytes"] // stats["num_blocks"]
+    want_ptkv = block_bytes * sum(
+        -(-(len(r.prompt) + len(r.tokens) - 1) // stats["block_size"])
+        for r in decoding)
+    spilled0 = donor._c_spill_bytes.value
+    migrations0 = fleet._c_migrations.value
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fleet.retire_engine(victim, reason="smoke-retire")
+    retire_s = time.perf_counter() - t0
+    ptkv = donor._c_spill_bytes.value - spilled0
+    while fleet.pump(4):
+        pass
+    got = {s.request_id: list(s.result(timeout_s=0).tokens)
+           for s in streams}
+    assert got == want, "retire changed tokens"
+    assert fleet.engines()[survivor].compile_counts() == keys
+    assert res["migrated"] >= 1 and decoding, (res, len(decoding))
+    assert res["adopted_from_file"] == len(decoding), (res, len(decoding))
+    assert ptkv == want_ptkv, (ptkv, want_ptkv)
+    assert fleet._c_migrations.value - migrations0 == res["migrated"]
+    out["retire"] = {"migrated": res["migrated"],
+                     "decoding_at_retire": len(decoding),
+                     "adopted_from_file": res["adopted_from_file"],
+                     "ms_per_migrated_request":
+                         retire_s * 1e3 / res["migrated"],
+                     "ptkv_bytes": int(ptkv),
+                     "ptkv_bytes_per_request": ptkv / res["migrated"],
+                     "survivor_compile_counts": keys}
+    _fleet_down(fleet)
+    shutil.rmtree(spill, ignore_errors=True)
+
+    # chaos: one engine abandoned mid-burst, its replacement spawned
+    spill = durable_dir(root, "fleet-chaos")
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    fleet = _fleet(model, spill, 2, min_engines=2)
+    for w in _warm_each(fleet, warm):
+        w()
+    _settle(fleet)
+    torch.cuda.synchronize()
+    per_engine = (torch.cuda.memory_allocated() - alloc0) / 2
+    streams = [fleet.submit(p, FLEET_NEW, request_id="r%d" % i)
+               for i, p in enumerate(prompts)]
+    fleet.pump(2)
+    victim = next(r.engine_id for r in fleet._records.values())
+    survivor = "e1" if victim == "e0" else "e0"
+    keys = fleet.engines()[survivor].compile_counts()
+    pre = {r.rid: len(r.tokens) for r in fleet._records.values()
+           if r.engine_id == victim}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    migrated = fleet.hard_abandon(victim, error="smoke-chaos")
+    while any(rid in fleet._records
+              and len(fleet._records[rid].tokens) <= pre[rid]
+              for rid in migrated):
+        fleet.pump(1)
+    rto = time.perf_counter() - t0
+    while fleet.pump(4):
+        pass
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    got = {s.request_id: list(s.result(timeout_s=0).tokens)
+           for s in streams}
+    assert got == want, "the abandon lost or changed tokens"
+    assert fleet.engines()[survivor].compile_counts() == keys
+    states = fleet.engine_states()
+    assert states[victim] == "dead" and len(
+        [s for s in states.values() if s == "active"]) == 2, states
+    assert after <= before + per_engine, (after, before, per_engine)
+    # every victim was adopted by a survivor (none failed), one migration
+    # each
+    assert sorted(migrated) == sorted(pre), (migrated, pre)
+    assert fleet._c_migrations.value == len(migrated), (
+        fleet._c_migrations.value, len(migrated))
+    out["chaos"] = {"victims": len(migrated), "recovery_ms": rto * 1e3,
+                    "engines": states,
+                    "memory_before_abandon_mb": before / 2 ** 20,
+                    "memory_after_respawn_mb": after / 2 ** 20,
+                    "one_engine_mb": per_engine / 2 ** 20,
+                    "migrations": int(fleet._c_migrations.value)}
+    _fleet_down(fleet)
+    shutil.rmtree(spill, ignore_errors=True)
+
+    # http: the wave from one client thread a request through the fleet
+    spill = durable_dir(root, "fleet-http")
+    fleet = _fleet(model, spill, 2)
+    for w in _warm_each(fleet, warm):
+        w()
+    _settle(fleet)
+    front = ServingHTTPFrontend(fleet, host="127.0.0.1", port=0).start()
+    base = "http://%s:%d" % front.address
+    try:
+        finals, wall, probes = _http_wave(base, prompts, [FLEET_NEW] * n)
+        status, body = _http_get(base, "/metrics")
+    finally:
+        front.shutdown()
+    assert status == 200
+    scrape = _parse_prometheus(body.decode())
+    same = sum(f["tokens"] == want["r%d" % i] for i, f in enumerate(finals))
+    assert same == n, ("HTTP tokens differ from one engine's", same)
+    labelled = {k.split('engine="')[1].split('"')[0] for k in scrape
+                if 'engine="' in k}
+    assert labelled == {"e0", "e1"}, labelled
+    assert scrape["serving_requests_submitted_total"] == n + 0.0
+    assert probes and all(c == 200 for c in probes), probes
+    out["http"] = {"requests": n, "identical_requests": same,
+                   "wall_s": wall,
+                   "tokens_per_s": n * FLEET_NEW / wall,
+                   "engine_labels": sorted(labelled),
+                   "routed": {r: scrape['fleet_requests_routed_total'
+                                        '{reason="%s"}' % r]
+                              for r in ("affinity", "load")},
+                   "metrics_samples": len(scrape)}
+    _fleet_down(fleet)
+    shutil.rmtree(spill, ignore_errors=True)
+    return out
+
+
+def cost_run(engine, n_layers):
+    """``cost_24l``: the main paged fp32 24-layer engine's
+    ``cost_report()`` after its traffic.  Holds: ``derived.kv_cache_bytes``
+    is ``cache_stats()["pool_bytes"]``; ``step_flops`` is within 5% of the
+    analytic count from the model's shapes (2 x every matrix weight but
+    the position table, a token a slot, plus K1's 4 x heads x head_dim x
+    the table's reach a layer a slot); the three gauges equal the report;
+    the report adds no key and moves no cost version."""
+    counts = engine.compile_counts()
+    version = engine.cost_version()
+    rep = engine.cost_report()
+    assert engine.compile_counts() == counts
+    assert engine.cost_version() == version
+    derived = rep["derived"]
+    stats = engine.cache_stats()
+    assert derived["kv_cache_bytes"] == stats["pool_bytes"], \
+        (derived["kv_cache_bytes"], stats["pool_bytes"])
+    pool = engine.pool
+    matrix = sum(p.numel() for nm, p in pool._model.named_parameters()
+                 if p.ndim == 2 and not nm.startswith("position"))
+    first = pool._cache[0]
+    heads, head_dim = first.k.shape[1], first.k.shape[3]
+    reach = first.table.shape[1] * first.k.shape[2]
+    analytic = pool.slots * (2 * matrix
+                             + 4 * n_layers * heads * head_dim * reach)
+    rel = abs(derived["step_flops"] - analytic) / analytic
+    assert rel <= 0.05, (derived["step_flops"], analytic)
+    snap = engine.metrics.snapshot()
+    assert snap["serving_step_flops"] == derived["step_flops"]
+    assert snap["serving_step_bytes_accessed"] == \
+        derived["step_bytes_accessed"]
+    assert derived["hbm_reserved_bytes"] is not None
+    assert snap["serving_hbm_reserved_bytes"] == \
+        derived["hbm_reserved_bytes"]
+    (step,) = rep["pool_decode"].values()
+    return {"step_flops": derived["step_flops"], "analytic_flops": analytic,
+            "flops_rel_err": rel,
+            "step_bytes_accessed": derived["step_bytes_accessed"],
+            "kv_cache_bytes": derived["kv_cache_bytes"],
+            "hbm_reserved_bytes": derived["hbm_reserved_bytes"],
+            "argument_bytes": step["argument_bytes"],
+            "output_bytes": step["output_bytes"],
+            "alias_bytes": step["alias_bytes"],
+            "temp_bytes": step["temp_bytes"],
+            "flops_per_token": derived["flops_per_token"],
+            "bytes_per_token": derived["bytes_per_token"],
+            "keys": {k: sorted(v) for k, v in rep.items()
+                     if k != "derived"}}
+
+
 def time_kernels(rows=DECODE_TIMING_ROWS):
     """Each decode kernel at the main path's widths (16 heads x 128, block
     32, 2048-position cache, one query) with every row at ``ctx``
@@ -3408,9 +3932,24 @@ def main() -> int:
     log("main path (paged fp32, 24 layers):", json.dumps(runs["paged_fp32_24l"]))
     pumped.update(run=runs["paged_fp32_24l"],
                   compile_counts=runs["paged_fp32_24l"]["compile_counts"])
+    engine = pumped.pop("engine")
+    runs["cost_24l"] = cost_run(engine, cfg["num_layers"])
+    engine.release_device()
+    del engine
+    log("cost_24l (the main engine's cost_report):",
+        json.dumps(runs["cost_24l"]))
     decode_profile = profile_decode(model, rng)
     log("decode step profile (paged fp32, 24 layers, 8 slots at ~1k "
         "context):", json.dumps(decode_profile))
+    graph_s = decode_profile["graph_device_ms_per_step"] / 1e3
+    cost = runs["cost_24l"]
+    log(card)
+    log("cost_24l achieved by the decode graph (%.3f ms a step): %.4g "
+        "TFLOP/s of %.0f (fp32 CUDA cores), %.4g TB/s of %.2f (HBM)"
+        % (graph_s * 1e3, cost["step_flops"] / graph_s / 1e12,
+           FP32_FLOPS_PER_S / 1e12,
+           cost["step_bytes_accessed"] / graph_s / 1e12,
+           HBM_BYTES_PER_S / 1e12))
     t0 = time.perf_counter()
     runs["serve_http_24l"] = serve_http(model, cfg["num_layers"], pumped)
     log("serve_http_24l (the main traffic over HTTP, background loop):",
@@ -3433,6 +3972,15 @@ def main() -> int:
     runs["refresh_24l"] = refresh_weights_run(model, cfg)
     log("refresh_24l (weights replaced under captured graphs, 24 layers):",
         json.dumps(runs["refresh_24l"]))
+    t0 = time.perf_counter()
+    runs["disagg_24l"] = disagg_run(model, root, cfg["num_layers"])
+    log("disagg_24l (prefill tier + decode tier against the fused engine, "
+        "24 layers):", json.dumps(runs["disagg_24l"]))
+    runs["fleet_24l"] = fleet_run(model, root, cfg["num_layers"])
+    log("fleet_24l (1/2/4 engines, retire, chaos, HTTP; 24 layers):",
+        json.dumps(runs["fleet_24l"]))
+    log("tier and fleet phases (24 layers): %.1f s"
+        % (time.perf_counter() - t0))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3449,6 +3997,9 @@ def main() -> int:
         block_size=MAIN_BLOCK, cache_dtype="int8")
     log("int8 run (paged, 4 layers):", json.dumps(runs["paged_int8_4l"]))
     runs["preempt_4l"] = preempt_runs(model)
+    runs["disagg_int8_4l"] = disagg_run(model, root, SHORT_LAYERS, "int8")
+    log("disagg_int8_4l (the disaggregated traffic on the int8 cache, 4 "
+        "layers):", json.dumps(runs["disagg_int8_4l"]))
     t0 = time.perf_counter()
     runs["spec_4l"] = spec_short(model, short)
     runs["disk_spill_4l"] = disk_spill_runs(model, runs["preempt_4l"], root)

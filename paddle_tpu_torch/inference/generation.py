@@ -89,6 +89,7 @@ and the cost report.
 from __future__ import annotations
 
 import collections
+import gc
 import math
 import os
 from typing import Dict, List, Optional, Sequence
@@ -100,7 +101,8 @@ from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.errors import (AlreadyExistsError, InvalidArgumentError,
                            NotFoundError, PreconditionNotMetError)
-from ..jit.aot import AotFunction, StaticInputs, module_tensors, shape_key
+from ..jit.aot import (CAPTURE_GUARD, AotFunction, StaticInputs, cache_tensors,
+                       kv_arg_bytes, module_tensors, shape_key)
 from ..jit.cache import get_layout
 from ..jit.decode import (DecodeSession, check_sampling, classify_finish,
                           make_sampling_state, sample_logits_data,
@@ -453,10 +455,15 @@ class GenerationPool:
         # when slot membership changed
         self._steps = step_buffers(self.slots, self.device)
         self._membership_dirty = True
-        weights = lambda: module_tensors(model)  # noqa: E731
+        # a captured step reads the weights and the cache by address: both
+        # are watched, so a moved tensor drops the graph (drop_moved)
+        weights = lambda: (module_tensors(model)  # noqa: E731
+                           + cache_tensors(self._cache))
+        kv_meta = lambda *a: {  # noqa: E731
+            "kv_cache_bytes": kv_arg_bytes(self._cache)}
         self._decode_fn = AotFunction(self._pool_decode, key_fn=shape_key,
                                       name="pool_decode", capture=True,
-                                      watch=weights)
+                                      watch=weights, meta_fn=kv_meta)
         self._insert_fn = AotFunction(self._layout.insert_row,
                                       key_fn=lambda *a: "slot_insert",
                                       name="slot_insert")
@@ -473,7 +480,7 @@ class GenerationPool:
                  ("top_p", 1, f32)], self.device)
             self._chunk_fn = AotFunction(self._chunk_step, key_fn=shape_key,
                                          name="prefill_chunk", capture=True,
-                                         watch=weights)
+                                         watch=weights, meta_fn=kv_meta)
             self._admit_fn = AotFunction(self._write_row,
                                          key_fn=lambda *a: "slot_admit",
                                          name="slot_admit")
@@ -729,12 +736,15 @@ class GenerationPool:
         self._next_rid = max(self._next_rid, int(floor))
 
     @staticmethod
-    def _resubmit_sampling(cfg: _SamplingConfig,
+    def _resubmit_sampling(cfg: Optional[_SamplingConfig],
                            committed: int) -> _SamplingConfig:
         """The config a prompt+committed resubmission carries: the same
         temperature, top-k, top-p and seed, with ``draws`` advanced by the
         committed tokens, so the re-prefill draws at the stream step the
-        uninterrupted run would have used."""
+        uninterrupted run would have used.  None (a hand-off that carried
+        no config) is greedy."""
+        if cfg is None:
+            cfg = _SamplingConfig(0.0, 0, 1.0, 0)
         return cfg._replace(draws=cfg.draws + int(committed))
 
     # -- admission -----------------------------------------------------------
@@ -1680,6 +1690,35 @@ class GenerationPool:
         for fn in self._captured_steps():
             fn.drop_moved()
 
+    def _steps_all(self) -> list:
+        """Every step wrapper of the pool and its session."""
+        return [fn for fn in vars(self).values()
+                if isinstance(fn, AotFunction)] + [
+            fn for fn in vars(self._session).values()
+            if isinstance(fn, AotFunction)]
+
+    def release_device(self) -> None:
+        """Give the pool's card memory back now: destroy every captured
+        graph (their private pools return to the allocator) and drop the
+        cache, the session's caches and the step buffers, then empty the
+        allocator's cache.  The pool is unusable afterwards; its counts
+        and cost reports stay readable."""
+        with CAPTURE_GUARD:
+            for fn in self._steps_all():
+                fn.release_graphs()
+            self._drop_device_state()
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def _drop_device_state(self) -> None:
+        self._cache = None
+        self._steps = None
+        self._chunk_in = None
+        self._session._batches = {}
+        self._spilled = {}
+        self._spill_owner = {}
+
     def _captured_steps(self) -> list:
         """The capturing steps that read the model's weights."""
         return [fn for fn in (self._decode_fn, self._chunk_fn,
@@ -1839,13 +1878,55 @@ class GenerationPool:
         return counts
 
     def cost_version(self) -> int:
-        """Total keys across the pool's steps: changes only when a step
-        meets a new shape (the reference's cost report waits for its
-        port)."""
+        """The cost reports' version: moves only when a step meets a new
+        shape (its key counted) or, on the card, captures its graph (the
+        graph's pool measured).  The engine re-reads :meth:`cost_report`
+        only when this moves."""
         return self._session.cost_version() + sum(
-            fn.compiles for fn in (self._decode_fn, self._insert_fn,
-                                   self._chunk_fn, self._admit_fn)
+            fn.cost_revision for fn in (self._decode_fn, self._insert_fn,
+                                        self._chunk_fn, self._admit_fn)
             if fn is not None)
+
+    def _derived_costs(self, step_entry: Optional[dict],
+                       tokens_per_step_per_slot: float = 1.0,
+                       basis: str = "decode step advances every slot one "
+                                    "token") -> dict:
+        """One batched step's FLOPs and bytes divided over the tokens it
+        commits (shared with the speculative pool).  ``step_entry`` is the
+        steady-state step's cost entry (None before its first call).
+        ``hbm_reserved_bytes`` is None where the entry has no temp bytes
+        (the CPU, or before the capture)."""
+        if not step_entry or "flops" not in step_entry:
+            return {}
+        tokens = self.slots * float(tokens_per_step_per_slot)
+        return {
+            "step_flops": step_entry["flops"],
+            "step_bytes_accessed": step_entry["bytes_accessed"],
+            "hbm_reserved_bytes": step_entry.get("hbm_reserved_bytes"),
+            "kv_cache_bytes": step_entry.get("kv_cache_bytes"),
+            "flops_per_token": step_entry["flops"] / tokens,
+            "bytes_per_token": step_entry["bytes_accessed"] / tokens,
+            "tokens_per_step": tokens,
+            "basis": basis,
+        }
+
+    def cost_report(self) -> dict:
+        """The cost entry of every step key this pool ran (``jit.aot``:
+        counted once per key at its first call), plus ``derived``: the
+        batched decode step's FLOPs and bytes divided over the ``slots``
+        tokens it commits, behind the engine's ``serving_step_flops`` /
+        ``serving_step_bytes_accessed`` / ``serving_hbm_reserved_bytes``
+        gauges.  ``kv_cache_bytes`` equals ``cache_stats()["pool_bytes"]``
+        for every layout and dtype.  A read: it counts, captures and
+        synchronizes nothing, and adds no key."""
+        rep = self._session.cost_report()
+        rep["pool_decode"] = self._decode_fn.cost_report()
+        rep["slot_insert"] = self._insert_fn.cost_report()
+        if self._chunk_fn is not None:
+            rep["prefill_chunk"] = self._chunk_fn.cost_report()
+            rep["slot_admit"] = self._admit_fn.cost_report()
+        rep["derived"] = self._derived_costs(self._decode_fn.last_cost())
+        return rep
 
     # -- introspection -------------------------------------------------------
     @property

@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from ..core.errors import InvalidArgumentError
-from ..jit.aot import AotFunction, module_tensors, shape_key
+from ..jit.aot import (AotFunction, cache_tensors, kv_arg_bytes,
+                       module_tensors, shape_key)
 from ..jit.cache import get_layout
 from ..jit.decode import DecodeSession, truncate_at_eos
 from ..jit.speculative import (acceptance_summary, check_draft_compatible,
@@ -119,7 +120,8 @@ class SpeculativePool(GenerationPool):
                                     device=self.device)
         self._k_dev = torch.full((1,), self.spec_k, dtype=i32,
                                  device=self.device)
-        drafts = lambda: module_tensors(draft_model)  # noqa: E731
+        drafts = lambda: (module_tensors(draft_model)  # noqa: E731
+                          + cache_tensors(self._draft_cache))
         self._draft_decode_fn = AotFunction(
             self._draft_decode, key_fn=lambda chunk: shape_key(chunk[:, -1]),
             name="draft_decode", capture=True, watch=drafts)
@@ -131,7 +133,9 @@ class SpeculativePool(GenerationPool):
             name="draft_insert")
         self._verify_fn = AotFunction(
             self._pool_verify, key_fn=shape_key, name="verify", capture=True,
-            watch=lambda: module_tensors(model))
+            watch=lambda: module_tensors(model) + cache_tensors(self._cache),
+            meta_fn=lambda view: {"kv_cache_bytes": kv_arg_bytes(
+                self._cache)})
         # the RUNTIME spec-K (<= the spec_k ceiling): the serving ladder
         # steps it down under SLO burn and back up when the alert clears
         self._spec_k_active = self.spec_k
@@ -420,6 +424,18 @@ class SpeculativePool(GenerationPool):
         self._drafted = self._accepted = self._rounds = 0
         self._draft_time_s = self._verify_time_s = 0.0
 
+    def _steps_all(self) -> list:
+        return super()._steps_all() + [
+            fn for fn in vars(self._draft_session).values()
+            if isinstance(fn, AotFunction)]
+
+    def _drop_device_state(self) -> None:
+        super()._drop_device_state()
+        self._draft_cache = None
+        self._draft_session._batches = {}
+        self._chunk = self._out = self._m = self._pending = None
+        self._chunk_views = {}
+
     def _captured_steps(self) -> list:
         """The base pool's steps and the round's: ``refresh_weights()``
         drops those whose target or draft weights moved."""
@@ -445,6 +461,54 @@ class SpeculativePool(GenerationPool):
     def cost_version(self) -> int:
         return (super().cost_version()
                 + self._draft_session.cost_version()
-                + sum(fn.compiles for fn in (
+                + sum(fn.cost_revision for fn in (
                     self._verify_fn, self._draft_decode_fn,
                     self._draft_fixup_fn, self._draft_insert_fn)))
+
+    def cost_report(self) -> dict:
+        """The base report plus the speculative steps, without the
+        target's unused 1-token steps (as in ``compile_counts``).  A round
+        is ``spec_k`` draft steps, one verify and one fixup, so
+        ``derived`` divides the round's FLOPs and bytes over the tokens a
+        round commits, ``slots x (1 + acceptance_rate x spec_k)`` at the
+        measured rate (1 token a slot before any round), and says so in
+        ``basis``.  Its ``hbm_reserved_bytes`` spans the verify step and
+        the draft step (the fixup shares the draft's buffers)."""
+        rep = super().cost_report()
+        rep.pop("decode", None)
+        rep.pop("pool_decode", None)
+        rep["verify"] = self._verify_fn.cost_report()
+        rep["draft_prefill"] = self._draft_session._prefill_fn.cost_report()
+        rep["draft_decode"] = self._draft_decode_fn.cost_report()
+        rep["draft_fixup"] = self._draft_fixup_fn.cost_report()
+        rep["draft_insert"] = self._draft_insert_fn.cost_report()
+        verify = self._verify_fn.last_cost()
+        draft = self._draft_decode_fn.last_cost()
+        fixup = self._draft_fixup_fn.last_cost() or {}
+        if not verify or not draft:
+            rep["derived"] = {}
+            return rep
+        acc = acceptance_summary(self.spec_k, self._rounds, self._drafted,
+                                 self._accepted)["acceptance_rate"]
+        verify_hbm = verify.get("hbm_reserved_bytes")
+        draft_hbm = draft.get("hbm_reserved_bytes")
+        round_entry = {
+            "flops": self.spec_k * draft["flops"] + verify["flops"]
+            + fixup.get("flops", 0.0),
+            "bytes_accessed": self.spec_k * draft["bytes_accessed"]
+            + verify["bytes_accessed"] + fixup.get("bytes_accessed", 0.0),
+            "hbm_reserved_bytes": (None if verify_hbm is None
+                                   or draft_hbm is None
+                                   else verify_hbm + draft_hbm),
+            "kv_cache_bytes": verify.get("kv_cache_bytes"),
+        }
+        rep["derived"] = self._derived_costs(
+            round_entry, tokens_per_step_per_slot=1.0 + acc * self.spec_k,
+            basis="speculative round (spec_k=%d draft steps + verify + "
+                  "fixup) commits slots x (1 + acceptance_rate x spec_k) "
+                  "tokens at the measured acceptance_rate=%.4f"
+                  % (self.spec_k, acc))
+        rep["derived"]["acceptance_rate"] = acc
+        rep["derived"]["hbm_verify_bytes"] = verify_hbm
+        rep["derived"]["hbm_draft_bytes"] = draft_hbm
+        return rep

@@ -46,7 +46,8 @@ from ..core.device import resolve_device, same_device
 from ..core.errors import InvalidArgumentError
 from ..nn.layer.transformer import normalize_cache_dtype
 from ..ops.flash_attention import decode_route, normalize_decode_route
-from .aot import AotFunction, StaticInputs, module_tensors, shape_key
+from .aot import (AotFunction, StaticInputs, cache_tensors, kv_arg_bytes,
+                  module_tensors, shape_key)
 from .cache import get_layout
 
 __all__ = ["DecodeSession", "sample_logits", "sample_logits_data",
@@ -316,7 +317,10 @@ class DecodeSession:
             name="prefill")
         self._decode_fn = AotFunction(
             self._decode_step, key_fn=shape_key, name="decode",
-            capture=True, watch=lambda: module_tensors(self._model))
+            capture=True, watch=lambda: module_tensors(self._model),
+            reads=lambda tok: cache_tensors(self._batches[tok.shape[0]][0]),
+            meta_fn=lambda tok: {"kv_cache_bytes": kv_arg_bytes(
+                self._batches[tok.shape[0]][0])})
 
     @contextlib.contextmanager
     def _inference(self):
@@ -448,7 +452,15 @@ class DecodeSession:
         return {"prefill": self._prefill_fn._cache_size(),
                 "decode": self._decode_fn._cache_size()}
 
+    def cost_report(self) -> dict:
+        """``{"prefill": {key: entry}, "decode": {key: entry}}``: each step
+        key's cost entry (``jit.aot``: FLOPs, bytes accessed, the memory
+        fields; the decode step's ``kv_cache_bytes``).  A read: it counts,
+        captures and synchronizes nothing."""
+        return {"prefill": self._prefill_fn.cost_report(),
+                "decode": self._decode_fn.cost_report()}
+
     def cost_version(self) -> int:
-        """Total keys across the session's steps: changes only when a
-        step meets a new shape."""
-        return self._prefill_fn.compiles + self._decode_fn.compiles
+        """The cost report's version: moves only when a step meets a new
+        shape or, on the card, captures its graph."""
+        return self._prefill_fn.cost_revision + self._decode_fn.cost_revision

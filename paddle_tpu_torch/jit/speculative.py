@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from ..core.errors import InvalidArgumentError
-from .aot import AotFunction, module_tensors, shape_key
+from .aot import (AotFunction, cache_tensors, kv_arg_bytes, module_tensors,
+                  shape_key)
 from .decode import DecodeSession, truncate_at_eos
 
 __all__ = ["SpeculativeDecodeSession", "check_draft_compatible",
@@ -153,7 +154,10 @@ class SpeculativeDecodeSession:
         # one verify key: the [1, K+1] chunk; captured on the card
         self._verify_fn = AotFunction(
             self._verify, key_fn=shape_key, name="verify", capture=True,
-            watch=lambda: module_tensors(target_model))
+            watch=lambda: module_tensors(target_model),
+            reads=lambda chunk: cache_tensors(self._target._batches[1][0]),
+            meta_fn=lambda chunk: {"kv_cache_bytes": kv_arg_bytes(
+                self._target._batches[1][0])})
         self._drafted = 0
         self._accepted = 0
         self._rounds = 0
@@ -268,6 +272,17 @@ class SpeculativeDecodeSession:
             "draft_decode": self._draft._decode_fn._cache_size(),
         }
 
+    def cost_report(self) -> dict:
+        """Each step key's cost entry (``jit.aot``) for the session's fixed
+        step set: the target's prefill bucket(s) and its one verify step,
+        the draft's prefill and decode.  A read, never a count."""
+        return {
+            "prefill": self._target._prefill_fn.cost_report(),
+            "verify": self._verify_fn.cost_report(),
+            "draft_prefill": self._draft._prefill_fn.cost_report(),
+            "draft_decode": self._draft._decode_fn.cost_report(),
+        }
+
     def cost_version(self) -> int:
         return (self._target.cost_version() + self._draft.cost_version()
-                + self._verify_fn.compiles)
+                + self._verify_fn.cost_revision)

@@ -48,9 +48,8 @@ __all__ = ["TrainStep", "MultiStepTrainStep"]
 
 
 class _StepGraphs(AotFunction):
-    """:class:`AotFunction` with the whole-network capture's needs: the
-    warm-up on a side stream, and the warm-up's cached blocks freed before
-    the capture."""
+    """:class:`AotFunction` with the whole-network capture's warm-up on a
+    side stream."""
 
     def _warm_up(self, args):
         if not (self._capture and _on_cuda(args)):
@@ -62,11 +61,6 @@ class _StepGraphs(AotFunction):
             out = self._fn(*args)
         main.wait_stream(side)
         return out
-
-    def _capture_key(self, key, args):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return super()._capture_key(key, args)
 
 
 def _batch_key(batch) -> str:

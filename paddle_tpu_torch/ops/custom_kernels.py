@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..core.errors import ExternalError, InvalidArgumentError
+from . import kernel_cost
 
 __all__ = ["scale_mul", "scale_mul_plain", "reset_launch_counts",
            "launch_counts"]
@@ -67,6 +68,7 @@ def scale_mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise ExternalError("scale_mul launch failed: cudaError_t %d" % rc)
     scale_mul.launches += 1
+    kernel_cost.report(2.0 * out.numel(), kernel_cost.nbytes(x, y, out))
     return out
 
 

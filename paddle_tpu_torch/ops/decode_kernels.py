@@ -25,6 +25,7 @@ import functools
 import torch
 
 from ..core.errors import ExternalError, InvalidArgumentError
+from . import kernel_cost
 
 __all__ = ["paged_decode_attention_kernel", "decode_attention_kernel",
            "paged_decode_attention_plain", "decode_attention_plain",
@@ -314,6 +315,7 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, table, q_pos,
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_decode_attention_kernel")
     paged_decode_attention_kernel.launches += 1
+    _report_cost(q, k_pool, k_scale, mb * bs, table, q_pos, bias, out)
     return out
 
 
@@ -359,7 +361,20 @@ def decode_attention_kernel(q, k, v, q_pos, sm_scale: float, k_scale=None,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "decode_attention_kernel")
     decode_attention_kernel.launches += 1
+    _report_cost(q, k, k_scale, k.shape[2], None, q_pos, bias, out)
     return out
+
+
+def _report_cost(q, k, k_scale, s, table, q_pos, bias, out) -> None:
+    """K1/K2's count for a step's cost report: ``4 B H Lq S D`` FLOPs (the
+    two products over the ``S`` keys each row reaches), and the bytes of q,
+    every row's K and V (with their scales), the table, the positions, the
+    bias and the output."""
+    b, h, lq, d = q.shape
+    kv = 2 * b * h * s * (d * k.element_size()
+                          + (4 if k_scale is not None else 0))
+    kernel_cost.report(4.0 * b * h * lq * s * d,
+                       kv + kernel_cost.nbytes(q, table, q_pos, bias, out))
 
 
 paged_decode_attention_kernel.launches = 0

@@ -40,6 +40,7 @@ import ctypes
 import torch
 
 from ..core.errors import ExternalError, InvalidArgumentError
+from . import kernel_cost
 
 __all__ = ["FlashAttentionFunction", "flash_attention_forward_kernel",
            "flash_attention_backward_kernel", "flash_attention_forward_plain",
@@ -263,7 +264,16 @@ def flash_attention_forward_kernel(q, k, v, bias=None, q_seg=None,
     _raise_on(rc, "flash_attention_forward_kernel")
     flash_attention_forward_kernel.launches_by_dtype[
         _DTYPE_NAMES[q.dtype]] += 1
+    kernel_cost.report(_forward_flops(q, k, causal), kernel_cost.nbytes(
+        q, k, v, bias, q_seg, kv_seg, out, stats))
     return out, stats
+
+
+def _forward_flops(q, k, causal: bool) -> float:
+    """K3 forward's count for a step's cost report: ``4 B H Lq Lk D`` (the
+    two products), halved when causal."""
+    b, h, lq, d = q.shape
+    return 4.0 * b * h * lq * k.shape[2] * d / (2 if causal else 1)
 
 
 def flash_attention_backward_kernel(q, k, v, o, stats, do, bias=None,
@@ -328,6 +338,9 @@ def flash_attention_backward_kernel(q, k, v, o, stats, do, bias=None,
         "flash_attention_backward_kernel (dQ)")
     flash_attention_backward_kernel.launches_by_dtype[
         _DTYPE_NAMES[q.dtype]] += 1
+    # the backward's five products are 2.5x the forward's two
+    kernel_cost.report(2.5 * _forward_flops(q, k, causal), kernel_cost.nbytes(
+        q, k, v, o, stats, do, bias, q_seg, kv_seg, delta, dq, dk, dv, ds))
     return dq, dk, dv, ds
 
 

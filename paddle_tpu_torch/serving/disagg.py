@@ -1,0 +1,400 @@
+"""Disaggregated prefill/decode serving over the K/V hand-off (counterpart
+of the reference's ``serving/disagg.py``).
+
+:class:`DisaggregatedServing` is the front over one prefill-role engine
+and one decode-role engine.  Prefill is compute-bound and decode
+bandwidth-bound, so the tiers size independently: the prefill tier
+absorbs long prompts without ever putting a chunk into a decode tick, and
+the decode tier never captures a prefill-chunk step.
+
+A request's path: ``submit()`` routes it to the prefill tier (admission
+control, and the deadline shed with an estimate that includes the
+observed hand-off wait), whose chunked prefill emits the request's first
+token and parks it; the export sweep at the tier's tick edge writes the
+K/V transfer file (the ``xfer.write`` seam) and fires ``on_handoff``; the
+front's bridge adopts it into the decode tier (``adopt_transfer`` ->
+``adopt_spill`` -> the resume upload, no re-prefill), and tokens keep
+flowing on the one front stream the caller holds.  The hand-off carries
+bit-exact K/V for exactly the committed positions and any miss falls back
+to a prompt + committed resubmit, so a hand-off never changes tokens,
+only where they are computed.
+
+Both tiers share the one model object, so one set of weights sits on the
+card; each tier has its own pool, cache and captured graphs.  The front
+is pump-mode only: one ``pump()`` runs prefill tick -> bridge -> decode
+tick -> bridge, serialized by the front's lock (HTTP handler threads pump
+it through their streams).  The front's ``serving_ttft_seconds`` /
+``serving_inter_token_seconds`` include the hand-off wait; each tier's
+own registry keeps its local view.
+"""
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..core.errors import PreconditionNotMetError
+from . import log as slog
+from . import trace
+from .engine import DeadlineUnattainableError, ServingEngine
+from .metrics import MetricsRegistry
+from .stream import RequestState, ResponseStream, StreamStatus, _TERMINAL
+
+__all__ = ["DisaggregatedServing"]
+
+
+class _FrontRecord:
+    """One request's front-side bookkeeping across both tiers."""
+
+    __slots__ = ("rid", "stream", "prefill_stream", "decode_stream",
+                 "tokens", "submit_t", "first_t", "last_t", "prompt_len",
+                 "max_new", "priority", "tenant", "deadline_abs")
+
+    def __init__(self, rid, stream, prefill_stream, prompt_len, max_new,
+                 submit_t, priority, tenant, deadline_abs):
+        self.rid = rid
+        self.stream = stream
+        self.prefill_stream = prefill_stream
+        self.decode_stream = None
+        self.tokens: List[int] = []
+        self.submit_t = submit_t
+        self.first_t = None
+        self.last_t = None
+        self.prompt_len = prompt_len
+        self.max_new = max_new
+        self.priority = priority
+        self.tenant = tenant
+        self.deadline_abs = deadline_abs
+
+
+class DisaggregatedServing:
+    """One prefill tier + one decode tier behind a fused-looking front.
+
+    ``transfer_dir`` is the directory both tiers share: the hand-off files
+    live there under the spill tier's naming, so migration, crash restore
+    and disaggregation are one mechanism.  ``prefill_chunk_tokens`` sizes
+    the prefill tier's chunk step; ``prefill_slots``/``decode_slots`` size
+    the tiers independently (capacity keys are outside the transfer
+    fingerprint check for this reason).  Shared ``**pool_kwargs``
+    (``block_size``, ``cache_dtype``, ``device``, ...) go to BOTH pools --
+    they must, or the fingerprint check would refuse every hand-off;
+    ``prefill_overrides``/``decode_overrides`` patch per-tier knobs
+    (``num_blocks``, ``journal_path``)."""
+
+    def __init__(self, model, max_len: int, *, transfer_dir: str,
+                 prefill_chunk_tokens: int, prefill_slots: int = 2,
+                 decode_slots: int = 4, max_queue: int = 64, clock=None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 prefill_overrides: Optional[dict] = None,
+                 decode_overrides: Optional[dict] = None, **pool_kwargs):
+        self._clock = clock if clock is not None else time.monotonic
+        pool_kwargs.setdefault("cache_layout", "paged")
+        pk = dict(pool_kwargs)
+        pk.update(prefill_overrides or {})
+        dk = dict(pool_kwargs)
+        dk.update(decode_overrides or {})
+        # each tier keeps its own registry (the prefill tier's TTFT would
+        # otherwise average into the decode tier's ITL); the front's
+        # registry carries the end-to-end and hand-off surfaces
+        self.prefill = ServingEngine(
+            model, max_len, slots=prefill_slots, max_queue=max_queue,
+            clock=clock, role="prefill", spill_tier="disk",
+            spill_dir=transfer_dir,
+            prefill_chunk_tokens=prefill_chunk_tokens, **pk)
+        self.decode = ServingEngine(
+            model, max_len, slots=decode_slots, max_queue=max_queue,
+            clock=clock, role="decode", spill_tier="disk",
+            spill_dir=transfer_dir, **dk)
+        self.prefill.on_handoff = self._on_handoff
+        self._records: Dict[object, _FrontRecord] = {}
+        # rid -> hand-off info exported but not yet adopted (filled by the
+        # prefill tick's sweep, drained by _bridge)
+        self._handoffs: Dict[object, dict] = {}
+        self._draining = False
+        # serializes the front: HTTP handler threads pump it through
+        # their streams
+        self._lock = threading.RLock()
+
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        m = self.metrics
+        self._c_submitted = m.counter(
+            "serving_requests_submitted_total",
+            "requests admitted at the disaggregated front")
+        self._c_transfers = m.counter(
+            "serving_kv_transfers_total",
+            "prefill->decode K/V hand-offs bridged by the front")
+        self._c_transfer_bytes = m.counter(
+            "serving_kv_transfer_bytes_total",
+            "K/V bytes handed off through transfer files (int8 caches "
+            "count int8 K/V + fp32 scales)")
+        self._c_degraded = m.counter(
+            "serving_handoffs_degraded_total",
+            "hand-offs that fell back to prompt+committed resubmit "
+            "(export failed or the transfer file could not be adopted)")
+        self._h_handoff = m.histogram(
+            "serving_handoff_wait_s",
+            "export-to-adopt wait of one K/V hand-off")
+        self._h_ttft = m.histogram(
+            "serving_ttft_seconds",
+            "front-observed submit-to-first-token latency (end-to-end: "
+            "includes the hand-off wait)")
+        self._h_itl = m.histogram(
+            "serving_inter_token_seconds",
+            "front-observed gap between consecutive tokens (end-to-end: "
+            "the hand-off gap rides the first decode-tier token)")
+
+    # -- admission -------------------------------------------------------
+    def submit(self, input_ids, max_new_tokens: int, request_id=None,
+               deadline_s: Optional[float] = None, priority=0,
+               tenant=None) -> ResponseStream:
+        """Admit one request; returns the FRONT's stream, on which tokens
+        flow across the hand-off.  The deadline shed happens here with the
+        cross-tier estimate (prefill ticks + observed mean hand-off wait +
+        decode ticks).  Deadline, priority and tenant cross the
+        hand-off."""
+        with self._lock:
+            if self._draining:
+                raise PreconditionNotMetError(
+                    "disaggregated front is draining/shut down")
+            ids = np.asarray(input_ids)
+            prompt_len = int(ids.shape[0]) if ids.ndim else 0
+            if deadline_s is not None:
+                est = self._deadline_estimate_s(int(max_new_tokens),
+                                                prompt_len)
+                if est is not None and est > float(deadline_s):
+                    raise DeadlineUnattainableError(
+                        "deadline_s=%.3g cannot be met across the "
+                        "disaggregated pair: prefill + hand-off + decode "
+                        "put completion ~%.3gs out; shed at admission "
+                        "(retryable)" % (float(deadline_s), est),
+                        retry_after_s=max(0.001, est - float(deadline_s)))
+            ps = self.prefill.submit(ids, max_new_tokens,
+                                     request_id=request_id,
+                                     deadline_s=deadline_s,
+                                     priority=priority, tenant=tenant)
+            rid = ps.request_id
+            now = self._clock()
+            stream = ResponseStream(self, rid, int(max_new_tokens))
+            self._records[rid] = _FrontRecord(
+                rid, stream, ps, prompt_len, int(max_new_tokens), now,
+                priority, tenant,
+                None if deadline_s is None else now + float(deadline_s))
+            self._c_submitted.inc()
+            return stream
+
+    # -- the hand-off bridge ---------------------------------------------
+    def _on_handoff(self, rid, info) -> None:
+        # fires inside the prefill tier's export sweep, before the tier
+        # finalizes HANDED_OFF: when the bridge sees that terminal, the
+        # hand-off record exists
+        self._handoffs[rid] = info
+        self._c_transfers.inc()
+        self._c_transfer_bytes.inc(info.get("transfer_bytes") or 0)
+        if info.get("error") or not info.get("path"):
+            self._c_degraded.inc()
+
+    def _adopt(self, rec: _FrontRecord, info: dict) -> None:
+        wait_s = max(0.0, self._clock() - info["exported_at"])
+        self._h_handoff.observe(wait_s)
+        res = self.decode.adopt_transfer(
+            rec.rid, info["prompt"], info["tokens"],
+            info["max_new_tokens"], priority=info["priority"],
+            tenant=info["tenant"], deadline_abs=info["deadline_abs"])
+        rec.decode_stream = res["stream"]
+        if not res["adopted_from_file"] and info.get("path") \
+                and not info.get("error"):
+            # the file existed but the decode tier could not adopt it:
+            # degraded, still byte-identical
+            self._c_degraded.inc()
+        trace.instant("xfer.handoff", rid=rec.rid, wait_s=round(wait_s, 6),
+                      transfer_bytes=info.get("transfer_bytes"),
+                      adopted_from_file=res["adopted_from_file"])
+        slog.emit("xfer.handoff", rid=rec.rid, wait_s=round(wait_s, 6),
+                  transfer_bytes=info.get("transfer_bytes"),
+                  adopted_from_file=res["adopted_from_file"],
+                  committed_tokens=len(info["tokens"]))
+
+    def _forward(self, rec: _FrontRecord, src: ResponseStream) -> bool:
+        """Drain one tier stream's queue into the front stream; True when
+        the tier delivered its terminal."""
+        while True:
+            try:
+                item = src._q.get_nowait()
+            except queue.Empty:
+                return False
+            if item is _TERMINAL:
+                return True
+            now = self._clock()
+            if rec.first_t is None:
+                rec.first_t = now
+                self._h_ttft.observe(now - rec.submit_t)
+            else:
+                self._h_itl.observe(now - rec.last_t)
+            rec.last_t = now
+            rec.tokens.append(int(item))
+            rec.stream._put_token(int(item))
+
+    def _finalize_front(self, rec: _FrontRecord, state: str, reason,
+                        error=None) -> None:
+        now = self._clock()
+        toks = np.asarray(rec.tokens, np.int32)
+        trace.instant("req." + state.lower(), rid=rec.rid, reason=reason,
+                      new_tokens=int(toks.size), front=True, error=error)
+        rec.stream._finalize(StreamStatus(
+            request_id=rec.rid, state=state, finish_reason=reason,
+            tokens=toks, prompt_tokens=rec.prompt_len,
+            new_tokens=int(toks.size),
+            ttft_s=(None if rec.first_t is None
+                    else rec.first_t - rec.submit_t),
+            total_s=now - rec.submit_t, error=error))
+        self._records.pop(rec.rid, None)
+
+    def _bridge(self) -> None:
+        for rec in list(self._records.values()):
+            info = self._handoffs.pop(rec.rid, None)
+            if info is not None and rec.decode_stream is None:
+                self._adopt(rec, info)
+            if self._forward(rec, rec.prefill_stream):
+                st = rec.prefill_stream.status
+                if st.state != RequestState.HANDED_OFF:
+                    # the request ended on the prefill tier (finished at
+                    # its first token, expired, failed): that terminal is
+                    # the front's
+                    self._finalize_front(rec, st.state, st.finish_reason,
+                                         error=st.error)
+                    continue
+            if rec.decode_stream is not None \
+                    and self._forward(rec, rec.decode_stream):
+                st = rec.decode_stream.status
+                self._finalize_front(rec, st.state, st.finish_reason,
+                                     error=st.error)
+
+    # -- drive (pump mode only) ------------------------------------------
+    def is_running(self) -> bool:
+        """The front has no background thread: the caller (or a stream
+        being iterated) pumps it."""
+        return False
+
+    def pump(self, steps: int = 1) -> bool:
+        """One front tick per step: prefill tier tick -> bridge (adopt
+        fresh hand-offs so the decode tick resumes them at once) -> decode
+        tier tick -> bridge (forward its tokens).  True while front-live
+        requests remain."""
+        with self._lock:
+            for _ in range(int(steps)):
+                self.prefill.pump(1)
+                self._bridge()
+                self.decode.pump(1)
+                self._bridge()
+                if not self._records:
+                    break
+            return bool(self._records)
+
+    # -- lifecycle -------------------------------------------------------
+    def cancel(self, request_id) -> bool:
+        """Cancel wherever the request is: on the prefill tier, in transit
+        (exported, not adopted: the transfer file is deleted, both tiers
+        already clean), or on the decode tier.  The front stream ends
+        CANCELLED; idempotent."""
+        with self._lock:
+            rec = self._records.get(request_id)
+            if rec is None:
+                return False
+            info = self._handoffs.pop(request_id, None)
+            if rec.decode_stream is not None:
+                self.decode.cancel(request_id)
+            elif info is not None:
+                if info.get("path"):
+                    try:
+                        os.remove(info["path"])
+                    except OSError:
+                        pass
+            else:
+                self.prefill.cancel(request_id)
+            self._finalize_front(rec, RequestState.CANCELLED, "cancelled")
+            return True
+
+    def request_state(self, request_id) -> Optional[str]:
+        """The front's view of a request's state: the decode tier's once
+        adopted, PREEMPTED while the hand-off is in transit, else the
+        prefill tier's."""
+        rec = self._records.get(request_id)
+        if rec is None:
+            return None
+        if rec.decode_stream is not None:
+            return self.decode.request_state(request_id) \
+                or RequestState.DECODING
+        if request_id in self._handoffs:
+            return RequestState.PREEMPTED
+        return self.prefill.request_state(request_id)
+
+    def _deadline_estimate_s(self, max_new_tokens: int,
+                             prompt_len: int = 0) -> Optional[float]:
+        """Cross-tier completion estimate: the prefill tier's ticks for
+        this prompt (+1 first token), plus the observed mean hand-off wait
+        (``serving_handoff_wait_s``), plus the decode tier's ticks for the
+        rest of the budget.  None until both tiers measured a tick."""
+        pe = self.prefill._deadline_estimate_s(1, prompt_len)
+        de = self.decode._deadline_estimate_s(
+            max(0, int(max_new_tokens) - 1))
+        if pe is None or de is None:
+            return None
+        h = self._h_handoff
+        wait = (h.sum / h.count) if h.count else 0.0
+        return pe + wait + de
+
+    def drain(self, timeout_s: Optional[float] = None) -> bool:
+        """Stop admissions and pump until every front-live request ends;
+        False on a (wall-clock) timeout."""
+        self._draining = True
+        deadline = None if timeout_s is None \
+            else time.monotonic() + timeout_s
+        while self._records:
+            self.pump(1)
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+        return True
+
+    def shutdown(self, drain: bool = True) -> None:
+        """Drain (or cancel) the front-live requests, then shut both tiers
+        down (journals flushed and closed)."""
+        if drain:
+            self.drain()
+        else:
+            self._draining = True
+            for rid in list(self._records):
+                self.cancel(rid)
+        self.prefill.shutdown(drain=False)
+        self.decode.shutdown(drain=False)
+
+    # -- observability ---------------------------------------------------
+    def health(self) -> dict:
+        """Healthy iff both tiers are, each tier's snapshot nested, the
+        hand-off surface on top."""
+        ph = self.prefill.health()
+        dh = self.decode.health()
+        return {"healthy": ph["healthy"] and dh["healthy"],
+                "state": ("draining" if self._draining
+                          else "serving" if self._records else "idle"),
+                "live_requests": len(self._records),
+                "handoffs_in_flight": len(self._handoffs),
+                "prefill": ph, "decode": dh}
+
+    def compile_counts(self) -> dict:
+        """Per-role step keys: the decode tier's never has a
+        ``prefill_chunk`` key, the prefill tier's ``pool_decode`` stays
+        0."""
+        return {"prefill": self.prefill.compile_counts(),
+                "decode": self.decode.compile_counts()}
+
+    @property
+    def live_requests(self) -> int:
+        return len(self._records)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining

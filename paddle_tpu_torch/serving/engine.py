@@ -68,9 +68,29 @@ in progress.  ``health()`` and the metrics registry read host state only.
 The loop thread sets the pool's device as its current device before its
 first tick.
 
-Not ported here (the reference's later pieces): disaggregated roles and
-the export sweep, fleet migration (``adopt_transfer``, ``migrate_out``),
-LoRA adapters and the cost report.
+Roles and hand-offs.  ``role="fused"`` (the default) is the single
+engine above.  ``role="prefill"`` runs admission and chunked prefill only:
+a request whose prompt is resident and whose first token is committed
+parks, and the export sweep at the tick's edge writes its K/V to a PTKV
+transfer file and fires ``on_handoff(rid, info)`` before finalizing the
+request ``HANDED_OFF`` here.  ``role="decode"`` admits those hand-offs
+through :meth:`ServingEngine.adopt_transfer`; a fused engine behind a
+fleet admits live migrations through :meth:`ServingEngine.adopt_migration`
+and gives them up through :meth:`ServingEngine.migrate_out`.  Both
+adoptions are one body: the journal first, then the pool's ``adopt_spill``
+(the request re-parks in the spill tier and resumes with no re-prefill,
+its K/V uploaded into the cache in place, so no captured graph moves),
+with prompt + committed resubmit as the byte-identical fallback.
+
+Cost attribution.  :meth:`ServingEngine.cost_report` is the pool's (step
+keys counted once each by ``jit.aot``); the ``serving_step_flops``,
+``serving_step_bytes_accessed`` and ``serving_hbm_reserved_bytes`` gauges
+follow its ``derived`` block and are refreshed only when the pool's
+``cost_version()`` moves.
+
+Not ported here: LoRA adapters.  ``has_adapter(0)`` is true and a nonzero
+adapter id is refused with the reference's typed error for an engine
+without an adapter bank.
 """
 from __future__ import annotations
 
@@ -131,6 +151,20 @@ def _samp_from_json(val):
         int(val[4]) if len(val) > 4 else 0)
 
 
+def _check_adapter(adapter) -> int:
+    """The adapter id of a submit or an adoption: 0 (the base model) is
+    the only id an engine without a LoRA bank serves, and any other is
+    refused with the reference's error for a pool without a bank."""
+    adapter = int(adapter)
+    if adapter != 0:
+        raise InvalidArgumentError(
+            "adapter=%d but the model has no LoRA bank attached: call "
+            "nn.lora.attach_lora(model, n_adapters, rank) BEFORE "
+            "constructing the pool (the bank must be in the parameter "
+            "snapshot), then load_adapter" % adapter)
+    return 0
+
+
 def _normalize_priority(priority) -> int:
     if isinstance(priority, str):
         if priority not in PRIORITY_CLASSES:
@@ -189,7 +223,7 @@ class _FairRLock:
         self._count = 0
         self._queue = collections.deque()
 
-    def acquire(self) -> bool:
+    def acquire(self, blocking: bool = True) -> bool:
         me = threading.get_ident()
         with self._cond:
             if self._owner == me:
@@ -198,6 +232,8 @@ class _FairRLock:
             if self._owner is None and not self._queue:
                 self._owner, self._count = me, 1
                 return True
+            if not blocking:
+                return False
             self._queue.append(me)
             while self._owner is not None or self._queue[0] != me:
                 self._cond.wait()
@@ -269,7 +305,11 @@ class ServingEngine:
     ``degrade=True``.  ``draft_model`` (with ``spec_k``, default 4)
     serves through the speculative pool; ``journal_path`` (with
     ``journal_fsync`` ``"tick"``, ``"always"`` or ``"never"``) makes the
-    engine crash-durable."""
+    engine crash-durable.  ``role`` is ``"fused"``, ``"prefill"`` or
+    ``"decode"`` (module docstring): the tiers hand K/V off through the
+    disk spill tier (``spill_tier="disk"``, ``spill_dir=`` shared by both),
+    the prefill tier needs ``prefill_chunk_tokens`` and the decode tier
+    refuses it, and neither takes a draft model."""
 
     def __init__(self, model, max_len: int, slots: int = 4,
                  max_queue: int = 64, clock=None,
@@ -281,7 +321,8 @@ class ServingEngine:
                  degrade_clear_ticks: int = 3,
                  degrade_admit_floor=1,
                  journal_path: Optional[str] = None,
-                 journal_fsync: str = "tick", device=None, **pool_kwargs):
+                 journal_fsync: str = "tick", role: str = "fused",
+                 device=None, **pool_kwargs):
         if int(max_queue) < 1:
             raise InvalidArgumentError(
                 "max_queue must be >= 1, got %r" % (max_queue,))
@@ -289,6 +330,36 @@ class ServingEngine:
             raise InvalidArgumentError(
                 "max_retries must be >= 0 (0 = never resubmit after a "
                 "step failure), got %r" % (max_retries,))
+        if role not in ("fused", "prefill", "decode"):
+            raise InvalidArgumentError(
+                "role must be 'fused', 'prefill', or 'decode', got %r"
+                % (role,))
+        if role != "fused":
+            if draft_model is not None:
+                raise InvalidArgumentError(
+                    "disaggregated tiers run the plain pool: the "
+                    "speculative pool's draft state does not cross the "
+                    "K/V hand-off -- use role='fused' with draft_model")
+            if pool_kwargs.get("spill_tier") != "disk":
+                raise InvalidArgumentError(
+                    "role=%r hands K/V off through the disk transfer "
+                    "contract -- pass spill_tier='disk' and spill_dir= "
+                    "(the directory both tiers share)" % (role,))
+        if role == "prefill":
+            if pool_kwargs.get("prefill_chunk_tokens") is None:
+                raise InvalidArgumentError(
+                    "role='prefill' needs prefill_chunk_tokens= (the "
+                    "tier runs ONLY admission + chunked prefill)")
+            pool_kwargs["prefill_only"] = True
+        if role == "decode" \
+                and pool_kwargs.get("prefill_chunk_tokens") is not None:
+            # the decode tier never captures a chunk step: its fallback
+            # re-prefill is the session's bucketed prefill
+            raise InvalidArgumentError(
+                "role='decode' must not set prefill_chunk_tokens: the "
+                "decode tier adopts finished prefills and never runs the "
+                "chunk step")
+        self.role = str(role)
         if degrade and slo is None:
             raise InvalidArgumentError(
                 "degrade=True needs an SLO tracker: the ladder steps on "
@@ -335,6 +406,8 @@ class ServingEngine:
         self._started_at = self._clock()
         self._health = EngineHealth()
         self._slo = slo
+        # the cost gauges refresh only when the pool's cost version moves
+        self._cost_seen = 0
         # the ladder: level 0 is normal service; each alerting tick past
         # the dwell steps down a rung, each clear run of clear_ticks steps
         # back up.  ticks_since_change starts "infinite" so the first
@@ -530,6 +603,21 @@ class ServingEngine:
             "serving_ttft_seconds", "submit-to-first-token latency")
         self._h_itl = m.histogram(
             "serving_inter_token_seconds", "gap between consecutive tokens")
+        # what one batched step asks of the card (cost_report's derived
+        # block): refreshed only when a step key is counted or captured
+        self._g_step_flops = m.gauge(
+            "serving_step_flops",
+            "FLOPs of one batched decode step/round: unfused aten ops "
+            "plus the hand-written kernels' counts (jit.aot)")
+        self._g_step_bytes = m.gauge(
+            "serving_step_bytes_accessed",
+            "bytes read and written by one batched decode step/round "
+            "(unfused aten ops plus the kernels' counts, jit.aot)")
+        self._g_hbm_reserved = m.gauge(
+            "serving_hbm_reserved_bytes",
+            "card memory the decode step holds: arguments + outputs - "
+            "in-place aliases + the captured graph's pool (set once the "
+            "step is captured on the card)")
         if self._slo is not None:
             self._slo.bind_metrics(m)
 
@@ -537,6 +625,18 @@ class ServingEngine:
         self._pool.on_token = self._on_token
         self._pool.on_finish = self._on_finish
         self._pool.on_resume = self._on_resume
+        # the prefill tier's hand-off: the pool hook queues rids whose
+        # prefill completed this tick, the export sweep at the tick's edge
+        # writes each transfer file and fires on_handoff(rid, info)
+        self._export_ready: List = []
+        self.on_handoff = None
+        self._c_handed_off = m.counter(
+            "serving_requests_handed_off_total",
+            "prefill-complete requests exported over the K/V transfer "
+            "contract and handed to a decode tier") \
+            if role == "prefill" else None
+        if role == "prefill":
+            self._pool.on_prefill_done = self._on_prefill_done
         # a torn tail the writer truncated when it re-opened an existing
         # file is surfaced now that the metric and log planes exist
         if self._journal is not None and self._journal.truncated_bytes:
@@ -554,7 +654,7 @@ class ServingEngine:
     def submit(self, input_ids, max_new_tokens: int, request_id=None,
                deadline_s: Optional[float] = None, priority=0,
                tenant=None, temperature=None, top_k=None, top_p=None,
-               seed=None) -> ResponseStream:
+               seed=None, adapter: int = 0) -> ResponseStream:
         """Admit one request; returns its :class:`ResponseStream`.
 
         ``priority`` (an int, or a name in ``PRIORITY_CLASSES``: higher
@@ -563,7 +663,9 @@ class ServingEngine:
         admission.  ``temperature``/``top_k``/``top_p``/``seed`` are this
         request's sampling config (None fields take the pool's defaults),
         resolved once here so every resubmission continues the same
-        stream.  ``deadline_s`` is a wall-clock budget from now: queued or
+        stream.  ``adapter`` must be 0 (LoRA is not ported; see
+        :meth:`has_adapter`).  ``deadline_s`` is a wall-clock budget from
+        now: queued or
         decoding, the request expires (slot and blocks freed) at the first
         tick past it.
 
@@ -589,6 +691,7 @@ class ServingEngine:
                     "stopped (drain()/shutdown() was called)")
             samp = self._pool._resolve_sampling(temperature, top_k, top_p,
                                                 seed)
+            _check_adapter(adapter)
             if self._restoring:
                 return self._defer_submit(input_ids, max_new_tokens,
                                           request_id, deadline_s, priority,
@@ -788,6 +891,247 @@ class ServingEngine:
                   blocks_uploaded=info.get("blocks_uploaded"),
                   committed_tokens=info.get("committed_tokens"),
                   wait_s=wait_s)
+
+    # -- disaggregated hand-off and live migration ------------------------
+    def _on_prefill_done(self, rid) -> None:
+        """Pool hook (prefill role): ``rid``'s prompt is resident and its
+        first token committed.  The export sweep at the tick's edge does
+        the download and the file write; the hook fires inside
+        ``pool.step`` and stays cheap."""
+        self._export_ready.append(rid)
+
+    def _export_sweep(self) -> None:
+        """Export every prefill-complete request queued this tick: write
+        its transfer file (the ``xfer.write`` seam; the file is written
+        before the allocator is touched), fire ``on_handoff(rid, info)``
+        with everything the decode tier needs -- before the tier-terminal
+        ``HANDED_OFF`` finalize, so the front's hand-off record exists
+        before the stream closes -- and end the tier's part.  A failed
+        export degrades, never loses: the parked K/V is cancelled and the
+        hand-off carries ``path=None``, for a prompt + committed resubmit
+        on the decode tier (byte-identical under greedy decoding)."""
+        if not self._export_ready:
+            return
+        ready, self._export_ready = self._export_ready, []
+        for rid in ready:
+            if not self._pool.has_prefill_done(rid):
+                continue  # cancelled / expired / recovered away
+            rec = self._live.get(rid)
+            if rec is None:
+                try:
+                    self._pool.cancel(rid)
+                except NotFoundError:
+                    pass
+                continue
+            error = None
+            try:
+                info = self._pool.export_kv(rid)
+            except BaseException as e:  # noqa: BLE001 - degrade, not lose
+                error = "%s: %s" % (type(e).__name__, str(e)[:200])
+                try:
+                    self._pool.cancel(rid)
+                except NotFoundError:
+                    pass
+                info = {"rid": rid, "path": None, "transfer_bytes": 0,
+                        "blocks_written": 0,
+                        "committed_tokens": len(rec.tokens)}
+            self._live.pop(rid, None)
+            info = dict(info)
+            info.update(
+                prompt=rec.prompt, tokens=list(rec.tokens),
+                prompt_len=rec.prompt_len, max_new_tokens=rec.max_new,
+                priority=rec.priority, tenant=rec.tenant,
+                deadline_abs=rec.deadline_abs, submit_t=rec.submit_t,
+                exported_at=self._clock(), error=error)
+            if self._c_handed_off is not None:
+                self._c_handed_off.inc()
+            trace.instant("xfer.export", rid=rid,
+                          transfer_bytes=info["transfer_bytes"],
+                          blocks=info["blocks_written"],
+                          committed_tokens=info["committed_tokens"],
+                          degraded=error is not None or None)
+            slog.emit("xfer.export", rid=rid,
+                      transfer_bytes=info["transfer_bytes"],
+                      blocks=info["blocks_written"],
+                      committed_tokens=info["committed_tokens"],
+                      error=error)
+            if self.on_handoff is not None:
+                self.on_handoff(rid, info)
+            self._finalize(rec, RequestState.HANDED_OFF, "handoff",
+                           rec.tokens)
+
+    def adopt_transfer(self, request_id, input_ids, tokens,
+                       max_new_tokens: int, priority=0, tenant=None,
+                       deadline_abs=None, sampling=None,
+                       adapter: int = 0) -> dict:
+        """Decode-role admission of one handed-off request: ``input_ids``
+        + committed ``tokens`` are the ground truth, the transfer file (if
+        present and exact) the K/V fast path.  The request re-parks in the
+        spill tier through ``adopt_spill`` and resumes at the next refill
+        with no re-prefill; any miss (stale, alien or missing file) falls
+        back to a prompt + committed resubmit, byte-identical either way.
+        Committed tokens are not replayed into the returned stream: the
+        front delivered them off the prefill tier's stream.
+
+        Returns ``{"stream": ResponseStream, "adopted_from_file": bool}``.
+        No queue-depth gate: admission control ran at the prefill tier's
+        door, and refusing a hand-off here would drop a request both tiers
+        already invested in."""
+        if self.role != "decode":
+            raise PreconditionNotMetError(
+                "adopt_transfer is the decode tier's admission path (this "
+                "engine's role is %r)" % (self.role,))
+        return self._adopt_live(request_id, input_ids, tokens,
+                                max_new_tokens, priority, tenant,
+                                deadline_abs, sampling, adapter)
+
+    def adopt_migration(self, request_id, input_ids, tokens,
+                        max_new_tokens: int, priority=0, tenant=None,
+                        deadline_abs=None, sampling=None,
+                        adapter: int = 0) -> dict:
+        """Fleet live-migration admission: the mechanics of
+        :meth:`adopt_transfer` (the transfer file as the K/V fast path,
+        prompt + committed resubmit as the fallback) for fused engines
+        that move live requests among peers.  A prefill-role engine
+        refuses: it has no decode step to finish the request with."""
+        if self.role == "prefill":
+            raise PreconditionNotMetError(
+                "a prefill-role engine cannot adopt a migrated request: it "
+                "has no decode step to finish it with")
+        return self._adopt_live(request_id, input_ids, tokens,
+                                max_new_tokens, priority, tenant,
+                                deadline_abs, sampling, adapter)
+
+    def _adopt_live(self, request_id, input_ids, tokens,
+                    max_new_tokens: int, priority=0, tenant=None,
+                    deadline_abs=None, sampling=None,
+                    adapter: int = 0) -> dict:
+        """The one adoption body behind :meth:`adopt_transfer` and
+        :meth:`adopt_migration`: the role gates differ, the mechanics do
+        not.  ``sampling`` is the donor's 5-list (or a parsed config); the
+        adapter check runs before any state lands.  The journal records
+        the adoption (admit + the committed history) before the request
+        can decode; the adopter observes ITL only (TTFT belongs to the
+        prefill tier or the donor)."""
+        with self._lock:
+            if self._draining:
+                raise PreconditionNotMetError(
+                    "engine is draining/shut down: hand-offs are stopped")
+            if request_id in self._live:
+                raise DuplicateRequestError(
+                    "request_id %r is already live on this engine"
+                    % (request_id,))
+            priority = _normalize_priority(priority)
+            if isinstance(sampling, (list, tuple)) \
+                    and not isinstance(sampling, _SamplingConfig):
+                sampling = _samp_from_json(sampling)
+            _check_adapter(adapter)
+            ids = np.asarray(input_ids).astype(np.int32)
+            toks = [int(t) for t in tokens]
+            now = self._clock()
+            stream = ResponseStream(self, request_id, int(max_new_tokens))
+            rec = _Record(request_id, stream, ids, int(max_new_tokens),
+                          deadline_abs, now, priority=priority,
+                          tenant=tenant, sampling=sampling)
+            rec.tokens = list(toks)
+            if toks:
+                rec.first_t = rec.last_t = now
+            if self._journal is not None:
+                # write-ahead across the hand-off: a crash mid-adopt
+                # replays prompt + committed, and re-adopts the file if
+                # it is still exact
+                self._check_journal_rid(request_id)
+                try:
+                    self._journal_admit(
+                        request_id, ids, max_new_tokens,
+                        (None if deadline_abs is None
+                         else max(0.001, deadline_abs - now)),
+                        priority, tenant, sampling=sampling)
+                    if toks:
+                        self._jl_tick_toks.setdefault(
+                            request_id, []).extend(toks)
+                        self._journal_flush()
+                except Exception as e:  # noqa: BLE001 - reject, typed
+                    raise JournalWriteError(
+                        "hand-off rejected: the request journal could not "
+                        "record the adoption (%s: %s); retry"
+                        % (type(e).__name__, str(e)[:200])) from e
+            adopted = self._pool.adopt_spill(
+                request_id, ids, toks, int(max_new_tokens),
+                priority=priority, tenant=tenant, deadline=deadline_abs)
+            if adopted:
+                rec.state = RequestState.PREEMPTED
+                rec.preempted_at = now
+            else:
+                self._resubmit_record(rec)
+            self._live[request_id] = rec
+            self._c_submitted.inc()
+            trace.instant("xfer.adopt", rid=request_id, from_file=adopted,
+                          committed_tokens=len(toks))
+            slog.emit("xfer.adopt", rid=request_id,
+                      adopted_from_file=adopted, committed_tokens=len(toks),
+                      prompt_tokens=int(ids.shape[0]))
+        self._wake.set()
+        return {"stream": stream, "adopted_from_file": bool(adopted)}
+
+    def migrate_out(self, request_id) -> dict:
+        """Give one live request up for adoption by a peer engine (the
+        donor half of fleet live migration).
+
+        A DECODING request on the disk spill tier is preempted (its K/V
+        land in a transfer file under the shared spill naming) and then
+        detached: the file stays, the pool forgets the request, and the
+        peer resumes it through ``adopt_spill`` with no re-prefill.
+        Anything else (queued, prefilling, host-tier parked, preemption
+        refused) is cancelled here: the returned prompt + committed entry
+        is the ground truth, and the peer's resubmit regenerates it
+        byte-identically under greedy decoding.  This engine finalizes its
+        side ``HANDED_OFF``/"migrated" and returns ``{"rid", "prompt",
+        "tokens", "max_new", "priority", "tenant", "deadline_abs",
+        "retries", "sampling", "adapter", "spill_path"}``."""
+        with self._lock:
+            rec = self._live.get(request_id)
+            if rec is None:
+                raise NotFoundError(
+                    "request_id %r is not live on this engine"
+                    % (request_id,))
+            pool = self._pool
+            spill_path = None
+            if rec.state == RequestState.DECODING \
+                    and pool.spill_tier == "disk" \
+                    and pool.can_preempt(rec.rid):
+                try:
+                    self._do_preempt(rec, "migrate")
+                except Exception:  # noqa: BLE001 - degrade to resubmit
+                    pass
+            if rec.state == RequestState.PREEMPTED:
+                try:
+                    spill_path = pool.detach_spilled(rec.rid)["path"]
+                except (NotFoundError, PreconditionNotMetError):
+                    # host-tier parked (no file) or raced away: the entry
+                    # still carries the whole resume state
+                    pool.cancel(rec.rid)
+            else:
+                pool.cancel(rec.rid)
+            self._live.pop(request_id, None)
+            entry = {"rid": rec.rid, "prompt": rec.prompt,
+                     "tokens": list(rec.tokens), "max_new": rec.max_new,
+                     "priority": rec.priority, "tenant": rec.tenant,
+                     "deadline_abs": rec.deadline_abs,
+                     "retries": rec.retries,
+                     "sampling": _samp_json(rec.sampling), "adapter": 0,
+                     "spill_path": spill_path}
+            trace.instant("sched.migrate_out", rid=rec.rid,
+                          spilled=spill_path is not None,
+                          committed_tokens=len(rec.tokens))
+            slog.emit("sched.migrate_out", rid=rec.rid,
+                      spilled=spill_path is not None,
+                      committed_tokens=len(rec.tokens),
+                      remaining=rec.max_new - len(rec.tokens))
+            self._finalize(rec, RequestState.HANDED_OFF, "migrated",
+                           rec.tokens)
+            self._journal_flush()
+            return entry
 
     # -- preemption and the degradation ladder ----------------------------
     def preempt(self, request_id=None, reason: str = "manual"):
@@ -1573,6 +1917,9 @@ class ServingEngine:
                 self._health.note_error(self._clock(), e,
                                         faults.classify_error(e))
                 self._recover(e)
+            # the prefill tier's tick edge: export every prefill that
+            # completed this step (nothing to do on other roles)
+            self._export_sweep()
             self._observe_gauges()
             return bool(self._live)
         finally:
@@ -1616,6 +1963,17 @@ class ServingEngine:
         if self._timer.total:
             self._g_tps.set(self._tokens_total / self._timer.total)
             self._g_step.set(self._timer.step_time)
+        # the cost gauges: one int compare a tick unless a step key was
+        # counted or captured since the last refresh
+        version = pool.cost_version()
+        if version != self._cost_seen:
+            self._cost_seen = version
+            derived = pool.cost_report().get("derived") or {}
+            if derived:
+                self._g_step_flops.set(derived["step_flops"])
+                self._g_step_bytes.set(derived["step_bytes_accessed"])
+                if derived.get("hbm_reserved_bytes") is not None:
+                    self._g_hbm_reserved.set(derived["hbm_reserved_bytes"])
 
     # -- drive mode 1: synchronous pump ----------------------------------
     def pump(self, steps: int = 1) -> bool:
@@ -1746,7 +2104,7 @@ class ServingEngine:
         now = self._clock()
         out = {"state": state,
                "healthy": state in ("idle", "serving", "draining"),
-               "role": "fused",
+               "role": self.role,
                "live_requests": len(self._live),
                "queue_depth": self._pool.queue_depth,
                "loop_alive": loop_alive,
@@ -2005,9 +2363,68 @@ class ServingEngine:
             return self._pool.compile_counts()
 
     def cost_version(self) -> int:
-        """The pool's total step keys (``GenerationPool.cost_version``)."""
+        """The pool's cost version (``GenerationPool.cost_version``)."""
         with self._lock:
             return self._pool.cost_version()
+
+    def cost_report(self) -> dict:
+        """Per-step-key cost attribution (``GenerationPool.cost_report`` /
+        ``SpeculativePool.cost_report``): FLOPs, bytes accessed, the
+        memory fields, the decode step's ``kv_cache_bytes`` and the
+        ``derived`` per-token block behind the ``serving_step_*`` gauges.
+        A read: it adds no key and synchronizes nothing."""
+        with self._lock:
+            return self._pool.cost_report()
+
+    # -- adapters (LoRA is not ported: the engine has no adapter bank) ----
+    def has_adapter(self, idx: int) -> bool:
+        """Whether adapter ``idx`` is servable here: 0 (the base model)
+        always; no other id without an adapter bank.  The fleet's router
+        places adapter traffic by this."""
+        try:
+            _check_adapter(idx)
+        except InvalidArgumentError:
+            return False
+        return True
+
+    def load_adapter(self, idx: int, weights: dict) -> None:
+        """Refused, typed: loading an adapter needs a LoRA bank, which
+        this port does not have yet."""
+        raise InvalidArgumentError(
+            "no LoRA bank attached: call attach_lora(model, n_adapters, "
+            "rank) before load_adapter")
+
+    def unload_adapter(self, idx: int) -> None:
+        """Refused, typed, as :meth:`load_adapter`."""
+        raise InvalidArgumentError(
+            "no LoRA bank attached: call attach_lora(model, n_adapters, "
+            "rank) before unload_adapter")
+
+    def release_device(self, blocking: bool = True) -> bool:
+        """Give this engine's card memory back now: every captured graph
+        is destroyed and the pool's caches and step buffers dropped
+        (``GenerationPool.release_device``).  The engine serves nothing
+        afterwards.  For a fleet's dead or retired engine, whose graphs
+        the collector would otherwise free at a time of its choosing --
+        possibly during another engine's capture.  With ``blocking=False``
+        nothing happens while another thread holds the engine (a wedged
+        tick may still be using the memory); returns whether it ran.
+        Refused while the background loop runs: it would go on ticking
+        the emptied pool."""
+        if not self._lock.acquire(blocking):
+            return False
+        try:
+            if self._thread is not None:
+                raise PreconditionNotMetError(
+                    "release_device() on an engine whose background loop "
+                    "runs -- shutdown() it first")
+            self._draining = True
+            # the owner (a fleet) resumes these requests elsewhere
+            self._live.clear()
+            self._pool.release_device()
+        finally:
+            self._lock.release()
+        return True
 
     @property
     def pool(self) -> GenerationPool:

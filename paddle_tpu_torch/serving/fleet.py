@@ -1,0 +1,1015 @@
+"""Multi-engine serving fleet: prefix-affinity routing, live request
+migration and SLO-driven autoscaling (counterpart of the reference's
+``serving/fleet.py``).
+
+:class:`ServingFleet` fronts N fused :class:`~.engine.ServingEngine`
+replicas with the single-engine API (``submit``/stream/``cancel``/
+``metrics``):
+
+- **Prefix-affinity routing.**  Every engine exposes its resident prefix
+  index as a chain-hash digest (``GenerationPool.prefix_digest``: the
+  chained ``hash((parent_key, block_tokens))`` keys ``_match_prefix``
+  walks, epoch-cached so an unchanged index costs one int compare).  The
+  router replays that chain over a new prompt's head blocks against each
+  engine's key set; the engine matching the most consecutive blocks holds
+  that prefix's K/V.  No match falls back to least-loaded placement from
+  ``health()`` (backlog per slot, degradation level, SLO burn).  The
+  digest is a hint: a wrong guess costs placement, never correctness.
+- **Live request migration.**  ``retire_engine`` drains an engine: the
+  donor preempts each decoding request into its disk-tier transfer file,
+  detaches the file (``GenerationPool.detach_spilled``), finalizes its
+  side ``HANDED_OFF``, and the adopting peer re-parks it through
+  ``adopt_migration`` -> ``adopt_spill`` with no re-prefill and no new
+  step key; any miss degrades to a prompt + committed resubmit,
+  byte-identical under greedy decoding.  Engine death is the same flow
+  without the donor: the fleet's own record of the tokens it forwarded is
+  the resume point.  Either way the caller's stream never closes.
+- **SLO-driven autoscaling.**  A fleet-level SLO tracker observes
+  front-side latency; the controller spawns an engine after a sustained
+  burn alert (``scale_dwell_ticks`` since the last change) and retires the
+  least-loaded one after ``scale_clear_ticks`` alert-free ticks under the
+  ``scale_down_util`` floor, within ``[min_engines, max_engines]``.
+
+The fleet is pump-mode only: one ``pump()`` ticks every engine, forwards
+tokens, rolls the SLO windows and runs the controller, under the fleet's
+lock (HTTP handler threads pump it through their streams).  Engines are
+built by ``engine_factory(engine_id, metrics_registry)`` -- fused role,
+not started -- and should share one ``spill_dir`` and one cache/sampling
+configuration, or migration loses its file fast path (resubmit still
+covers correctness).  ``render_prometheus()`` labels every engine's series
+``engine="<id>"`` and adds the fleet's counters.
+
+On one card the engines share the device.  An engine that dies or
+retires gives its memory back at once (``ServingEngine.release_device``:
+its graphs destroyed, its caches dropped) instead of when the collector
+gets to it.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..core.errors import (InvalidArgumentError, NotFoundError,
+                           PreconditionNotMetError, UnavailableError)
+from ..inference.generation import DuplicateRequestError
+from . import log as slog
+from . import trace
+from .engine import QueueFullError
+from .metrics import (Counter, Histogram, MetricsRegistry, _fmt,
+                      escape_help, escape_label_value)
+from .slo import DEFAULT_OBJECTIVES, SLOTracker
+from .stream import RequestState, ResponseStream, StreamStatus, _TERMINAL
+
+__all__ = ["ServingFleet"]
+
+
+class _EngineHandle:
+    """One engine's fleet-side bookkeeping: its id, lifecycle state
+    (``active`` -> ``draining`` -> ``retired``, or ``dead``), its own
+    metrics registry (rendered under an ``engine`` label) and the
+    epoch-cached prefix digest the router matches against."""
+
+    __slots__ = ("engine_id", "engine", "registry", "state", "digest",
+                 "born_tick", "released")
+
+    def __init__(self, engine_id: str, engine, registry, born_tick: int):
+        self.engine_id = engine_id
+        self.engine = engine
+        self.registry = registry
+        self.state = "active"
+        self.digest: Optional[dict] = None
+        self.born_tick = born_tick
+        self.released = False
+
+
+class _FleetRecord:
+    """One request's front-side bookkeeping across migrations.  ``tokens``
+    is every token forwarded to the caller: the resume point of a dead
+    engine's requests."""
+
+    __slots__ = ("rid", "stream", "engine_id", "engine_stream", "prompt",
+                 "prompt_len", "tokens", "max_new", "deadline_abs",
+                 "submit_t", "first_t", "last_t", "priority", "tenant",
+                 "migrations", "sampling", "adapter")
+
+    def __init__(self, rid, stream, engine_id, engine_stream, prompt,
+                 max_new, submit_t, priority, tenant, deadline_abs,
+                 sampling=None, adapter=0):
+        self.rid = rid
+        self.stream = stream
+        self.engine_id = engine_id
+        self.engine_stream = engine_stream
+        self.prompt = prompt
+        self.prompt_len = int(prompt.shape[0]) if prompt.ndim else 0
+        self.tokens: List[int] = []
+        self.max_new = max_new
+        self.deadline_abs = deadline_abs
+        self.submit_t = submit_t
+        self.first_t = None
+        self.last_t = None
+        self.priority = priority
+        self.tenant = tenant
+        self.migrations = 0
+        # the engine-resolved sampling config and the adapter id: the
+        # death path hands them to the adopter without asking the donor
+        self.sampling = sampling
+        self.adapter = adapter
+
+
+class ServingFleet:
+    """Route requests over N fused engines; migrate them live; scale the
+    fleet on SLO burn.
+
+    ``engine_factory(engine_id, metrics_registry)`` builds one fused,
+    NOT-started engine per call.  ``engines`` initial replicas;
+    autoscaling moves the count inside [``min_engines``,
+    ``max_engines``].  ``slo`` is the fleet's tracker (front-observed
+    latency), by default ``DEFAULT_OBJECTIVES()`` when ``autoscale``.
+    ``affinity_min_blocks`` is the smallest digest match that overrides
+    load placement; ``affinity_probe_blocks`` caps the chain walk per
+    candidate."""
+
+    def __init__(self, engine_factory, *, engines: int = 2,
+                 min_engines: int = 1, max_engines: Optional[int] = None,
+                 clock=None, metrics: Optional[MetricsRegistry] = None,
+                 slo: Optional[SLOTracker] = None,
+                 autoscale: bool = False, scale_dwell_ticks: int = 3,
+                 scale_clear_ticks: int = 6, scale_down_util: float = 0.5,
+                 affinity_min_blocks: int = 1,
+                 affinity_probe_blocks: int = 16):
+        if int(engines) < 1:
+            raise InvalidArgumentError(
+                "a fleet needs at least one engine, got engines=%r"
+                % (engines,))
+        if int(min_engines) < 1 or int(min_engines) > int(engines):
+            raise InvalidArgumentError(
+                "need 1 <= min_engines <= engines, got min=%r engines=%r"
+                % (min_engines, engines))
+        max_engines = int(engines) if max_engines is None \
+            else int(max_engines)
+        if max_engines < int(engines):
+            raise InvalidArgumentError(
+                "need max_engines >= engines, got max=%r engines=%r"
+                % (max_engines, engines))
+        if int(scale_dwell_ticks) < 1 or int(scale_clear_ticks) < 1:
+            raise InvalidArgumentError(
+                "scale_dwell_ticks and scale_clear_ticks must be >= 1")
+        self._clock = clock if clock is not None else time.monotonic
+        self._factory = engine_factory
+        self.min_engines = int(min_engines)
+        self.max_engines = max_engines
+        self._autoscale = bool(autoscale)
+        self._scale_dwell = int(scale_dwell_ticks)
+        self._scale_clear = int(scale_clear_ticks)
+        self._scale_down_util = float(scale_down_util)
+        self._affinity_min = int(affinity_min_blocks)
+        self._probe_blocks = int(affinity_probe_blocks)
+        self._slo = slo if slo is not None else (
+            SLOTracker(DEFAULT_OBJECTIVES()) if autoscale else None)
+        # the init spawns below zero this, so the controller waits a full
+        # dwell from birth before its first action
+        self._as_ticks_since_change = 1 << 30
+        self._as_clean_ticks = 0
+        self._draining = False
+        self._ticks = 0
+        self._next_eid = 0
+        self._next_rid = 0
+        self._handles: Dict[str, _EngineHandle] = {}
+        self._records: Dict[object, _FleetRecord] = {}
+        # the adapter registry {idx: weights}: forwarded to the engines,
+        # which refuse nonzero ids until LoRA is ported
+        self._adapters: Dict[int, dict] = {}
+        # serializes the front: HTTP handler threads pump and submit
+        # concurrently through their streams
+        self._lock = threading.RLock()
+
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        m = self.metrics
+        self._c_submitted = m.counter(
+            "serving_requests_submitted_total",
+            "requests admitted at the fleet front")
+        self._c_migrations = m.counter(
+            "fleet_migrations_total",
+            "live requests moved between engines (graceful drain or "
+            "engine-death replay)")
+        self._c_deaths = m.counter(
+            "fleet_engine_deaths_total",
+            "engines abandoned after a fatal pump error, a wedged/dead "
+            "health probe, or hard_abandon()")
+        self._c_scale_ups = m.counter(
+            "fleet_scale_ups_total",
+            "engines spawned by the SLO-burn controller")
+        self._c_scale_downs = m.counter(
+            "fleet_scale_downs_total",
+            "engines retired by the SLO-clear controller")
+        self._g_engines = m.gauge("fleet_engines", "active engines right now")
+        self._h_ttft = m.histogram(
+            "serving_ttft_seconds",
+            "front-observed submit-to-first-token latency (end-to-end: "
+            "includes routing and any migration wait)")
+        self._h_itl = m.histogram(
+            "serving_inter_token_seconds",
+            "front-observed gap between consecutive tokens (a migration's "
+            "adoption gap rides the first post-migration token)")
+        # the labelled series (reason=affinity|load) live outside the
+        # label-free registry and are rendered by render_prometheus()
+        self._routed: Dict[str, Counter] = {
+            reason: Counter("fleet_requests_routed_total")
+            for reason in ("affinity", "load")}
+        if self._slo is not None:
+            self._slo.bind_metrics(m)
+
+        for _ in range(int(engines)):
+            self._spawn_engine(reason="init")
+
+    # -- engine lifecycle ------------------------------------------------
+    def _active_handles(self) -> List[_EngineHandle]:
+        return [h for h in self._handles.values() if h.state == "active"]
+
+    def _spawn_engine(self, reason: str) -> _EngineHandle:
+        eid = "e%d" % self._next_eid
+        self._next_eid += 1
+        registry = MetricsRegistry()
+        engine = self._factory(eid, registry)
+        role = getattr(engine, "role", None)
+        if role != "fused":
+            raise InvalidArgumentError(
+                "engine_factory must build fused-role engines (the fleet "
+                "migrates requests among peers, not across tier roles) -- "
+                "%r returned role=%r" % (eid, role))
+        if engine.is_running():
+            raise InvalidArgumentError(
+                "engine_factory must return a NOT-started engine: the "
+                "fleet pumps its engines itself (engine %r has a "
+                "background loop)" % (eid,))
+        for idx, weights in self._adapters.items():
+            engine.load_adapter(idx, weights)
+        h = _EngineHandle(eid, engine, registry, self._ticks)
+        self._handles[eid] = h
+        self._as_ticks_since_change = 0
+        self._g_engines.set(len(self._active_handles()))
+        if reason != "init":
+            self._c_scale_ups.inc()
+        trace.instant("fleet.spawn", engine=eid, reason=reason)
+        slog.emit("fleet.spawn", engine=eid, reason=reason,
+                  engines=len(self._active_handles()))
+        return h
+
+    @staticmethod
+    def _release(h: _EngineHandle) -> None:
+        """Give a dead or retired engine's card memory back now, unless a
+        wedged tick still holds the engine (it may still be using it):
+        then the pump that ran that tick releases it when the tick ends."""
+        if h.released:
+            return
+        try:
+            h.released = h.engine.release_device(blocking=False)
+        except Exception:  # noqa: BLE001 - the engine is gone either way
+            h.released = True
+
+    def hard_abandon(self, engine_id, error: str = "hard-abandoned"
+                     ) -> List[object]:
+        """Declare one engine dead now (no waiting for its next pump to
+        fail) and migrate its live requests onto survivors.  Returns the
+        migrated rids."""
+        with self._lock:
+            h = self._handles.get(engine_id)
+            if h is None:
+                raise NotFoundError(
+                    "engine %r is not in the fleet" % (engine_id,))
+            return self._on_engine_death(h, RuntimeError(error))
+
+    def _on_engine_death(self, h: _EngineHandle,
+                         exc: BaseException) -> List[object]:
+        """An engine is gone (its pump raised through its own recovery,
+        its health probe reports wedged/loop-dead, or the operator said
+        so): replay its live requests onto survivors from the fleet's
+        token records.  The dead engine's stream queues are not drained:
+        tokens it delivered after the fleet's last forward are the window
+        a crash may or may not have kept, and greedy decoding regenerates
+        them byte-identically."""
+        if h.state in ("dead", "retired"):
+            return []
+        h.state = "dead"
+        self._c_deaths.inc()
+        self._g_engines.set(len(self._active_handles()))
+        victims = [r for r in self._records.values()
+                   if r.engine_id == h.engine_id]
+        trace.instant("fleet.engine_dead", engine=h.engine_id,
+                      victims=len(victims), error=str(exc)[:200])
+        slog.emit("fleet.engine_dead", engine=h.engine_id,
+                  victims=len(victims), error=str(exc)[:200],
+                  engines=len(self._active_handles()))
+        # the dead engine's memory first: its replacement allocates its own
+        self._release(h)
+        migrated = []
+        if len(self._active_handles()) < self.min_engines \
+                and len(self._handles) - 1 < 4 * self.max_engines:
+            # keep the floor (the spawn cap bounds a crash-looping factory)
+            try:
+                self._spawn_engine(reason="replace-dead")
+            except Exception:  # noqa: BLE001 - survivors still adopt
+                pass
+        for rec in victims:
+            target = self._pick_adopter(rec)
+            if target is None:
+                self._finalize_front(
+                    rec, RequestState.FAILED, "error",
+                    error="engine %r died and no healthy engine remains "
+                          "to adopt %r" % (h.engine_id, rec.rid))
+                continue
+            try:
+                self._adopt_onto(rec, target, reason="engine-death")
+                migrated.append(rec.rid)
+            except Exception as adopt_exc:  # noqa: BLE001 - per victim
+                self._finalize_front(
+                    rec, RequestState.FAILED, "error",
+                    error="migration of %r off dead engine %r failed: %s"
+                          % (rec.rid, h.engine_id, str(adopt_exc)[:200]))
+        return migrated
+
+    def retire_engine(self, engine_id, reason: str = "scale-down") -> dict:
+        """Drain one engine out of the fleet: checkpoint its journal (when
+        it has one), migrate every live request to a peer through the
+        preempt -> detach -> adopt file path (resubmit fallback), shut it
+        down and give its card memory back.  Returns ``{"engine_id",
+        "migrated", "adopted_from_file"}``."""
+        with self._lock:
+            h = self._handles.get(engine_id)
+            if h is None:
+                raise NotFoundError(
+                    "engine %r is not in the fleet" % (engine_id,))
+            if h.state != "active":
+                raise PreconditionNotMetError(
+                    "engine %r is %s -- only an active engine can retire"
+                    % (engine_id, h.state))
+            others = [x for x in self._active_handles() if x is not h]
+            victims = [r for r in self._records.values()
+                       if r.engine_id == engine_id]
+            if victims and not others:
+                raise PreconditionNotMetError(
+                    "cannot retire %r: it holds %d live request(s) and no "
+                    "other active engine exists to adopt them"
+                    % (engine_id, len(victims)))
+            h.state = "draining"
+            if getattr(h.engine, "_journal", None) is not None:
+                # if this process dies mid-drain, the compacted journal
+                # replays whatever had not migrated yet
+                try:
+                    h.engine.checkpoint()
+                except Exception:  # noqa: BLE001 - drain proceeds
+                    pass
+            from_file = 0
+            for rec in victims:
+                target = self._pick_adopter(rec)
+                from_file += int(self._migrate_record(rec, target,
+                                                      reason=reason))
+            h.state = "retired"
+            try:
+                h.engine.shutdown(drain=False)
+            except Exception:  # noqa: BLE001 - already drained of requests
+                pass
+            self._release(h)
+            self._g_engines.set(len(self._active_handles()))
+            trace.instant("fleet.retire", engine=engine_id, reason=reason,
+                          migrated=len(victims))
+            slog.emit("fleet.retire", engine=engine_id, reason=reason,
+                      migrated=len(victims), adopted_from_file=from_file,
+                      engines=len(self._active_handles()))
+            return {"engine_id": engine_id, "migrated": len(victims),
+                    "adopted_from_file": from_file}
+
+    # -- the adapter registry --------------------------------------------
+    def register_adapter(self, idx: int, weights: dict) -> None:
+        """Register adapter ``idx`` fleet-wide: load it onto every active
+        engine now and onto every later spawn.  The first engine's typed
+        refusal propagates (every engine refuses a nonzero id until LoRA
+        is ported), and the registry records only a load the fleet
+        proved."""
+        with self._lock:
+            for h in self._active_handles():
+                if not h.engine.has_adapter(idx) \
+                        or idx not in self._adapters:
+                    h.engine.load_adapter(idx, weights)
+            self._adapters[idx] = weights
+            trace.instant("fleet.adapter_load", adapter=int(idx),
+                          engines=len(self._active_handles()))
+            slog.emit("fleet.adapter_load", adapter=int(idx),
+                      engines=len(self._active_handles()))
+
+    def unregister_adapter(self, idx: int) -> None:
+        """Drop adapter ``idx`` fleet-wide (each engine holding it unloads
+        it) and forget its weights."""
+        with self._lock:
+            for h in self._active_handles():
+                if h.engine.has_adapter(idx):
+                    h.engine.unload_adapter(idx)
+            self._adapters.pop(int(idx), None)
+            slog.emit("fleet.adapter_unload", adapter=int(idx))
+
+    @property
+    def adapters(self) -> tuple:
+        """Registered adapter ids, ascending."""
+        return tuple(sorted(self._adapters))
+
+    def _ensure_adapter(self, h: _EngineHandle, adapter: int) -> bool:
+        """True when ``h`` can serve ``adapter``: it holds the row, or the
+        registry's weights load onto it now."""
+        adapter = int(adapter)
+        if adapter == 0 or h.engine.has_adapter(adapter):
+            return True
+        weights = self._adapters.get(adapter)
+        if weights is None:
+            return False
+        try:
+            h.engine.load_adapter(adapter, weights)
+        except Exception:  # noqa: BLE001 - candidate disqualified
+            return False
+        trace.instant("fleet.adapter_hotload", adapter=adapter,
+                      engine=h.engine_id)
+        return True
+
+    # -- migration mechanics ---------------------------------------------
+    def _pick_adopter(self, rec: _FleetRecord) -> Optional[_EngineHandle]:
+        """The peer to move ``rec`` onto: affinity over its resume point
+        (prompt + committed tokens), else least loaded; never the current
+        owner; only where its adapter is servable."""
+        ids = rec.prompt if not rec.tokens else np.concatenate(
+            [rec.prompt, np.asarray(rec.tokens, np.int32)])
+        for h, _reason, _matched in self._ranked_candidates(
+                ids, exclude={rec.engine_id}):
+            if self._ensure_adapter(h, rec.adapter):
+                return h
+        return None
+
+    def _migrate_record(self, rec: _FleetRecord,
+                        target: Optional[_EngineHandle], reason: str) -> bool:
+        """Graceful migration of one live request: the donor's stream is
+        drained first (everything it committed reaches the caller, so the
+        fleet's record and the donor's journal agree on the resume point),
+        then donor ``migrate_out`` -> peer ``adopt_migration``.  True when
+        the K/V file was adopted."""
+        donor = self._handles[rec.engine_id]
+        self._forward(rec, rec.engine_stream)
+        entry = donor.engine.migrate_out(rec.rid)
+        if target is None:
+            self._finalize_front(
+                rec, RequestState.FAILED, "error",
+                error="no healthy engine to adopt %r during %s"
+                      % (rec.rid, reason))
+            return False
+        return self._adopt_onto(rec, target, reason=reason, entry=entry)
+
+    def _adopt_onto(self, rec: _FleetRecord, target: _EngineHandle,
+                    reason: str, entry: Optional[dict] = None) -> bool:
+        """Point ``rec`` at ``target``: adopt from the donor's entry (the
+        graceful path) or from the fleet's own token record (the death
+        path: the donor cannot be asked)."""
+        src = rec.engine_id
+        if entry is None:
+            entry = {"rid": rec.rid, "prompt": rec.prompt,
+                     "tokens": list(rec.tokens), "max_new": rec.max_new,
+                     "priority": rec.priority, "tenant": rec.tenant,
+                     "deadline_abs": rec.deadline_abs,
+                     "sampling": rec.sampling, "adapter": rec.adapter}
+        adapter = int(entry.get("adapter") or 0)
+        if adapter and not self._ensure_adapter(target, adapter):
+            raise PreconditionNotMetError(
+                "engine %r cannot serve adapter %d (no resident bank row "
+                "and no registry weights to load) -- the migration of %r "
+                "needs an adapter-capable adopter"
+                % (target.engine_id, adapter, rec.rid))
+        res = target.engine.adopt_migration(
+            entry["rid"], entry["prompt"], entry["tokens"],
+            entry["max_new"], priority=entry["priority"],
+            tenant=entry["tenant"], deadline_abs=entry["deadline_abs"],
+            sampling=entry.get("sampling"), adapter=adapter)
+        rec.engine_stream = res["stream"]
+        rec.engine_id = target.engine_id
+        rec.migrations += 1
+        self._c_migrations.inc()
+        trace.instant("fleet.migrate", rid=rec.rid, src=src,
+                      dst=target.engine_id, reason=reason,
+                      adopted_from_file=res["adopted_from_file"])
+        slog.emit("fleet.migrate", rid=rec.rid, src=src,
+                  dst=target.engine_id, reason=reason,
+                  adopted_from_file=res["adopted_from_file"],
+                  committed_tokens=len(entry["tokens"]))
+        return bool(res["adopted_from_file"])
+
+    # -- routing ---------------------------------------------------------
+    def _refresh_digest(self, h: _EngineHandle) -> Optional[dict]:
+        since = h.digest["epoch"] if h.digest is not None else None
+        d = h.engine.resident_prefix_digest(since_epoch=since)
+        if d is None:
+            h.digest = None
+        elif "keys" in d:
+            h.digest = d
+        return h.digest
+
+    def _affinity_blocks(self, h: _EngineHandle, ids) -> int:
+        """Consecutive head blocks of ``ids`` resident in ``h``'s prefix
+        index: the pool's ``_match_prefix`` chain replayed (the same
+        ``hash((parent, block_tokens))`` keys, without the token-equality
+        check: a collision mis-routes at worst, never mis-serves)."""
+        d = self._refresh_digest(h)
+        if not d or not d.get("keys"):
+            return 0
+        bs = d["block_size"]
+        keys = d["keys"]
+        matched = 0
+        key = None
+        # the final prompt position is never matched pool-side
+        limit = min((len(ids) - 1) // bs, self._probe_blocks)
+        for j in range(limit):
+            toks = tuple(int(t) for t in ids[j * bs:(j + 1) * bs])
+            key = hash((key, toks))
+            if key not in keys:
+                break
+            matched += 1
+        return matched
+
+    def _load_score(self, h: _EngineHandle, health: dict) -> float:
+        """Smaller is better: backlog per slot plus the engine's distress
+        signals (degradation rung, active SLO burn alerts)."""
+        slots = max(1, h.engine.pool.slots)
+        score = (health["live_requests"] + health["queue_depth"]) \
+            / float(slots)
+        score += float(health.get("degraded") or 0)
+        slo = health.get("slo")
+        if slo:
+            score += 2.0 * slo.get("alerts_active", 0)
+        return score
+
+    def _ranked_candidates(self, ids, exclude=frozenset()):
+        """Healthy active engines best-first:
+        ``[(handle, reason, matched_blocks), ...]``."""
+        scored = []
+        for h in self._active_handles():
+            if h.engine_id in exclude:
+                continue
+            hs = h.engine.health()
+            if hs["state"] in ("wedged", "loop-dead", "stopped",
+                               "draining", "restoring"):
+                continue
+            scored.append((h, self._affinity_blocks(h, ids),
+                           self._load_score(h, hs)))
+        affine = [s for s in scored if s[1] >= self._affinity_min]
+        if affine:
+            affine.sort(key=lambda s: (-s[1], s[2]))
+            rest = sorted((s for s in scored if s[1] < self._affinity_min),
+                          key=lambda s: s[2])
+            return [(h, "affinity", m) for h, m, _ in affine] \
+                + [(h, "load", m) for h, m, _ in rest]
+        scored.sort(key=lambda s: s[2])
+        return [(h, "load", m) for h, m, _ in scored]
+
+    # -- admission -------------------------------------------------------
+    def submit(self, input_ids, max_new_tokens: int, request_id=None,
+               deadline_s: Optional[float] = None, priority=0, tenant=None,
+               temperature=None, top_k=None, top_p=None, seed=None,
+               adapter: int = 0) -> ResponseStream:
+        """Admit one request somewhere in the fleet; returns the FRONT's
+        stream, on which tokens keep flowing across migrations.
+        Candidates are tried best-first: a retryable refusal of one engine
+        (queue full, deadline estimate, tightened admission, draining)
+        falls through to the next, and only when every engine refuses does
+        the last typed error propagate.  Automatic request ids are the
+        fleet's (``"f0"``, ``"f1"``, ...): engines minting their own
+        integers would collide in the shared spill directory.  The
+        sampling config and ``adapter`` pass through to the engine and
+        ride the fleet's record."""
+        with self._lock:
+            if self._draining:
+                raise PreconditionNotMetError(
+                    "fleet front is draining/shut down")
+            if request_id is not None and request_id in self._records:
+                raise DuplicateRequestError(
+                    "request_id %r is already live on the fleet"
+                    % (request_id,))
+            ids = np.asarray(input_ids)
+            rid = request_id
+            if rid is None:
+                while True:
+                    rid = "f%d" % self._next_rid
+                    self._next_rid += 1
+                    if rid not in self._records:
+                        break
+            ranked = self._ranked_candidates(ids)
+            if not ranked:
+                raise QueueFullError(
+                    "no healthy active engine in the fleet; back off and "
+                    "retry")
+            adapter = int(adapter)
+            if adapter:
+                placeable = [c for c in ranked
+                             if self._ensure_adapter(c[0], adapter)]
+                if not placeable:
+                    raise InvalidArgumentError(
+                        "adapter %d is not servable anywhere in the fleet "
+                        "(no engine holds the bank row and the fleet "
+                        "registry has no weights for it -- "
+                        "register_adapter(%d, weights) first)"
+                        % (adapter, adapter))
+                ranked = placeable
+            last_exc = None
+            for h, reason, matched in ranked:
+                try:
+                    es = h.engine.submit(
+                        ids, max_new_tokens, request_id=rid,
+                        deadline_s=deadline_s, priority=priority,
+                        tenant=tenant, temperature=temperature, top_k=top_k,
+                        top_p=top_p, seed=seed, adapter=adapter)
+                except (UnavailableError, PreconditionNotMetError) as e:
+                    last_exc = e
+                    continue
+                now = self._clock()
+                stream = ResponseStream(self, rid, int(max_new_tokens))
+                eng_rec = h.engine._live.get(rid)
+                self._records[rid] = _FleetRecord(
+                    rid, stream, h.engine_id, es, ids, int(max_new_tokens),
+                    now, priority, tenant,
+                    None if deadline_s is None else now + float(deadline_s),
+                    sampling=None if eng_rec is None else eng_rec.sampling,
+                    adapter=adapter)
+                self._c_submitted.inc()
+                self._routed[reason].inc()
+                trace.instant("fleet.route", rid=rid, engine=h.engine_id,
+                              reason=reason, matched_blocks=matched)
+                slog.emit("fleet.route", rid=rid, engine=h.engine_id,
+                          reason=reason, matched_blocks=matched,
+                          prompt_tokens=int(ids.shape[0]))
+                return stream
+            raise last_exc
+
+    # -- forwarding ------------------------------------------------------
+    def _forward(self, rec: _FleetRecord, src: ResponseStream) -> bool:
+        """Drain one engine stream's queue into the front stream; True
+        when the engine delivered its terminal."""
+        while True:
+            try:
+                item = src._q.get_nowait()
+            except queue.Empty:
+                return False
+            if item is _TERMINAL:
+                return True
+            now = self._clock()
+            if rec.first_t is None:
+                rec.first_t = now
+                self._h_ttft.observe(now - rec.submit_t)
+                if self._slo is not None:
+                    self._slo.observe_latency("ttft", now - rec.submit_t)
+            else:
+                self._h_itl.observe(now - rec.last_t)
+                if self._slo is not None:
+                    self._slo.observe_latency("inter_token",
+                                              now - rec.last_t)
+            rec.last_t = now
+            rec.tokens.append(int(item))
+            rec.stream._put_token(int(item))
+
+    def _finalize_front(self, rec: _FleetRecord, state: str, reason,
+                        error=None) -> None:
+        now = self._clock()
+        toks = np.asarray(rec.tokens, np.int32)
+        if self._slo is not None:
+            self._slo.observe_terminal(state)
+        trace.instant("req." + state.lower(), rid=rec.rid, reason=reason,
+                      new_tokens=int(toks.size), front=True, error=error)
+        rec.stream._finalize(StreamStatus(
+            request_id=rec.rid, state=state, finish_reason=reason,
+            tokens=toks, prompt_tokens=rec.prompt_len,
+            new_tokens=int(toks.size),
+            ttft_s=(None if rec.first_t is None
+                    else rec.first_t - rec.submit_t),
+            total_s=now - rec.submit_t, error=error))
+        self._records.pop(rec.rid, None)
+
+    def _forward_all(self) -> None:
+        for rec in list(self._records.values()):
+            if self._forward(rec, rec.engine_stream):
+                st = rec.engine_stream.status
+                if st.state == RequestState.HANDED_OFF:
+                    # the engine-side terminal of a migration the fleet
+                    # ordered: the front stream rides on
+                    continue
+                self._finalize_front(rec, st.state, st.finish_reason,
+                                     error=st.error)
+
+    # -- drive (pump mode only) ------------------------------------------
+    def is_running(self) -> bool:
+        """The front has no background thread: the caller (or a stream
+        being iterated) pumps it."""
+        return False
+
+    def pump(self, steps: int = 1) -> bool:
+        """One fleet tick per step: every live engine ticks once (an
+        exception escaping an engine's own recovery, or a wedged/dead
+        health probe, declares it dead and migrates its requests), tokens
+        forward to the front streams, the SLO windows roll, and the
+        autoscaler evaluates.  True while front-live requests remain.
+
+        Each engine ticks OUTSIDE the fleet lock (under its own): a tick
+        that wedges must leave the fleet free for ``hard_abandon`` from
+        the supervisor's thread, which migrates the victims while the
+        wedged tick still runs."""
+        for _ in range(int(steps)):
+            with self._lock:
+                self._ticks += 1
+                handles = list(self._handles.values())
+            for h in handles:
+                if h.state not in ("active", "draining"):
+                    continue
+                try:
+                    h.engine.pump(1)
+                    err = None
+                except Exception as e:  # noqa: BLE001 - engine-fatal
+                    err = e
+                with self._lock:
+                    if h.state in ("dead", "retired"):
+                        # abandoned while this tick ran: its memory could
+                        # not be given back until the tick let go of it
+                        self._release(h)
+                        continue
+                    if err is None:
+                        hs = h.engine.health()
+                        if hs["state"] in ("wedged", "loop-dead"):
+                            err = RuntimeError("health probe reports %r"
+                                               % (hs["state"],))
+                    if err is not None:
+                        self._on_engine_death(h, err)
+            with self._lock:
+                self._forward_all()
+                if self._slo is not None:
+                    self._slo.note_tick()
+                self._autoscale_eval()
+                if not self._records:
+                    break
+        with self._lock:
+            return bool(self._records)
+
+    # -- autoscaling -----------------------------------------------------
+    def _utilization(self) -> float:
+        slots = sum(h.engine.pool.slots for h in self._active_handles())
+        if not slots:
+            return 1.0
+        return len(self._records) / float(slots)
+
+    def _autoscale_eval(self) -> None:
+        """The ladder's dwell/clear discipline at fleet scope: one spawn
+        per sustained burn alert once ``dwell`` ticks passed since the
+        last change; a graceful retire of the least-loaded engine after
+        ``clear`` consecutive alert-free ticks under the utilization
+        floor."""
+        if not self._autoscale or self._slo is None or self._draining:
+            return
+        alerting = self._slo.alerting_names()
+        self._as_ticks_since_change += 1
+        active = self._active_handles()
+        if alerting:
+            self._as_clean_ticks = 0
+            if len(active) < self.max_engines \
+                    and self._as_ticks_since_change >= self._scale_dwell:
+                self._spawn_engine(
+                    reason="slo-burn:" + ",".join(sorted(alerting)))
+        else:
+            self._as_clean_ticks += 1
+            if len(active) > self.min_engines \
+                    and self._as_clean_ticks >= self._scale_clear \
+                    and self._utilization() <= self._scale_down_util:
+                victim = min(active, key=lambda h: sum(
+                    1 for r in self._records.values()
+                    if r.engine_id == h.engine_id))
+                self._c_scale_downs.inc()
+                self.retire_engine(victim.engine_id, reason="slo-clear")
+                self._as_clean_ticks = 0
+                self._as_ticks_since_change = 0
+
+    # -- lifecycle -------------------------------------------------------
+    def cancel(self, request_id) -> bool:
+        """Cancel wherever the request is; the front stream ends
+        CANCELLED.  Idempotent."""
+        with self._lock:
+            rec = self._records.get(request_id)
+            if rec is None:
+                return False
+            h = self._handles.get(rec.engine_id)
+            if h is not None and h.state not in ("dead", "retired"):
+                try:
+                    h.engine.cancel(request_id)
+                except Exception:  # noqa: BLE001 - front terminal wins
+                    pass
+            self._finalize_front(rec, RequestState.CANCELLED, "cancelled")
+            return True
+
+    def request_state(self, request_id) -> Optional[str]:
+        """The front's view of a request's state."""
+        rec = self._records.get(request_id)
+        if rec is None:
+            return None
+        h = self._handles.get(rec.engine_id)
+        if h is None or h.state in ("dead", "retired"):
+            return RequestState.PREEMPTED
+        return h.engine.request_state(request_id) or RequestState.DECODING
+
+    def drain(self, timeout_s: Optional[float] = None) -> bool:
+        """Stop admissions and pump until every front-live request ends;
+        False on a (wall-clock) timeout."""
+        self._draining = True
+        deadline = None if timeout_s is None \
+            else time.monotonic() + timeout_s
+        while self._records:
+            self.pump(1)
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+        return True
+
+    def shutdown(self, drain: bool = True) -> None:
+        """Drain (or cancel) the front-live requests, then shut every
+        engine that is not retired down (journals flushed and closed)."""
+        if drain:
+            self.drain()
+        else:
+            self._draining = True
+            for rid in list(self._records):
+                self.cancel(rid)
+        self._draining = True
+        for h in self._handles.values():
+            if h.state == "retired":
+                continue
+            try:
+                h.engine.shutdown(drain=False)
+            except Exception:  # noqa: BLE001 - dead engines stay dead
+                pass
+
+    # -- observability ---------------------------------------------------
+    def health(self) -> dict:
+        """Healthy while at least one active engine is, with every
+        engine's snapshot nested under its id and the fleet's surfaces on
+        top (the fleet's ``GET /healthz`` body)."""
+        per = {}
+        for eid, h in list(self._handles.items()):
+            if h.state in ("retired", "dead"):
+                per[eid] = {"healthy": False, "state": h.state}
+            else:
+                eh = h.engine.health()
+                if h.state == "draining":
+                    eh = dict(eh)
+                    eh["state"] = "draining"
+                per[eid] = eh
+        active = self._active_handles()
+        healthy = not self._draining and any(
+            per[h.engine_id]["healthy"] for h in active)
+        out = {"healthy": healthy,
+               "state": ("draining" if self._draining
+                         else "serving" if self._records else "idle"),
+               "live_requests": len(self._records),
+               "active_engines": len(active),
+               "engines_total": len(self._handles),
+               "migrations": int(self._c_migrations.value),
+               "engine_deaths": int(self._c_deaths.value),
+               "engines": per}
+        if self._slo is not None:
+            out["slo"] = self._slo.health_summary()
+        return out
+
+    def slo_snapshot(self) -> dict:
+        """The fleet tracker's state plus each engine's own (when it has
+        one): the fleet's ``GET /slo`` body."""
+        if self._slo is None:
+            raise PreconditionNotMetError(
+                "no SLO tracker is configured on this fleet: pass "
+                "slo=SLOTracker(...) (or autoscale=True) at construction")
+        out = self._slo.snapshot()
+        engines = {}
+        for eid, h in self._handles.items():
+            if h.state in ("dead", "retired"):
+                continue
+            try:
+                engines[eid] = h.engine.slo_snapshot()
+            except PreconditionNotMetError:
+                continue
+        out["engines"] = engines
+        return out
+
+    def request_trace(self, request_id) -> dict:
+        """The owning engine's timeline of a live request, else the first
+        engine that remembers it."""
+        rec = self._records.get(request_id)
+        order = []
+        if rec is not None and rec.engine_id in self._handles:
+            order.append(self._handles[rec.engine_id])
+        order.extend(h for h in self._handles.values()
+                     if h not in order and h.state != "retired")
+        last: BaseException = NotFoundError(
+            "request_id %r is unknown to every engine in the fleet"
+            % (request_id,))
+        for h in order:
+            try:
+                return h.engine.request_trace(request_id)
+            except Exception as e:  # noqa: BLE001 - try the next engine
+                last = e
+        raise last
+
+    def flight_recorder(self) -> dict:
+        """Per-engine flight recorders keyed by engine id (engines with a
+        tracer only)."""
+        out = {}
+        last = None
+        for eid, h in self._handles.items():
+            if h.state == "retired":
+                continue
+            try:
+                out[eid] = h.engine.flight_recorder()
+            except PreconditionNotMetError as e:
+                last = e
+        if not out and last is not None:
+            raise last
+        return out
+
+    def compile_counts(self) -> dict:
+        """Per-engine step keys by engine id: a migration must not grow
+        any survivor's."""
+        return {eid: h.engine.compile_counts()
+                for eid, h in self._handles.items() if h.state != "retired"}
+
+    def engine_states(self) -> dict:
+        """``{engine_id: "active"|"draining"|"dead"|"retired"}``."""
+        return {eid: h.state for eid, h in self._handles.items()}
+
+    def engines(self) -> dict:
+        """Engine objects keyed by id, retired ones left out (supervision
+        fan-in and tests; not part of the request path)."""
+        return {eid: h.engine for eid, h in self._handles.items()
+                if h.state != "retired"}
+
+    def render_prometheus(self) -> str:
+        """ONE scrape body for the whole fleet: the fleet registry's series
+        unlabelled, the routing counters labelled ``reason``, and every
+        engine's registry labelled ``engine``; each metric name gets one
+        HELP/TYPE header even when the fleet and N engines all register
+        it, and an engine's series never appears unlabelled."""
+        groups: Dict[str, dict] = {}
+
+        def add(name, kind, help_, labels, metric):
+            g = groups.setdefault(
+                name, {"kind": kind, "help": help_, "series": []})
+            g["series"].append((labels, metric))
+
+        for name, metric in self.metrics._metrics.items():
+            add(name, metric.kind, metric.help, None, metric)
+        for reason in sorted(self._routed):
+            add("fleet_requests_routed_total", "counter",
+                "requests placed by the router, by decision reason",
+                'reason="%s"' % escape_label_value(reason),
+                self._routed[reason])
+        for eid in sorted(self._handles):
+            h = self._handles[eid]
+            lab = 'engine="%s"' % escape_label_value(str(eid))
+            for name, metric in h.registry._metrics.items():
+                add(name, metric.kind, metric.help, lab, metric)
+
+        lines: List[str] = []
+        for name, g in groups.items():
+            if g["help"]:
+                lines.append("# HELP %s %s" % (name, escape_help(g["help"])))
+            lines.append("# TYPE %s %s" % (name, g["kind"]))
+            for labels, metric in g["series"]:
+                suffix = ("{%s}" % labels) if labels else ""
+                if isinstance(metric, Histogram):
+                    running = 0
+                    for b, c in zip(metric.buckets, metric._counts):
+                        running += c
+                        lab = (('%s,le="%s"' % (labels, _fmt(b)))
+                               if labels else 'le="%s"' % _fmt(b))
+                        lines.append("%s_bucket{%s} %d"
+                                     % (name, lab, running))
+                    lab = (labels + ',le="+Inf"') if labels \
+                        else 'le="+Inf"'
+                    lines.append("%s_bucket{%s} %d"
+                                 % (name, lab, metric.count))
+                    lines.append("%s_sum%s %s"
+                                 % (name, suffix, _fmt(metric.sum)))
+                    lines.append("%s_count%s %d"
+                                 % (name, suffix, metric.count))
+                else:
+                    lines.append("%s%s %s"
+                                 % (name, suffix, _fmt(metric.value)))
+        return "\n".join(lines) + "\n"
+
+    @property
+    def live_requests(self) -> int:
+        return len(self._records)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def slo(self):
+        """The fleet's SLO tracker (None when off)."""
+        return self._slo

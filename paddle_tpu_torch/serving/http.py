@@ -13,7 +13,8 @@ serving work, this module maps HTTP onto it.
   disconnects mid-stream gets its request CANCELLED: its slot and blocks
   go back to the allocator.
 - ``GET /metrics`` -- the Prometheus text exposition of the engine's
-  registry.
+  registry, or the front's own ``render_prometheus()`` when it has one (a
+  ``ServingFleet`` labels each engine's series ``engine="<id>"``).
 - ``GET /healthz`` -- the engine's lock-free ``health()`` snapshot: 200
   while healthy (idle, serving, draining, degraded), 503 while a tick is
   wedged past the supervisor's stall timeout, the loop thread is dead,
@@ -223,7 +224,11 @@ def _make_handler(engine: ServingEngine, quiet: bool = True):
                                       "GET /debug/flightrec"
                                       % self.path})
                 return
-            body = engine.metrics.render_prometheus().encode()
+            # a front with its own exposition (a fleet labels every
+            # engine's series) renders it; an engine renders its registry
+            render = getattr(engine, "render_prometheus", None) \
+                or engine.metrics.render_prometheus
+            body = render().encode()
             self.send_response(200)
             self.send_header("Content-Type",
                              "text/plain; version=0.0.4; charset=utf-8")

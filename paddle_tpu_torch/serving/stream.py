@@ -34,7 +34,15 @@ class RequestState:
 
     ``PREEMPTED`` is a non-terminal detour off DECODING: the request was
     evicted mid-decode (its K/V spilled to the host tier) and will resume;
-    its stream stays open and returns to DECODING at resume."""
+    its stream stays open and returns to DECODING at resume.
+
+    ``HANDED_OFF`` is terminal FOR THE TIER, not for the request: a
+    prefill-role engine exported the request's K/V over the transfer
+    contract and a decode-role engine now owns it, or a fleet engine
+    migrated it to a peer.  The disaggregated front and the fleet never
+    surface it -- their stream keeps flowing across the hand-off -- but
+    tier-local observers (the journal, per-tier metrics) see this
+    engine's involvement end here."""
 
     QUEUED = "QUEUED"
     PREFILLING = "PREFILLING"
@@ -44,7 +52,8 @@ class RequestState:
     CANCELLED = "CANCELLED"
     EXPIRED = "EXPIRED"
     FAILED = "FAILED"
-    TERMINAL = frozenset({DONE, CANCELLED, EXPIRED, FAILED})
+    HANDED_OFF = "HANDED_OFF"
+    TERMINAL = frozenset({DONE, CANCELLED, EXPIRED, FAILED, HANDED_OFF})
 
 
 # the terminal record delivered once per request: finish_reason is the

@@ -1,6 +1,5 @@
-"""Tick supervision: the engine's health record and its watchdog
-(counterpart of the reference's ``serving/supervisor.py``, without its
-``FleetSupervisor``, which waits for the fleet).
+"""Tick supervision: the engine's health record, its watchdog and the
+fleet's (counterpart of the reference's ``serving/supervisor.py``).
 
 The background loop has two failure shapes it cannot report itself: the
 thread DIES (an exception escaped the tick's recovery) and the tick
@@ -19,17 +18,22 @@ WEDGES (a step that hangs without raising, holding the engine lock).
 :class:`EngineHealth` is the lock-free heartbeat behind
 ``ServingEngine.health()``: single-writer plain attributes, read without
 a lock on purpose, since health is asked exactly while a tick is wedged.
+
+:class:`FleetSupervisor` fans one :class:`Supervisor` per fleet engine in,
+and makes the one escalation a single engine's watchdog cannot: a tick
+wedged past ``escalate_timeout_s`` declares its engine dead to the fleet
+(``ServingFleet.hard_abandon``), which moves its requests to survivors.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from ..core.errors import InvalidArgumentError
 from . import trace
 
-__all__ = ["EngineHealth", "Supervisor"]
+__all__ = ["EngineHealth", "Supervisor", "FleetSupervisor"]
 
 
 class EngineHealth:
@@ -212,6 +216,105 @@ class Supervisor:
                 self._stop.clear()
                 self._thread = threading.Thread(
                     target=self._run, name="serving-engine-supervisor",
+                    daemon=True)
+                self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.check_once()
+            self._stop.wait(self.poll_interval_s)
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stop.set()
+            if self._thread is not None:
+                self._thread.join(timeout=10.0)
+                self._thread = None
+
+    def is_running(self) -> bool:
+        return self._thread is not None
+
+
+class FleetSupervisor:
+    """Per-engine supervision fanned in at fleet scope.
+
+    One :class:`Supervisor` per active or draining engine, made as the
+    fleet spawns engines and dropped as they retire or die, plus the
+    escalation: an engine whose tick has been wedged past
+    ``escalate_timeout_s`` (a Python thread cannot be killed) is declared
+    dead to the fleet through ``fleet.hard_abandon``.  Detection reads the
+    same lock-free health record as the engine's watchdog, on each
+    engine's own clock.
+
+    ``check_once()`` is the whole policy: one sweep, returning
+    ``{engine_id: [actions...]}`` (the engine's own actions plus
+    ``"engine-abandoned"`` on escalation).  ``start()`` runs it from an
+    owned daemon thread -- out of band, since a wedged engine tick wedges
+    the fleet's pump with it."""
+
+    def __init__(self, fleet, stall_timeout_s: float = 5.0,
+                 escalate_timeout_s: Optional[float] = None,
+                 poll_interval_s: Optional[float] = None):
+        if not float(stall_timeout_s) > 0.0:
+            raise InvalidArgumentError(
+                "stall_timeout_s must be > 0, got %r" % (stall_timeout_s,))
+        self.fleet = fleet
+        self.stall_timeout_s = float(stall_timeout_s)
+        self.escalate_timeout_s = (4.0 * self.stall_timeout_s
+                                   if escalate_timeout_s is None
+                                   else float(escalate_timeout_s))
+        if self.escalate_timeout_s < self.stall_timeout_s:
+            raise InvalidArgumentError(
+                "escalate_timeout_s (%r) must be >= stall_timeout_s (%r): "
+                "abandonment is the step AFTER stall detection"
+                % (self.escalate_timeout_s, self.stall_timeout_s))
+        self.poll_interval_s = (max(0.005, self.stall_timeout_s / 4.0)
+                                if poll_interval_s is None
+                                else float(poll_interval_s))
+        self._subs: Dict[object, Supervisor] = {}
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    def check_once(self) -> Dict[object, List[str]]:
+        """One sweep: match the sub-supervisors to the fleet's live
+        engines, run each engine's own sweep, escalate wedges that
+        outlived ``escalate_timeout_s``."""
+        out: Dict[object, List[str]] = {}
+        states = self.fleet.engine_states()
+        engines = self.fleet.engines()
+        for eid in list(self._subs):
+            if states.get(eid) not in ("active", "draining"):
+                del self._subs[eid]
+        for eid, eng in engines.items():
+            if states.get(eid) not in ("active", "draining"):
+                continue
+            sup = self._subs.get(eid)
+            if sup is None:
+                sup = self._subs[eid] = Supervisor(
+                    eng, stall_timeout_s=self.stall_timeout_s)
+            actions = sup.check_once()
+            h = eng._health
+            now = sup._clock()
+            if h.stall_open and h.tick_busy() \
+                    and now - h.tick_started_at >= self.escalate_timeout_s:
+                wedged_s = now - h.tick_started_at
+                self.fleet.hard_abandon(
+                    eid, error="tick wedged %.3fs -- supervisor escalation"
+                    % wedged_s)
+                actions = list(actions) + ["engine-abandoned"]
+                del self._subs[eid]
+            if actions:
+                out[eid] = actions
+        return out
+
+    def start(self) -> "FleetSupervisor":
+        with self._lock:
+            if self._thread is None:
+                self._stop.clear()
+                self._thread = threading.Thread(
+                    target=self._run, name="serving-fleet-supervisor",
                     daemon=True)
                 self._thread.start()
         return self

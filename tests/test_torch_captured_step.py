@@ -81,6 +81,9 @@ class _FakeGraph:
     def replay(self):
         _FakeGraph.replays += 1
 
+    def pool(self):
+        return (0, 1)
+
 
 @pytest.fixture
 def fake_capture(monkeypatch):
@@ -94,7 +97,10 @@ def fake_capture(monkeypatch):
     monkeypatch.setattr(aot, "_on_cuda", lambda args: True)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g: contextlib.nullcontext())
+                        lambda g, **kw: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: [])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_blas_handle", lambda: 0)
     _FakeGraph.replays = 0
     return aot
 

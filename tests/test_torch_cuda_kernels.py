@@ -5,7 +5,9 @@ step (K3 in bf16) against its CPU twin; then the captured
 steps of ``jit/aot.py``: a graph captured once and replayed, launches
 counted through replays, the pool's and the session's steps against
 their private eager entry, the engine's background loop serving client
-threads while it captures its first keys, and a failed capture raising.
+threads while it captures its first keys, a fleet capturing while other
+threads submit and capture, a migration adopted under a warm graph
+without dropping it, and a failed capture raising.
 Skipped without a CUDA card: the kernels have no CPU mode (the CPU runs
 the twins, held against the reference by ``test_torch_decode_attention.py``,
 ``test_torch_flash_attention.py`` and ``test_torch_custom_op.py``).
@@ -747,6 +749,201 @@ def test_engine_loop_serves_threads_while_capturing(cuda_device, kw):
     assert eng.compile_counts() == counts
     assert eng.pool._decode_fn.graphs() == 1
     assert eng.health()["last_error"] is None
+
+
+@pytest.mark.cuda
+def test_fleet_captures_while_other_threads_submit_and_capture(
+        cuda_device, tmp_path):
+    """A fleet pumped on one thread warms up and captures its engines'
+    steps while a second thread submits to the fleet and a started engine
+    on the same card captures on its own loop thread: captures are
+    serialized process-wide and run in thread-local capture mode, so no
+    capture fails and every token equals one pumped engine's."""
+    import threading
+
+    import numpy as np
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.serving import ServingFleet
+
+    model = _tiny_lm(cuda_device)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 512, n) for n in (5, 11, 20, 7, 9, 14)]
+    cfg = dict(max_len=64, slots=2, buckets=[32], cache_layout="paged",
+               block_size=8, prefill_chunk_tokens=16, device=cuda_device)
+    pumped = ServingEngine(model, **cfg)
+    streams = [pumped.submit(p, 6) for p in prompts]
+    while pumped.pump(8):
+        pass
+    want = [s.result(timeout_s=0).tokens for s in streams]
+
+    fleet = ServingFleet(lambda eid, reg: ServingEngine(
+        model, metrics=reg, spill_tier="disk",
+        spill_dir=str(tmp_path / "s"), **cfg), engines=2)
+    loop = ServingEngine(model, **cfg).start()
+    errors, got, side = [], {}, {}
+    first = [fleet.submit(p, 6, request_id="a%d" % i)
+             for i, p in enumerate(prompts[:3])]
+
+    def second_thread():
+        try:
+            later = [fleet.submit(p, 6, request_id="b%d" % i)
+                     for i, p in enumerate(prompts[3:])]
+            own = [loop.submit(p, 6) for p in prompts]
+            for s in later:
+                got[s.request_id] = s.result(timeout_s=120.0)
+            for i, s in enumerate(own):
+                side[i] = s.result(timeout_s=120.0)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    t = threading.Thread(target=second_thread)
+    try:
+        t.start()
+        while fleet.pump(1) or t.is_alive():
+            pass
+        t.join(timeout=180.0)
+    finally:
+        loop.shutdown(drain=False)
+    assert not t.is_alive() and not errors, errors
+    for i, s in enumerate(first):
+        got["a%d" % i] = s.result(timeout_s=0)
+    for i in range(len(prompts)):
+        rid = ("a%d" % i) if i < 3 else ("b%d" % (i - 3))
+        assert got[rid].state == "DONE", got[rid]
+        np.testing.assert_array_equal(got[rid].tokens, want[i])
+        np.testing.assert_array_equal(side[i].tokens, want[i])
+    for eng in list(fleet.engines().values()) + [loop]:
+        assert eng.health()["last_error"] is None
+        assert eng.pool._decode_fn.graphs() == 1
+    fleet.shutdown(drain=False)
+
+
+@pytest.mark.cuda
+def test_adopted_migration_drops_no_graph(cuda_device, tmp_path):
+    """A request migrated into a warm engine is uploaded into its cache in
+    place: the captured decode graph's watched tensors (weights and cache)
+    have not moved (``drop_moved()`` drops nothing), no key is added, the
+    K/V came from the transfer file, and the tokens are one engine's."""
+    import numpy as np
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.jit.aot import cache_tensors
+
+    model = _tiny_lm(cuda_device)
+    rng = np.random.RandomState(6)
+    prompt = rng.randint(1, 512, 13)
+    cfg = dict(max_len=64, slots=2, buckets=[32], cache_layout="paged",
+               block_size=8, prefill_chunk_tokens=16, spill_tier="disk",
+               spill_dir=str(tmp_path / "s"), device=cuda_device)
+    alone = ServingEngine(model, **cfg)
+    want = alone.submit(prompt, 12, request_id="w")
+    while alone.pump(8):
+        pass
+    donor, adopter = ServingEngine(model, **cfg), ServingEngine(model, **cfg)
+    warm = adopter.submit(rng.randint(1, 512, 9), 4)  # capture its steps
+    while adopter.pump(8):
+        pass
+    assert warm.result(timeout_s=0).state == "DONE"
+    pool = adopter.pool
+    assert pool._decode_fn.graphs() == 1
+    counts = adopter.compile_counts()
+    addresses = [t.data_ptr() for t in cache_tensors(pool._cache)]
+    donor.submit(prompt, 12, request_id="m")
+    donor.pump(5)  # decoding on the donor
+    entry = donor.migrate_out("m")
+    assert entry["spill_path"] is not None
+    res = adopter.adopt_migration(
+        entry["rid"], entry["prompt"], entry["tokens"], entry["max_new"],
+        sampling=entry["sampling"])
+    assert res["adopted_from_file"]
+    while adopter.pump(8):
+        pass
+    st = res["stream"].result(timeout_s=0)
+    assert st.state == "DONE"
+    np.testing.assert_array_equal(
+        np.concatenate([entry["tokens"], st.tokens[len(entry["tokens"]):]]),
+        want.result(timeout_s=0).tokens)
+    assert pool._decode_fn.drop_moved() == []
+    assert pool._decode_fn.graphs() == 1
+    assert [t.data_ptr() for t in cache_tensors(pool._cache)] == addresses
+    assert adopter.compile_counts() == counts
+
+
+@pytest.mark.cuda
+def test_capture_on_a_thread_other_than_the_warm_up(cuda_device):
+    """A key warmed up on one thread is captured on a fresh thread (a
+    fleet's or HTTP handler's pumping thread that never ran cuBLAS): the
+    capture makes the thread's cuBLAS handle before it begins, so the
+    graph is captured and replays the eager result."""
+    import threading
+
+    from paddle_tpu_torch.jit.aot import AotFunction
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    w1 = torch.randn(256, 256, generator=gen).to(cuda_device)
+    b1 = torch.randn(256, generator=gen).to(cuda_device)
+    w2 = torch.randn(256, 256, generator=gen).to(cuda_device)
+    x = torch.randn(8, 256, generator=gen).to(cuda_device)
+
+    def step(x):
+        return (torch.addmm(b1, x, w1).relu() @ w2).softmax(-1)
+
+    fn = AotFunction(step, lambda x: "k", name="other_thread", capture=True)
+    want = fn(x).clone()  # the eager warm-up, on this thread
+    out = {}
+
+    def capture():
+        try:
+            out["got"] = fn(x).clone()
+        except Exception as e:  # noqa: BLE001 - reported below
+            out["err"] = repr(e)
+
+    t = threading.Thread(target=capture)
+    t.start()
+    t.join(60.0)
+    assert "err" not in out, out.get("err")
+    assert fn.graphs() == 1
+    assert torch.equal(out["got"], want)
+    assert torch.equal(fn(x), want)  # a replay on this thread
+
+
+@pytest.mark.cuda
+def test_capture_temp_bytes_ignore_other_threads(cuda_device):
+    """A key's ``temp_bytes`` is its graph's private pool: 256 MiB that a
+    second thread allocates on the card during the capture (thread-local
+    capture mode lets it) do not count."""
+    import threading
+
+    from paddle_tpu_torch.jit.aot import AotFunction
+
+    go, done, held = threading.Event(), threading.Event(), []
+
+    def step(x):
+        if torch.cuda.is_current_stream_capturing():
+            go.set()
+            assert done.wait(30.0)
+        return x * 2.0 + 1.0
+
+    def other():
+        assert go.wait(30.0)
+        held.append(torch.empty(256 << 20, dtype=torch.uint8,
+                                device=cuda_device))
+        done.set()
+
+    fn = AotFunction(step, lambda x: "f", name="pool", capture=True)
+    x = torch.ones(1024, device=cuda_device)
+    t = threading.Thread(target=other)
+    t.start()
+    fn(x)
+    fn(x)  # captures
+    t.join(30.0)
+    assert held and fn.graphs() == 1
+    entry = fn.cost_report()["f"]
+    assert 0 < entry["temp_bytes"] < 256 << 20, entry
+    assert entry["hbm_reserved_bytes"] == (
+        entry["argument_bytes"] + entry["output_bytes"]
+        - entry["alias_bytes"] + entry["temp_bytes"])
 
 
 @pytest.mark.cuda

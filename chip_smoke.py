@@ -52,6 +52,20 @@ PyTorch twin, and drives the port's two main paths:
   engines, a retired engine, an abandoned one replaced, and HTTP
   (``fleet_24l``: identical tokens, affinity routing, the dead engine's
   card memory given back);
+- multi-LoRA serving and the recurrent model class: the reference's
+  serving_lora traffic (``lora_24l``: 16 greedy 256-token prompts on 8
+  adapters of rank 16, through a bankless engine, one engine over a
+  9-row bank on adapter 0 -- equal to the bankless tokens bit for bit --
+  and on all 8 mixed, and 8 dedicated one-adapter engines, which must
+  lose no token; a hot load that keeps the decode graph; the decode
+  graph's device ms with and without the bank); at 4 layers the
+  reference test's mixed batch on the dense cache (K2), a sampled adapter
+  row through the disk tier, a speculative pool over the bank and a
+  2-engine fleet's retire (``lora_mixed_4l``); and an ``SSMLM`` at
+  GPT-1.3B widths on the recurrent layout (``ssm_24l``: decode sessions
+  at batch 1 and 8, the eager bucketed prefill timed and profiled alone,
+  an 8-slot engine held against the eager loop, two victims preempted
+  through the host and disk tiers, byte for byte);
 - weights replaced under a captured graph (``refresh_24l``): the
   24-layer pool's parameters swapped for another seed's with
   ``load_state_dict(..., assign=True)``, ``refresh_weights()``, and the
@@ -162,6 +176,22 @@ DISAGG_SHORT, DISAGG_LONG, DISAGG_NEW = 32, 384, 24
 DISAGG_REQUESTS, DISAGG_SLOTS, DISAGG_CHUNK = 16, 4, 64
 FLEET_GROUPS, FLEET_HEAD, FLEET_TAIL, FLEET_NEW = 4, 64, (16, 96), 24
 FLEET_REQUESTS, FLEET_SLOTS, FLEET_CHUNK = 24, 4, 64
+# multi-LoRA and the recurrent model class: the reference's serving_lora
+# leg (bench.py:2357-2370: 8 adapters of rank 16 on q/k/v/out_proj, 16
+# 256-token prompts, 32 new tokens) and decode_ssm leg (bench.py:701:
+# bucket 512, 128 new tokens, d_state 2 x hidden)
+LORA_ADAPTERS, LORA_RANK = 8, 16
+LORA_PROMPT, LORA_NEW, LORA_REQUESTS = 256, 32, 16
+# the mean context of a lora_24l decode step (K1's timing row)
+LORA_CTX = LORA_PROMPT + LORA_NEW // 2
+# lora_mixed_4l's prompts: the reference test's lengths (7, 19, 12, 9) x 10
+LORA_MIXED_LENS = (70, 190, 120, 90)
+# the mean context of a lora_mixed_4l decode step or verify chunk (the
+# timing rows of its K2 and of K1 at Lq 5)
+LORA_MIXED_CTX = sum(LORA_MIXED_LENS) // len(LORA_MIXED_LENS) + LORA_NEW // 2
+SSM_D_STATE = 4096
+SSM_BUCKET, SSM_NEW = 512, 128
+SSM_REQUESTS, SSM_ENGINE_NEW = 16, 64
 # kernel vs plain twin: fp32 (and int8, dequantized in fp32 by both) differ
 # only by summation order; a bf16 output is rounded to bf16 by both
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -695,7 +725,7 @@ def serve_shared_prefix(model, prompts, n_layers, **kw):
 
     if pool.prefill_chunk_tokens is not None:
         pool._prefill_chunk = timed(pool._prefill_chunk,
-                                    lambda toks, slot, start, n, s: n)
+                                    lambda toks, slot, start, n, *r: n)
     else:
         pool._session.prefill = timed(pool._session.prefill,
                                       lambda ids, s: ids.shape[1])
@@ -1022,13 +1052,15 @@ def sampler_ms(slots, vocab):
     return graph_ms([lambda: sample_logits_data(logits, *cfg)])
 
 
-def profile_decode(model, rng, ticks: int = 10):
+def profile_decode(model, rng, ticks: int = 10, adapters=None):
     """Where a steady decode step's time goes on the paged main path:
-    8 busy slots at ~1k context; ``ticks`` pump ticks timed on the host
+    8 busy slots at ~1k context (slot i's request on LoRA adapter
+    ``adapters[i]`` when given); ``ticks`` pump ticks timed on the host
     clock with CUDA events around each replay of the captured step, then
     ``ticks`` more under ``torch.profiler``, whose CUDA kernel times (one
     stream, so their sum is the busy time) give the device's share of the
-    unprofiled step; and the sampler's device time at the step's shape."""
+    unprofiled step and its kernels a step; and the sampler's device time
+    at the step's shape."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1038,8 +1070,9 @@ def profile_decode(model, rng, ticks: int = 10):
                            device="cuda", cache_layout="paged",
                            block_size=MAIN_BLOCK)
     pool = engine.pool
-    for _ in range(MAIN_SLOTS):
-        engine.submit(rng.randint(0, model.vocab_size, 1024), 2 * ticks + 8)
+    for i in range(MAIN_SLOTS):
+        engine.submit(rng.randint(0, model.vocab_size, 1024), 2 * ticks + 8,
+                      adapter=0 if adapters is None else adapters[i])
     engine.pump(3)  # every slot prefilled; the step warmed up and captured
     assert engine.pool.active_count == MAIN_SLOTS
     assert pool._decode_fn.graphs() == 1
@@ -1073,6 +1106,7 @@ def profile_decode(model, rng, ticks: int = 10):
            "profiled_wall_ms_per_step": profiled_ms,
            "device_busy_ms_per_step": busy_ms,
            "k1_device_ms_per_step": k1_ms,
+           "kernels_per_step": sum(n for _, _, n in rows),
            "sampler_device_ms_per_step": samp_ms,
            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
            "top": [{"kernel": k[:80], "ms_per_step": ms, "calls_per_step": n}
@@ -2069,7 +2103,10 @@ def crash_restore(model, root):
 DECODE_TIMING_ROWS = ((MAIN_SLOTS, 1024, "float32"), (MAIN_SLOTS, 1024, "int8"),
                       (1, 1024, "float32"), (MAIN_SLOTS, 128, "float32"),
                       (MAIN_SLOTS, MAIN_MAX_LEN - 1, "float32"),
-                      (MAIN_SLOTS, 1024, "float32", VERIFY_LQ))
+                      (MAIN_SLOTS, 1024, "float32", VERIFY_LQ),
+                      (MAIN_SLOTS, LORA_CTX, "float32"),
+                      (MAIN_SLOTS, LORA_MIXED_CTX, "float32"),
+                      (MAIN_SLOTS, LORA_MIXED_CTX, "float32", VERIFY_LQ))
 
 
 
@@ -2524,6 +2561,696 @@ def fleet_run(model, root, n_layers):
     return out
 
 
+# -- multi-LoRA serving and the recurrent model class -------------------------
+
+
+def _drain(target):
+    while target.pump(8):
+        pass
+
+
+def _adapter_ids(adapter):
+    """The LoRA adapter ``adapter`` ambient for an uncached forward (the
+    greedy-gap check of an adapter request)."""
+    import torch
+
+    from paddle_tpu_torch.nn import lora
+
+    return lora.adapter_ids(torch.tensor([int(adapter)], device="cuda"))
+
+
+def _weight_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _lora_engine(model, **kw):
+    """An engine of the serving_lora leg: 8 slots, one 256-token bucket,
+    the main path's paged cache (2048 positions, block 32), so K1 runs
+    at the main path's shape."""
+    from paddle_tpu_torch import ServingEngine
+
+    return ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                         buckets=[LORA_PROMPT], max_queue=4 * LORA_REQUESTS,
+                         cache_layout="paged", block_size=MAIN_BLOCK,
+                         device="cuda", **kw)
+
+
+def _lora_leg(engine, prompts, adapters, rids, warm, n_layers):
+    """Warm ``engine`` (3 new tokens: its steps warmed up and captured),
+    then serve ``prompts`` on ``adapters`` greedily, the K1/K2 counts set
+    to 0 just before and read just after.  Holds: every step key was met
+    in the warm-up (no capture inside the traffic, the cost version
+    unmoved) and K1 ran ``n_layers`` times a decode step.  Returns
+    ``({rid: tokens}, metrics)``."""
+    import torch
+
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    engine.submit(warm, 3)
+    _drain(engine)
+    pool = engine.pool
+    keys0 = engine.compile_counts()
+    cost0 = pool.cost_version()
+    steps0 = pool.decode_steps_total
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, LORA_NEW, request_id=r, adapter=a)
+               for p, a, r in zip(prompts, adapters, rids)]
+    _drain(engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dk.launch_counts()
+    steps = pool.decode_steps_total - steps0
+    tokens = {}
+    for s in streams:
+        st = s.result(timeout_s=0)
+        assert st.state == "DONE" and len(st.tokens) == LORA_NEW, st
+        tokens[s.request_id] = list(st.tokens)
+    k1 = launches["paged_decode_attention_kernel"]
+    assert k1 == n_layers * steps and k1 > 0, (launches, steps)
+    compiled = sum(engine.compile_counts().values()) - sum(keys0.values())
+    cost_moves = pool.cost_version() - cost0
+    assert compiled == 0 and cost_moves == 0, (compiled, cost_moves)
+    return tokens, {"requests": len(prompts), "wall_s": wall,
+                    "tokens_per_s": len(prompts) * LORA_NEW / wall,
+                    "decode_steps": steps, "k1_launches": k1,
+                    "k1_per_decode_step": k1 / steps,
+                    "compiles_during_traffic": compiled,
+                    "cost_version_moves": cost_moves}
+
+
+def _delta_alone_ms(model, rows: int) -> float:
+    """Device ms of every bank-attached Linear's delta alone at the decode
+    step's shape (``rows`` slots, one token each, ids 1..rows), one
+    captured replay: the delta's own cost a step, measured apart from
+    the step's other kernels."""
+    import torch
+
+    from paddle_tpu_torch.nn import lora
+
+    ids = (torch.arange(rows, device="cuda") % (lora.lora_config(model)[0]
+                                                - 1) + 1).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    fns = []
+    for _, lin in lora.lora_linears(model):
+        x = torch.randn(rows, 1, lin.in_features, device="cuda",
+                        generator=gen)
+        out = torch.zeros(rows, 1, lin.out_features, device="cuda")
+        fns.append(lambda x=x, out=out, lin=lin: lora.apply_delta(
+            out, x, lin.lora_a, lin.lora_b, ids))
+    return graph_ms(fns, reps=2) * len(fns)
+
+
+def lora_run(cfg, rng):
+    """``lora_24l``: the reference's serving_lora leg (``bench.py:2324``)
+    at GPT-1.3B width and full depth: 16 greedy 256-token prompts, 32 new
+    tokens each, request i on adapter ``(i % 8) + 1``, through 8-slot
+    paged engines (block 32).  Legs: ``bankless`` (an engine built before
+    the bank, on adapter 0), ``adapters_1`` (every request on adapter 0
+    through the engine over a 9-row rank-16 bank on q/k/v/out_proj, 96
+    Linears), ``shared_8`` (all 8 adapters mixed in one batch),
+    ``dedicated_8`` (8 one-adapter engines over 2-row banks, built one at
+    a time, each released before the next), and a hot load into the live
+    bank engine.  Holds: ``adapters_1`` equals ``bankless`` bit for bit;
+    every ``dedicated_8`` request equals its ``shared_8`` tokens
+    (``tokens_lost == 0``); the bankless engine refuses a nonzero adapter
+    after the bank is attached; no leg captures during its traffic or
+    moves the cost version; the hot load keeps the decode graph and
+    changes the served tokens; K1 24 launches a decode step.  Records each
+    leg's tokens/s, the weight bytes shared against dedicated, the decode
+    graph's device ms with the bank against without (``profile_decode``)
+    and the delta's own device ms."""
+    import torch
+
+    from paddle_tpu_torch import InvalidArgumentError, TransformerLM
+    from paddle_tpu_torch.nn import lora
+
+    n_layers = cfg["num_layers"]
+    model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
+    vocab = model.vocab_size
+    prompts = [rng.randint(0, vocab, (LORA_PROMPT,)).astype(np.int32)
+               for _ in range(LORA_REQUESTS)]
+    warm = rng.randint(0, vocab, (LORA_PROMPT,)).astype(np.int32)
+    adapters = [(i % LORA_ADAPTERS) + 1 for i in range(LORA_REQUESTS)]
+    rids = ["r%d" % i for i in range(LORA_REQUESTS)]
+    out = {"adapters": LORA_ADAPTERS, "rank": LORA_RANK,
+           "prompt": LORA_PROMPT, "new_tokens": LORA_NEW,
+           "slots": MAIN_SLOTS}
+
+    engine = _lora_engine(model)
+    base, out["bankless"] = _lora_leg(engine, prompts, [0] * len(prompts),
+                                      rids, warm, n_layers)
+    out["bankless"]["weight_hbm_bytes"] = _weight_bytes(model)
+    lora.attach_lora(model, n_adapters=LORA_ADAPTERS + 1, rank=LORA_RANK)
+    try:  # the engine read the (absent) bank at construction
+        engine.submit(prompts[0], 2, adapter=1)
+        raise AssertionError("a bank attached after the engine was served")
+    except InvalidArgumentError:
+        pass
+    engine.release_device()
+    del engine
+    weights = {k: lora.random_adapter(model, seed=k)
+               for k in range(1, LORA_ADAPTERS + 1)}
+    engine = _lora_engine(model)
+    for k, w in weights.items():
+        engine.load_adapter(k, w)
+    bank_bytes = lora.adapter_bank_bytes(model)
+    got, out["adapters_1"] = _lora_leg(engine, prompts, [0] * len(prompts),
+                                       rids, warm, n_layers)
+    same = sum(got[r] == base[r] for r in rids)
+    assert same == len(rids), ("adapter 0 differs from the bankless "
+                               "engine", same)
+    out["adapters_1"].update(identical_to_bankless=same,
+                             weight_hbm_bytes=_weight_bytes(model),
+                             adapter_bank_bytes=bank_bytes)
+    shared, out["shared_8"] = _lora_leg(engine, prompts, adapters, rids,
+                                        warm, n_layers)
+    out["shared_8"].update(weight_hbm_bytes=_weight_bytes(model),
+                           adapter_bank_bytes=bank_bytes,
+                           requests_differing_from_base=sum(
+                               shared[r] != base[r] for r in rids))
+    for i in (0, LORA_REQUESTS - 1):
+        with _adapter_ids(adapters[i]):
+            gap = greedy_gap(model, prompts[i], np.asarray(shared[rids[i]]))
+        assert gap <= GREEDY_TOL["float32"], (i, gap)
+    # the hot load: a row written in place on the live engine
+    fn = engine.pool._decode_fn
+    graphs = {k: v for k, v in fn._keys.items()}
+    keys0, cost0 = engine.compile_counts(), engine.pool.cost_version()
+    fresh = lora.random_adapter(model, seed=101)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.load_adapter(1, fresh)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    st = engine.submit(prompts[0], LORA_NEW, adapter=1).result()
+    hot = list(st.tokens)
+    assert all(fn._keys[k] is v for k, v in graphs.items()), \
+        "the hot load dropped or re-captured the decode graph"
+    hot_compiles = sum(engine.compile_counts().values()) \
+        - sum(keys0.values())
+    hot_cost_moves = engine.pool.cost_version() - cost0
+    assert hot_compiles == 0 and hot_cost_moves == 0, (hot_compiles,
+                                                      hot_cost_moves)
+    assert hot != shared[rids[0]], "the hot-loaded adapter served old rows"
+    out["hot_load"] = {"load_ms": load_ms, "hot_load_compiles": hot_compiles,
+                       "cost_version_moves": hot_cost_moves,
+                       "tokens_changed": int(sum(
+                           a != b for a, b in zip(hot, shared[rids[0]])))}
+    engine.load_adapter(1, weights[1])
+    engine.release_device()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the decode graph with the bank against without, at the main
+    # profile's shape (8 slots at ~1k context): without is a fresh model
+    # of the same seed, so the weights are the same
+    with_bank = profile_decode(model, rng,
+                               adapters=list(range(1, MAIN_SLOTS + 1)))
+    delta_ms = _delta_alone_ms(model, MAIN_SLOTS)
+    base_model = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
+    bankless_profile = profile_decode(base_model, rng)
+    del base_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode_graph"] = {
+        "bankless_ms": bankless_profile["graph_device_ms_per_step"],
+        "bank_ms": with_bank["graph_device_ms_per_step"],
+        "bank_minus_bankless_ms":
+            with_bank["graph_device_ms_per_step"]
+            - bankless_profile["graph_device_ms_per_step"],
+        "bankless_kernels_per_step": bankless_profile["kernels_per_step"],
+        "bank_kernels_per_step": with_bank["kernels_per_step"],
+        "delta_launches_per_step": with_bank["kernels_per_step"]
+        - bankless_profile["kernels_per_step"],
+        "delta_alone_device_ms_per_step": delta_ms,
+        "bankless_device_busy_ms": bankless_profile["device_busy_ms_per_step"],
+        "bank_device_busy_ms": with_bank["device_busy_ms_per_step"],
+        "bankless_wall_ms": bankless_profile["wall_ms_per_step"],
+        "bank_wall_ms": with_bank["wall_ms_per_step"]}
+
+    # dedicated: 8 one-adapter engines, one at a time
+    dedicated, walls, steps, k1 = {}, [], 0, 0
+    ded_bytes = 0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in range(1, LORA_ADAPTERS + 1):
+        m = TransformerLM(**cfg, dropout=0.0, device="cuda", seed=0)
+        lora.attach_lora(m, n_adapters=2, rank=LORA_RANK)
+        lora.load_adapter(m, 1, weights[k])
+        ded_bytes += _weight_bytes(m)
+        idx = [i for i, a in enumerate(adapters) if a == k]
+        eng = _lora_engine(m)
+        got, leg = _lora_leg(eng, [prompts[i] for i in idx], [1] * len(idx),
+                             [rids[i] for i in idx], warm, n_layers)
+        dedicated.update(got)
+        walls.append(leg["wall_s"])
+        steps += leg["decode_steps"]
+        k1 += leg["k1_launches"]
+        eng.release_device()
+        del eng, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    lost = sum(dedicated[r] != shared[r] for r in rids)
+    assert lost == 0, ("dedicated engines differ from the shared bank", lost)
+    out["dedicated_8"] = {"engines": LORA_ADAPTERS, "wall_s": sum(walls),
+                          "tokens_per_s": LORA_REQUESTS * LORA_NEW
+                          / sum(walls),
+                          "decode_steps": steps, "k1_launches": k1,
+                          "tokens_lost": lost,
+                          "weight_hbm_bytes": ded_bytes}
+    out["weight_bytes_saved"] = ded_bytes - out["shared_8"]["weight_hbm_bytes"]
+    out["k1_launches"] = (out["bankless"]["k1_launches"]
+                          + out["adapters_1"]["k1_launches"]
+                          + out["shared_8"]["k1_launches"] + k1)
+    return out
+
+
+def _mixed_configs(seed):
+    """The reference test's mixed batch (``tests/test_lora_sampling.py:83``):
+    greedy + three sampled configs across adapters {0, 1, 2}."""
+    return [dict(),
+            dict(temperature=0.8, seed=seed + 100),
+            dict(temperature=1.1, top_k=12, seed=seed + 200, adapter=1),
+            dict(temperature=0.6, top_p=0.9, seed=seed + 300, adapter=2)]
+
+
+def lora_mixed_run(cfg, root):
+    """``lora_mixed_4l``: 4 layers at GPT-1.3B width over a 4-row rank-16
+    bank.  Legs: ``dense`` (K2: the reference test's mixed batch for two
+    seeds, 8 requests on 8 slots, served twice with the configs permuted
+    across slots: every request's tokens equal in both waves, one decode
+    key, K2 4 launches a step); ``preempt`` (a paged pool on the disk
+    tier: the sampled adapter-1 request preempted after 2 ticks resumes
+    byte-identically to an uninterrupted run, with no new key);
+    ``speculative`` (a ``SpeculativePool`` over the bank, spec_k 4, a
+    2-layer draft: K1 at Lq 5, 4 launches a round; greedy tokens within
+    the greedy limit of a plain pool's on each row's adapter); ``fleet``
+    (2 engines with ``register_adapter``: retiring the owner of a live
+    adapter request migrates its rows through PTKV, and every request's
+    tokens equal one engine's)."""
+    import shutil
+
+    import torch
+
+    from paddle_tpu_torch import (GenerationPool, ServingEngine,
+                                  TransformerLM)
+    from paddle_tpu_torch.inference import SpeculativePool
+    from paddle_tpu_torch.nn import lora
+    from paddle_tpu_torch.ops import decode_kernels as dk
+    from paddle_tpu_torch.serving import ServingFleet
+
+    short = dict(cfg, num_layers=SHORT_LAYERS)
+    model = TransformerLM(**short, dropout=0.0, device="cuda", seed=0)
+    lora.attach_lora(model, n_adapters=4, rank=LORA_RANK)
+    weights = {k: lora.random_adapter(model, seed=k) for k in (1, 2, 3)}
+    for k, w in weights.items():
+        lora.load_adapter(model, k, w)
+    vocab = model.vocab_size
+    rng = np.random.RandomState(7)
+    lens = LORA_MIXED_LENS * 2
+    prompts = [rng.randint(0, vocab, (n,)).astype(np.int32) for n in lens]
+    configs = _mixed_configs(0) + _mixed_configs(1)
+    out = {}
+
+    # dense: the mixed batch, twice, the configs permuted across slots
+    pool = GenerationPool(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                          buckets=[LORA_PROMPT], cache_layout="dense",
+                          device="cuda")
+    pool.generate([prompts[0]], 3)  # warm-up and capture
+    waves = []
+    for order in (list(range(8)), list(range(8))[::-1]):
+        steps0 = pool.decode_steps_total
+        torch.cuda.synchronize()
+        dk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in order:
+            pool.submit(prompts[i], LORA_NEW, request_id=i, **configs[i])
+        got = pool.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dk.launch_counts()
+        steps = pool.decode_steps_total - steps0
+        assert launches["decode_attention_kernel"] == SHORT_LAYERS * steps \
+            and launches["paged_decode_attention_kernel"] == 0, launches
+        waves.append((got, wall, launches["decode_attention_kernel"],
+                      steps))
+    same = sum(np.array_equal(waves[0][0][i], waves[1][0][i])
+               for i in range(8))
+    assert same == 8, ("the mixed batch is not deterministic per (seed, "
+                       "step)", same)
+    counts = pool.compile_counts()
+    assert counts["pool_decode"] == 1 and pool._decode_fn.graphs() == 1
+    with _adapter_ids(0):
+        gap = greedy_gap(model, prompts[0], waves[0][0][0])
+    assert gap <= GREEDY_TOL["float32"], gap
+    out["dense"] = {"requests": 8, "identical_across_waves": same,
+                    "tokens_per_s": 8 * LORA_NEW / waves[0][1],
+                    "k2_launches": waves[0][2] + waves[1][2],
+                    "decode_steps": waves[0][3] + waves[1][3],
+                    "compile_counts": counts, "greedy_gap": gap}
+    pool.release_device()
+    del pool
+
+    # preempt: a sampled adapter row through the disk tier
+    spill = durable_dir(root, "lora-preempt")
+    subs = [(prompts[0], dict(temperature=1.0, seed=21, adapter=1)),
+            (prompts[1], dict()), (prompts[2], dict(temperature=0.7,
+                                                    seed=22, adapter=2))]
+
+    def spill_pool():
+        p = GenerationPool(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           buckets=[LORA_PROMPT], cache_layout="paged",
+                           block_size=MAIN_BLOCK, spill_tier="disk",
+                           spill_dir=spill, device="cuda")
+        p.generate([prompts[3]], 3)
+        for i, (ids, c) in enumerate(subs):
+            p.submit(ids, LORA_NEW, request_id="r%d" % i, **c)
+        return p
+
+    p = spill_pool()
+    want = p.run()
+    keys = p.compile_counts()
+    p.release_device()
+    p = spill_pool()
+    p.step()
+    p.step()
+    info = p.preempt("r0")
+    assert os.listdir(spill), "no PTKV file written"
+    got = p.run()
+    same = sum(np.array_equal(got[r], want[r]) for r in want)
+    assert same == len(want), ("the resumed adapter row differs", same)
+    assert p.compile_counts() == keys and not os.listdir(spill)
+    out["preempt"] = {"identical_requests": same,
+                      "spill_bytes": info["spill_bytes"],
+                      "committed_at_preempt": info["committed_tokens"],
+                      "compile_counts": keys}
+    p.release_device()
+    shutil.rmtree(spill, ignore_errors=True)
+
+    # speculative: the target judges each row under its own adapter
+    draft = TransformerLM(**dict(cfg, num_layers=SPEC_DRAFT_LAYERS),
+                          dropout=0.0, device="cuda", seed=1)
+    greedy = [prompts[i] for i in range(4)]
+    spec_adapters = [0, 1, 2, 3]
+    plain = GenerationPool(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           buckets=[LORA_PROMPT], cache_layout="paged",
+                           block_size=MAIN_BLOCK, device="cuda")
+    plain.generate([prompts[3]], 3)
+    for i, (p_, a) in enumerate(zip(greedy, spec_adapters)):
+        plain.submit(p_, LORA_NEW, request_id=i, adapter=a)
+    want = plain.run()
+    plain.release_device()
+    spec = SpeculativePool(model, draft, max_len=MAIN_MAX_LEN,
+                           spec_k=SPEC_K, slots=MAIN_SLOTS,
+                           buckets=[LORA_PROMPT], cache_layout="paged",
+                           block_size=MAIN_BLOCK, device="cuda")
+    spec.generate([prompts[3]], 4 * VERIFY_LQ)
+    assert spec._verify_fn.graphs() == 1
+    spec.reset_acceptance_stats()
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, (p_, a) in enumerate(zip(greedy, spec_adapters)):
+        spec.submit(p_, LORA_NEW, request_id=i, adapter=a)
+    got = spec.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dk.launch_counts()
+    acc = spec.acceptance_stats()
+    rounds = acc["rounds"]
+    assert launches["paged_decode_attention_kernel"] \
+        == SHORT_LAYERS * rounds, (launches, rounds)
+    held = 0
+    for i, a in enumerate(spec_adapters):
+        with _adapter_ids(a):
+            held += _tokens_hold(model, greedy[i], np.asarray(got[i]),
+                                 np.asarray(want[i]), GREEDY_TOL["float32"])
+    out["speculative"] = {"requests": len(greedy), "identical_requests": held,
+                          "rounds": rounds,
+                          "acceptance_rate": acc["acceptance_rate"],
+                          "k1_verify_launches":
+                              launches["paged_decode_attention_kernel"],
+                          "draft_k2_launches":
+                              launches["decode_attention_kernel"],
+                          "tokens_per_s": len(greedy) * LORA_NEW / wall,
+                          "compile_counts": spec.compile_counts()}
+    spec.release_device()
+    del spec, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fleet: register_adapter on 2 engines, a retire migrates adapter rows
+    spill = durable_dir(root, "lora-fleet")
+    fleet_prompts = prompts[:6]
+    fleet_adapters = [1, 2, 3, 1, 2, 3]
+    fleet_kw = dict(max_len=MAIN_MAX_LEN, slots=4, buckets=[LORA_PROMPT],
+                    cache_layout="paged", block_size=MAIN_BLOCK,
+                    spill_tier="disk", spill_dir=spill, device="cuda")
+    one = ServingEngine(model, **fleet_kw)
+    streams = [one.submit(p_, LORA_NEW, request_id="f%d" % i, adapter=a)
+               for i, (p_, a) in enumerate(zip(fleet_prompts,
+                                               fleet_adapters))]
+    _drain(one)
+    want = {s.request_id: list(s.result(timeout_s=0).tokens)
+            for s in streams}
+    one.release_device()
+    del one
+
+    # each engine gets its own model and an empty bank of the same
+    # geometry: only register_adapter can fill its rows
+    def factory(engine_id, registry):
+        own = TransformerLM(**short, dropout=0.0, device="cuda", seed=0)
+        lora.attach_lora(own, n_adapters=4, rank=LORA_RANK)
+        return ServingEngine(own, metrics=registry, **fleet_kw)
+
+    fleet = ServingFleet(factory, engines=2)
+    banks = [lora.lora_linears(e._pool._model)[0][1].lora_a
+             for e in fleet.engines().values()]
+    assert banks[0].data_ptr() != banks[1].data_ptr() \
+        and not any(b.any().item() for b in banks), "banks not separate"
+    for k, w in weights.items():
+        fleet.register_adapter(k, w)
+    assert fleet.adapters == (1, 2, 3)
+    first = lora.lora_linears(model)[0][1].lora_a
+    assert all(torch.equal(b, first) for b in banks), \
+        "register_adapter did not load every engine's rows"
+    streams = []
+    for i, (p_, a) in enumerate(zip(fleet_prompts, fleet_adapters)):
+        streams.append(fleet.submit(p_, LORA_NEW, request_id="f%d" % i,
+                                    adapter=a))
+        fleet.pump(1)
+    fleet.pump(2)
+    victim = next(r.engine_id for r in fleet._records.values())
+    donor = fleet.engines()[victim]
+    decoding = sum(1 for r in donor._live.values()
+                   if r.rid in fleet._records and r.adapter
+                   and donor.request_state(r.rid) == "DECODING")
+    spilled0 = donor._c_spill_bytes.value
+    res = fleet.retire_engine(victim, reason="smoke-lora-retire")
+    ptkv = donor._c_spill_bytes.value - spilled0
+    while fleet.pump(4):
+        pass
+    got = {s.request_id: list(s.result(timeout_s=0).tokens)
+           for s in streams}
+    same = sum(got[r] == want[r] for r in want)
+    assert same == len(want), ("the fleet's adapter tokens differ from one "
+                               "engine's", same)
+    assert decoding and res["adopted_from_file"] == decoding, (res, decoding)
+    out["fleet"] = {"requests": len(want), "identical_requests": same,
+                    "migrated": res["migrated"],
+                    "adapter_rows_decoding_at_retire": decoding,
+                    "adopted_from_file": res["adopted_from_file"],
+                    "ptkv_bytes": int(ptkv)}
+    _fleet_down(fleet)
+    shutil.rmtree(spill, ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k2_launches"] = out["dense"]["k2_launches"]
+    out["k1_verify_launches"] = out["speculative"]["k1_verify_launches"]
+    return out
+
+
+def ssm_run(cfg, rng, root):
+    """``ssm_24l``: an ``SSMLM`` at GPT-1.3B's widths (vocab 50304, hidden
+    2048, 24 layers, d_state 4096; ~0.91 B parameters) on the recurrent
+    layout.  The reference's decode_ssm leg (``bench.py:701``): a
+    ``DecodeSession`` (bucket 512, 128 new tokens) at batch 1 and batch 8,
+    each on a fresh session: one prefill key and one decode key, the
+    decode step's graph device ms by CUDA events around each replay, the
+    bucketed prefill timed alone (host ms with a synchronize on both
+    sides; its kernels and device busy share from one profiled prefill).
+    Then an 8-slot engine serves 16 greedy 512-token prompts, 64 new
+    tokens each; two are held against the eager per-token loop (equal, or
+    both within the greedy limit of an uncached forward).  Then two
+    victims preempted after 8 ticks, on the host and on the disk tier,
+    resume byte-identically to an uninterrupted run.  No decode kernel
+    runs on this path (no attention)."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import DecodeSession, GenerationPool, ServingEngine
+    from paddle_tpu_torch.nn import SSMLM
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    model = SSMLM(vocab_size=cfg["vocab_size"],
+                  hidden_size=cfg["hidden_size"],
+                  num_layers=cfg["num_layers"], d_state=SSM_D_STATE,
+                  device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    vocab = model.vocab_size
+    max_len = SSM_BUCKET + SSM_NEW
+    out = {"params": n_params, "d_state": SSM_D_STATE,
+           "weight_bytes": _weight_bytes(model)}
+    dk.reset_launch_counts()
+    for batch in (1, MAIN_SLOTS):
+        sess = DecodeSession(model, max_len=max_len, buckets=[SSM_BUCKET],
+                             cache_layout="recurrent", device="cuda")
+        ids = rng.randint(0, vocab, (batch, SSM_BUCKET)).astype(np.int32)
+        sess.generate(ids, 3)  # warm-up and capture
+        hook = sess._decode_fn = _StepHook(sess._decode_fn, events=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.generate(ids, SSM_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms = hook.event_ms()
+        sess._decode_fn = hook.fn
+        counts = sess.compile_counts()
+        assert counts == {"prefill": 1, "decode": 1}, counts
+        assert sess._decode_fn.graphs() == 1
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sess.prefill(ids)
+        torch.cuda.synchronize()
+        alone_ms = (time.perf_counter() - t1) * 1e3
+        leg = {"batch": batch, "wall_s": wall,
+               "tokens_per_s": batch * SSM_NEW / wall,
+               "decode_step_graph_ms": step_ms,
+               "decode_tokens_per_s": batch / step_ms * 1e3,
+               "prefill_ms_alone": alone_ms, "compile_counts": counts}
+        if batch == 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                sess.prefill(ids)
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - t1) * 1e3
+            rows = device_time_rows(prof)
+            busy = sum(r[0] for r in rows)
+            leg.update(profiled_prefill_ms=prof_ms,
+                       prefill_device_busy_ms=busy,
+                       prefill_kernels=sum(r[2] for r in rows),
+                       prefill_device_idle_share=(1 - busy / prof_ms)
+                       if busy else None,
+                       prefill_top=[{"kernel": k[:60], "ms": ms, "calls": n}
+                                    for ms, k, n in rows[:5]])
+        out["session_batch%d" % batch] = leg
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the engine: 16 greedy 512-token prompts, 64 new tokens each
+    prompts = [rng.randint(0, vocab, (SSM_BUCKET,)).astype(np.int32)
+               for _ in range(SSM_REQUESTS)]
+    engine = ServingEngine(model, max_len=max_len, slots=MAIN_SLOTS,
+                           buckets=[SSM_BUCKET], max_queue=4 * SSM_REQUESTS,
+                           cache_layout="recurrent", device="cuda")
+    engine.submit(prompts[0], 3)
+    _drain(engine)
+    keys0 = engine.compile_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, SSM_ENGINE_NEW) for p in prompts]
+    _drain(engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    statuses = [s.result(timeout_s=0) for s in streams]
+    assert all(st.state == "DONE" and len(st.tokens) == SSM_ENGINE_NEW
+               for st in statuses)
+    assert engine.compile_counts() == keys0, (keys0,
+                                              engine.compile_counts())
+    stats = engine.cache_stats()
+    held = 0
+    for i in (0, SSM_REQUESTS - 1):
+        cache = model.gen_decode_cache(1, max_len)
+        with torch.no_grad():
+            logits, cache = model(torch.from_numpy(
+                prompts[i][None].astype(np.int64)).cuda(), cache=cache)
+            eager = [int(logits[0, -1].argmax())]
+            while len(eager) < SSM_ENGINE_NEW:
+                logits, cache = model(torch.tensor([[eager[-1]]],
+                                                   device="cuda"),
+                                      cache=cache)
+                eager.append(int(logits[0, -1].argmax()))
+        held += _tokens_hold(model, prompts[i], np.asarray(statuses[i].tokens),
+                             np.asarray(eager), GREEDY_TOL["float32"])
+    ttft = sorted(st.ttft_s * 1e3 for st in statuses)
+    state_bytes = stats["state_bytes_per_slot"]
+    assert state_bytes == cfg["num_layers"] * SSM_D_STATE * 4, state_bytes
+    kv_bytes_tf = 2 * cfg["num_layers"] * cfg["hidden_size"] * max_len * 4
+    out["engine"] = {"requests": SSM_REQUESTS, "wall_s": wall,
+                     "tokens_per_s": SSM_REQUESTS * SSM_ENGINE_NEW / wall,
+                     "ttft_ms_p50": ttft[len(ttft) // 2],
+                     "ttft_ms_max": ttft[-1],
+                     "identical_to_eager_loop": held,
+                     "compile_counts": keys0}
+    out.update(state_bytes_per_slot=state_bytes,
+               slots_per_gb=(1 << 30) // state_bytes,
+               transformer_kv_bytes_per_slot=kv_bytes_tf,
+               transformer_slots_per_gb=(1 << 30) // kv_bytes_tf)
+    engine.release_device()
+    del engine
+
+    # preemption on both tiers, against an uninterrupted run
+    victims = prompts[:MAIN_SLOTS]
+
+    def run(**kw):
+        p = GenerationPool(model, max_len=max_len, slots=MAIN_SLOTS,
+                           buckets=[SSM_BUCKET], cache_layout="recurrent",
+                           device="cuda", **kw)
+        p.generate([victims[0]], 3)
+        for i, ids in enumerate(victims):
+            p.submit(ids, PREEMPT_NEW_TOKENS, request_id=i)
+        return p
+
+    p = run()
+    want = p.run()
+    p.release_device()
+    for tier in ("host", "disk"):
+        spill = durable_dir(root, "ssm-" + tier)
+        kw = {} if tier == "host" else dict(spill_tier="disk",
+                                            spill_dir=spill)
+        p = run(**kw)
+        for _ in range(PREEMPT_AFTER_TICKS):
+            p.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = p.preempt(1)
+        preempt_ms = (time.perf_counter() - t0) * 1e3
+        got = p.run()
+        same = sum(np.array_equal(got[r], want[r]) for r in want)
+        assert same == len(want), (tier, same)
+        assert info["state_bytes"] == state_bytes and \
+            p.spill_stats()["upload_bytes_total"] == state_bytes
+        out["preempt_" + tier] = {"identical_requests": same,
+                                  "preempt_ms": preempt_ms,
+                                  "state_bytes": info["state_bytes"]}
+        p.release_device()
+        shutil.rmtree(spill, ignore_errors=True)
+    assert sum(dk.launch_counts().values()) == 0, dk.launch_counts()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def cost_run(engine, n_layers):
     """``cost_24l``: the main paged fp32 24-layer engine's
     ``cost_report()`` after its traffic.  Holds: ``derived.kv_cache_bytes``
@@ -2603,6 +3330,8 @@ def time_kernels(rows=DECODE_TIMING_ROWS):
         case["q_pos"] = (ctx - lq + torch.arange(lq, device="cuda")) \
             .to(torch.int32)[None].expand(b, lq).contiguous()
         _, h, lq, d = case["q"].shape
+        errs = _decode_parity(dk, case, "timed row kv=%s B=%d Lq=%d ctx=%d"
+                              % (kv_name, b, lq, ctx), TOL["float32"])
         item = case["k_pool"].element_size()
         kv_bytes = 2 * b * h * ctx * (d * item + (4 if kv_dt == torch.int8
                                                   else 0))
@@ -2649,7 +3378,7 @@ def time_kernels(rows=DECODE_TIMING_ROWS):
             p2 = graph_ms(pfns, reps=2)
             eager = cuda_ms(lambda: kern(**args[0]))
             rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                   "eager_ms": eager,
+                   "eager_ms": eager, "max_abs_err": errs[name],
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
@@ -4014,6 +4743,21 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    runs["lora_24l"] = lora_run(cfg, rng)
+    log("lora_24l (serving_lora: 8 adapters of rank 16 over one bank "
+        "against 8 dedicated engines, 24 layers):",
+        json.dumps(runs["lora_24l"]))
+    runs["lora_mixed_4l"] = lora_mixed_run(cfg, root)
+    log("lora_mixed_4l (the mixed batch on K2, a sampled adapter row "
+        "through the disk tier, speculative over the bank, a 2-engine "
+        "fleet's retire; 4 layers):", json.dumps(runs["lora_mixed_4l"]))
+    runs["ssm_24l"] = ssm_run(cfg, rng, root)
+    log("ssm_24l (SSMLM at GPT-1.3B widths on the recurrent layout, 24 "
+        "layers):", json.dumps(runs["ssm_24l"]))
+    log("multi-LoRA and recurrent phases: %.1f s"
+        % (time.perf_counter() - t0))
+
     check_train_small()
     check_train_small(bf16=True)
     train = {"gpt_fp32_24l": train_gpt()}
@@ -4091,6 +4835,30 @@ def main() -> int:
             "max_abs_err": parity[name + "_verify"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the multi-LoRA paths, each timed and held at its phase's mean
+    # context: K1 in lora_24l's decode steps, K2 in lora_mixed_4l's dense
+    # pool, K1 at Lq 5 in its speculative verify
+    for name, launches, ctx, lq in (
+            ("paged_decode_attention_kernel",
+             runs["lora_24l"]["k1_launches"], LORA_CTX, 1),
+            ("decode_attention_kernel",
+             runs["lora_mixed_4l"]["k2_launches"], LORA_MIXED_CTX, 1),
+            ("paged_decode_attention_kernel",
+             runs["lora_mixed_4l"]["k1_verify_launches"], LORA_MIXED_CTX,
+             VERIFY_LQ)):
+        label = name + ("_verify" if lq > 1 else "")
+        t = timing[(name, "float32", MAIN_SLOTS, ctx)
+                   + ((lq,) if lq > 1 else ())]
+        kernels.append({
+            "name": label + "_lora", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+            "replaces": ("paddle_tpu/ops/pallas_decode.py:243"
+                         if name.startswith("paged")
+                         else "paddle_tpu/ops/pallas_decode.py:320"),
+            "launches": launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     t = timing["scale_mul_kernel"]["float32"]
     kernels.append({
         "name": "scale_mul_kernel", "route": "cuda",

@@ -83,8 +83,23 @@ The serving layer's seams ride the tick: ``pool.step``,
 spans (``serving/trace.py``); with neither installed each is
 one module-attribute test.
 
-Not ported yet: meshes (``dp == 1`` only), LoRA, the recurrent layout
-and the cost report.
+Multi-LoRA (``nn.lora``): the pool reads the model's bank geometry at
+construction (``lora_config``); a request's ``adapter`` id is checked at
+submit and at adoption and rides its record through preemption, spill,
+resume, export and the journal.  The decode step's adapter ids are one
+more field of its static inputs (the same single upload), made ambient
+around the forward; the chunk step and the bucketed prefill take the
+request's id the same way.  ``load_adapter``/``unload_adapter`` write bank
+rows in place, so no captured graph moves.
+
+``cache_layout="recurrent"`` serves constant-state models
+(``nn.ssm.SSMLM``): a slot's decode state is one carry per layer, so
+preemption downloads the slot's state rows in one copy and resume uploads
+them into any free slot (no allocator); the PTKV payload is the whole
+rows.  Chunked prefill, prefix sharing and the prefill tier need a
+positional cache and are refused with typed errors naming the layout.
+
+Not ported yet: meshes (``dp == 1`` only).
 """
 from __future__ import annotations
 
@@ -107,6 +122,7 @@ from ..jit.cache import get_layout
 from ..jit.decode import (DecodeSession, check_sampling, classify_finish,
                           make_sampling_state, sample_logits_data,
                           step_buffers)
+from ..nn import lora as _lora_mod
 
 __all__ = ["GenerationPool", "kv_reachable_bytes", "DuplicateRequestError"]
 
@@ -209,8 +225,10 @@ def _nbytes(t) -> int:
 
 
 def _cache_fields(c):
-    """A layer cache's per-block tensors: K, V and, for int8, their
-    scales (they move with their blocks)."""
+    """A layer cache's spilled tensors: K, V and, for int8, their scales
+    (they move with their blocks), or a recurrent layer's carry."""
+    if hasattr(c, "state"):
+        return (c.state,)
     return (c.k, c.v) + ((c.k_scale, c.v_scale)
                          if c.k_scale is not None else ())
 
@@ -227,10 +245,12 @@ _SamplingConfig = collections.namedtuple(
 # scheduling metadata rides every queued request: ``priority`` (higher
 # admits first), ``tenant`` (fairness-cap key), ``deadline`` (a number on
 # the caller's clock, only ever compared; None sorts last) and ``seq``
-# (arrival order, the FIFO tie-break)
+# (arrival order, the FIFO tie-break); ``adapter`` is the request's LoRA
+# bank row (0 = the base model)
 _Request = collections.namedtuple(
     "_Request", ["rid", "ids", "max_new_tokens", "priority", "tenant",
-                 "deadline", "seq", "sampling"])
+                 "deadline", "seq", "sampling", "adapter"],
+    defaults=(0,))
 
 
 class _OfRequest:
@@ -351,6 +371,12 @@ class GenerationPool:
         if prefill_chunk_tokens is not None and not self._layout.paged:
             # the chunk path writes through the block table; the dense
             # layout keeps its one-shot bucketed prefill
+            if not self._layout.positional:
+                raise InvalidArgumentError(
+                    "prefill_chunk_tokens cannot apply to cache_layout="
+                    "'recurrent': a recurrence has no positional K/V to "
+                    "chunk into -- its whole prefill is one bucketed "
+                    "scan")
             raise InvalidArgumentError(
                 "prefill_chunk_tokens is a paged-cache knob (chunk writes "
                 "route through the block table); pass cache_layout="
@@ -361,6 +387,12 @@ class GenerationPool:
                 "prefill_chunk_tokens must be >= 1 tokens of prompt work "
                 "per tick, got %r" % (prefill_chunk_tokens,))
         if prefix_sharing and not self._layout.paged:
+            if not self._layout.positional:
+                raise InvalidArgumentError(
+                    "prefix_sharing cannot apply to cache_layout="
+                    "'recurrent': the recurrence folds the whole prefix "
+                    "into one carry, so there are no per-position blocks "
+                    "two requests could share")
             raise InvalidArgumentError(
                 "prefix_sharing shares physical KV blocks through the "
                 "block table; pass cache_layout='paged' (got %r)"
@@ -385,8 +417,9 @@ class GenerationPool:
             if not self._layout.spillable:
                 raise InvalidArgumentError(
                     "spill_tier='disk' spills per-slot decode state "
-                    "(paged K/V blocks); a dense pool has no spill "
-                    "granularity -- pass cache_layout='paged'")
+                    "(paged K/V blocks, or a recurrent state carry); a "
+                    "dense pool has no spill granularity -- pass "
+                    "cache_layout='paged' or 'recurrent'")
             if spill_dir is None:
                 raise InvalidArgumentError(
                     "spill_tier='disk' needs spill_dir= (the directory "
@@ -402,6 +435,12 @@ class GenerationPool:
                 "prefill_only=True exports finished prefills over the "
                 "K/V transfer contract, which lives in the disk spill "
                 "tier -- pass spill_tier='disk' (and spill_dir=)")
+        if prefill_only and not self._layout.positional:
+            raise InvalidArgumentError(
+                "prefill_only=True (the disaggregated prefill tier) is not "
+                "wired for cache_layout='recurrent': a recurrent prefill is "
+                "one scan, so there is nothing to disaggregate -- run a "
+                "fused engine")
         self.spill_tier = spill_tier
         self._spill_dir = None if spill_dir is None else str(spill_dir)
         # the prefill tier: a request that survives its first token parks
@@ -420,6 +459,10 @@ class GenerationPool:
             cache_layout=cache_layout, block_size=block_size, route=route,
             device=self.device)
         self._model = model
+        # the LoRA bank geometry, (n_adapters, rank) or None, as the
+        # session read it at construction; the bank's contents are
+        # hot-swappable rows
+        self._lora_cfg = self._session._lora_cfg
         self._cache_dtype = cache_dtype
         self._vocab = getattr(model, "vocab_size", None)
         self.slots = int(slots)
@@ -476,8 +519,8 @@ class GenerationPool:
                 [("toks", self._chunk_tokens, i32),
                  ("table", self._max_blocks, i32), ("start", 1, i32),
                  ("last", 1, i32), ("top_k", 1, i32), ("seed", 1, i32),
-                 ("step", 1, i32), ("temperature", 1, f32),
-                 ("top_p", 1, f32)], self.device)
+                 ("step", 1, i32), ("adapter", 1, i32),
+                 ("temperature", 1, f32), ("top_p", 1, f32)], self.device)
             self._chunk_fn = AotFunction(self._chunk_step, key_fn=shape_key,
                                          name="prefill_chunk", capture=True,
                                          watch=weights, meta_fn=kv_meta)
@@ -661,13 +704,14 @@ class GenerationPool:
     def submit(self, input_ids, max_new_tokens: int, request_id=None,
                priority: int = 0, tenant=None, deadline=None,
                temperature=None, top_k=None, top_p=None, seed=None,
-               _sampling=None):
+               adapter: int = 0, _sampling=None):
         """Queue one prompt (1-D ids); returns the request id.
 
         ``priority`` (int, higher admits first), ``tenant`` (a hashable
         fairness-cap key) and ``deadline`` (a number on any consistent
         clock, only compared: earlier wins within a priority, None sorts
-        last) order admission; the defaults are strict FIFO.
+        last) order admission; the defaults are strict FIFO.  ``adapter``
+        is the request's LoRA bank row (0, the base model, needs no bank).
         ``_sampling`` is the resubmission seam: an already-resolved config
         (with its ``draws`` offset) that is queued as it is."""
         if deadline is not None and (isinstance(deadline, bool)
@@ -692,6 +736,7 @@ class GenerationPool:
                 "[%d, %d]" % (self._vocab, int(ids.min()), int(ids.max())))
         if max_new_tokens < 1:
             raise InvalidArgumentError("max_new_tokens must be >= 1")
+        adapter = self._check_adapter(adapter)
         if len(ids) + max_new_tokens > self.max_len:
             raise InvalidArgumentError(
                 "prompt %d + max_new_tokens %d exceeds cache max_len %d"
@@ -726,8 +771,28 @@ class GenerationPool:
             self._resolve_sampling(temperature, top_k, top_p, seed)
         self._queue.append(_Request(rid, ids.astype(np.int32),
                                     int(max_new_tokens), int(priority),
-                                    tenant, deadline, self._seq, samp))
+                                    tenant, deadline, self._seq, samp,
+                                    adapter))
         return rid
+
+    def _check_adapter(self, adapter) -> int:
+        """A submit's or an adoption's adapter id against the bank read at
+        construction (0, the base model, is always valid)."""
+        adapter = int(adapter)
+        if adapter == 0:
+            return 0
+        if self._lora_cfg is None:
+            raise InvalidArgumentError(
+                "adapter=%d but the model has no LoRA bank attached: call "
+                "nn.lora.attach_lora(model, n_adapters, rank) BEFORE "
+                "constructing the pool (the bank must be in the parameter "
+                "snapshot), then load_adapter" % adapter)
+        n, _ = self._lora_cfg
+        if not 0 <= adapter < n:
+            raise InvalidArgumentError(
+                "adapter id must be in [0, n_adapters=%d), got %d"
+                % (n, adapter))
+        return adapter
 
     def advance_auto_rids(self, floor: int) -> None:
         """Never auto-assign a request id below ``floor``: an engine that
@@ -898,15 +963,16 @@ class GenerationPool:
                 break  # every candidate is tenant-capped right now
             kind, item = pick
             if kind == "resume":
-                # blocks still in the spill tier re-map for free; the
-                # tier's other entries are reclaimable on top of the list
-                own = sum(1 for b in item.dev_blocks if b is not None)
-                need_fresh = item.total_blocks - own
-                avail = len(self._free_blocks) \
-                    + self._spilled_dev_count() - own
-                if need_fresh > avail:
-                    self.admission_blocked = True
-                    break
+                if self._layout.paged:
+                    # blocks still in the spill tier re-map for free; the
+                    # tier's other entries are reclaimable on top
+                    own = sum(1 for b in item.dev_blocks if b is not None)
+                    need_fresh = item.total_blocks - own
+                    avail = len(self._free_blocks) \
+                        + self._spilled_dev_count() - own
+                    if need_fresh > avail:
+                        self.admission_blocked = True
+                        break
                 self._spilled.pop(item.rid)
                 self._resume(item)
                 continue
@@ -934,7 +1000,7 @@ class GenerationPool:
             cfg = req.sampling
             samp = make_sampling_state(1, cfg.temperature, cfg.top_k,
                                        cfg.top_p, seed=cfg.seed,
-                                       step=cfg.draws)
+                                       step=cfg.draws, adapter=req.adapter)
             # prefill before taking the slot: a failing prefill leaks none
             _fire("pool.prefill")
             tr = _trace_active()
@@ -998,7 +1064,7 @@ class GenerationPool:
 
     # -- chunked prefill ---------------------------------------------------
     def _prefill_chunk(self, toks, slot: int, start: int, length: int,
-                       sampling: _SamplingConfig):
+                       sampling: _SamplingConfig, adapter: int = 0):
         """One fixed-shape chunk for ONE slot: run ``toks`` (``[C]``,
         ``length`` real tokens, zero-padded) from absolute position
         ``start`` through the slot's table row, and sample the token at
@@ -1006,15 +1072,15 @@ class GenerationPool:
         the final chunk's sample is ever read).  Returns it on the device.
 
         The chunk's inputs -- the tokens, a copy of the slot's table row,
-        the start, the last offset and the config -- go to the static
-        buffers in one upload, then the ``"prefill_chunk"`` step runs; the
-        slot's index is set on the host side of the step."""
+        the start, the last offset, the config and the adapter id -- go to
+        the static buffers in one upload, then the ``"prefill_chunk"`` step
+        runs; the slot's index is set on the host side of the step."""
         cfg = sampling
         self._chunk_in.upload(
             toks=toks, table=self._padded_row(self._slot_blocks[slot]),
             start=start, last=length - 1,
             top_k=cfg.top_k, seed=cfg.seed, step=cfg.draws,
-            temperature=cfg.temperature, top_p=cfg.top_p)
+            adapter=adapter, temperature=cfg.temperature, top_p=cfg.top_p)
         tok = self._chunk_fn(self._chunk_in.toks)
         # the step advanced only the view's index
         for c in self._cache:
@@ -1032,7 +1098,8 @@ class GenerationPool:
         b = self._chunk_in
         views = [c._replace(table=b.table[None], index=b.start)
                  for c in self._cache]
-        logits, _ = self._session._run_model(toks[None].long(), views)
+        logits, _ = self._session._run_model(
+            toks[None].long(), views, self._session._adapter_ids(b.adapter))
         return sample_logits_data(logits[0].index_select(0, b.last),
                                   b.temperature, b.top_k, b.top_p, b.seed,
                                   b.step)
@@ -1053,12 +1120,13 @@ class GenerationPool:
         tr = _trace_active()
         if tr is None:
             tok_dev = self._prefill_chunk(toks, slot, st.pos, n,
-                                          st.req.sampling)
+                                          st.req.sampling, st.req.adapter)
         else:
             with tr.span("tick.prefill", rid=st.rid, chunk_tokens=n,
                          pos=st.pos, prompt_tokens=len(ids)):
                 tok_dev = self._prefill_chunk(toks, slot, st.pos, n,
-                                              st.req.sampling)
+                                              st.req.sampling,
+                                              st.req.adapter)
                 _device_edge(tr)
         self._chunks_total += 1
         self._chunk_tokens_total += n
@@ -1107,7 +1175,7 @@ class GenerationPool:
             raise PreconditionNotMetError(
                 "preemption spills per-slot decode state to the host tier; "
                 "a dense pool has no spill granularity -- use "
-                "cache_layout='paged'")
+                "cache_layout='paged' (or 'recurrent')")
         slot = next((s for s, st in self._active.items()
                      if st.rid == request_id), None)
         if slot is None:
@@ -1119,6 +1187,8 @@ class GenerationPool:
                    sorted(str(st.rid) for st in self._active.values())))
         st = self._active[slot]
         self._preempt_guard(slot, st)
+        if not self._layout.positional:
+            return self._preempt_recurrent(slot, st)
         # K/V are written for positions [0, pos): the last committed
         # token's K/V is the next step's input, not yet written
         pos = len(st.req.ids) + len(st.tokens) - 1
@@ -1163,6 +1233,68 @@ class GenerationPool:
                 "blocks_freed": freed, "spill_bytes": host_bytes,
                 "committed_tokens": len(st.tokens)}
 
+    def _preempt_recurrent(self, slot: int, st: _SlotState) -> dict:
+        """Recurrent preemption: the victim's whole decode state is its
+        slot's carry rows (one per layer), downloaded in one copy and
+        parked in the host or disk tier; the slot is freed.  No allocator:
+        resume uploads the carry into any free slot.  The carry covers
+        positions ``[0, pos)``: the last committed token is the next
+        step's input, as on the positional layouts."""
+        gather = torch.as_tensor([slot], dtype=torch.int64,
+                                 device=self.device)
+        flat, specs = _gather_packed([c.state for c in self._cache], gather)
+        host = [(part[0],) for part in _unpack(flat.cpu(), specs)]
+        host_bytes = sum(_nbytes(t) for layer in host for t in layer)
+        host_path = None
+        if self.spill_tier == "disk":
+            # written before the pool changes: a failed write leaves the
+            # victim decoding
+            host_path = self._spill_write(st, host, 0)
+            host = None
+        self._active.pop(slot)
+        self._free.append(slot)
+        self._membership_dirty = True
+        sp = _SpillState(st, 0, 0, host, host_bytes)
+        sp.host_path = host_path
+        self._spilled[st.rid] = sp
+        self._preempts_total += 1
+        self._spill_bytes_total += host_bytes
+        return {"rid": st.rid, "slot": slot, "blocks_spilled": 0,
+                "blocks_freed": 0, "spill_bytes": host_bytes,
+                "state_bytes": host_bytes,
+                "committed_tokens": len(st.tokens)}
+
+    def _resume_recurrent(self, sp: _SpillState) -> None:
+        """Re-activate a recurrent victim: its carry rows (process memory,
+        or its PTKV file, with the per-victim fallback of a re-queue as
+        prompt + committed) are uploaded in one copy into any free slot's
+        state rows, and the index and the last-token input restored."""
+        if sp.host is not None:
+            rows = [layer[0] for layer in sp.host]
+        else:
+            try:
+                rows = self._spill_read_rows(sp, None)
+            except Exception:  # noqa: BLE001 - per-victim fallback
+                self._requeue_lost_spill(sp)
+                return
+        slot = self._free.pop()
+        pos = len(sp.req.ids) + len(sp.tokens) - 1
+        for c, part in zip(self._cache, self._upload_parts(rows)):
+            c.state[slot].copy_(part)
+            c.index[slot] = pos
+        self._upload_bytes_total += sp.host_bytes
+        self._spill_drop(sp)
+        self._active[slot] = _SlotState(sp.req, sp.tokens, sp.remaining)
+        self._last_tok[slot] = sp.tokens[-1]
+        self._membership_dirty = True
+        self._resumes_total += 1
+        self._on_resumed(slot, sp)
+        if self.on_resume is not None:
+            self.on_resume(sp.rid, {
+                "slot": slot, "blocks_remapped": 0, "blocks_uploaded": 0,
+                "state_bytes": sp.host_bytes,
+                "committed_tokens": len(sp.tokens)})
+
     def _resume(self, sp: _SpillState) -> None:
         """Re-activate one parked request in a free slot: re-map its
         still-resident spilled blocks in place, allocate fresh blocks for
@@ -1177,6 +1309,9 @@ class GenerationPool:
         this victim pays, re-queued as prompt + committed under its own
         id (byte-identical for greedy decode), never the whole pool.  The
         file is deleted once the request decodes again."""
+        if not self._layout.positional:
+            self._resume_recurrent(sp)
+            return
         need_up = [j for j in range(sp.written) if sp.dev_blocks[j] is None]
         host_parts = None  # flat over layers and fields: [len(need_up), ...]
         if need_up:
@@ -1300,16 +1435,21 @@ class GenerationPool:
                 "sampling": [float(cfg.temperature), int(cfg.top_k),
                              float(cfg.top_p), int(cfg.seed),
                              int(cfg.draws)],
-                "adapter": 0,
-                "block_size": self._block_size}
+                "adapter": int(st.req.adapter)}
+        if self._layout.positional:
+            meta["block_size"] = self._block_size
+        else:
+            # the recurrent payload is whole carry rows (written == 0)
+            meta["d_state"] = int(self._cache[0].state.shape[-1])
         return _transfer_mod().write_transfer(
             self._spill_path(st.rid), self.config_fingerprint(), meta,
             arrays, seam=seam, rid=st.rid, dtype_names=names)
 
     def _spill_read_rows(self, sp: _SpillState, rows) -> list:
-        """Logical blocks ``rows`` of a disk-tier victim's file, flat over
-        layers and fields, as writable CPU tensors (copied out of the
-        read-only mapping, which is closed before returning)."""
+        """Logical blocks ``rows`` of a disk-tier victim's file (None: the
+        whole arrays, a recurrent carry), flat over layers and fields, as
+        writable CPU tensors (copied out of the read-only mapping, which
+        is closed before returning)."""
         r = _transfer_mod().TransferReader(sp.host_path)
         try:
             nf = len(_cache_fields(self._cache[0]))
@@ -1317,7 +1457,9 @@ class GenerationPool:
             for i in range(len(self._cache)):
                 for j in range(nf):
                     name = "l%d_f%d" % (i, j)
-                    arr = np.ascontiguousarray(r.arrays[name][rows])
+                    arr = r.arrays[name]
+                    arr = (np.array(arr) if rows is None
+                           else np.ascontiguousarray(arr[rows]))
                     if r.dtypes[name] == "bfloat16":
                         out.append(torch.from_numpy(arr.view(np.int16))
                                    .view(torch.bfloat16))
@@ -1352,7 +1494,7 @@ class GenerationPool:
         ids = np.concatenate([sp.req.ids, np.asarray(sp.tokens, np.int32)])
         self.submit(ids, sp.remaining, request_id=sp.rid,
                     priority=sp.req.priority, tenant=sp.req.tenant,
-                    deadline=sp.req.deadline,
+                    deadline=sp.req.deadline, adapter=sp.req.adapter,
                     _sampling=self._resubmit_sampling(sp.req.sampling,
                                                       len(sp.tokens)))
 
@@ -1388,12 +1530,17 @@ class GenerationPool:
         if not os.path.exists(path):
             return False
         first = self._cache[0]
+        recurrent = not self._layout.positional
         bs = self._block_size
-        pos = int(len(ids)) + len(tokens) - 1
-        written = -(-pos // bs)
-        total = self._blocks_needed(len(ids), int(max_new_tokens))
-        if total > self._num_blocks - 1:
-            return False
+        if recurrent:
+            # the carry is O(1): no blocks, only a free slot at resume
+            written = total = 0
+        else:
+            pos = int(len(ids)) + len(tokens) - 1
+            written = -(-pos // bs)
+            total = self._blocks_needed(len(ids), int(max_new_tokens))
+            if total > self._num_blocks - 1:
+                return False
         nf = len(_cache_fields(first))
         xfer = _transfer_mod()
         from ..serving import log as _slog
@@ -1436,13 +1583,23 @@ class GenerationPool:
                 except OSError:
                     pass
                 return False
-            if not (meta.get("layers") == len(self._cache)
-                    and meta.get("fields") == nf
-                    and meta.get("cache_dtype")
-                    == self._layout.cache_dtype_str(self._cache)
-                    and meta.get("block_size") == bs
+            structural_ok = (
+                meta.get("layers") == len(self._cache)
+                and meta.get("fields") == nf
+                and meta.get("cache_dtype")
+                == self._layout.cache_dtype_str(self._cache))
+            if recurrent:
+                structural_ok = (
+                    structural_ok
+                    and meta.get("d_state") == int(first.state.shape[-1])
                     and tuple(r.arrays["l0_f0"].shape)
-                    == (written,) + tuple(first.k.shape[1:])):
+                    == tuple(first.state.shape[1:]))
+            else:
+                structural_ok = (
+                    structural_ok and meta.get("block_size") == bs
+                    and tuple(r.arrays["l0_f0"].shape)
+                    == (written,) + tuple(first.k.shape[1:]))
+            if not structural_ok:
                 return False
             host_bytes = int(r.nbytes)
         except Exception:  # noqa: BLE001 - a bad file falls back, always
@@ -1453,8 +1610,12 @@ class GenerationPool:
             self._adopt_guard(ids, tokens)
         except Exception:  # noqa: BLE001 - subclass veto -> resubmit
             return False
-        if int(meta.get("adapter", 0) or 0) != 0:
-            return False  # LoRA adapters are not ported
+        # an adapter this pool's bank cannot address (no bank, or an id out
+        # of range) falls back: a fleet hot-loads it before retrying
+        try:
+            adapter = self._check_adapter(meta.get("adapter", 0) or 0)
+        except InvalidArgumentError:
+            return False
         msamp = meta.get("sampling")
         sampling = (_SamplingConfig(0.0, 0, 1.0, 0) if msamp is None else
                     _SamplingConfig(float(msamp[0]), int(msamp[1]),
@@ -1463,7 +1624,7 @@ class GenerationPool:
                                     else 0))
         self._seq += 1
         req = _Request(request_id, ids, int(max_new_tokens), int(priority),
-                       tenant, deadline, self._seq, sampling)
+                       tenant, deadline, self._seq, sampling, adapter)
         st = _SlotState(req, tokens, int(max_new_tokens) - len(tokens))
         sp = _SpillState(st, total, written, None, host_bytes)
         sp.host_path = path
@@ -1536,13 +1697,14 @@ class GenerationPool:
                 "sampling": [float(cfg.temperature), int(cfg.top_k),
                              float(cfg.top_p), int(cfg.seed),
                              int(cfg.draws)],
-                "adapter": 0}
+                "adapter": int(st.req.adapter)}
 
     def config_fingerprint(self) -> dict:
         """The JSON-stable identity byte-identical replay depends on: the
         pool class, the sampling discipline marker (sampling is
-        per-request data, so no values), the cache layout, dtype and
-        geometry.  ``lora`` and ``mesh`` are None (neither is ported).
+        per-request data, so no values), the LoRA bank's geometry
+        (``{"n_adapters", "rank"}`` or None: its contents are data), the
+        cache layout, dtype and geometry; ``mesh`` is None (not ported).
         It is the reference's dict for the same configuration and names
         nothing about the backend, so journals and PTKV files cross
         between the two packages; a differing configuration is refused
@@ -1550,7 +1712,9 @@ class GenerationPool:
         fp = {
             "pool_type": type(self).__name__,
             "sampling": "per-request",
-            "lora": None,
+            "lora": (None if self._lora_cfg is None
+                     else {"n_adapters": int(self._lora_cfg[0]),
+                           "rank": int(self._lora_cfg[1])}),
             "eos_id": None if self.eos_id is None else int(self.eos_id),
             "max_len": self.max_len,
             "slots": self.slots,
@@ -1586,8 +1750,8 @@ class GenerationPool:
         """Rewrite the decode step's static inputs (one upload) when slot
         membership changed since the last step; otherwise they already
         hold what the last step fed back.  Free and prefilling slots
-        decode greedily (their output is discarded).  A slot's next draw
-        is its token count: the prefill drew step 0."""
+        decode greedily on the base model (their output is discarded).  A
+        slot's next draw is its token count: the prefill drew step 0."""
         if not self._membership_dirty:
             return
         n = self.slots
@@ -1597,14 +1761,16 @@ class GenerationPool:
         tp = np.ones(n, np.float32)
         seed = np.zeros(n, np.int64)
         step = np.zeros(n, np.int64)
+        adapter = np.zeros(n, np.int32)
         for slot, st in self._active.items():
             cfg = st.req.sampling
             active[slot] = 1
             temp[slot], tk[slot], tp[slot], seed[slot] = cfg[:4]
             step[slot] = cfg.draws + len(st.tokens)
+            adapter[slot] = st.req.adapter
         self._steps.upload(tok=self._last_tok, active=active,
                            temperature=temp, top_k=tk, top_p=tp, seed=seed,
-                           step=step)
+                           step=step, adapter=adapter)
         self._membership_dirty = False
 
     def _pool_decode(self, tok):
@@ -1620,8 +1786,9 @@ class GenerationPool:
         cache = self._cache
         if self._layout.paged:
             cache = self._masked_tables(cache, active)
-        logits, new_cache = self._session._run_model(tok[:, None].long(),
-                                                     cache)
+        logits, new_cache = self._session._run_model(
+            tok[:, None].long(), cache,
+            self._session._adapter_ids(st.adapter))
         nxt = sample_logits_data(logits[:, 0], st.temperature, st.top_k,
                                  st.top_p, st.seed, st.step)
         self._layout.freeze_step(new_cache, self._cache, active)
@@ -1689,6 +1856,42 @@ class GenerationPool:
         _fire("weights.refresh")
         for fn in self._captured_steps():
             fn.drop_moved()
+
+    # -- multi-LoRA hot swap ------------------------------------------------
+    @property
+    def lora_config(self):
+        """``(n_adapters, rank)`` of the bank read at construction, or
+        None."""
+        return self._lora_cfg
+
+    def load_adapter(self, idx: int, weights) -> None:
+        """Write one adapter's weights into bank row ``idx`` (in place,
+        ``nn.lora.load_adapter``) and make the next tick serve them: the
+        bank never moves, so no graph is dropped or captured and
+        ``cost_version()`` does not move."""
+        _lora_mod.load_adapter(self._model, idx, weights)
+        self.refresh_weights()
+
+    def unload_adapter(self, idx: int) -> None:
+        """Zero bank row ``idx`` back to the identity.  Refuses while any
+        request (queued, prefilling, decoding, spilled or parked
+        prefill-complete) is pinned to it: it would continue under the
+        base model mid-stream."""
+        if self._lora_cfg is not None:
+            idx_i = int(idx)
+            live = [st.req.adapter for st in self._active.values()]
+            live += [st.req.adapter for st in self._prefilling.values()]
+            live += [sp.req.adapter for sp in self._spilled.values()]
+            live += [st.req.adapter for _, st in self._prefill_done.values()]
+            live += [rq.adapter for rq in self._queue]
+            if idx_i in live:
+                raise PreconditionNotMetError(
+                    "adapter %d still has live requests pinned to it; "
+                    "drain or cancel them before unloading -- an in-flight "
+                    "request would silently fall back to the base model "
+                    "mid-stream" % idx_i)
+        _lora_mod.unload_adapter(self._model, idx)
+        self.refresh_weights()
 
     def _steps_all(self) -> list:
         """Every step wrapper of the pool and its session."""
@@ -1856,10 +2059,7 @@ class GenerationPool:
             self._block_keys.clear()
             self._prefix_epoch += 1
             self._head_match = None
-        for c in self._cache:
-            for t in c:
-                if t is not None:
-                    t.zero_()
+        self._layout.zero_cache(self._cache, self.max_len)
 
     # -- compiled-step contract -------------------------------------------
     def compile_counts(self) -> dict:
@@ -2027,8 +2227,23 @@ class GenerationPool:
 
     def cache_stats(self) -> dict:
         """Live KV accounting: layout, allocator occupancy, and the bytes
-        a decode step can reach now against a dense preallocation."""
+        a decode step can reach now against a dense preallocation.  A
+        recurrent pool's state is ``[slots, d_state]`` per layer, so what
+        a step reaches is what the pool holds, whatever the context;
+        ``state_bytes_per_slot`` is the per-slot figure every layout
+        stamps, the denominator of slots per GB."""
         first = self._cache[0]
+        if not self._layout.positional:
+            total = sum(_nbytes(c.state) for c in self._cache)
+            return {"cache_layout": self.cache_layout,
+                    "cache_dtype": self._layout.cache_dtype_str(self._cache),
+                    "decode_route": self._session.route,
+                    "d_state": int(first.state.shape[-1]),
+                    "num_layers": len(self._cache),
+                    "state_bytes_per_slot":
+                        self._layout.state_bytes_per_slot(
+                            self._cache, self.slots, self.max_len),
+                    "reachable_bytes": total, "pool_bytes": total}
         dims = dict(max_len=self.max_len, num_layers=len(self._cache),
                     num_heads=first.k.shape[1], head_dim=first.k.shape[3],
                     dtype=first.k.dtype)

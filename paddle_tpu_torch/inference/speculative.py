@@ -50,7 +50,7 @@ from ..jit.aot import (AotFunction, cache_tensors, kv_arg_bytes,
 from ..jit.cache import get_layout
 from ..jit.decode import DecodeSession, truncate_at_eos
 from ..jit.speculative import (acceptance_summary, check_draft_compatible,
-                               greedy_accept)
+                               check_positional_layout, greedy_accept)
 from .generation import GenerationPool, _device_edge, _fire, _trace_active
 
 __all__ = ["SpeculativePool"]
@@ -87,6 +87,7 @@ class SpeculativePool(GenerationPool):
             raise InvalidArgumentError(
                 "spec_k must be >= 1 draft tokens per round, got %r"
                 % (spec_k,))
+        check_positional_layout(cache_layout)
         check_draft_compatible(draft_model, model)
         # top_k/top_p are accepted so the pool stays a drop-in under the
         # engine's **pool_kwargs (ignored at temperature 0)
@@ -167,17 +168,21 @@ class SpeculativePool(GenerationPool):
         """One per-slot chunk forward of the target over ``view`` =
         ``[pending, d_1..d_k]`` ([slots, k+1], a view of the chunk
         buffer).  Acceptance, emission and the index rewind happen on the
-        device.  Inactive slots are frozen: on the paged layout their
-        table rows are routed to the scratch block for this step (a
-        masked copy; the real rows, which a prefilling slot's chunks
-        write through, are untouched), their index is kept and their
-        emission zeroed."""
+        device.  The target judges every row under its own LoRA adapter
+        (the step's static id buffer); the draft proposes from the base
+        model, which costs acceptance rate, never correctness.  Inactive
+        slots are frozen: on the paged layout their table rows are routed
+        to the scratch block for this step (a masked copy; the real rows,
+        which a prefilling slot's chunks write through, are untouched),
+        their index is kept and their emission zeroed."""
         active = self._steps.active.bool()
         cache = self._cache
         idx0 = cache[0].index.clone()
         if self._layout.paged:
             cache = self._masked_tables(cache, active)
-        logits, _ = self._session._run_model(view.long(), cache)
+        logits, _ = self._session._run_model(
+            view.long(), cache,
+            self._session._adapter_ids(self._steps.adapter))
         m, emitted = greedy_accept(logits, view, active)
         new_idx = torch.where(active, idx0 + m + 1, idx0)
         for c in self._cache:
@@ -225,7 +230,7 @@ class SpeculativePool(GenerationPool):
     def submit(self, input_ids, max_new_tokens: int, request_id=None,
                priority: int = 0, tenant=None, deadline=None,
                temperature=None, top_k=None, top_p=None, seed=None,
-               _sampling=None):
+               adapter: int = 0, _sampling=None):
         req_t = _sampling.temperature if _sampling is not None \
             else temperature
         if req_t is not None and float(req_t) != 0.0:
@@ -244,7 +249,8 @@ class SpeculativePool(GenerationPool):
                               request_id=request_id, priority=priority,
                               tenant=tenant, deadline=deadline,
                               temperature=temperature, top_k=top_k,
-                              top_p=top_p, seed=seed, _sampling=_sampling)
+                              top_p=top_p, seed=seed, adapter=adapter,
+                              _sampling=_sampling)
 
     def set_spec_k(self, k: int) -> None:
         """Change the runtime draft count per round within ``[1,

@@ -5,17 +5,31 @@ decode cache, one singleton per layout.
 =================  ======================================================
 operation           who calls it / what it decides
 =================  ======================================================
+``begin_prefill``   DecodeSession.prefill, before the forward: reset the
+                    session's cache for a prompt from position 0 (the
+                    recurrent layout also zeroes its carry and narrows
+                    its update window to the true length, so padded
+                    bucket positions are identity steps)
 ``finalize_prefill`` DecodeSession.prefill, after the forward: commit the
                     true prompt length as the index (pad K/V past it is
-                    never attended)
+                    never attended); the recurrent layout also commits
+                    the carry and re-opens its window to max_len
+``commit_step``     DecodeSession's decode step: commit a step's index
+                    (and carry) into the session's cache
+``zero_cache``      GenerationPool.reset: zero the cache in place
 ``insert_row``      GenerationPool admission: splice a batch-1 prefilled
                     row cache into a pool slot
 ``freeze_step``     GenerationPool decode step: inactive slots keep their
-                    pre-step index
+                    pre-step index (and, recurrent, their carry: a
+                    recurrence updates every row every step)
+``field_axes``      the mesh's placement axes per cache field (for the
+                    sharded pool, which is not ported yet)
 ``cache_dtype_str`` / ``state_bytes_per_slot``  cache_stats() accounting
 ``fingerprint_extra`` config_fingerprint(): the layout's geometry
-                    (paged: block_size/num_blocks), part of the identity
-                    a journal or PTKV file is checked against
+                    (paged: block_size/num_blocks; recurrent: d_state),
+                    part of the identity a journal or PTKV file is
+                    checked against, so one model class never adopts
+                    another's file
 =================  ======================================================
 
 Capabilities, which the pool's guards test instead of layout names:
@@ -28,9 +42,8 @@ Capabilities, which the pool's guards test instead of layout names:
 
 Every operation writes the cache's own tensors in place and returns the
 same layer caches: a captured CUDA graph reads the cache by address, so a
-K/V buffer, a table or an index is never replaced by a new tensor.  The recurrent
-layout of the reference (the only one that is not positional), and with it
-the ``begin_prefill`` hook, waits for the port of ``nn/ssm.py``.
+K/V buffer, a table, an index, a carry or a window bound is never replaced
+by a new tensor.
 """
 from __future__ import annotations
 
@@ -39,8 +52,8 @@ import torch
 from ..core.dtype import dtype_name
 from ..core.errors import InvalidArgumentError
 
-__all__ = ["CacheLayout", "DenseLayout", "PagedLayout", "CACHE_LAYOUTS",
-           "get_layout"]
+__all__ = ["CacheLayout", "DenseLayout", "PagedLayout", "RecurrentLayout",
+           "CACHE_LAYOUTS", "get_layout"]
 
 
 class CacheLayout:
@@ -55,10 +68,34 @@ class CacheLayout:
     #: preempt/resume can move per-slot state through the host spill tier
     spillable: bool = False
 
-    def finalize_prefill(self, cache, true_len, max_len):
-        """Commit the true prompt length after the prefill forward."""
+    def begin_prefill(self, cache, true_len):
+        """Reset the session's cache for a prompt from position 0 (stale
+        K/V past the index are never attended)."""
+        for c in cache:
+            c.index.zero_()
+        return cache
+
+    def finalize_prefill(self, cache, true_len, max_len, new_cache=None):
+        """Commit the true prompt length after the prefill forward
+        (``new_cache`` is the forward's successor cache)."""
         for c in cache:
             c.index.fill_(int(true_len))
+        return cache
+
+    def zero_cache(self, cache, max_len: int):
+        """Zero every tensor of ``cache`` in place (a pool reset)."""
+        for c in cache:
+            for t in c:
+                if t is not None:
+                    t.zero_()
+        return cache
+
+    def commit_step(self, cache, new_cache):
+        """Commit a decode step's successor cache into ``cache`` in place
+        (the positional layouts wrote K/V in place already: only the
+        index moves)."""
+        for c, n in zip(cache, new_cache):
+            c.index.copy_(n.index)
         return cache
 
     def insert_row(self, pool_cache, row_cache, slot: int, length: int,
@@ -73,6 +110,16 @@ class CacheLayout:
         for c, old in zip(new_cache, prev_cache):
             old.index.copy_(torch.where(active, c.index, old.index))
         return prev_cache
+
+    def field_axes(self, field: str):
+        """The mesh axes one cache field is placed over."""
+        if field in ("k", "v", "k_scale", "v_scale"):
+            return ("dp", "mp")
+        if field in ("table", "index"):
+            return ("dp",)
+        raise InvalidArgumentError(
+            "unknown decode-cache field %r for layout %r"
+            % (field, self.name))
 
     def cache_dtype_str(self, cache) -> str:
         return dtype_name(cache[0].k.dtype)
@@ -150,8 +197,93 @@ class PagedLayout(CacheLayout):
                 "num_blocks": pool._num_blocks}
 
 
+class RecurrentLayout(CacheLayout):
+    """The constant-size recurrence carry (``nn.ssm.RecurrentDecodeCache``:
+    ``state [B, d_state]``, ``index`` and a scalar ``limit`` per layer):
+    O(1) state per token, no table, no paging, no prefix index.
+
+    ``limit`` is the pad discipline: the prefill narrows the update window
+    to the true prompt length (positions past it are identity steps) and
+    finalize re-opens it to ``max_len``, both with ``fill_``, since the
+    captured decode step reads ``limit``, ``index`` and ``state`` by
+    address."""
+
+    name = "recurrent"
+    positional = False
+    spillable = True
+
+    def begin_prefill(self, cache, true_len):
+        for c in cache:
+            c.state.zero_()
+            c.index.zero_()
+            c.limit.fill_(int(true_len))
+        return cache
+
+    def finalize_prefill(self, cache, true_len, max_len, new_cache=None):
+        for c, n in zip(cache, new_cache):
+            c.state.copy_(n.state)
+            c.index.fill_(int(true_len))
+            c.limit.fill_(int(max_len))
+        return cache
+
+    def zero_cache(self, cache, max_len: int):
+        # the window stays open: a pool decodes at any position
+        for c in cache:
+            c.state.zero_()
+            c.index.zero_()
+            c.limit.fill_(int(max_len))
+        return cache
+
+    def commit_step(self, cache, new_cache):
+        for c, n in zip(cache, new_cache):
+            c.state.copy_(n.state)
+            c.index.copy_(n.index)
+        return cache
+
+    def insert_row(self, pool_cache, row_cache, slot: int, length: int,
+                   blocks=None):
+        for cp, cr in zip(pool_cache, row_cache):
+            cp.state[slot].copy_(cr.state[0])
+            cp.index[slot] = int(length)
+        return pool_cache
+
+    def freeze_step(self, new_cache, prev_cache, active):
+        # the recurrence updated EVERY row's carry this step; an inactive
+        # slot's update folded its stale token into the carry a resumed
+        # or refilled request would inherit: restore the carry too
+        for c, old in zip(new_cache, prev_cache):
+            old.state.copy_(torch.where(active[:, None], c.state,
+                                        old.state))
+            old.index.copy_(torch.where(active, c.index, old.index))
+        return prev_cache
+
+    def field_axes(self, field: str):
+        if field == "state":
+            # slots over dp; the state vector stays whole per slot
+            return ("dp", None)
+        if field == "index":
+            return ("dp",)
+        if field == "limit":
+            return ()  # the scalar window bound: replicated
+        raise InvalidArgumentError(
+            "unknown decode-cache field %r for layout 'recurrent'"
+            % (field,))
+
+    def cache_dtype_str(self, cache) -> str:
+        return dtype_name(cache[0].state.dtype)
+
+    def state_bytes_per_slot(self, cache, slots: int, max_len: int) -> int:
+        # constant in max_len: the model class's point
+        return sum(c.state.numel() * c.state.element_size() // int(slots)
+                   for c in cache)
+
+    def fingerprint_extra(self, pool) -> dict:
+        return {"d_state": int(pool._cache[0].state.shape[-1])}
+
+
 CACHE_LAYOUTS = {layout.name: layout
-                 for layout in (DenseLayout(), PagedLayout())}
+                 for layout in (DenseLayout(), PagedLayout(),
+                                RecurrentLayout())}
 
 
 def get_layout(name: str) -> CacheLayout:
@@ -160,8 +292,6 @@ def get_layout(name: str) -> CacheLayout:
     layout = CACHE_LAYOUTS.get(name)
     if layout is None:
         raise InvalidArgumentError(
-            "cache_layout must be one of %s, got %r%s"
-            % (sorted(CACHE_LAYOUTS), name,
-               " (the recurrent layout is not ported yet)"
-               if name == "recurrent" else ""))
+            "cache_layout must be one of %s, got %r"
+            % (sorted(CACHE_LAYOUTS), name))
     return layout

@@ -16,7 +16,11 @@ The reference compiles exactly two functions per session with
 A graph reads its tensors by address, so the session keeps ONE cache and
 one set of step buffers per batch size and resets them in place for each
 prompt; the token and the draw counter feed back on the device, in those
-buffers.
+buffers.  The layout's hooks (``jit.cache``) reset the cache before a
+prefill and commit each step into it in place, so the recurrent layout's
+carry, index and window bound are read by address too.  A model that had
+a LoRA bank at construction gets its per-row adapter ids from the same
+buffers, made ambient around the forward (``nn.lora.adapter_ids``).
 
 Sampling config rides each row as data (per-row temperature/top-k/top-p/
 seed and the row's draw counter), so a batch may mix greedy and sampled
@@ -45,6 +49,7 @@ import torch
 from ..core.device import resolve_device, same_device
 from ..core.errors import InvalidArgumentError
 from ..nn.layer.transformer import normalize_cache_dtype
+from ..nn.lora import adapter_ids, lora_config
 from ..ops.flash_attention import decode_route, normalize_decode_route
 from .aot import (AotFunction, StaticInputs, cache_tensors, kv_arg_bytes,
                   module_tensors, shape_key)
@@ -84,13 +89,16 @@ def truncate_at_eos(tokens, eos_id):
 class SamplingState(NamedTuple):
     """Per-row sampling config as host vectors ``[B]``: ``temperature``
     (0 = greedy), ``top_k`` (<= 0 or >= vocab keeps all), ``top_p`` (1
-    keeps all), ``seed`` and ``step`` (the row's draw counter)."""
+    keeps all), ``seed``, ``step`` (the row's draw counter) and
+    ``adapter`` (the row's LoRA adapter id, ``nn.lora``; 0 is the
+    reserved identity row, the base model)."""
 
     temperature: np.ndarray
     top_k: np.ndarray
     top_p: np.ndarray
     seed: np.ndarray
     step: np.ndarray
+    adapter: np.ndarray
 
 
 def check_sampling(temperature, top_p) -> None:
@@ -102,7 +110,7 @@ def check_sampling(temperature, top_p) -> None:
 
 
 def make_sampling_state(batch: int, temperature=0.0, top_k=0, top_p=1.0,
-                        seed=None, step=0) -> SamplingState:
+                        seed=None, step=0, adapter=0) -> SamplingState:
     """A ``[batch]`` :class:`SamplingState`; scalars broadcast, a scalar
     ``seed`` gives row r the stream ``seed + r``, ``seed=None`` draws a
     base seed from torch's default generator."""
@@ -116,7 +124,8 @@ def make_sampling_state(batch: int, temperature=0.0, top_k=0, top_p=1.0,
     if s.ndim == 0:
         s = (s + np.arange(batch, dtype=np.int64)) & 0xFFFFFFFF
     return SamplingState(vec(temperature, np.float32), vec(top_k, np.int32),
-                         vec(top_p, np.float32), s, vec(step, np.int64))
+                         vec(top_p, np.float32), s, vec(step, np.int64),
+                         vec(adapter, np.int32))
 
 
 _M32 = 0xFFFFFFFF
@@ -230,12 +239,15 @@ def sample_logits_data(logits, temperature, top_k, top_p, seed, step):
 
 def step_buffers(n: int, device) -> StaticInputs:
     """The static per-row inputs of an ``n``-row decode step: the token
-    fed in, the active mask, the sampling config and the draw counter."""
+    fed in, the active mask, the sampling config, the draw counter and the
+    LoRA adapter id (made ambient around the forward, so the step reads
+    the ids by address)."""
     i32, f32 = torch.int32, torch.float32
     return StaticInputs([("tok", n, i32), ("active", n, i32),
                          ("top_k", n, i32), ("seed", n, i32),
-                         ("step", n, i32), ("temperature", n, f32),
-                         ("top_p", n, f32)], device)
+                         ("step", n, i32), ("adapter", n, i32),
+                         ("temperature", n, f32), ("top_p", n, f32)],
+                        device)
 
 
 def default_buckets(max_len: int, lo: int = 64) -> List[int]:
@@ -297,17 +309,31 @@ class DecodeSession:
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self._cache_dtype = normalize_cache_dtype(cache_dtype)
-        self._layout = get_layout(cache_layout)
-        if self._layout.name not in getattr(model, "cache_layouts",
-                                            ("dense", "paged")):
+        if cache_layout == "recurrent" and self._cache_dtype != "float32":
+            # the carry is the exact serving state: refused here, not in
+            # the first prefill
             raise InvalidArgumentError(
-                "model %s does not serve cache_layout=%r"
-                % (type(model).__name__, cache_layout))
+                "cache_layout='recurrent' supports only "
+                "cache_dtype='float32' (got %r): the recurrence carry is "
+                "the exact decode state, not a re-read cache"
+                % (cache_dtype,))
+        self._layout = get_layout(cache_layout)
+        supported = getattr(model, "cache_layouts", ("dense", "paged"))
+        if self._layout.name not in supported:
+            raise InvalidArgumentError(
+                "model %s supports cache_layouts=%r, not %r: positional "
+                "K/V layouts ('dense'/'paged') belong to attention models, "
+                "'recurrent' to constant-state models like nn.ssm.SSMLM"
+                % (type(model).__name__, tuple(supported),
+                   self._layout.name))
         if int(block_size) < 1:
             raise InvalidArgumentError(
                 "block_size must be >= 1, got %r" % (block_size,))
         self.cache_layout = cache_layout
         self.block_size = int(block_size)
+        # the LoRA bank geometry, read once: a bank attached later is not
+        # served (its ids are never made ambient)
+        self._lora_cfg = lora_config(model)
         # one cache and one set of step buffers per batch size, reused
         # (reset in place) by every prompt of that size: a captured
         # decode graph reads them by address
@@ -336,14 +362,21 @@ class DecodeSession:
             for m, t in modes:
                 m.training = t
 
-    def _run_model(self, ids, cache):
+    def _run_model(self, ids, cache, adapter=None):
         """One forward of ``ids`` [B, L] through ``cache``.  The cache may
         be a batch-1 VIEW of a pool's global cache -- ``table`` a [1, MB]
         copy of one slot's row and ``index`` a [1] tensor holding the
         chunk's start -- so a prompt chunk writes its K/V straight into
-        the pool's physical blocks; the pool then sets its own index."""
-        with self._inference():
+        the pool's physical blocks; the pool then sets its own index.
+        ``adapter`` (a static [B] id buffer, or None for the base model)
+        is the ambient per-row LoRA selection of the forward."""
+        with self._inference(), adapter_ids(adapter):
             return self._model(ids, cache=cache)
+
+    def _adapter_ids(self, ids):
+        """``ids`` when the model had a LoRA bank at construction, else
+        None (the base model, whatever is attached since)."""
+        return ids if self._lora_cfg is not None else None
 
     def _bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -355,10 +388,11 @@ class DecodeSession:
             "construct the session/pool with buckets=[..., %d]"
             % (length, self.buckets[-1], self.buckets, self.max_len, length))
 
-    def sampling_state(self, batch: int, seed=None) -> SamplingState:
+    def sampling_state(self, batch: int, seed=None,
+                       adapter=0) -> SamplingState:
         """A ``[batch]`` state from the session's sampling defaults."""
         return make_sampling_state(batch, self.temperature, self.top_k,
-                                   self.top_p, seed=seed)
+                                   self.top_p, seed=seed, adapter=adapter)
 
     def _batch(self, b: int):
         """The session's cache and step buffers for batch size ``b``."""
@@ -371,13 +405,14 @@ class DecodeSession:
         return st
 
     def _prefill_step(self, ids, true_len: int, cache, bufs):
-        """The prompt forward from position 0 (the index reset in place;
-        stale K/V past it are masked), the true length committed, the
-        first token sampled at ``true_len - 1`` into ``bufs.tok``."""
-        for c in cache:
-            c.index.zero_()
-        logits, _ = self._run_model(ids.long(), cache)
-        self._layout.finalize_prefill(cache, true_len, self.max_len)
+        """The prompt forward from position 0 (the cache reset in place by
+        the layout; stale K/V past the index are masked), the true length
+        committed, the first token sampled at ``true_len - 1`` into
+        ``bufs.tok``."""
+        self._layout.begin_prefill(cache, true_len)
+        logits, new = self._run_model(ids.long(), cache,
+                                      self._adapter_ids(bufs.adapter))
+        self._layout.finalize_prefill(cache, true_len, self.max_len, new)
         tok = sample_logits_data(logits[:, true_len - 1], bufs.temperature,
                                  bufs.top_k, bufs.top_p, bufs.seed,
                                  bufs.step)
@@ -390,9 +425,9 @@ class DecodeSession:
         buffer) is read, then overwritten with the sampled token; the
         index and the draw counter advance in place."""
         cache, bufs = self._batches[tok.shape[0]]
-        logits, new = self._run_model(tok[:, None].long(), cache)
-        for c, n in zip(cache, new):
-            c.index.copy_(n.index)
+        logits, new = self._run_model(tok[:, None].long(), cache,
+                                      self._adapter_ids(bufs.adapter))
+        self._layout.commit_step(cache, new)
         tok.copy_(sample_logits_data(logits[:, 0], bufs.temperature,
                                      bufs.top_k, bufs.top_p, bufs.seed,
                                      bufs.step))
@@ -419,7 +454,7 @@ class DecodeSession:
         cache, bufs = self._batch(b)
         bufs.upload(tok=0, active=1, temperature=samp.temperature,
                     top_k=samp.top_k, top_p=samp.top_p, seed=samp.seed,
-                    step=samp.step)
+                    step=samp.step, adapter=samp.adapter)
         tok = self._prefill_fn(torch.from_numpy(padded).to(self.device), t,
                                cache, bufs)
         return cache, tok, samp._replace(step=samp.step + 1)

@@ -41,7 +41,8 @@ from .aot import (AotFunction, cache_tensors, kv_arg_bytes, module_tensors,
 from .decode import DecodeSession, truncate_at_eos
 
 __all__ = ["SpeculativeDecodeSession", "check_draft_compatible",
-           "model_vocab_size", "greedy_accept", "acceptance_summary"]
+           "check_positional_layout", "model_vocab_size", "greedy_accept",
+           "acceptance_summary"]
 
 
 def model_vocab_size(model) -> Optional[int]:
@@ -53,6 +54,20 @@ def model_vocab_size(model) -> Optional[int]:
                     None)
         v = None if w is None else int(w.shape[0])
     return None if v is None else int(v)
+
+
+def check_positional_layout(cache_layout: str) -> None:
+    """Typed error for ``cache_layout="recurrent"``: the verify rewind
+    moves a positional index back over rejected drafts, and a recurrent
+    carry has no earlier position to rewind to."""
+    if cache_layout == "recurrent":
+        raise InvalidArgumentError(
+            "speculative decoding does not support cache_layout="
+            "'recurrent': verify-rewind moves a POSITIONAL index pointer "
+            "back over rejected drafts, but a recurrent carry folds every "
+            "step into one state vector -- there is no earlier position to "
+            "rewind to without re-running the prefix; use GenerationPool "
+            "for recurrent/SSM models")
 
 
 def check_draft_compatible(draft_model, target_model) -> None:
@@ -139,6 +154,7 @@ class SpeculativeDecodeSession:
             raise InvalidArgumentError(
                 "spec_k must be >= 1 draft tokens per round, got %r"
                 % (spec_k,))
+        check_positional_layout(cache_layout)
         check_draft_compatible(draft_model, target_model)
         self.spec_k = int(spec_k)
         self._target = DecodeSession(

@@ -3,6 +3,8 @@
 Parameter names and shapes are the reference's -- ``Linear.weight`` is
 [in_features, out_features], Paddle's layout, not torch's [out, in] -- so
 carrying weights across is a copy (``convert.load_reference_params``).
+A Linear with an attached LoRA bank (``nn.lora.attach_lora``) adds the
+per-row adapter delta while adapter ids are ambient (``nn.lora``).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from .. import functional as F
+from .. import lora as _lora
 
 
 def xavier_normal_(t: torch.Tensor,
@@ -37,7 +40,13 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        out = F.linear(x, self.weight, self.bias)
+        lora_a = self._parameters.get("lora_a")
+        if lora_a is not None:
+            ids = _lora.current_adapter_ids()
+            if ids is not None:
+                out = _lora.apply_delta(out, x, lora_a, self.lora_b, ids)
+        return out
 
     def extra_repr(self):
         return "in_features=%d, out_features=%d" % (self.in_features,

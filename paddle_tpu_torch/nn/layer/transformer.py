@@ -10,9 +10,9 @@ into the cache's own buffers (no copy of a [B, H, max_len, D] buffer per
 step) and returns the tuple with the advanced index; the caller's old tuple
 shares those buffers.
 
-Not ported yet: the sequence-parallel attention, the quantized
-row-parallel collective seam and the LoRA hooks of the reference's
-``forward``s.
+Not ported yet: the sequence-parallel attention and the quantized
+row-parallel collective seam (with its re-application of a LoRA delta; the
+plain path's delta is ``Linear.forward``'s).
 """
 from __future__ import annotations
 

@@ -88,9 +88,13 @@ keys counted once each by ``jit.aot``); the ``serving_step_flops``,
 follow its ``derived`` block and are refreshed only when the pool's
 ``cost_version()`` moves.
 
-Not ported here: LoRA adapters.  ``has_adapter(0)`` is true and a nonzero
-adapter id is refused with the reference's typed error for an engine
-without an adapter bank.
+Multi-LoRA.  ``submit(adapter=)`` picks a row of the model's LoRA bank
+(``nn.lora``; 0 is the base model); the id rides the request's record
+through recovery, migration, the journal and PTKV files.
+:meth:`ServingEngine.load_adapter` / :meth:`~ServingEngine.unload_adapter`
+hot-swap bank rows under the engine lock (in place: no capture), and
+:meth:`~ServingEngine.has_adapter` is what the fleet's router places
+adapter traffic by.
 """
 from __future__ import annotations
 
@@ -149,20 +153,6 @@ def _samp_from_json(val):
     return _SamplingConfig(
         float(val[0]), int(val[1]), float(val[2]), int(val[3]),
         int(val[4]) if len(val) > 4 else 0)
-
-
-def _check_adapter(adapter) -> int:
-    """The adapter id of a submit or an adoption: 0 (the base model) is
-    the only id an engine without a LoRA bank serves, and any other is
-    refused with the reference's error for a pool without a bank."""
-    adapter = int(adapter)
-    if adapter != 0:
-        raise InvalidArgumentError(
-            "adapter=%d but the model has no LoRA bank attached: call "
-            "nn.lora.attach_lora(model, n_adapters, rank) BEFORE "
-            "constructing the pool (the bank must be in the parameter "
-            "snapshot), then load_adapter" % adapter)
-    return 0
 
 
 def _normalize_priority(priority) -> int:
@@ -267,10 +257,11 @@ class _Record:
     __slots__ = ("rid", "stream", "state", "prompt", "prompt_len",
                  "max_new", "deadline_abs", "submit_t", "first_t",
                  "last_t", "tokens", "retries", "priority", "tenant",
-                 "preempts", "preempted_at", "sampling")
+                 "preempts", "preempted_at", "sampling", "adapter")
 
     def __init__(self, rid, stream, prompt, max_new, deadline_abs,
-                 submit_t, priority=0, tenant=None, sampling=None):
+                 submit_t, priority=0, tenant=None, sampling=None,
+                 adapter=0):
         self.rid = rid
         self.stream = stream
         self.state = RequestState.QUEUED
@@ -287,9 +278,10 @@ class _Record:
         self.tenant = tenant
         self.preempts = 0
         self.preempted_at = None
-        # the resolved sampling config: every resubmission continues the
-        # request's own stream
+        # the resolved sampling config and the LoRA adapter id: every
+        # resubmission continues the request's own stream on its adapter
         self.sampling = sampling
+        self.adapter = adapter
 
 
 class ServingEngine:
@@ -663,9 +655,8 @@ class ServingEngine:
         admission.  ``temperature``/``top_k``/``top_p``/``seed`` are this
         request's sampling config (None fields take the pool's defaults),
         resolved once here so every resubmission continues the same
-        stream.  ``adapter`` must be 0 (LoRA is not ported; see
-        :meth:`has_adapter`).  ``deadline_s`` is a wall-clock budget from
-        now: queued or
+        stream; ``adapter`` is its LoRA adapter id (0 = the base model).
+        ``deadline_s`` is a wall-clock budget from now: queued or
         decoding, the request expires (slot and blocks freed) at the first
         tick past it.
 
@@ -691,11 +682,11 @@ class ServingEngine:
                     "stopped (drain()/shutdown() was called)")
             samp = self._pool._resolve_sampling(temperature, top_k, top_p,
                                                 seed)
-            _check_adapter(adapter)
+            adapter = self._pool._check_adapter(adapter)
             if self._restoring:
                 return self._defer_submit(input_ids, max_new_tokens,
                                           request_id, deadline_s, priority,
-                                          tenant, samp)
+                                          tenant, samp, adapter)
             if self._degrade_level >= 3 and priority < self._degrade_floor:
                 self._c_tightened.inc()
                 trace.instant("req.shed", rid=request_id,
@@ -745,19 +736,20 @@ class ServingEngine:
             rid = self._pool.submit(ids, max_new_tokens,
                                     request_id=request_id,
                                     priority=priority, tenant=tenant,
-                                    deadline=deadline_abs, _sampling=samp)
+                                    deadline=deadline_abs, adapter=adapter,
+                                    _sampling=samp)
             stream = ResponseStream(self, rid, int(max_new_tokens))
             self._live[rid] = _Record(
                 rid, stream, ids.astype(np.int32), int(max_new_tokens),
                 deadline_abs, now, priority=priority, tenant=tenant,
-                sampling=samp)
+                sampling=samp, adapter=adapter)
             if self._journal is not None:
                 # write-ahead: the admission is durable before the
                 # request can commit a token, or it is rejected
                 try:
                     self._journal_admit(rid, ids, max_new_tokens,
                                         deadline_s, priority, tenant,
-                                        sampling=samp)
+                                        sampling=samp, adapter=adapter)
                 except Exception as e:  # noqa: BLE001 - reject, typed
                     self._pool.cancel(rid)
                     self._live.pop(rid, None)
@@ -778,7 +770,8 @@ class ServingEngine:
         return stream
 
     def _defer_submit(self, input_ids, max_new_tokens, request_id,
-                      deadline_s, priority, tenant, samp) -> ResponseStream:
+                      deadline_s, priority, tenant, samp,
+                      adapter=0) -> ResponseStream:
         """Park a submit that arrived while RESTORING (the caller holds
         the lock).  The deferral has the wait queue's bound; a duplicate
         explicit id is refused now with the normal typed error.  The
@@ -805,7 +798,7 @@ class ServingEngine:
             (request_id, ids.astype(np.int32), int(max_new_tokens),
              (None if deadline_s is None
               else self._clock() + float(deadline_s)),
-             priority, tenant, samp, stream))
+             priority, tenant, samp, adapter, stream))
         trace.instant("req.deferred", rid=request_id, restoring=True)
         return stream
 
@@ -1009,10 +1002,11 @@ class ServingEngine:
         """The one adoption body behind :meth:`adopt_transfer` and
         :meth:`adopt_migration`: the role gates differ, the mechanics do
         not.  ``sampling`` is the donor's 5-list (or a parsed config); the
-        adapter check runs before any state lands.  The journal records
-        the adoption (admit + the committed history) before the request
-        can decode; the adopter observes ITL only (TTFT belongs to the
-        prefill tier or the donor)."""
+        adapter must name a servable bank row HERE (checked before any
+        state lands: a fleet hot-loads the adapter and retries).  The
+        journal records the adoption (admit + the committed history)
+        before the request can decode; the adopter observes ITL only (TTFT
+        belongs to the prefill tier or the donor)."""
         with self._lock:
             if self._draining:
                 raise PreconditionNotMetError(
@@ -1025,14 +1019,14 @@ class ServingEngine:
             if isinstance(sampling, (list, tuple)) \
                     and not isinstance(sampling, _SamplingConfig):
                 sampling = _samp_from_json(sampling)
-            _check_adapter(adapter)
+            adapter = self._pool._check_adapter(adapter)
             ids = np.asarray(input_ids).astype(np.int32)
             toks = [int(t) for t in tokens]
             now = self._clock()
             stream = ResponseStream(self, request_id, int(max_new_tokens))
             rec = _Record(request_id, stream, ids, int(max_new_tokens),
                           deadline_abs, now, priority=priority,
-                          tenant=tenant, sampling=sampling)
+                          tenant=tenant, sampling=sampling, adapter=adapter)
             rec.tokens = list(toks)
             if toks:
                 rec.first_t = rec.last_t = now
@@ -1046,7 +1040,8 @@ class ServingEngine:
                         request_id, ids, max_new_tokens,
                         (None if deadline_abs is None
                          else max(0.001, deadline_abs - now)),
-                        priority, tenant, sampling=sampling)
+                        priority, tenant, sampling=sampling,
+                        adapter=adapter)
                     if toks:
                         self._jl_tick_toks.setdefault(
                             request_id, []).extend(toks)
@@ -1119,7 +1114,8 @@ class ServingEngine:
                      "priority": rec.priority, "tenant": rec.tenant,
                      "deadline_abs": rec.deadline_abs,
                      "retries": rec.retries,
-                     "sampling": _samp_json(rec.sampling), "adapter": 0,
+                     "sampling": _samp_json(rec.sampling),
+                     "adapter": int(rec.adapter),
                      "spill_path": spill_path}
             trace.instant("sched.migrate_out", rid=rec.rid,
                           spilled=spill_path is not None,
@@ -1331,11 +1327,12 @@ class ServingEngine:
                     for i, entry in enumerate(self._deferred_submits):
                         if entry[0] == request_id:
                             (rid, ids, max_new, _dl, priority, tenant,
-                             samp, stream) = entry
+                             samp, adapter, stream) = entry
                             del self._deferred_submits[i]
                             rec = _Record(rid, stream, ids, max_new, None,
                                           self._clock(), priority=priority,
-                                          tenant=tenant, sampling=samp)
+                                          tenant=tenant, sampling=samp,
+                                          adapter=adapter)
                             self._c_cancelled.inc()
                             self._finalize(rec, RequestState.CANCELLED,
                                            "cancelled", [])
@@ -1380,6 +1377,7 @@ class ServingEngine:
         self._pool.submit(ids, rec.max_new - len(rec.tokens),
                           request_id=rec.rid, priority=rec.priority,
                           tenant=rec.tenant, deadline=rec.deadline_abs,
+                          adapter=rec.adapter,
                           _sampling=self._pool._resubmit_sampling(
                               rec.sampling, len(rec.tokens)))
         rec.state = RequestState.QUEUED
@@ -1449,7 +1447,7 @@ class ServingEngine:
             % (request_id,))
 
     def _journal_admit(self, rid, ids, max_new, deadline_s, priority,
-                       tenant, sampling=None) -> None:
+                       tenant, sampling=None, adapter=0) -> None:
         """Make ONE admission durable: drain any backlog first (journal
         order is replay correctness: a reused rid must not see an old
         request's stranded commits replayed onto it), then append and
@@ -1474,7 +1472,7 @@ class ServingEngine:
                  "deadline_s": (None if deadline_s is None
                                 else float(deadline_s)),
                  "sampling": _samp_json(sampling),
-                 "adapter": 0,
+                 "adapter": int(adapter),
                  # wall clock (engine clocks do not cross processes):
                  # restore deducts the elapsed time from the deadline
                  "ts": time.time()})
@@ -1580,7 +1578,7 @@ class ServingEngine:
                                             rec.deadline_abs - now)),
                     "ts": time.time(),
                     "sampling": _samp_json(rec.sampling),
-                    "adapter": 0,
+                    "adapter": int(rec.adapter),
                     "retries": rec.retries})
             ckpt = {"t": "checkpoint", "live": live}
             if self._journal is not None:
@@ -1626,7 +1624,7 @@ class ServingEngine:
             self._wake.set()
 
     def _admit_deferred(self, rid, ids, max_new, deadline_abs, priority,
-                        tenant, samp, stream) -> None:
+                        tenant, samp, adapter, stream) -> None:
         """Admit one deferred submit.  A failure finalizes its stream
         FAILED: its caller holds the stream, so the error travels
         there."""
@@ -1643,11 +1641,11 @@ class ServingEngine:
                 rid = self._pool.submit(ids, int(max_new), request_id=rid,
                                         priority=priority, tenant=tenant,
                                         deadline=deadline_abs,
-                                        _sampling=samp)
+                                        adapter=adapter, _sampling=samp)
             except Exception as e:  # noqa: BLE001 - to the stream
                 rec = _Record(rid, stream, ids, int(max_new), deadline_abs,
                               now, priority=priority, tenant=tenant,
-                              sampling=samp)
+                              sampling=samp, adapter=adapter)
                 self._c_failed.inc()
                 self._finalize(rec, RequestState.FAILED, "error", [],
                                error="deferred admission failed: %s: %s"
@@ -1658,7 +1656,7 @@ class ServingEngine:
             stream.request_id = rid
             rec = _Record(rid, stream, ids, int(max_new), deadline_abs,
                           now, priority=priority, tenant=tenant,
-                          sampling=samp)
+                          sampling=samp, adapter=adapter)
             self._live[rid] = rec
             if self._journal is not None:
                 try:
@@ -1666,7 +1664,7 @@ class ServingEngine:
                         rid, ids, max_new,
                         (None if deadline_abs is None
                          else max(0.001, deadline_abs - now)),
-                        priority, tenant, sampling=samp)
+                        priority, tenant, sampling=samp, adapter=adapter)
                 except Exception as e:  # noqa: BLE001 - to the stream
                     self._pool.cancel(rid)
                     self._live.pop(rid, None)
@@ -1795,7 +1793,8 @@ class ServingEngine:
                     stream = ResponseStream(self, rid, max_new)
                     rec = _Record(rid, stream, ids, max_new, deadline_abs,
                                   now, priority=entry["priority"],
-                                  tenant=entry["tenant"], sampling=samp)
+                                  tenant=entry["tenant"], sampling=samp,
+                                  adapter=int(entry.get("adapter") or 0))
                     rec.retries = entry["retries"]
                     rec.tokens = list(toks)
                     # the committed history replays into the fresh
@@ -2376,29 +2375,34 @@ class ServingEngine:
         with self._lock:
             return self._pool.cost_report()
 
-    # -- adapters (LoRA is not ported: the engine has no adapter bank) ----
+    # -- multi-LoRA adapter management ---------------------------------------
+    def load_adapter(self, idx: int, weights: dict) -> None:
+        """Hot-load adapter ``idx``'s low-rank weights into the pool's bank
+        under the engine lock: rows written in place, so no capture, and
+        requests on other rows are untouched."""
+        with self._lock:
+            self._pool.load_adapter(idx, weights)
+
+    def unload_adapter(self, idx: int) -> None:
+        """Zero adapter ``idx``'s bank row; refuses (typed) while any live
+        request is pinned to it."""
+        with self._lock:
+            self._pool.unload_adapter(idx)
+
     def has_adapter(self, idx: int) -> bool:
-        """Whether adapter ``idx`` is servable here: 0 (the base model)
-        always; no other id without an adapter bank.  The fleet's router
-        places adapter traffic by this."""
+        """Whether ``idx`` is servable here: 0 (the base model) always; a
+        nonzero id needs a bank with that row.  The fleet's router places
+        adapter traffic by this."""
         try:
-            _check_adapter(idx)
+            self._pool._check_adapter(idx)
         except InvalidArgumentError:
             return False
         return True
 
-    def load_adapter(self, idx: int, weights: dict) -> None:
-        """Refused, typed: loading an adapter needs a LoRA bank, which
-        this port does not have yet."""
-        raise InvalidArgumentError(
-            "no LoRA bank attached: call attach_lora(model, n_adapters, "
-            "rank) before load_adapter")
-
-    def unload_adapter(self, idx: int) -> None:
-        """Refused, typed, as :meth:`load_adapter`."""
-        raise InvalidArgumentError(
-            "no LoRA bank attached: call attach_lora(model, n_adapters, "
-            "rank) before unload_adapter")
+    @property
+    def lora_config(self):
+        """The pool's bank geometry ``(n_adapters, rank)``, or None."""
+        return self._pool.lora_config
 
     def release_device(self, blocking: bool = True) -> bool:
         """Give this engine's card memory back now: every captured graph

@@ -180,8 +180,8 @@ class ServingFleet:
         self._next_rid = 0
         self._handles: Dict[str, _EngineHandle] = {}
         self._records: Dict[object, _FleetRecord] = {}
-        # the adapter registry {idx: weights}: forwarded to the engines,
-        # which refuse nonzero ids until LoRA is ported
+        # the adapter registry {idx: weights}: loaded onto every active
+        # engine and every later spawn
         self._adapters: Dict[int, dict] = {}
         # serializes the front: HTTP handler threads pump and submit
         # concurrently through their streams
@@ -386,10 +386,10 @@ class ServingFleet:
     # -- the adapter registry --------------------------------------------
     def register_adapter(self, idx: int, weights: dict) -> None:
         """Register adapter ``idx`` fleet-wide: load it onto every active
-        engine now and onto every later spawn.  The first engine's typed
-        refusal propagates (every engine refuses a nonzero id until LoRA
-        is ported), and the registry records only a load the fleet
-        proved."""
+        engine now and onto every later spawn (a bank-row write on each:
+        no capture).  The first engine's typed refusal propagates (an
+        engine without a bank, or an id past its rows), and the registry
+        records only a load the fleet proved."""
         with self._lock:
             for h in self._active_handles():
                 if not h.engine.has_adapter(idx) \

@@ -1289,3 +1289,141 @@ def test_host_op_loss_refuses_capture(cuda_device, tmp_path):
                       capture=False)
     losses = [float(eager(x)) for _ in range(3)]
     assert losses[-1] < losses[0], losses
+
+
+# -- multi-LoRA and the recurrent layout under captured steps ----------------
+def _banked_lm(dev, rows=4):
+    from paddle_tpu_torch.nn import lora
+
+    model = _tiny_lm(dev)
+    lora.attach_lora(model, n_adapters=rows, rank=4)
+    for idx in range(1, rows):
+        lora.load_adapter(model, idx, lora.random_adapter(model, seed=idx,
+                                                          scale=0.5))
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(cache_layout="paged", block_size=8),
+    dict(cache_layout="paged", block_size=8, prefill_chunk_tokens=16)],
+    ids=["paged", "chunked"])
+def test_lora_pool_captured_matches_eager(cuda_device, kw):
+    """The adapter ids are the step's static buffer, read by address: a
+    graph captured with one set of ids serves every later membership's
+    ids, token for token as the eager step."""
+    import numpy as np
+
+    from paddle_tpu_torch import GenerationPool
+
+    model = _banked_lm(cuda_device)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 512, n) for n in (5, 11, 20, 7, 14, 9)]
+
+    def run(eager):
+        pool = GenerationPool(model, max_len=64, slots=2, buckets=[32],
+                              device=cuda_device, **kw)
+        if eager:
+            _eager(pool, "_decode_fn")
+            if pool._chunk_fn is not None:
+                _eager(pool, "_chunk_fn")
+        for i, p in enumerate(prompts):
+            pool.submit(p, 6, request_id=i, temperature=0.8 * (i % 2),
+                        seed=i, adapter=i % 4)
+        dk.reset_launch_counts()
+        out = pool.run()
+        return pool, out, dk.launch_counts()["paged_decode_attention_kernel"]
+
+    pool, got, launches = run(eager=False)
+    _, want, _ = run(eager=True)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    assert pool._decode_fn.graphs() == 1
+    assert launches == 2 * pool.decode_steps_total
+    assert pool._steps.adapter.is_cuda
+
+
+@pytest.mark.cuda
+def test_lora_hot_load_keeps_the_graph(cuda_device):
+    """``load_adapter`` writes bank rows in place: the captured decode
+    graph is kept (no drop, no new capture, no new key) and serves the new
+    rows at its next replay."""
+    import numpy as np
+
+    from paddle_tpu_torch import GenerationPool
+    from paddle_tpu_torch.nn import lora
+
+    model = _banked_lm(cuda_device)
+    pool = GenerationPool(model, max_len=64, slots=2, buckets=[32],
+                          cache_layout="paged", block_size=8,
+                          device=cuda_device)
+    ids = np.random.RandomState(3).randint(0, 512, 11)
+    rid = pool.submit(ids, 8, adapter=1)
+    before = pool.run()[rid]
+    graph = pool._decode_fn._keys[next(iter(pool._decode_fn._keys))]
+    counts, cost = pool.compile_counts(), pool.cost_version()
+    weights = lora.random_adapter(model, seed=101, scale=1.0)
+    pool.load_adapter(1, weights)
+    rid = pool.submit(ids, 8, adapter=1)
+    after = pool.run()[rid]
+    assert pool._decode_fn._keys[next(iter(pool._decode_fn._keys))] is graph
+    assert pool.compile_counts() == counts and pool.cost_version() == cost
+    assert np.any(before != after)
+    eager = GenerationPool(model, max_len=64, slots=2, buckets=[32],
+                           cache_layout="paged", block_size=8,
+                           device=cuda_device)
+    _eager(eager, "_decode_fn")
+    rid = eager.submit(ids, 8, adapter=1)
+    np.testing.assert_array_equal(after, eager.run()[rid])
+
+
+@pytest.mark.cuda
+def test_recurrent_graph_replay_matches_eager(cuda_device, tmp_path):
+    """The recurrent layout's captured steps (the session's decode, the
+    pool's decode with its carry freeze) against their eager entries, and
+    a disk preempt and resume under the graph byte-identical to an
+    uninterrupted run."""
+    import numpy as np
+
+    from paddle_tpu_torch import DecodeSession, GenerationPool
+    from paddle_tpu_torch.nn import SSMLM
+
+    model = SSMLM(vocab_size=512, hidden_size=64, num_layers=2, d_state=96,
+                  device=cuda_device, seed=0)
+    ids = np.random.RandomState(1).randint(0, 512, (2, 9))
+    sess = DecodeSession(model, max_len=64, buckets=[16],
+                         cache_layout="recurrent", device=cuda_device)
+    got = sess.generate(ids, 8)
+    assert sess.compile_counts() == {"prefill": 1, "decode": 1}
+    assert sess._decode_fn.graphs() == 1
+    eager = DecodeSession(model, max_len=64, buckets=[16],
+                          cache_layout="recurrent", device=cuda_device)
+    eager._decode_fn = eager._decode_fn._run_eager
+    np.testing.assert_array_equal(got, eager.generate(ids, 8))
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 512, n) for n in (5, 11, 20, 7)]
+
+    def run(eager, victim=None):
+        pool = GenerationPool(model, max_len=64, slots=2, buckets=[32],
+                              cache_layout="recurrent", spill_tier="disk",
+                              spill_dir=str(tmp_path), device=cuda_device)
+        if eager:
+            _eager(pool, "_decode_fn")
+        for i, p in enumerate(prompts):
+            pool.submit(p, 6, request_id=i, temperature=0.7 * (i % 2),
+                        seed=i)
+        if victim is not None:
+            for _ in range(3):
+                pool.step()
+            pool.preempt(victim)
+        return pool, pool.run()
+
+    pool, got = run(eager=False)
+    _, want = run(eager=True)
+    _, resumed = run(eager=False, victim=0)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+        np.testing.assert_array_equal(resumed[rid], want[rid])
+    assert pool._decode_fn.graphs() == 1
+    assert not list(tmp_path.iterdir())

@@ -66,6 +66,20 @@ PyTorch twin, and drives the port's two main paths:
   at batch 1 and 8, the eager bucketed prefill timed and profiled alone,
   an 8-slot engine held against the eager loop, two victims preempted
   through the host and disk tiers, byte for byte);
+- sharded serving on one card: the 24-layer model serves the main
+  traffic over ``DecodeMesh`` (1, 2), (2, 1) and (2, 2) with every shard
+  on ``cuda:0`` (``mesh_24l``: K1 at 16/mp heads on slots/dp rows, each
+  shard's own contiguous pool; tokens equal to the unsharded run's on
+  margin-gated prompts, its compile counts, the per-shard block
+  partition, K1 launches a step == layers x dp x mp, the collective bytes
+  a token == the ring formula, one decode step's logits against the
+  unsharded forward; the decode graph's device ms a step at each mesh
+  beside the unsharded engine's); a grid over two cards refused as a
+  typed error; at 4 layers the (2, 2) mesh's int8 seams (block and
+  channel: every reduction within the reference's two-hop bound, the
+  logits within 3% of their scale), int8 KV, a speculative pool and the
+  dense layout (``mesh_int8_4l``).  One card carries no interconnect: a
+  mesh step is its shards' smaller launches one after another;
 - weights replaced under a captured graph (``refresh_24l``): the
   24-layer pool's parameters swapped for another seed's with
   ``load_state_dict(..., assign=True)``, ``refresh_weights()``, and the
@@ -2106,7 +2120,12 @@ DECODE_TIMING_ROWS = ((MAIN_SLOTS, 1024, "float32"), (MAIN_SLOTS, 1024, "int8"),
                       (MAIN_SLOTS, 1024, "float32", VERIFY_LQ),
                       (MAIN_SLOTS, LORA_CTX, "float32"),
                       (MAIN_SLOTS, LORA_MIXED_CTX, "float32"),
-                      (MAIN_SLOTS, LORA_MIXED_CTX, "float32", VERIFY_LQ))
+                      (MAIN_SLOTS, LORA_MIXED_CTX, "float32", VERIFY_LQ),
+                      # the (2, 2) mesh's per-shard shape: slots/2 rows of
+                      # 16/2 heads
+                      (MAIN_SLOTS // 2, 1024, "float32", 1, 8),
+                      (MAIN_SLOTS // 2, 1024, "int8", 1, 8),
+                      (MAIN_SLOTS // 2, 1024, "float32", VERIFY_LQ, 8))
 
 
 
@@ -3251,6 +3270,502 @@ def ssm_run(cfg, rng, root):
     return out
 
 
+# -- sharded serving: the decode mesh on one card ---------------------------
+
+MESH_SHAPES = ((1, 2), (2, 1), (2, 2))
+# a prompt whose top-2 logit margin along the unsharded greedy path clears
+# this floor must decode the same tokens on every mesh (mp sums its
+# partials in shard order: the logits move in their last bits)
+MESH_MARGIN_FLOOR = GREEDY_TOL["float32"]
+# one decode step's logits through the sharded forward against the
+# unsharded forward's, as a share of their largest magnitude
+MESH_LOGIT_RTOL = 1e-4
+# the int8 seams' decode logits against the "none" mesh's, as a share of
+# their largest magnitude, while the tokens agree (every seam is also held
+# by the reference's two-hop bound, call by call)
+INT8_SEAM_RTOL = 3e-2
+MESH_TIMING_TICKS = 10
+MESH_TIMING_CTX = 1024
+
+
+def _mesh(dp, mp, **kw):
+    from paddle_tpu_torch import DecodeMesh
+
+    return DecodeMesh(dp, mp, devices=["cuda:0"] * (dp * mp), **kw)
+
+
+def expect_raises(cls, fn):
+    """The message of the ``cls`` that ``fn()`` raises; an AssertionError
+    when it raises nothing (any other error propagates)."""
+    try:
+        fn()
+    except cls as e:
+        return str(e)
+    raise AssertionError("%s was not raised" % cls.__name__)
+
+
+def top2_margin(model, prompt, tokens):
+    """Smallest top-2 logit margin over the positions that emitted
+    ``tokens`` after ``prompt`` (one uncached forward)."""
+    import torch
+
+    seq = np.concatenate([prompt, tokens[:-1]]).astype(np.int64)
+    with torch.no_grad():
+        logits = model(torch.from_numpy(seq)[None].cuda())[0]
+    top2 = logits[len(prompt) - 1:].float().topk(2, dim=-1).values
+    return float((top2[:, 0] - top2[:, 1]).min())
+
+
+def _check_shard_partition(pool):
+    """Every dp shard's ``free + mapped + spilled + scratch`` is its
+    ``num_blocks / dp``, and no slot maps a block of another shard."""
+    for e in pool.cache_stats()["per_shard"]:
+        assert e["free_blocks"] + e["mapped_blocks"] + e["spilled_blocks"] \
+            + 1 == e["num_blocks"] == pool._num_blocks // pool.dp_shards, e
+    for slot, blocks in pool._slot_blocks.items():
+        assert {pool._shard_of_block(b) for b in blocks} \
+            <= {pool._shard_of_slot(slot)}
+
+
+def mesh_step_logits(model, mesh, rows, ctx, **cache_kw):
+    """One decode step's logits through the sharded forward against the
+    unsharded forward on the same ``rows`` x ``ctx`` prompt (prefilled
+    first): ``max |a - b| / max |a|``."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(0, model.vocab_size, (rows, ctx + 1), device="cuda",
+                        generator=gen)
+    mesh.place_weights(model)
+    out = []
+    for build in (model.gen_decode_cache, (
+            lambda *a, **k: mesh.build_cache(model, *a, **k))):
+        cache = build(rows, ctx + 8, layout="paged", block_size=MAIN_BLOCK,
+                      **cache_kw)
+        with torch.no_grad():
+            _, cache = model(ids[:, :ctx], cache=cache)
+            logits, _ = model(ids[:, ctx:], cache=cache)
+        out.append(logits[:, 0].float())
+        del cache
+    return float((out[0] - out[1]).abs().max() / out[0].abs().max())
+
+
+def mesh_serve(model, keep, n_layers, dp=1, mp=1, base=None):
+    """The main traffic (the paged fp32 run's warm-up and prompts) through
+    a fresh engine, over a ``dp`` x ``mp`` mesh on the card when ``base``
+    (the unsharded engine's run of the same traffic on the same weights,
+    with each prompt's top-2 margin) is given.  The K1 counts are set to
+    0 just before the requests are driven and read just after."""
+    import torch
+
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.distributed.qcollectives import psum_wire_bytes
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    kernel = "paged_decode_attention_kernel"
+    engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           device="cuda", cache_layout="paged",
+                           block_size=MAIN_BLOCK,
+                           mesh=None if base is None else _mesh(dp, mp))
+    engine.submit(keep["warmup"], 3).result()
+    pool = engine.pool
+    steps0 = pool.decode_steps_total
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, MAIN_NEW_TOKENS) for p in keep["prompts"]]
+    decode_tick_ms = []
+    while True:
+        n_prefill = pool.prefills_total
+        ts = time.perf_counter()
+        more = engine.pump(1)
+        if pool.prefills_total == n_prefill:
+            decode_tick_ms.append((time.perf_counter() - ts) * 1e3)
+        if not more:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dk.launch_counts()
+    steps = pool.decode_steps_total - steps0
+    assert counts[kernel] == n_layers * dp * mp * steps, (counts, steps)
+    assert all(n == 0 for k, n in counts.items() if k != kernel), counts
+    compiled = engine.compile_counts()
+    assert pool._decode_fn.graphs() == 1
+    statuses = [s.status for s in streams]
+    assert all(st.state == "DONE" for st in statuses), statuses
+    tokens = [np.asarray(st.tokens) for st in statuses]
+    out = {"mesh": [dp, mp], "requests": len(streams),
+           "decode_steps": steps, "launches": counts,
+           "k1_launches_per_step": counts[kernel] / steps,
+           "tokens_per_s": len(streams) * MAIN_NEW_TOKENS / wall,
+           "wall_s": wall,
+           "decode_step_ms_p50": float(np.median(decode_tick_ms)),
+           "decode_step_ms_mean": float(np.mean(decode_tick_ms)),
+           "compile_counts": compiled}
+    if base is None:
+        out["tokens"] = tokens
+    else:
+        assert compiled == base["compile_counts"], (compiled, base)
+        _check_shard_partition(pool)
+        same, gaps = 0, [0.0]
+        for prompt, got, want, margin in zip(
+                keep["prompts"], tokens, base["tokens"], base["margins"]):
+            if np.array_equal(got, want):
+                same += 1
+                continue
+            # a prompt whose margin clears the floor must not differ;
+            # another must still be greedy within the limit of an
+            # uncached forward
+            assert margin < MESH_MARGIN_FLOOR, ("mesh tokens differ",
+                                                margin)
+            gaps.append(greedy_gap(model, prompt, got))
+        assert max(gaps) <= GREEDY_TOL["float32"], gaps
+        derived = engine.cost_report()["derived"]
+        stats = engine.cache_stats()
+        snap = engine.metrics.snapshot()
+        assert snap["serving_kv_resident_bytes_per_shard"] \
+            == stats["pool_bytes"] // dp
+        assert derived["mesh"]["dp"] == dp and derived["mesh"]["mp"] == mp
+        out.update(
+            same_tokens=same, greedy_max_gap=max(gaps),
+            margin_gated=sum(m >= MESH_MARGIN_FLOOR
+                             for m in base["margins"]),
+            per_shard=stats["per_shard"],
+            serving_kv_resident_bytes_per_shard=snap[
+                "serving_kv_resident_bytes_per_shard"],
+            serving_kv_reachable_bytes_max_shard=snap[
+                "serving_kv_reachable_bytes_max_shard"],
+            serving_mesh_devices=snap["serving_mesh_devices"])
+        if mp > 1:
+            # per device and token: each layer's two seams reduce one
+            # [hidden] fp32 row over the mp ring
+            formula = 2 * n_layers * psum_wire_bytes(
+                (1, model.hidden_size), mp)
+            assert derived["collective_bytes_per_token"] \
+                == derived["collective_dense_bytes_per_token"] \
+                == formula, (derived, formula)
+            out.update(collective_bytes_per_token=formula,
+                       collective_dense_bytes_per_token=formula,
+                       collective_calls_per_step=derived[
+                           "collective_calls_per_step"])
+    engine.release_device()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_decode_ms(model, rng, mesh=None, ticks=MESH_TIMING_TICKS):
+    """The decode graph's device ms a step with 8 busy slots at ~1k
+    context (CUDA events around each replay), then ``ticks`` more under
+    ``torch.profiler`` for the device's busy share and K1's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import ServingEngine
+
+    engine = ServingEngine(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                           device="cuda", cache_layout="paged",
+                           block_size=MAIN_BLOCK, mesh=mesh)
+    pool = engine.pool
+    for _ in range(MAIN_SLOTS):
+        engine.submit(rng.randint(0, model.vocab_size, MESH_TIMING_CTX),
+                      2 * ticks + 8)
+    engine.pump(3)
+    assert pool.active_count == MAIN_SLOTS and pool._decode_fn.graphs() == 1
+    hook = pool._decode_fn = _StepHook(pool._decode_fn, events=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.pump(ticks)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    graph_ms_per_step = hook.event_ms()
+    pool._decode_fn = hook.fn
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.pump(ticks)
+        torch.cuda.synchronize()
+    rows = [(ms / ticks, k, n // ticks) for ms, k, n in device_time_rows(prof)]
+    busy = sum(r[0] for r in rows)
+    k1 = sum(ms for ms, k, _ in rows
+             if "decode_split_kernel" in k or "decode_combine_kernel" in k)
+    engine.release_device()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"graph_device_ms_per_step": graph_ms_per_step,
+            "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy or None,
+            "k1_device_ms_per_step": k1 or None,
+            "kernels_per_step": sum(n for _, _, n in rows),
+            "device_idle_share": (1 - graph_ms_per_step / wall_ms)}
+
+
+def mesh_run(model, keep, n_layers):
+    """``mesh_24l``: the 24-layer GPT-1.3B serves the main traffic over
+    meshes (1, 2), (2, 1) and (2, 2) with every shard on ``cuda:0`` (K1
+    at 16/mp heads on slots/dp rows, each shard's own contiguous pool),
+    held against an unsharded engine's run of the same traffic on the
+    model's current weights (tokens on margin-gated prompts, the
+    compile counts, the per-shard block partition, K1 launches a step ==
+    layers x dp x mp, the collective bytes a token == the ring formula);
+    one decode step's logits against the unsharded forward's; the decode
+    graph's device ms at each mesh beside the unsharded engine's (timed
+    unsharded, meshes, unsharded in one call).  One card carries no
+    interconnect: a mesh's step runs its shards' smaller launches one
+    after another.  A grid over two cards is refused as a typed error."""
+    from paddle_tpu_torch import DecodeMesh
+    from paddle_tpu_torch.core.errors import UnimplementedError
+
+    out = {"refusal": expect_raises(UnimplementedError, lambda: DecodeMesh(
+        2, 1, devices=["cuda:0", "cuda:1"]))}
+    # the unsharded engine on the model's current weights is the baseline
+    base = mesh_serve(model, keep, n_layers)
+    base["margins"] = [top2_margin(model, p, t)
+                       for p, t in zip(keep["prompts"], base["tokens"])]
+    out["unsharded"] = {k: v for k, v in base.items()
+                        if k not in ("tokens", "margins")}
+    out["margins_min"] = min(base["margins"])
+    for dp, mp in MESH_SHAPES:
+        label = "%dx%d" % (dp, mp)
+        out[label] = mesh_serve(model, keep, n_layers, dp, mp, base)
+        out[label]["step_logits_rel_err"] = mesh_step_logits(
+            model, _mesh(dp, mp), MAIN_SLOTS, MAIN_MAX_LEN // 4)
+        assert out[label]["step_logits_rel_err"] <= MESH_LOGIT_RTOL, out
+        log("mesh_24l %s:" % label, json.dumps(out[label]))
+    rng = np.random.RandomState(5)
+    timing = {"unsharded": [mesh_decode_ms(model, rng)]}
+    for dp, mp in MESH_SHAPES:
+        timing["%dx%d" % (dp, mp)] = mesh_decode_ms(model, rng,
+                                                    _mesh(dp, mp))
+    timing["unsharded"].append(mesh_decode_ms(model, rng))
+    flat_ms = min(t["graph_device_ms_per_step"]
+                  for t in timing["unsharded"])
+    for dp, mp in MESH_SHAPES:
+        t = timing["%dx%d" % (dp, mp)]
+        t["vs_unsharded"] = t["graph_device_ms_per_step"] / flat_ms
+    out["decode_timing"] = timing
+    # the model keeps no mp slices past the phase
+    for lin in model.modules():
+        lin.__dict__.pop("_mesh_parts", None)
+    return out
+
+
+def _checked_qpsum(record):
+    """Wrap the seam's ``qpsum`` so every reduction is held against the
+    fp32 sum of the same partials within the reference's two-hop bound
+    (``test_qpsum_matches_psum_within_bound``); the worst share of the
+    bound lands in ``record``."""
+    from paddle_tpu_torch.distributed import qcollectives as qc
+
+    real = qc.qpsum
+
+    def checked(parts, scale_mode="block", block=qc.QUANT_BLOCK,
+                devices=None):
+        got = real(parts, scale_mode, block, devices)
+        want = parts[0].float()
+        for p in parts[1:]:
+            want = want + p.float()
+        amax_in = max(float(p.abs().max()) for p in parts)
+        bound = len(parts) * amax_in / 254.0 \
+            + float(want.abs().max()) / 254.0
+        err = float((got[0].float() - want).abs().max())
+        assert err <= bound * (1 + 1e-5) + 1e-6, (err, bound)
+        record["calls"] = record.get("calls", 0) + 1
+        record["max_share_of_bound"] = max(
+            record.get("max_share_of_bound", 0.0), err / bound)
+        return got
+
+    qc.qpsum = checked
+    return real
+
+
+def _mesh_pool_run(model, prompts, mesh=None, checked=None, **kw):
+    """``prompts`` through a fresh 8-slot pool (over ``mesh``), its decode
+    step warmed up and captured first; tokens, each decode step's logits,
+    the launch counts of the measured pass and the pool's figures.  With
+    ``checked`` (a dict), the same traffic again through the step's eager
+    entry with every int8 reduction held by :func:`_checked_qpsum` (a
+    replay runs no Python); its tokens must equal the graph's."""
+    import torch
+
+    from paddle_tpu_torch import GenerationPool
+    from paddle_tpu_torch.distributed import qcollectives as qc
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    pool = GenerationPool(model, max_len=MAIN_MAX_LEN, slots=MAIN_SLOTS,
+                          device="cuda", mesh=mesh, **kw)
+    pool.generate([np.arange(64) % model.vocab_size], 3)
+    hook = pool._decode_fn = _StepHook(pool._decode_fn, logits=True)
+    steps0 = pool.decode_steps_total
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = pool.generate(prompts, SHORT_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dk.launch_counts()
+    steps = pool.decode_steps_total - steps0
+    pool._decode_fn = hook.fn
+    if checked is not None:
+        pool._decode_fn = _StepHook(hook.fn, eager=True)
+        real = _checked_qpsum(checked)
+        try:
+            again = pool.generate(prompts, SHORT_NEW_TOKENS)
+        finally:
+            qc.qpsum = real
+            pool._decode_fn = hook.fn
+        assert all(np.array_equal(a, b) for a, b in zip(tokens, again)), \
+            "the eager int8 step differs from its graph"
+    res = {"tokens": tokens, "logits": hook.logits, "launches": counts,
+           "steps": steps, "wall_s": wall,
+           "compile_counts": pool.compile_counts(),
+           "stats": pool.cache_stats()}
+    del pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _int8_logits_share(want, got):
+    """Largest ``max |a - b| / max |a|`` over the decode steps while every
+    request's tokens agree (a step whose inputs already differ is not a
+    perturbation of the same step)."""
+    worst, compared = 0.0, 0
+    for t, (a, b) in enumerate(zip(want["logits"], got["logits"])):
+        # step t reads tokens[t]: its inputs agree while tokens[:t + 1] do
+        if not all(np.array_equal(w[:t + 1], g[:t + 1])
+                   for w, g in zip(want["tokens"], got["tokens"])):
+            break
+        worst = max(worst, float((a - b).abs().max() / a.abs().max()))
+        compared += 1
+    assert compared >= 1
+    return worst, compared
+
+
+def mesh_int8_run(model, rng):
+    """``mesh_int8_4l``: the 4-layer model of the same widths on the (2, 2)
+    mesh.  ``collective_quant="int8"`` (block and channel scales) against
+    "none": every seam within the reference's two-hop bound, the decode
+    logits within ``INT8_SEAM_RTOL``, the keys unchanged and the wire
+    bytes below the dense ring's.  Then the int8 KV cache on the mesh (K1's
+    int8 path at 8 heads), the speculative pool over the mesh (K1 at Lq 5,
+    8 heads; its 2-layer draft's K2 on the sharded draft cache) and the
+    dense layout on the mesh (K2 at 8 heads, fp32 and int8), each held
+    against the unsharded pool."""
+    import torch
+
+    from paddle_tpu_torch import TransformerLM
+    from paddle_tpu_torch.inference import SpeculativePool
+    from paddle_tpu_torch.ops import decode_kernels as dk
+
+    k1, k2 = "paged_decode_attention_kernel", "decode_attention_kernel"
+    shards = 4
+    vocab = model.vocab_size
+    lens = rng.randint(MAIN_MAX_LEN // 16, MAIN_MAX_LEN // 2 + 1,
+                       SHORT_REQUESTS)
+    prompts = [rng.randint(0, vocab, int(n)).astype(np.int32) for n in lens]
+    paged = dict(cache_layout="paged", block_size=MAIN_BLOCK)
+    out = {}
+    none = _mesh_pool_run(model, prompts, _mesh(2, 2), **paged)
+    assert none["launches"][k1] == SHORT_LAYERS * shards * none["steps"]
+    for scale in ("block", "channel"):
+        record = {}
+        q = _mesh_pool_run(model, prompts, _mesh(
+            2, 2, collective_quant="int8", collective_quant_scale=scale),
+            checked=record, **paged)
+        share, compared = _int8_logits_share(none, q)
+        assert share <= INT8_SEAM_RTOL, (scale, share)
+        assert q["compile_counts"] == none["compile_counts"]
+        st = q["stats"]
+        assert st["collective_bytes_per_token"] \
+            < st["collective_dense_bytes_per_token"], st
+        assert st["collective_calls_per_step"] == 2 * SHORT_LAYERS
+        assert q["launches"][k1] == SHORT_LAYERS * shards * q["steps"]
+        same = sum(np.array_equal(a, b)
+                   for a, b in zip(none["tokens"], q["tokens"]))
+        out["int8_" + scale] = {
+            "seam_calls_checked": record["calls"],
+            "seam_max_share_of_bound": record["max_share_of_bound"],
+            "logits_rel_err": share, "steps_compared": compared,
+            "same_tokens": int(same), "requests": len(prompts),
+            "collective_bytes_per_token": st["collective_bytes_per_token"],
+            "collective_dense_bytes_per_token":
+                st["collective_dense_bytes_per_token"],
+            "tokens_per_s": len(prompts) * SHORT_NEW_TOKENS / q["wall_s"]}
+    out["none_tokens_per_s"] = len(prompts) * SHORT_NEW_TOKENS \
+        / none["wall_s"]
+    # the int8 KV cache on the mesh: K1's int8 path at 8 heads
+    flat8 = _mesh_pool_run(model, prompts, cache_dtype="int8", **paged)
+    kv8 = _mesh_pool_run(model, prompts, _mesh(2, 2), cache_dtype="int8",
+                         **paged)
+    assert kv8["launches"][k1] == SHORT_LAYERS * shards * kv8["steps"]
+    held = [_tokens_hold(model, p, g, w, GREEDY_TOL["int8"])
+            for p, g, w in zip(prompts, kv8["tokens"], flat8["tokens"])]
+    out["int8_kv"] = {"k1_launches": kv8["launches"][k1],
+                      "steps": kv8["steps"], "same_tokens": int(sum(held))}
+    # the dense layout on the mesh: K2 at 8 heads, fp32 and int8
+    for dtype in ("float32", "int8"):
+        flat = _mesh_pool_run(model, prompts, cache_layout="dense",
+                              cache_dtype=dtype)
+        dense = _mesh_pool_run(model, prompts, _mesh(2, 2),
+                               cache_layout="dense", cache_dtype=dtype)
+        assert dense["launches"][k2] == SHORT_LAYERS * shards \
+            * dense["steps"], dense["launches"]
+        assert dense["launches"][k1] == 0
+        held = [_tokens_hold(model, p, g, w, GREEDY_TOL[dtype])
+                for p, g, w in zip(prompts, dense["tokens"],
+                                   flat["tokens"])]
+        out["dense_" + dtype] = {"k2_launches": dense["launches"][k2],
+                                 "steps": dense["steps"],
+                                 "same_tokens": int(sum(held)),
+                                 "compile_counts": dense["compile_counts"]}
+    # the speculative pool over the mesh: verify through K1 at Lq 5
+    draft = TransformerLM(**dict(model_cfg(model),
+                                 num_layers=SPEC_DRAFT_LAYERS),
+                          dropout=0.0, device="cuda", seed=1)
+    spec = SpeculativePool(model, draft, max_len=MAIN_MAX_LEN, spec_k=SPEC_K,
+                           slots=MAIN_SLOTS, device="cuda", mesh=_mesh(2, 2),
+                           **paged)
+    spec.generate([np.arange(64) % vocab], 4 * VERIFY_LQ)
+    assert spec._verify_fn.graphs() == 1
+    spec.reset_acceptance_stats()
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = spec.generate(prompts, SHORT_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dk.launch_counts()
+    rounds = spec.acceptance_stats()["rounds"]
+    assert counts[k1] == SHORT_LAYERS * shards * rounds, (counts, rounds)
+    assert counts[k2] == SPEC_DRAFT_LAYERS * shards * (SPEC_K + 1) \
+        * rounds, (counts, rounds)
+    held = [_tokens_hold(model, p, g, w, GREEDY_TOL["float32"])
+            for p, g, w in zip(prompts, toks, none["tokens"])]
+    out["spec"] = {"k1_verify_launches": counts[k1],
+                   "k2_draft_launches": counts[k2], "rounds": rounds,
+                   "acceptance_rate":
+                       spec.acceptance_stats()["acceptance_rate"],
+                   "same_tokens": int(sum(held)),
+                   "tokens_per_s": len(prompts) * SHORT_NEW_TOKENS / wall}
+    del spec, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    for lin in model.modules():
+        lin.__dict__.pop("_mesh_parts", None)
+    out["k1_launches_int8"] = kv8["launches"][k1]
+    return out
+
+
+def model_cfg(model) -> dict:
+    """A TransformerLM's constructor widths."""
+    return dict(vocab_size=model.vocab_size, hidden_size=model.hidden_size,
+                num_layers=model.num_layers, num_heads=model.num_heads,
+                intermediate_size=model.intermediate_size,
+                max_position=model.max_position)
+
+
 def cost_run(engine, n_layers):
     """``cost_24l``: the main paged fp32 24-layer engine's
     ``cost_report()`` after its traffic.  Holds: ``derived.kv_cache_bytes``
@@ -3307,7 +3822,9 @@ def time_kernels(rows=DECODE_TIMING_ROWS):
     positions, beside its plain twin, SDPA on the gathered K/V and the
     bandwidth bound.  Keyed (kernel, cache dtype, rows, ctx); a row with
     a fourth field ``lq`` is a verify chunk of ``lq`` queries at positions
-    ``ctx - lq .. ctx - 1`` (keyed with ``lq`` appended).
+    ``ctx - lq .. ctx - 1`` (keyed with ``lq`` appended when above 1); a
+    fifth field is the head count (a mesh shard's 16/mp heads, keyed with
+    ``("heads", h)`` appended).
 
     ``ms``, ``plain_ms`` and ``library_ms`` are device times from CUDA
     graph replay (:func:`graph_ms`) over copies of the inputs that
@@ -3323,8 +3840,9 @@ def time_kernels(rows=DECODE_TIMING_ROWS):
     for row in rows:
         b, ctx, kv_name = row[:3]
         lq = row[3] if len(row) > 3 else 1
+        heads = row[4] if len(row) > 4 else 16
         kv_dt = getattr(torch, kv_name)
-        case = paged_case(gen, b, 16, 128, MAIN_BLOCK,
+        case = paged_case(gen, b, heads, 128, MAIN_BLOCK,
                           MAIN_MAX_LEN // MAIN_BLOCK, lq, torch.float32,
                           kv_dt, ctx=ctx)
         case["q_pos"] = (ctx - lq + torch.arange(lq, device="cuda")) \
@@ -3386,7 +3904,8 @@ def time_kernels(rows=DECODE_TIMING_ROWS):
                    "splits": splits, "input_copies": n_copies}
             rec["achieved_gb_s"] = nbytes / rec["ms"] / 1e6
             rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-            out[(name, kv_name, b, ctx) + ((lq,) if lq > 1 else ())] = rec
+            out[(name, kv_name, b, ctx) + ((lq,) if lq > 1 else ())
+                + ((("heads", heads),) if heads != 16 else ())] = rec
             log("timing %-30s kv=%-7s B=%d H=%d Lq=%d D=%d ctx=%d splits=%d: "
                 "kernel %.4f ms (%.0f GB/s, %.0f%% of bound; eager %.4f ms), "
                 "plain %.4f ms, bound %.4f ms (%s), sdpa %.4f ms"
@@ -4710,6 +5229,12 @@ def main() -> int:
         json.dumps(runs["fleet_24l"]))
     log("tier and fleet phases (24 layers): %.1f s"
         % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    runs["mesh_24l"] = mesh_run(model, pumped, cfg["num_layers"])
+    log(card)
+    log("mesh_24l (the main traffic over meshes (1,2), (2,1), (2,2) on "
+        "cuda:0, 24 layers):", json.dumps(runs["mesh_24l"]))
+    log("mesh phase (24 layers): %.1f s" % (time.perf_counter() - t0))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4740,6 +5265,11 @@ def main() -> int:
     log("recover_4l: %.1f s" % (time.perf_counter() - t0))
     runs["captured_vs_eager_4l"] = captured_vs_eager(model)
     runs["session_4l"] = session_runs(model, SHORT_LAYERS)
+    t0 = time.perf_counter()
+    runs["mesh_int8_4l"] = mesh_int8_run(model, rng)
+    log("mesh_int8_4l (the (2,2) mesh: int8 seams, int8 KV, speculative, "
+        "dense; 4 layers):", json.dumps(runs["mesh_int8_4l"]))
+    log("mesh_int8_4l: %.1f s" % (time.perf_counter() - t0))
     del model
     torch.cuda.empty_cache()
 
@@ -4851,6 +5381,35 @@ def main() -> int:
                    + ((lq,) if lq > 1 else ())]
         kernels.append({
             "name": label + "_lora", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+            "replaces": ("paddle_tpu/ops/pallas_decode.py:243"
+                         if name.startswith("paged")
+                         else "paddle_tpu/ops/pallas_decode.py:320"),
+            "launches": launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    # the mesh paths at the (2, 2) mesh's per-shard shape (4 rows x 8
+    # heads): K1 fp32 in mesh_24l's (2, 2) run, K1 int8 and K2 in
+    # mesh_int8_4l, K1 at Lq 5 in its speculative verify
+    mesh_int8 = runs["mesh_int8_4l"]
+    for label, name, kv, lq, launches in (
+            ("paged_decode_attention_kernel_mesh",
+             "paged_decode_attention_kernel", "float32", 1,
+             runs["mesh_24l"]["2x2"]["launches"][
+                 "paged_decode_attention_kernel"]),
+            ("paged_decode_attention_kernel_mesh_int8",
+             "paged_decode_attention_kernel", "int8", 1,
+             mesh_int8["k1_launches_int8"]),
+            ("decode_attention_kernel_mesh", "decode_attention_kernel",
+             "float32", 1, mesh_int8["dense_float32"]["k2_launches"]),
+            ("paged_decode_attention_kernel_verify_mesh",
+             "paged_decode_attention_kernel", "float32", VERIFY_LQ,
+             mesh_int8["spec"]["k1_verify_launches"])):
+        t = timing[(name, kv, MAIN_SLOTS // 2, 1024)
+                   + ((lq,) if lq > 1 else ()) + (("heads", 8),)]
+        kernels.append({
+            "name": label, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/decode_attention.cu",
             "replaces": ("paddle_tpu/ops/pallas_decode.py:243"
                          if name.startswith("paged")

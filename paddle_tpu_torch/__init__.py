@@ -14,10 +14,12 @@ Tensor (paddle's ``stop_gradient`` is ``not requires_grad``); ``grad``,
 trains in bf16 (or fp16) mixed precision: ``amp.decorate(level="O2")``
 and ``amp.auto_cast`` around the loss, as the reference's training legs.
 A server is ``ServingEngine(model, ...).start()`` behind
-``ServingHTTPFrontend(engine).start()``.
+``ServingHTTPFrontend(engine).start()``; ``mesh=DecodeMesh(dp, mp,
+devices=["cuda:0"] * (dp * mp))`` shards its pool (``jit.mesh``).
 """
 from . import amp  # noqa: F401
 from . import autograd  # noqa: F401
+from . import distributed  # noqa: F401
 from . import incubate  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import serving  # noqa: F401
@@ -31,6 +33,7 @@ from .tensor import matmul  # noqa: F401
 from .tensor.creation import to_tensor  # noqa: F401
 from .inference.generation import GenerationPool  # noqa: F401
 from .jit.decode import DecodeSession  # noqa: F401
+from .jit.mesh import DecodeMesh  # noqa: F401
 from .jit.train_step import MultiStepTrainStep, TrainStep  # noqa: F401
 from .models.language_model import (TransformerLM,  # noqa: F401
                                     TransformerLMCriterion, bert_base_config,

@@ -6,6 +6,11 @@ module copies those arrays into the port's module of the same names and
 shapes.  bf16 arrays (numpy dtype ``bfloat16``, as ``np.asarray`` gives
 for a bf16 JAX array) cross bit for bit, viewed through int16 so that no
 ``ml_dtypes`` import is needed.
+
+A model already placed on a ``DecodeMesh`` (a session or pool built over
+it) gets its mp weight slices refreshed from the loaded parameters: the
+reference's parameters load into the unsharded model, and the mesh shards
+them.
 """
 from __future__ import annotations
 
@@ -50,4 +55,6 @@ def load_reference_params(model: nn.Module,
         for name, p in params.items():
             p.copy_(_as_torch(arrays[name]).to(device=p.device,
                                                dtype=p.dtype))
+    from .jit.mesh import refresh_placed
+    refresh_placed(model)
     return model

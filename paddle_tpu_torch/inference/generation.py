@@ -99,7 +99,18 @@ them into any free slot (no allocator); the PTKV payload is the whole
 rows.  Chunked prefill, prefix sharing and the prefill tier need a
 positional cache and are refused with typed errors naming the layout.
 
-Not ported yet: meshes (``dp == 1`` only).
+``mesh=DecodeMesh(dp, mp)`` shards the pool (``jit/mesh.py``): the slot
+axis splits into ``dp`` equal contiguous shards (slot ``g`` is local slot
+``g % (slots/dp)`` of shard ``g // (slots/dp)``), and on the paged layout
+so does the block pool: ``num_blocks/dp`` blocks per shard, the first of
+each its scratch block, one free list per shard.  A request's blocks all
+live in its slot's shard (the admission picks the shard; a resume is
+pinned to the shard it was preempted from), so no step reads K/V across
+shards.  The allocator keeps global block ids, the tables hold each
+shard's local ids.  ``cache_stats()["per_shard"]`` restates the
+partition per shard.  The decode step's mp reductions take
+``collective_quant`` (``distributed.qcollectives``); the prompt chunks
+reduce in fp32.
 """
 from __future__ import annotations
 
@@ -118,7 +129,7 @@ from ..core.errors import (AlreadyExistsError, InvalidArgumentError,
                            NotFoundError, PreconditionNotMetError)
 from ..jit.aot import (CAPTURE_GUARD, AotFunction, StaticInputs, cache_tensors,
                        kv_arg_bytes, module_tensors, shape_key)
-from ..jit.cache import get_layout
+from ..jit.cache import ShardedCache, cache_parts, first_part, get_layout
 from ..jit.decode import (DecodeSession, check_sampling, classify_finish,
                           make_sampling_state, sample_logits_data,
                           step_buffers)
@@ -233,6 +244,16 @@ def _cache_fields(c):
                          if c.k_scale is not None else ())
 
 
+def _shard_fields(c, shard: int) -> list:
+    """The spilled fields of dp shard ``shard`` of one layer's cache: per
+    field, the tensors holding it -- its mp shards, split on the head axis
+    (one tensor for a carry, which mp replicates, or when unsharded)."""
+    if not isinstance(c, ShardedCache):
+        return [[f] for f in _cache_fields(c)]
+    parts = list({id(p): p for p in c.shards[shard]}.values())
+    return [list(fs) for fs in zip(*(_cache_fields(p) for p in parts))]
+
+
 # per-request sampling config, resolved at submit: ``seed`` is always a
 # concrete int, so the request's stream is a pure function of itself.
 # ``draws`` is the stream offset at this submission: 0 for a fresh
@@ -311,11 +332,13 @@ class _SpillState(_OfRequest):
     ``host_path`` names the PTKV file holding the written blocks."""
 
     __slots__ = ("tokens", "remaining", "total_blocks", "written",
-                 "dev_blocks", "host", "host_bytes", "host_path")
+                 "dev_blocks", "host", "host_bytes", "host_path", "shard")
 
     def __init__(self, st: _SlotState, total_blocks: int, written: int,
-                 host, host_bytes: int):
+                 host, host_bytes: int, shard: int = 0):
         self.req = st.req
+        # the dp shard its device copies live in (a resume is pinned there)
+        self.shard = shard
         self.tokens = st.tokens
         self.remaining = st.remaining
         self.total_blocks = total_blocks
@@ -359,9 +382,28 @@ class GenerationPool:
                  tenant_slot_cap: Optional[int] = None,
                  route: str = "auto", spill_tier: str = "host",
                  spill_dir: Optional[str] = None,
-                 prefill_only: bool = False, device=None):
+                 prefill_only: bool = False, device=None, mesh=None,
+                 collective_quant: Optional[str] = None,
+                 collective_quant_scale: Optional[str] = None):
         if slots < 1:
             raise InvalidArgumentError("GenerationPool needs slots >= 1")
+        if mesh is not None:
+            from ..jit.mesh import DecodeMesh
+
+            if not isinstance(mesh, DecodeMesh):
+                raise InvalidArgumentError(
+                    "mesh must be a jit.mesh.DecodeMesh (or None for the "
+                    "unsharded pool), got %r" % (type(mesh).__name__,))
+        self._mesh = mesh
+        self._dp = 1 if mesh is None else mesh.dp
+        if slots % self._dp != 0:
+            raise InvalidArgumentError(
+                "dp=%d must divide slots=%d: the slot axis is sharded in "
+                "equal contiguous chunks over the dp mesh axis, and the "
+                "allocator maps logical slot g to (shard g // (slots/dp), "
+                "local slot g %% (slots/dp))" % (self._dp, slots))
+        self._slots_per_shard = int(slots) // self._dp
+        self._mp = 1 if mesh is None else mesh.mp
         if tenant_slot_cap is not None and int(tenant_slot_cap) < 1:
             raise InvalidArgumentError(
                 "tenant_slot_cap must be >= 1 slots per tenant (or None "
@@ -457,7 +499,8 @@ class GenerationPool:
             model, max_len, buckets=buckets, temperature=temperature,
             top_k=top_k, top_p=top_p, cache_dtype=cache_dtype,
             cache_layout=cache_layout, block_size=block_size, route=route,
-            device=self.device)
+            device=self.device, mesh=mesh, collective_quant=collective_quant,
+            collective_quant_scale=collective_quant_scale)
         self._model = model
         # the LoRA bank geometry, (n_adapters, rank) or None, as the
         # session read it at construction; the bank's contents are
@@ -472,16 +515,30 @@ class GenerationPool:
         self._block_size = int(block_size)
         self._max_blocks = -(-self.max_len // self._block_size)
         if self._layout.paged:
-            # default: full capacity (every slot at max_len) plus scratch
+            # default: full capacity (every slot at max_len) plus a
+            # scratch block per dp shard.  Block s*(num_blocks/dp) is
+            # shard s's scratch block (its local block 0): that shard's
+            # unmapped table entries and inactive-slot writes land there
             if num_blocks is None:
-                num_blocks = 1 + self.slots * self._max_blocks
+                num_blocks = self._dp * (
+                    1 + self._slots_per_shard * self._max_blocks)
             num_blocks = int(num_blocks)
-            if num_blocks < 2:
+            if num_blocks % self._dp != 0:
                 raise InvalidArgumentError(
-                    "paged pool needs >= 2 blocks (one scratch + one "
-                    "allocatable), got num_blocks=%d" % num_blocks)
+                    "dp=%d must divide num_blocks=%d: the block pool is "
+                    "partitioned into equal per-shard spans (each with its "
+                    "own scratch block and free list)"
+                    % (self._dp, num_blocks))
+            if num_blocks // self._dp < 2:
+                raise InvalidArgumentError(
+                    "paged pool needs >= 2 blocks per dp shard (one "
+                    "scratch + one allocatable), got num_blocks=%d at "
+                    "dp=%d" % (num_blocks, self._dp))
             self._num_blocks = num_blocks
-            self._free_blocks: List[int] = list(range(1, num_blocks))
+            self._blocks_per_shard = num_blocks // self._dp
+            # one free list per dp shard: a slot's blocks always live in
+            # its own shard's partition
+            self._free_by_shard: List[List[int]] = self._fresh_free_lists()
             self._slot_blocks: Dict[int, List[int]] = {}
             # refcount per resident block (absent = free): prefix sharing
             # bumps it per extra table row; a block returns to the free
@@ -502,8 +559,10 @@ class GenerationPool:
         # are watched, so a moved tensor drops the graph (drop_moved)
         weights = lambda: (module_tensors(model)  # noqa: E731
                            + cache_tensors(self._cache))
+        # a mesh step's entry names its mesh (a mesh adds no key)
+        mesh_meta = {} if mesh is None else {"mesh": mesh.describe()}
         kv_meta = lambda *a: {  # noqa: E731
-            "kv_cache_bytes": kv_arg_bytes(self._cache)}
+            "kv_cache_bytes": kv_arg_bytes(self._cache), **mesh_meta}
         self._decode_fn = AotFunction(self._pool_decode, key_fn=shape_key,
                                       name="pool_decode", capture=True,
                                       watch=weights, meta_fn=kv_meta)
@@ -515,12 +574,15 @@ class GenerationPool:
         self._chunk_fn = self._admit_fn = self._chunk_in = None
         if self._chunk_tokens is not None:
             i32, f32 = torch.int32, torch.float32
+            # under a mesh the chunk also names its slot's dp shard
+            mesh_fields = [] if mesh is None else [("shard", 1, i32)]
             self._chunk_in = StaticInputs(
                 [("toks", self._chunk_tokens, i32),
                  ("table", self._max_blocks, i32), ("start", 1, i32),
                  ("last", 1, i32), ("top_k", 1, i32), ("seed", 1, i32),
                  ("step", 1, i32), ("adapter", 1, i32),
-                 ("temperature", 1, f32), ("top_p", 1, f32)], self.device)
+                 ("temperature", 1, f32), ("top_p", 1, f32)]
+                + mesh_fields, self.device)
             self._chunk_fn = AotFunction(self._chunk_step, key_fn=shape_key,
                                          name="prefill_chunk", capture=True,
                                          watch=weights, meta_fn=kv_meta)
@@ -585,11 +647,96 @@ class GenerationPool:
         self.on_finish = None
         self.on_resume = None
 
+    # -- mesh / shard mapping ------------------------------------------------
+    @property
+    def mesh(self):
+        """The decode mesh (None for an unsharded pool)."""
+        return self._mesh
+
+    @property
+    def dp_shards(self) -> int:
+        """dp shards the slot axis is partitioned into (1 unsharded)."""
+        return self._dp
+
+    def _shard_of_slot(self, slot: int) -> int:
+        """Logical slot -> dp shard: the slot axis splits into equal
+        contiguous chunks in mesh order (local slot ``slot %
+        slots_per_shard``); the scheduler above never sees shards."""
+        return slot // self._slots_per_shard
+
+    def _shard_of_block(self, b: int) -> int:
+        """Physical block -> dp shard (the block pool's leading axis is
+        partitioned like the slot axis)."""
+        return b // self._blocks_per_shard
+
+    def _shard_scratch(self, shard: int) -> int:
+        """Shard ``shard``'s scratch block: its partition's first block
+        (0 when dp == 1)."""
+        return shard * self._blocks_per_shard
+
+    def _fresh_free_lists(self) -> List[List[int]]:
+        bps = self._blocks_per_shard
+        return [list(range(s * bps + 1, (s + 1) * bps))
+                for s in range(self._dp)]
+
+    @property
+    def _free_blocks(self) -> List[int]:
+        """The free list: with dp == 1 the live list itself; under a mesh
+        a flattened copy (mutate through ``_free_by_shard``)."""
+        if self._dp == 1:
+            return self._free_by_shard[0]
+        return [b for fl in self._free_by_shard for b in fl]
+
+    def _spilled_dev_count(self, shard: int = 0) -> int:
+        """Device-resident spilled blocks of ``shard``'s partition
+        (reclaimable on top of its free list for admission)."""
+        if self._dp == 1:
+            return len(self._spill_owner)
+        return sum(1 for b in self._spill_owner
+                   if self._shard_of_block(b) == shard)
+
+    def _pop_free_slot(self, shard: Optional[int] = None) -> int:
+        """Take a free slot -- the LAST free one (``_free.pop()`` order) --
+        in ``shard`` when the paged allocator needs the slot's blocks in a
+        given partition.  Callers check availability first."""
+        if shard is None or self._dp == 1:
+            return self._free.pop()
+        for i in range(len(self._free) - 1, -1, -1):
+            if self._shard_of_slot(self._free[i]) == shard:
+                return self._free.pop(i)
+        raise PreconditionNotMetError(
+            "no free slot in dp shard %d (free slots: %s) -- callers must "
+            "check shard availability before popping"
+            % (shard, sorted(self._free)))
+
+    def _choose_shard(self, req: _Request, need: int):
+        """The dp shard a queued paged admission lands in: among shards
+        with a free slot, one whose partition holds the reservation (free
+        + reclaimable spilled, minus a prefix hit), preferring the longest
+        prefix match, then the most headroom.  ``(shard, matched_blocks,
+        matched_len, chain_key)``, or ``(None, [], 0, None)`` when no
+        shard with a free slot can hold it now.  With dp == 1 this is the
+        single free list's admission check."""
+        shards = sorted({self._shard_of_slot(s) for s in self._free})
+        best = best_key = None
+        for s in shards:
+            matched: tuple = ([], 0, None)
+            if self.prefix_sharing:
+                matched = self._match_prefix_memo(req, s)
+            avail = len(self._free_by_shard[s]) + self._spilled_dev_count(s)
+            if need - len(matched[0]) > avail:
+                continue
+            key = (matched[1], avail)
+            if best_key is None or key > best_key:
+                best, best_key = (s,) + tuple(matched), key
+        if best is None:
+            return None, [], 0, None
+        return best
+
     # -- cache and allocator ---------------------------------------------
     def _new_cache(self):
-        return self._model.gen_decode_cache(
-            self.slots, self.max_len, self._cache_dtype, per_slot=True,
-            layout=self.cache_layout, block_size=self._block_size,
+        return self._session._gen_cache(
+            self.slots, per_slot=True,
             num_blocks=(self._num_blocks if self._layout.paged else None))
 
     def _blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
@@ -598,42 +745,44 @@ class GenerationPool:
         span = min(prompt_len + max_new_tokens, self.max_len)
         return -(-span // self._block_size)
 
-    def _alloc_blocks(self, n: int) -> List[int]:
-        """Pop ``n`` blocks at refcount 1: the free list first, then --
-        under pressure -- reclaimed spilled device copies."""
+    def _alloc_blocks(self, n: int, shard: int = 0) -> List[int]:
+        """Pop ``n`` blocks at refcount 1 from ``shard``'s partition: its
+        free list first, then -- under pressure -- reclaimed spilled
+        device copies of the same shard."""
         self._prefix_epoch += 1
+        fl = self._free_by_shard[shard]
         blocks = []
         for _ in range(n):
-            if not self._free_blocks:
-                self._reclaim_one_spilled()
-            blocks.append(self._free_blocks.pop())
+            if not fl:
+                self._reclaim_one_spilled(shard)
+            blocks.append(fl.pop())
         for b in blocks:
             self._block_refs[b] = 1
         return blocks
 
-    def _reclaim_one_spilled(self) -> None:
-        """Drop ONE spilled block's device copy back to the free list (its
-        owner resumes that block from the host copy).  Victim: lowest
-        priority, then oldest arrival."""
+    def _free_block(self, b: int) -> None:
+        """Return block ``b`` to its shard's free list."""
+        self._free_by_shard[self._shard_of_block(b)].append(b)
+
+    def _reclaim_one_spilled(self, shard: int = 0) -> None:
+        """Drop ONE spilled block's device copy (of ``shard``'s partition)
+        back to its free list (its owner resumes that block from the host
+        copy).  Victim: lowest priority, then oldest arrival."""
         owners = [sp for sp in self._spilled.values()
-                  if any(b is not None for b in sp.dev_blocks)]
+                  if sp.shard == shard
+                  and any(b is not None for b in sp.dev_blocks)]
         if not owners:
             raise PreconditionNotMetError(
                 "allocator invariant broken: no free block and no "
-                "reclaimable spilled block (callers must check "
-                "availability before allocating)")
+                "reclaimable spilled block in dp shard %d (callers must "
+                "check availability before allocating)" % (shard,))
         sp = min(owners, key=lambda s: (s.req.priority, s.req.seq))
         j = next(i for i, b in enumerate(sp.dev_blocks) if b is not None)
         b = sp.dev_blocks[j]
         sp.dev_blocks[j] = None
         self._spill_owner.pop(b, None)
-        self._free_blocks.append(b)
+        self._free_block(b)
         self._spill_reclaims_total += 1
-
-    def _spilled_dev_count(self) -> int:
-        """Device-resident spilled blocks (reclaimable on top of the free
-        list for admission)."""
-        return len(self._spill_owner)
 
     def _forget_block_key(self, b: int) -> None:
         """Remove ``b`` from the prefix index (an entry names only
@@ -660,29 +809,33 @@ class GenerationPool:
                 self._block_refs[b] = left
                 continue
             self._block_refs.pop(b, None)
-            self._free_blocks.append(b)
+            self._free_block(b)
             self._forget_block_key(b)
 
-    def _padded_row(self, blocks) -> np.ndarray:
-        """A table row: ``blocks``, then the scratch block 0 (unreserved
-        logical blocks are never read)."""
+    def _padded_row(self, blocks, shard: int = 0) -> np.ndarray:
+        """A table row in ``shard``'s LOCAL block ids: ``blocks``, then the
+        shard's scratch block, local 0 (unreserved logical blocks are
+        never read)."""
         row = np.zeros(self._max_blocks, np.int64)
-        row[:len(blocks)] = blocks
+        row[:len(blocks)] = np.asarray(blocks, np.int64) \
+            - self._shard_scratch(shard)
         return row
 
     def _write_row(self, slot: int, blocks, index: int) -> None:
         """Map ``slot``'s table row (``blocks``, scratch-padded) and set
         its cache index, in place in every layer's cache."""
-        row = torch.from_numpy(self._padded_row(blocks)).to(self.device)
+        row = torch.from_numpy(self._padded_row(
+            blocks, self._shard_of_slot(slot))).to(self.device)
         for c in self._cache:
             c.table[slot].copy_(row)
             c.index[slot] = int(index)
 
     def _masked_tables(self, cache, active):
-        """Inactive slots' table rows point at the scratch block for the
-        step: a stale write must not land in blocks a refilled request now
-        owns.  The rows are replaced in a copy; the real rows (which a
-        prefilling slot's chunks write through) are untouched."""
+        """Inactive slots' table rows point at their shard's scratch block
+        (local 0) for the step: a stale write must not land in blocks a
+        refilled request now owns.  The rows are replaced in a copy; the
+        real rows (which a prefilling slot's chunks write through) are
+        untouched."""
         return [c._replace(table=torch.where(active[:, None], c.table,
                                              torch.zeros_like(c.table)))
                 for c in cache]
@@ -745,15 +898,22 @@ class GenerationPool:
         if self._chunk_tokens is None:
             self._session._bucket_for(len(ids))
         if self._layout.paged:
+            # a request must fit ONE shard's empty partition: a slot's
+            # blocks never span shards
             need = self._blocks_needed(len(ids), max_new_tokens)
-            if need > self._num_blocks - 1:
+            if need > self._blocks_per_shard - 1:
+                where = ("the pool has only %d allocatable blocks"
+                         % (self._num_blocks - 1)) if self._dp == 1 else (
+                    "one dp shard has only %d allocatable blocks "
+                    "(num_blocks=%d / dp=%d minus its scratch block; a "
+                    "request's blocks never span shards)"
+                    % (self._blocks_per_shard - 1, self._num_blocks,
+                       self._dp))
                 raise InvalidArgumentError(
                     "request needs %d KV blocks (prompt %d + max_new_tokens "
-                    "%d at block_size %d) but the pool has only %d "
-                    "allocatable blocks; raise num_blocks or lower "
-                    "max_new_tokens" % (need, len(ids), max_new_tokens,
-                                        self._block_size,
-                                        self._num_blocks - 1))
+                    "%d at block_size %d) but %s; raise num_blocks or "
+                    "lower max_new_tokens" % (need, len(ids), max_new_tokens,
+                                              self._block_size, where))
         if request_id is not None:
             if request_id in self._used_rids:
                 raise DuplicateRequestError(
@@ -853,13 +1013,14 @@ class GenerationPool:
                 best, best_key = (kind, item), key
         return best
 
-    def _match_prefix(self, ids):
-        """Longest resident block-aligned prefix of ``ids`` in the index:
-        ``(blocks, matched_tokens, last_matched_chain_key)``.  Each link
-        hashes the parent's key with the block's token ids and is verified
-        token- and parent-equal, so a hash collision cannot splice another
-        prompt's K/V.  The final prompt position is never matched: the
-        first token is sampled from its logits."""
+    def _match_prefix(self, ids, shard: int = 0):
+        """Longest resident block-aligned prefix of ``ids`` in the index
+        whose blocks live in ``shard``'s partition: ``(blocks,
+        matched_tokens, last_matched_chain_key)``.  Each link hashes the
+        parent's key with the block's token ids and is verified token- and
+        parent-equal, so a hash collision cannot splice another prompt's
+        K/V.  The final prompt position is never matched: the first token
+        is sampled from its logits."""
         bs = self._block_size
         limit = (len(ids) - 1) // bs
         blocks: List[int] = []
@@ -872,17 +1033,27 @@ class GenerationPool:
             if entry is None or entry.tokens != toks \
                     or entry.parent_key != parent:
                 break
-            blocks.append(entry.blocks[-1])
+            if self._dp == 1:
+                cand = entry.blocks[-1]
+            else:
+                cand = next((b for b in reversed(entry.blocks)
+                             if self._shard_of_block(b) == shard), None)
+                if cand is None:
+                    break
+            blocks.append(cand)
             last_matched = key
         return blocks, len(blocks) * bs, last_matched
 
-    def _match_prefix_memo(self, req: _Request):
-        """``_match_prefix`` memoized per (candidate, epoch): a blocked
-        candidate would otherwise re-walk its chain every tick."""
+    def _match_prefix_memo(self, req: _Request, shard: int = 0):
+        """``_match_prefix`` memoized per (candidate, epoch, shard): a
+        blocked candidate would otherwise re-walk its chain every tick."""
         sig = (req.rid, self._prefix_epoch)
         if self._head_match is None or self._head_match[0] != sig:
-            self._head_match = (sig, self._match_prefix(req.ids))
-        return self._head_match[1]
+            self._head_match = (sig, {})
+        per_shard = self._head_match[1]
+        if shard not in per_shard:
+            per_shard[shard] = self._match_prefix(req.ids, shard)
+        return per_shard[shard]
 
     def _index_full_blocks(self, slot: int, st: _PrefillState) -> None:
         """Index every PROMPT block whose last position is now written: a
@@ -922,17 +1093,19 @@ class GenerationPool:
             st.indexed += 1
 
     def _admit_chunked(self, req: _Request, need: int, matched_blocks,
-                       matched_len: int, chain_key) -> None:
+                       matched_len: int, chain_key, shard: int = 0) -> None:
         """Chunked admission: map the matched prefix blocks read-only
         (refcounts bumped), allocate fresh blocks for every position this
         request will write, set the table row and the index to
-        ``matched_len``.  No prompt forward runs here."""
+        ``matched_len``.  No prompt forward runs here.  ``shard`` (from
+        ``_choose_shard``) pins the slot and every block to one dp
+        partition."""
         _fire("pool.alloc_blocks")
-        slot = self._free.pop()
+        slot = self._pop_free_slot(shard)
         for b in matched_blocks:
             self._block_refs[b] += 1
         blocks = list(matched_blocks) + \
-            self._alloc_blocks(need - len(matched_blocks))
+            self._alloc_blocks(need - len(matched_blocks), shard)
         self._slot_blocks[slot] = blocks
         self._admit_fn(slot, blocks, matched_len)
         self._prefilling[slot] = _PrefillState(
@@ -964,12 +1137,20 @@ class GenerationPool:
             kind, item = pick
             if kind == "resume":
                 if self._layout.paged:
+                    # a resume is SHARD-PINNED: its device copies and its
+                    # table row live in the shard it was preempted from
+                    if self._dp > 1 and not any(
+                            self._shard_of_slot(s) == item.shard
+                            for s in self._free):
+                        self.admission_blocked = True
+                        break
                     # blocks still in the spill tier re-map for free; the
-                    # tier's other entries are reclaimable on top
+                    # tier's other entries in the shard are reclaimable on
+                    # top
                     own = sum(1 for b in item.dev_blocks if b is not None)
                     need_fresh = item.total_blocks - own
-                    avail = len(self._free_blocks) \
-                        + self._spilled_dev_count() - own
+                    avail = len(self._free_by_shard[item.shard]) \
+                        + self._spilled_dev_count(item.shard) - own
                     if need_fresh > avail:
                         self.admission_blocked = True
                         break
@@ -978,14 +1159,16 @@ class GenerationPool:
                 continue
             req = item
             need = 0
+            shard = None
             matched_blocks, matched_len, chain_key = [], 0, None
             if self._layout.paged:
+                # the candidate waits until some shard with a free slot
+                # holds its whole reservation (matched prefix blocks come
+                # off it)
                 need = self._blocks_needed(len(req.ids), req.max_new_tokens)
-                if self.prefix_sharing:
-                    matched_blocks, matched_len, chain_key = \
-                        self._match_prefix_memo(req)
-                avail = len(self._free_blocks) + self._spilled_dev_count()
-                if need - len(matched_blocks) > avail:
+                shard, matched_blocks, matched_len, chain_key = \
+                    self._choose_shard(req, need)
+                if shard is None:
                     self.admission_blocked = True
                     break
             # remove by identity: _Request holds a numpy array
@@ -995,7 +1178,7 @@ class GenerationPool:
                     break
             if self._chunk_tokens is not None:
                 self._admit_chunked(req, need, matched_blocks, matched_len,
-                                    chain_key)
+                                    chain_key, shard)
                 continue
             cfg = req.sampling
             samp = make_sampling_state(1, cfg.temperature, cfg.top_k,
@@ -1014,13 +1197,13 @@ class GenerationPool:
                         req.ids[None], samp)
                     _device_edge(tr)
             self.prefills_total += 1
-            slot = self._free.pop()
+            slot = self._pop_free_slot(shard)
             first = int(tok[0])
             if self._layout.paged:
                 _fire("pool.alloc_blocks")
-                blocks = self._alloc_blocks(need)
+                blocks = self._alloc_blocks(need, shard)
                 self._slot_blocks[slot] = blocks
-                padded = self._padded_row(blocks)
+                padded = self._padded_row(blocks, shard)
             else:
                 padded = None
             self._insert_fn(self._cache, row_cache, slot, len(req.ids),
@@ -1076,11 +1259,14 @@ class GenerationPool:
         the static buffers in one upload, then the ``"prefill_chunk"`` step
         runs; the slot's index is set on the host side of the step."""
         cfg = sampling
+        shard = self._shard_of_slot(slot)
+        mesh_fields = {} if self._mesh is None else {"shard": shard}
         self._chunk_in.upload(
-            toks=toks, table=self._padded_row(self._slot_blocks[slot]),
+            toks=toks, table=self._padded_row(self._slot_blocks[slot], shard),
             start=start, last=length - 1,
             top_k=cfg.top_k, seed=cfg.seed, step=cfg.draws,
-            adapter=adapter, temperature=cfg.temperature, top_p=cfg.top_p)
+            adapter=adapter, temperature=cfg.temperature, top_p=cfg.top_p,
+            **mesh_fields)
         tok = self._chunk_fn(self._chunk_in.toks)
         # the step advanced only the view's index
         for c in self._cache:
@@ -1096,11 +1282,31 @@ class GenerationPool:
         positions (masked until overwritten) or, past its reservation, in
         the scratch block."""
         b = self._chunk_in
-        views = [c._replace(table=b.table[None], index=b.start)
-                 for c in self._cache]
-        logits, _ = self._session._run_model(
-            toks[None].long(), views, self._session._adapter_ids(b.adapter))
-        return sample_logits_data(logits[0].index_select(0, b.last),
+        if self._mesh is None:
+            views = [c._replace(table=b.table[None], index=b.start)
+                     for c in self._cache]
+            logits, _ = self._session._run_model(
+                toks[None].long(), views,
+                self._session._adapter_ids(b.adapter))
+            row = logits[0]
+        else:
+            # every dp shard runs the chunk (a batch-1 chunk does not
+            # split over dp), one row each: the owning shard through the
+            # slot's table row, the others through their scratch block;
+            # the owner's row is sampled
+            dp = self._dp
+            owner = torch.arange(dp, device=b.shard.device) == b.shard
+            table = torch.where(owner[:, None],
+                                b.table[None].expand(dp, -1),
+                                torch.zeros_like(b.table)[None])
+            start = b.start.expand(dp).contiguous()
+            views = [c._replace(table=table, index=start)
+                     for c in self._cache]
+            logits, _ = self._session._run_model(
+                toks[None].long().expand(dp, -1), views,
+                self._session._adapter_ids(b.adapter.expand(dp)))
+            row = logits.index_select(0, b.shard)[0]
+        return sample_logits_data(row.index_select(0, b.last),
                                   b.temperature, b.top_k, b.top_p, b.seed,
                                   b.step)
 
@@ -1191,10 +1397,11 @@ class GenerationPool:
             return self._preempt_recurrent(slot, st)
         # K/V are written for positions [0, pos): the last committed
         # token's K/V is the next step's input, not yet written
+        shard = self._shard_of_slot(slot)
         pos = len(st.req.ids) + len(st.tokens) - 1
         written = -(-pos // self._block_size)
         blocks = self._slot_blocks[slot]
-        host = self._download_blocks(blocks[:written])
+        host = self._download_blocks(blocks[:written], shard)
         host_bytes = sum(_nbytes(t) for layer in host for t in layer)
         host_path = None
         if self.spill_tier == "disk":
@@ -1208,7 +1415,7 @@ class GenerationPool:
         self._free.append(slot)
         self._membership_dirty = True
         self._prefix_epoch += 1
-        sp = _SpillState(st, len(blocks), written, host, host_bytes)
+        sp = _SpillState(st, len(blocks), written, host, host_bytes, shard)
         sp.host_path = host_path
         freed = 0
         for j, b in enumerate(blocks):
@@ -1224,7 +1431,7 @@ class GenerationPool:
                 self._spill_owner[b] = (st.rid, j)
                 sp.dev_blocks[j] = b
             else:
-                self._free_blocks.append(b)
+                self._free_block(b)
                 freed += 1
         self._spilled[st.rid] = sp
         self._preempts_total += 1
@@ -1240,10 +1447,7 @@ class GenerationPool:
         resume uploads the carry into any free slot.  The carry covers
         positions ``[0, pos)``: the last committed token is the next
         step's input, as on the positional layouts."""
-        gather = torch.as_tensor([slot], dtype=torch.int64,
-                                 device=self.device)
-        flat, specs = _gather_packed([c.state for c in self._cache], gather)
-        host = [(part[0],) for part in _unpack(flat.cpu(), specs)]
+        host = [(rows[0][0],) for rows in self._download_rows([slot])]
         host_bytes = sum(_nbytes(t) for layer in host for t in layer)
         host_path = None
         if self.spill_tier == "disk":
@@ -1254,7 +1458,8 @@ class GenerationPool:
         self._active.pop(slot)
         self._free.append(slot)
         self._membership_dirty = True
-        sp = _SpillState(st, 0, 0, host, host_bytes)
+        sp = _SpillState(st, 0, 0, host, host_bytes,
+                         self._shard_of_slot(slot))
         sp.host_path = host_path
         self._spilled[st.rid] = sp
         self._preempts_total += 1
@@ -1279,8 +1484,8 @@ class GenerationPool:
                 return
         slot = self._free.pop()
         pos = len(sp.req.ids) + len(sp.tokens) - 1
-        for c, part in zip(self._cache, self._upload_parts(rows)):
-            c.state[slot].copy_(part)
+        self._upload_rows([slot], [r[None] for r in rows])
+        for c in self._cache:
             c.index[slot] = pos
         self._upload_bytes_total += sp.host_bytes
         self._spill_drop(sp)
@@ -1325,7 +1530,7 @@ class GenerationPool:
                 except Exception:  # noqa: BLE001 - per-victim fallback
                     self._requeue_lost_spill(sp)
                     return
-        slot = self._free.pop()
+        slot = self._pop_free_slot(sp.shard)
         blocks: List[int] = []
         upload: List[int] = []  # physical blocks, in need_up order
         for j in range(sp.total_blocks):
@@ -1336,19 +1541,15 @@ class GenerationPool:
                 self._block_refs[b] = 1
                 blocks.append(b)
             else:
-                nb = self._alloc_blocks(1)[0]
+                nb = self._alloc_blocks(1, sp.shard)[0]
                 blocks.append(nb)
                 if j < sp.written:
                     upload.append(nb)
         self._slot_blocks[slot] = blocks
         if upload:
-            ids = torch.as_tensor(upload, dtype=torch.int64,
-                                  device=self.device)
-            dev_parts = self._upload_parts(host_parts)
-            fields = [f for c in self._cache for f in _cache_fields(c)]
-            for f, part in zip(fields, dev_parts):
-                f.index_copy_(0, ids, part)
-            self._upload_bytes_total += sum(_nbytes(t) for t in dev_parts)
+            base = self._shard_scratch(sp.shard)
+            self._upload_bytes_total += self._upload_rows(
+                [b - base for b in upload], host_parts, sp.shard)
         self._spill_drop(sp)
         pos = len(sp.req.ids) + len(sp.tokens) - 1
         self._write_row(slot, blocks, pos)
@@ -1371,18 +1572,53 @@ class GenerationPool:
         with its K/V restored."""
 
     # -- moving blocks between the card and the host ----------------------
-    def _download_blocks(self, blocks) -> list:
-        """The K/V (and int8 scales) of ``blocks`` in every layer, as CPU
-        tensors ``[len(blocks), ...]`` per layer and field: gathered on
-        the device into one buffer, downloaded in ONE copy."""
-        gather = torch.as_tensor(blocks, dtype=torch.int64,
-                                 device=self.device)
-        fields = [_cache_fields(c) for c in self._cache]
-        flat, specs = _gather_packed([f for layer in fields for f in layer],
-                                     gather)
-        parts = _unpack(flat.cpu(), specs)
-        nf = len(fields[0])
-        return [tuple(parts[i * nf:(i + 1) * nf]) for i in range(len(fields))]
+    def _download_blocks(self, blocks, shard: int = 0) -> list:
+        """The K/V (and int8 scales) of ``blocks`` (of ``shard``'s
+        partition) in every layer, as CPU tensors ``[len(blocks), ...]``
+        per layer and field, all heads: gathered on the device into one
+        buffer, downloaded in ONE copy."""
+        base = self._shard_scratch(shard)
+        return self._download_rows([b - base for b in blocks], shard)
+
+    def _download_rows(self, rows, shard: Optional[int] = None) -> list:
+        """Rows ``rows`` (local to dp shard ``shard``; for a carry, slots
+        and their shard when ``shard`` is None) of every layer's spilled
+        fields as CPU tensors per layer and field, the mp shards joined on
+        the head axis: one gather into one buffer, ONE download."""
+        if shard is None:
+            shard = self._shard_of_slot(rows[0])
+            rows = [r % self._slots_per_shard for r in rows]
+        gather = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        layers = [_shard_fields(c, shard) for c in self._cache]
+        flat, specs = _gather_packed(
+            [t for layer in layers for f in layer for t in f], gather)
+        parts = iter(_unpack(flat.cpu(), specs))
+        return [tuple(torch.cat([next(parts) for _ in f], dim=1)
+                      if len(f) > 1 else next(parts) for f in layer)
+                for layer in layers]
+
+    def _upload_rows(self, rows, host_parts, shard: Optional[int] = None):
+        """Write ``host_parts`` (flat over layers and fields, all heads,
+        ``[len(rows), ...]`` each) into rows ``rows`` of every layer's
+        spilled fields (as :meth:`_download_rows` addresses them), split
+        over the mp shards on the head axis, in ONE upload.  Returns the
+        bytes uploaded."""
+        if shard is None:
+            shard = self._shard_of_slot(rows[0])
+            rows = [r % self._slots_per_shard for r in rows]
+        ids = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        targets, pieces = [], []
+        fields = [f for c in self._cache for f in _shard_fields(c, shard)]
+        for f, part in zip(fields, host_parts):
+            h = part.shape[1] // len(f) if len(f) > 1 else None
+            for m, t in enumerate(f):
+                targets.append(t)
+                pieces.append(part if h is None
+                              else part[:, m * h:(m + 1) * h].contiguous())
+        dev = self._upload_parts(pieces)
+        for t, part in zip(targets, dev):
+            t.index_copy_(0, ids, part)
+        return sum(_nbytes(t) for t in dev)
 
     def _upload_parts(self, parts) -> list:
         """Host tensors to the pool's device in ONE copy: packed into one
@@ -1452,7 +1688,7 @@ class GenerationPool:
         is closed before returning)."""
         r = _transfer_mod().TransferReader(sp.host_path)
         try:
-            nf = len(_cache_fields(self._cache[0]))
+            nf = len(_cache_fields(first_part(self._cache[0])))
             out = []
             for i in range(len(self._cache)):
                 for j in range(nf):
@@ -1488,7 +1724,7 @@ class GenerationPool:
         for b in sp.dev_blocks:
             if b is not None:
                 self._spill_owner.pop(b, None)
-                self._free_blocks.append(b)
+                self._free_block(b)
         self._spill_drop(sp)
         self._used_rids.discard(sp.rid)
         ids = np.concatenate([sp.req.ids, np.asarray(sp.tokens, np.int32)])
@@ -1529,7 +1765,7 @@ class GenerationPool:
         path = self._spill_path(request_id)
         if not os.path.exists(path):
             return False
-        first = self._cache[0]
+        first = first_part(self._cache[0])
         recurrent = not self._layout.positional
         bs = self._block_size
         if recurrent:
@@ -1539,7 +1775,7 @@ class GenerationPool:
             pos = int(len(ids)) + len(tokens) - 1
             written = -(-pos // bs)
             total = self._blocks_needed(len(ids), int(max_new_tokens))
-            if total > self._num_blocks - 1:
+            if total > self._blocks_per_shard - 1:
                 return False
         nf = len(_cache_fields(first))
         xfer = _transfer_mod()
@@ -1595,10 +1831,12 @@ class GenerationPool:
                     and tuple(r.arrays["l0_f0"].shape)
                     == tuple(first.state.shape[1:]))
             else:
+                # the file holds every head: the mp shards' heads joined
+                heads = int(first.k.shape[1]) * self._mp
                 structural_ok = (
                     structural_ok and meta.get("block_size") == bs
                     and tuple(r.arrays["l0_f0"].shape)
-                    == (written,) + tuple(first.k.shape[1:]))
+                    == (written, heads) + tuple(first.k.shape[2:]))
             if not structural_ok:
                 return False
             host_bytes = int(r.nbytes)
@@ -1626,7 +1864,11 @@ class GenerationPool:
         req = _Request(request_id, ids, int(max_new_tokens), int(priority),
                        tenant, deadline, self._seq, sampling, adapter)
         st = _SlotState(req, tokens, int(max_new_tokens) - len(tokens))
-        sp = _SpillState(st, total, written, None, host_bytes)
+        # no device copies pin the shard: park where the most blocks are
+        # free (a carry needs no blocks)
+        shard = 0 if recurrent else max(
+            range(self._dp), key=lambda s: len(self._free_by_shard[s]))
+        sp = _SpillState(st, total, written, None, host_bytes, shard)
         sp.host_path = path
         self._spilled[request_id] = sp
         self._used_rids.add(request_id)
@@ -1653,7 +1895,7 @@ class GenerationPool:
         for b in sp.dev_blocks:
             if b is not None:
                 self._spill_owner.pop(b, None)
-                self._free_blocks.append(b)
+                self._free_block(b)
         self._used_rids.discard(request_id)
         path, sp.host_path = sp.host_path, None
         return {"rid": request_id, "path": path,
@@ -1677,7 +1919,8 @@ class GenerationPool:
         slot, st = parked
         pos = len(st.req.ids) + len(st.tokens) - 1
         written = -(-pos // self._block_size)
-        host = self._download_blocks(self._slot_blocks[slot][:written])
+        host = self._download_blocks(self._slot_blocks[slot][:written],
+                                     self._shard_of_slot(slot))
         transfer_bytes = sum(_nbytes(t) for layer in host for t in layer)
         path = self._spill_write(st, host, written, seam="xfer.write")
         del self._prefill_done[request_id]
@@ -1704,8 +1947,10 @@ class GenerationPool:
         pool class, the sampling discipline marker (sampling is
         per-request data, so no values), the LoRA bank's geometry
         (``{"n_adapters", "rank"}`` or None: its contents are data), the
-        cache layout, dtype and geometry; ``mesh`` is None (not ported).
-        It is the reference's dict for the same configuration and names
+        cache layout, dtype and geometry, and the mesh (``{"dp", "mp"}``,
+        None unsharded: a file written under one mesh shape is refused by
+        another).  It is the reference's dict for the same configuration
+        and names
         nothing about the backend, so journals and PTKV files cross
         between the two packages; a differing configuration is refused
         with both sides named."""
@@ -1721,7 +1966,9 @@ class GenerationPool:
             "vocab_size": None if self._vocab is None else int(self._vocab),
             "cache_layout": self.cache_layout,
             "cache_dtype": self._layout.cache_dtype_str(self._cache),
-            "mesh": None,
+            "mesh": (None if self._mesh is None
+                     else {"dp": int(self._mesh.dp),
+                           "mp": int(self._mesh.mp)}),
         }
         fp.update(self._layout.fingerprint_extra(self))
         return fp
@@ -1788,7 +2035,7 @@ class GenerationPool:
             cache = self._masked_tables(cache, active)
         logits, new_cache = self._session._run_model(
             tok[:, None].long(), cache,
-            self._session._adapter_ids(st.adapter))
+            self._session._adapter_ids(st.adapter), collective_seam=True)
         nxt = sample_logits_data(logits[:, 0], st.temperature, st.top_k,
                                  st.top_p, st.seed, st.step)
         self._layout.freeze_step(new_cache, self._cache, active)
@@ -1854,6 +2101,10 @@ class GenerationPool:
         raises ``InvalidArgumentError``: a step keeps the shapes and dtypes
         it was captured with, as the reference's executables do."""
         _fire("weights.refresh")
+        if self._mesh is not None:
+            # the mp shards' weight slices are copies: refresh them in
+            # place, so captured steps keep reading them by address
+            self._mesh.place_weights(self._model)
         for fn in self._captured_steps():
             fn.drop_moved()
 
@@ -1994,7 +2245,7 @@ class GenerationPool:
             for b in sp.dev_blocks:
                 if b is not None:
                     self._spill_owner.pop(b, None)
-                    self._free_blocks.append(b)
+                    self._free_block(b)
             self._used_rids.discard(request_id)
             self._spill_drop(sp)
             return "preempted"
@@ -2052,7 +2303,7 @@ class GenerationPool:
         self._prefill_done.clear()
         self.admission_blocked = False
         if self._layout.paged:
-            self._free_blocks = list(range(1, self._num_blocks))
+            self._free_by_shard = self._fresh_free_lists()
             self._slot_blocks = {}
             self._block_refs = {}
             self._prefix_index.clear()
@@ -2099,7 +2350,7 @@ class GenerationPool:
         if not step_entry or "flops" not in step_entry:
             return {}
         tokens = self.slots * float(tokens_per_step_per_slot)
-        return {
+        out = {
             "step_flops": step_entry["flops"],
             "step_bytes_accessed": step_entry["bytes_accessed"],
             "hbm_reserved_bytes": step_entry.get("hbm_reserved_bytes"),
@@ -2109,6 +2360,16 @@ class GenerationPool:
             "tokens_per_step": tokens,
             "basis": basis,
         }
+        if self._mesh is not None:
+            # one single-controller step runs every shard: the counts are
+            # mesh totals (the reference's per-device SPMD analyses times
+            # dp x mp); the collective columns are per device
+            out["mesh"] = self._mesh.describe()
+            out["basis"] += ("; one program over dp x mp = %d shards -- "
+                             "counts are mesh totals"
+                             % self._mesh.devices_n)
+            out.update(self._session.collective_report())
+        return out
 
     def cost_report(self) -> dict:
         """The cost entry of every step key this pool ran (``jit.aot``:
@@ -2231,22 +2492,43 @@ class GenerationPool:
         recurrent pool's state is ``[slots, d_state]`` per layer, so what
         a step reaches is what the pool holds, whatever the context;
         ``state_bytes_per_slot`` is the per-slot figure every layout
-        stamps, the denominator of slots per GB."""
-        first = self._cache[0]
+        stamps, the denominator of slots per GB.
+
+        ``per_shard`` restates the partition per dp shard (one entry,
+        the totals, when unsharded), the figure a per-device capacity
+        decision reads; under a mesh ``mesh`` describes it, the
+        ``collective_*`` columns carry the decode step's mp-reduction
+        bytes, and ``pool_bytes_per_device`` is one shard's share."""
+        first = first_part(self._cache[0])
+        mesh_stats = {}
+        if self._mesh is not None:
+            mesh_stats["mesh"] = self._mesh.describe()
+            mesh_stats["collective_quant"] = self._session.collective_quant
         if not self._layout.positional:
-            total = sum(_nbytes(c.state) for c in self._cache)
-            return {"cache_layout": self.cache_layout,
-                    "cache_dtype": self._layout.cache_dtype_str(self._cache),
-                    "decode_route": self._session.route,
-                    "d_state": int(first.state.shape[-1]),
-                    "num_layers": len(self._cache),
-                    "state_bytes_per_slot":
-                        self._layout.state_bytes_per_slot(
-                            self._cache, self.slots, self.max_len),
-                    "reachable_bytes": total, "pool_bytes": total}
+            total = sum(_nbytes(part.state) for c in self._cache
+                        for _, part in cache_parts(c))
+            stats = {"cache_layout": self.cache_layout,
+                     "cache_dtype": self._layout.cache_dtype_str(self._cache),
+                     "decode_route": self._session.route,
+                     "d_state": int(first.state.shape[-1]),
+                     "num_layers": len(self._cache),
+                     "state_bytes_per_slot":
+                         self._layout.state_bytes_per_slot(
+                             self._cache, self.slots, self.max_len),
+                     "reachable_bytes": total, "pool_bytes": total}
+            # a recurrence has no row-parallel seams: the mode is stamped,
+            # no collective columns exist
+            stats.update(mesh_stats)
+            stats["per_shard"] = [
+                {"shard": s, "reachable_bytes": total // self._dp,
+                 "pool_bytes": total // self._dp} for s in range(self._dp)]
+            if self._mesh is not None:
+                # the carry is whole per slot: mp does not shard it
+                stats["pool_bytes_per_device"] = total // self._dp
+            return stats
         dims = dict(max_len=self.max_len, num_layers=len(self._cache),
-                    num_heads=first.k.shape[1], head_dim=first.k.shape[3],
-                    dtype=first.k.dtype)
+                    num_heads=int(first.k.shape[1]) * self._mp,
+                    head_dim=first.k.shape[3], dtype=first.k.dtype)
         dense_bytes = kv_reachable_bytes([self.max_len] * self.slots,
                                          layout="dense", **dims)
         stats = {"cache_layout": self.cache_layout,
@@ -2255,6 +2537,9 @@ class GenerationPool:
                  "state_bytes_per_slot": self._layout.state_bytes_per_slot(
                      self._cache, self.slots, self.max_len),
                  "dense_equiv_bytes": dense_bytes}
+        if mesh_stats:
+            stats.update(mesh_stats)
+            stats.update(self._session.collective_report())
         if self._layout.paged:
             bs = self._block_size
             # each unique resident block once (a shared block occupies its
@@ -2265,16 +2550,53 @@ class GenerationPool:
                 for j, b in enumerate(blocks):
                     seen.setdefault(b, j)
             per_token = dense_bytes // (self.slots * self.max_len)
-            reachable = per_token * sum(
-                max(0, min((j + 1) * bs, self.max_len) - j * bs)
-                for j in seen.values())
+
+            def readable(j):
+                return max(0, min((j + 1) * bs, self.max_len) - j * bs)
+
+            reachable = per_token * sum(readable(j) for j in seen.values())
+            pool_bytes = self._num_blocks * bs * per_token
             stats.update(block_size=bs, num_blocks=self._num_blocks,
-                         free_blocks=len(self._free_blocks),
+                         free_blocks=sum(map(len, self._free_by_shard)),
                          mapped_blocks=len(self._block_refs),
                          spilled_blocks=len(self._spill_owner),
                          reachable_bytes=reachable,
                          shared_blocks=self._shared_block_count(),
-                         pool_bytes=self._num_blocks * bs * per_token)
+                         pool_bytes=pool_bytes)
+            if self._dp == 1:
+                mapped_by = [len(self._block_refs)]
+                spilled_by = [len(self._spill_owner)]
+                reach_by = [reachable]
+            else:
+                mapped_by = [0] * self._dp
+                for b in self._block_refs:
+                    mapped_by[self._shard_of_block(b)] += 1
+                spilled_by = [0] * self._dp
+                for b in self._spill_owner:
+                    spilled_by[self._shard_of_block(b)] += 1
+                reach_by = [0] * self._dp
+                for b, j in seen.items():
+                    reach_by[self._shard_of_block(b)] += \
+                        per_token * readable(j)
+            stats["per_shard"] = [{
+                "shard": s,
+                "num_blocks": self._blocks_per_shard,
+                "scratch_block": self._shard_scratch(s),
+                "free_blocks": len(self._free_by_shard[s]),
+                "mapped_blocks": mapped_by[s],
+                "spilled_blocks": spilled_by[s],
+                "reachable_bytes": reach_by[s],
+                "pool_bytes": pool_bytes // self._dp,
+            } for s in range(self._dp)]
         else:
             stats.update(reachable_bytes=dense_bytes, pool_bytes=dense_bytes)
+            stats["per_shard"] = [
+                {"shard": s, "reachable_bytes": dense_bytes // self._dp,
+                 "pool_bytes": dense_bytes // self._dp}
+                for s in range(self._dp)]
+        if self._mesh is not None:
+            # one shard's bytes: dp splits the slot/block axis, mp the
+            # head axis of every K/V (and scale) tensor
+            stats["pool_bytes_per_device"] = \
+                stats["pool_bytes"] // self._mesh.devices_n
         return stats

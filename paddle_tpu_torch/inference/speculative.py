@@ -33,7 +33,14 @@ CUDA graphs on the card:
 
 Each active slot commits 1 to ``k+1`` tokens a round, all of them exactly
 what target-only greedy decode would have emitted; an EOS inside an
-accepted chunk truncates the commit at the EOS.  Greedy only.  The
+accepted chunk truncates the commit at the EOS.  Greedy only.
+
+Under ``mesh=`` the draft shares the target's mesh: its weights shard by
+the same mp rules and its slot cache over dp and mp like the target's.
+The verify step reduces its mp partials in fp32 (its multi-token rows
+amortize the reduction over ``k+1`` tokens; the quantized seam is the
+one-token decode step's), so ``collective_quant`` is accepted and
+validated but moves no verify byte.  The
 reference's ``cost_report`` is not ported yet.
 """
 from __future__ import annotations
@@ -77,7 +84,9 @@ class SpeculativePool(GenerationPool):
                  prefix_sharing: bool = False,
                  tenant_slot_cap: Optional[int] = None,
                  route: str = "auto", spill_tier: str = "host",
-                 spill_dir: Optional[str] = None, device=None):
+                 spill_dir: Optional[str] = None, device=None, mesh=None,
+                 collective_quant: Optional[str] = None,
+                 collective_quant_scale: Optional[str] = None):
         if float(temperature) != 0.0:
             raise InvalidArgumentError(
                 "speculative decoding is greedy-only (temperature=0): "
@@ -100,15 +109,17 @@ class SpeculativePool(GenerationPool):
                          prefix_sharing=prefix_sharing,
                          tenant_slot_cap=tenant_slot_cap, route=route,
                          spill_tier=spill_tier, spill_dir=spill_dir,
-                         device=device)
+                         device=device, mesh=mesh,
+                         collective_quant=collective_quant,
+                         collective_quant_scale=collective_quant_scale)
         self.spec_k = int(spec_k)
         # the draft session owns the draft model and its bucketed batch-1
         # prefill; its own decode step is unused
         self._draft_session = DecodeSession(
             draft_model, max_len, buckets=buckets, temperature=0.0,
-            route=route, device=self.device)
-        self._draft_cache = draft_model.gen_decode_cache(
-            self.slots, self.max_len, "float32", per_slot=True)
+            route=route, device=self.device, mesh=mesh)
+        self._draft_cache = self._draft_session._gen_cache(
+            self.slots, per_slot=True)
         i32 = torch.int32
         # the round's static buffers (graphs read them by address)
         self._chunk = torch.zeros((self.slots, self.spec_k + 1), dtype=i32,
@@ -405,10 +416,7 @@ class SpeculativePool(GenerationPool):
         captured steps read the draft cache and the round's buffers by
         address); every step key and graph is kept."""
         super().reset()
-        for c in self._draft_cache:
-            for t in c:
-                if t is not None:
-                    t.zero_()
+        get_layout("dense").zero_cache(self._draft_cache, self.max_len)
         self._chunk.zero_()
         self._out.zero_()
         self._pending.zero_()
@@ -441,6 +449,13 @@ class SpeculativePool(GenerationPool):
         self._draft_session._batches = {}
         self._chunk = self._out = self._m = self._pending = None
         self._chunk_views = {}
+
+    def refresh_weights(self) -> None:
+        """The base refresh, with the draft's mp weight slices refreshed
+        too under a mesh."""
+        if self._mesh is not None:
+            self._mesh.place_weights(self._draft_session._model)
+        super().refresh_weights()
 
     def _captured_steps(self) -> list:
         """The base pool's steps and the round's: ``refresh_weights()``

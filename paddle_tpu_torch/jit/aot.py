@@ -148,10 +148,13 @@ def kv_arg_bytes(cache) -> int:
     are bookkeeping, not payload."""
     total = 0
     for c in cache:
-        for field in ("k", "v", "k_scale", "v_scale", "state"):
-            t = getattr(c, field, None)
-            if torch.is_tensor(t):
-                total += t.numel() * t.element_size()
+        # a mesh's layer (``ShardedCache``): each distinct shard once
+        parts = [p for _, p in c.parts()] if hasattr(c, "parts") else [c]
+        for part in parts:
+            for field in ("k", "v", "k_scale", "v_scale", "state"):
+                t = getattr(part, field, None)
+                if torch.is_tensor(t):
+                    total += t.numel() * t.element_size()
     return total
 
 

@@ -22,8 +22,9 @@ operation           who calls it / what it decides
 ``freeze_step``     GenerationPool decode step: inactive slots keep their
                     pre-step index (and, recurrent, their carry: a
                     recurrence updates every row every step)
-``field_axes``      the mesh's placement axes per cache field (for the
-                    sharded pool, which is not ported yet)
+``field_axes``      the mesh's placement axes per cache field, which
+                    ``shard_cache`` reads to split a cache over a
+                    ``DecodeMesh`` (below)
 ``cache_dtype_str`` / ``state_bytes_per_slot``  cache_stats() accounting
 ``fingerprint_extra`` config_fingerprint(): the layout's geometry
                     (paged: block_size/num_blocks; recurrent: d_state),
@@ -44,6 +45,29 @@ Every operation writes the cache's own tensors in place and returns the
 same layer caches: a captured CUDA graph reads the cache by address, so a
 K/V buffer, a table, an index, a carry or a window bound is never replaced
 by a new tensor.
+
+Under a ``DecodeMesh`` (``jit/mesh.py``) a layer's cache is a
+:class:`ShardedCache`: ``shards[d][m]`` is shard (d, m)'s cache, the
+layout's own named tuple at its local shapes, built by
+:meth:`CacheLayout.shard_cache` from ``field_axes``:
+
+- a ``("dp", "mp")`` field (K/V and their int8 scales) is one contiguous
+  tensor per shard, ``[rows/dp, H/mp, ...]`` (dense) or ``[blocks/dp,
+  H/mp, bs, D]`` (paged), never a head-slice view of one pool: the decode
+  kernels read contiguous K/V;
+- a ``("dp", None)`` field (the recurrence carry) is one tensor per dp
+  shard, the same tensor for every mp shard (replicated);
+- a ``("dp",)`` field (the index, the table) is ONE tensor over every row,
+  ``ShardedCache.index``/``.table``, whose dp shards are contiguous row
+  views of it: the pool writes a slot's row and the steps commit the index
+  on the whole vector, as unsharded.  A table holds each shard's LOCAL
+  block ids (block 0 of every shard is its scratch block);
+- a ``()`` field (the recurrence's window bound ``limit``) is one tensor
+  every shard shares.
+
+The operations below take either form: :func:`cache_parts` yields a
+layer's per-shard caches (the cache itself when unsharded) with the rows
+each covers.
 """
 from __future__ import annotations
 
@@ -51,10 +75,12 @@ import torch
 
 from ..core.dtype import dtype_name
 from ..core.errors import InvalidArgumentError
+from ..distributed.sharded import (ShardedCache, cache_parts,  # noqa: F401
+                                   first_part, slot_parts)
 
 __all__ = ["CacheLayout", "DenseLayout", "PagedLayout", "RecurrentLayout",
-           "CACHE_LAYOUTS", "get_layout"]
-
+           "CACHE_LAYOUTS", "get_layout", "ShardedCache", "cache_parts",
+           "slot_parts", "first_part"]
 
 class CacheLayout:
     """One decode-cache layout's operations and capabilities."""
@@ -121,8 +147,65 @@ class CacheLayout:
             "unknown decode-cache field %r for layout %r"
             % (field, self.name))
 
+    def shard_cache(self, groups, mp: int) -> list:
+        """Per-layer :class:`ShardedCache` from ``groups``: one unsharded
+        per-layer cache per dp shard (each over that shard's rows, with
+        its own block ids), split over ``mp`` by :meth:`field_axes`.  An
+        mp-sharded field's shards are fresh contiguous tensors (the
+        group's tensor itself when ``mp == 1``); the row fields are
+        concatenated over the groups into one tensor."""
+        out = []
+        for layer in zip(*groups):
+            fields = layer[0]._fields
+            per = [[{} for _ in range(mp)] for _ in layer]
+            glob = {}
+            split = False
+            for f in fields:
+                vals = [getattr(c, f) for c in layer]
+                if vals[0] is None:
+                    for row in per:
+                        for part in row:
+                            part[f] = None
+                    continue
+                axes = self.field_axes(f)
+                if axes == ("dp", "mp"):
+                    split = split or mp > 1
+                    h = int(vals[0].shape[1]) // mp
+                    for d, v in enumerate(vals):
+                        for m in range(mp):
+                            per[d][m][f] = v[:, m * h:(m + 1) * h] \
+                                .contiguous()
+                elif axes == ("dp",):
+                    g = vals[0] if vals[0].ndim == 0 else torch.cat(vals)
+                    glob[f] = g
+                    for d, row in enumerate(per):
+                        view = g if g.ndim == 0 else \
+                            g[d * vals[0].shape[0]:(d + 1) * vals[0].shape[0]]
+                        for part in row:
+                            part[f] = view
+                elif axes == ("dp", None):
+                    for d, row in enumerate(per):
+                        for part in row:
+                            part[f] = vals[d]
+                else:  # (): replicated
+                    glob[f] = vals[0]
+                    for row in per:
+                        for part in row:
+                            part[f] = vals[0]
+            kind = type(layer[0])
+            shards = []
+            for row in per:
+                first = kind(**row[0])
+                shards.append([first] + [kind(**p) if split else first
+                                         for p in row[1:]])
+            index = glob["index"]
+            rows = int(layer[0].index.shape[0]) if index.ndim else 1
+            out.append(ShardedCache(shards, index, glob.get("table"),
+                                    glob.get("limit"), rows))
+        return out
+
     def cache_dtype_str(self, cache) -> str:
-        return dtype_name(cache[0].k.dtype)
+        return dtype_name(first_part(cache[0]).k.dtype)
 
     def fingerprint_extra(self, pool) -> dict:
         """Layout-private geometry for ``config_fingerprint()``."""
@@ -133,16 +216,21 @@ class CacheLayout:
         included): the dense-equivalent per-slot K/V slab."""
         total = 0
         for c in cache:
-            for field in ("k", "v", "k_scale", "v_scale"):
-                a = getattr(c, field, None)
-                if a is None:
+            for rows, part in cache_parts(c):
+                # a paged block pool's per-token figure comes from one dp
+                # shard's mp shards; a dense cache's rows sum over all
+                if self.paged and rows.start not in (None, 0):
                     continue
-                nbytes = a.numel() * a.element_size()
-                if self.paged:
-                    tokens = int(a.shape[0]) * int(a.shape[2])
-                    total += nbytes // tokens * max_len
-                else:
-                    total += nbytes // int(slots)
+                for field in ("k", "v", "k_scale", "v_scale"):
+                    a = getattr(part, field, None)
+                    if a is None:
+                        continue
+                    nbytes = a.numel() * a.element_size()
+                    if self.paged:
+                        tokens = int(a.shape[0]) * int(a.shape[2])
+                        total += nbytes // tokens * max_len
+                    else:
+                        total += nbytes // int(slots)
         return total
 
 
@@ -154,11 +242,12 @@ class DenseLayout(CacheLayout):
     def insert_row(self, pool_cache, row_cache, slot: int, length: int,
                    blocks=None):
         for cp, cr in zip(pool_cache, row_cache):
-            cp.k[slot].copy_(cr.k[0])
-            cp.v[slot].copy_(cr.v[0])
-            if cp.k_scale is not None:
-                cp.k_scale[slot].copy_(cr.k_scale[0])
-                cp.v_scale[slot].copy_(cr.v_scale[0])
+            for pp, rp, local in slot_parts(cp, cr, slot):
+                pp.k[local].copy_(rp.k[0])
+                pp.v[local].copy_(rp.v[0])
+                if pp.k_scale is not None:
+                    pp.k_scale[local].copy_(rp.k_scale[0])
+                    pp.v_scale[local].copy_(rp.v_scale[0])
             cp.index[slot] = int(length)
         return pool_cache
 
@@ -175,19 +264,21 @@ class PagedLayout(CacheLayout):
     def insert_row(self, pool_cache, row_cache, slot: int, length: int,
                    blocks=None):
         # The row cache is an identity-tabled batch-1 pool (row block 1+j
-        # holds logical block j).  Entries of ``blocks`` past the
-        # reservation are the scratch block: those copies dump pad garbage
-        # there, in any order, harmlessly.
+        # holds logical block j).  ``blocks`` are ids within the slot's dp
+        # shard; entries past the reservation are that shard's scratch
+        # block: those copies dump pad garbage there, in any order,
+        # harmlessly.
         ids = torch.as_tensor(blocks, dtype=torch.int64,
-                              device=pool_cache[0].k.device)
+                              device=pool_cache[0].index.device)
         for cp, cr in zip(pool_cache, row_cache):
-            cp.k[ids] = cr.k[1:].to(cp.k.dtype)
-            cp.v[ids] = cr.v[1:].to(cp.v.dtype)
-            if cp.k_scale is not None:
-                # scales splice with their blocks, so a block is never read
-                # under another request's scale
-                cp.k_scale[ids] = cr.k_scale[1:]
-                cp.v_scale[ids] = cr.v_scale[1:]
+            for pp, rp, _ in slot_parts(cp, cr, slot):
+                pp.k[ids] = rp.k[1:].to(pp.k.dtype)
+                pp.v[ids] = rp.v[1:].to(pp.v.dtype)
+                if pp.k_scale is not None:
+                    # scales splice with their blocks, so a block is never
+                    # read under another request's scale
+                    pp.k_scale[ids] = rp.k_scale[1:]
+                    pp.v_scale[ids] = rp.v_scale[1:]
             cp.table[slot] = ids.to(cp.table.dtype)
             cp.index[slot] = int(length)
         return pool_cache
@@ -214,14 +305,16 @@ class RecurrentLayout(CacheLayout):
 
     def begin_prefill(self, cache, true_len):
         for c in cache:
-            c.state.zero_()
+            for _, part in cache_parts(c):
+                part.state.zero_()
             c.index.zero_()
             c.limit.fill_(int(true_len))
         return cache
 
     def finalize_prefill(self, cache, true_len, max_len, new_cache=None):
         for c, n in zip(cache, new_cache):
-            c.state.copy_(n.state)
+            for (_, part), (_, new) in zip(cache_parts(c), cache_parts(n)):
+                part.state.copy_(new.state)
             c.index.fill_(int(true_len))
             c.limit.fill_(int(max_len))
         return cache
@@ -229,21 +322,24 @@ class RecurrentLayout(CacheLayout):
     def zero_cache(self, cache, max_len: int):
         # the window stays open: a pool decodes at any position
         for c in cache:
-            c.state.zero_()
+            for _, part in cache_parts(c):
+                part.state.zero_()
             c.index.zero_()
             c.limit.fill_(int(max_len))
         return cache
 
     def commit_step(self, cache, new_cache):
         for c, n in zip(cache, new_cache):
-            c.state.copy_(n.state)
+            for (_, part), (_, new) in zip(cache_parts(c), cache_parts(n)):
+                part.state.copy_(new.state)
             c.index.copy_(n.index)
         return cache
 
     def insert_row(self, pool_cache, row_cache, slot: int, length: int,
                    blocks=None):
         for cp, cr in zip(pool_cache, row_cache):
-            cp.state[slot].copy_(cr.state[0])
+            for pp, rp, local in slot_parts(cp, cr, slot):
+                pp.state[local].copy_(rp.state[0])
             cp.index[slot] = int(length)
         return pool_cache
 
@@ -252,8 +348,10 @@ class RecurrentLayout(CacheLayout):
         # slot's update folded its stale token into the carry a resumed
         # or refilled request would inherit: restore the carry too
         for c, old in zip(new_cache, prev_cache):
-            old.state.copy_(torch.where(active[:, None], c.state,
-                                        old.state))
+            for (rows, new), (_, part) in zip(cache_parts(c),
+                                              cache_parts(old)):
+                part.state.copy_(torch.where(active[rows][:, None],
+                                             new.state, part.state))
             old.index.copy_(torch.where(active, c.index, old.index))
         return prev_cache
 
@@ -270,15 +368,15 @@ class RecurrentLayout(CacheLayout):
             % (field,))
 
     def cache_dtype_str(self, cache) -> str:
-        return dtype_name(cache[0].state.dtype)
+        return dtype_name(first_part(cache[0]).state.dtype)
 
     def state_bytes_per_slot(self, cache, slots: int, max_len: int) -> int:
         # constant in max_len: the model class's point
-        return sum(c.state.numel() * c.state.element_size() // int(slots)
-                   for c in cache)
+        return sum(part.state.numel() * part.state.element_size()
+                   for c in cache for _, part in cache_parts(c)) // int(slots)
 
     def fingerprint_extra(self, pool) -> dict:
-        return {"d_state": int(pool._cache[0].state.shape[-1])}
+        return {"d_state": int(first_part(pool._cache[0]).state.shape[-1])}
 
 
 CACHE_LAYOUTS = {layout.name: layout

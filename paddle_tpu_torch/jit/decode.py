@@ -22,6 +22,14 @@ carry, index and window bound are read by address too.  A model that had
 a LoRA bank at construction gets its per-row adapter ids from the same
 buffers, made ambient around the forward (``nn.lora.adapter_ids``).
 
+``mesh=DecodeMesh(dp, mp)`` runs the steps over a decode mesh
+(``jit/mesh.py``): the session places the model's weights (each mp
+shard's slices) and builds its caches over the mesh.  The decode step
+runs inside the collective seam (``distributed.qcollectives``), where the
+row-parallel reductions take ``collective_quant`` (the mesh's by default:
+"none", fp32, or "int8", the two-stage quantized sum) and record their
+per-device wire bytes; the prefill always reduces in fp32.
+
 Sampling config rides each row as data (per-row temperature/top-k/top-p/
 seed and the row's draw counter), so a batch may mix greedy and sampled
 rows; :func:`sample_logits` is the scalar-config form.
@@ -48,6 +56,7 @@ import torch
 
 from ..core.device import resolve_device, same_device
 from ..core.errors import InvalidArgumentError
+from ..distributed import qcollectives as _qc
 from ..nn.layer.transformer import normalize_cache_dtype
 from ..nn.lora import adapter_ids, lora_config
 from ..ops.flash_attention import decode_route, normalize_decode_route
@@ -274,9 +283,45 @@ class DecodeSession:
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, cache_dtype="float32",
                  cache_layout: str = "dense", block_size: int = 32,
-                 route: str = "auto", device=None):
+                 route: str = "auto", device=None, mesh=None,
+                 collective_quant: Optional[str] = None,
+                 collective_quant_scale: Optional[str] = None):
         self.device = resolve_device(device)
         self.route = normalize_decode_route(route)
+        if mesh is not None:
+            from .mesh import DecodeMesh
+
+            if not isinstance(mesh, DecodeMesh):
+                raise InvalidArgumentError(
+                    "mesh must be a jit.mesh.DecodeMesh (or None for "
+                    "single-device decode), got %r"
+                    % (type(mesh).__name__,))
+            mesh.check_device(self.device)
+            # each mp shard's weight slices, before any step reads them
+            mesh.place_weights(model)
+        self.mesh = mesh
+        # the mp reductions' mode: the mesh's by default (an interconnect
+        # property), a per-session kwarg overrides
+        if collective_quant is None:
+            collective_quant = "none" if mesh is None \
+                else mesh.collective_quant
+        if collective_quant_scale is None:
+            collective_quant_scale = "block" if mesh is None \
+                else mesh.collective_quant_scale
+        self.collective_quant = _qc.normalize_collective_quant(
+            collective_quant)
+        self.collective_quant_scale = _qc.normalize_collective_scale(
+            collective_quant_scale)
+        if self.collective_quant != "none" and mesh is None:
+            raise InvalidArgumentError(
+                "collective_quant=%r needs a DecodeMesh: the quantized "
+                "collectives replace the mp reductions, and an unsharded "
+                "session has none (pass mesh=DecodeMesh(dp, mp) or "
+                "collective_quant='none')" % (self.collective_quant,))
+        # the collective bytes of ONE decode step, written by the seam's
+        # sink after each eager run of the step (a replay runs no Python
+        # and moves the same bytes); mp == 1 meshes install no seam
+        self._collective_trace: Optional[dict] = None
         if not hasattr(model, "gen_decode_cache"):
             raise InvalidArgumentError(
                 "DecodeSession needs a model with gen_decode_cache() and "
@@ -362,16 +407,55 @@ class DecodeSession:
             for m, t in modes:
                 m.training = t
 
-    def _run_model(self, ids, cache, adapter=None):
+    def _run_model(self, ids, cache, adapter=None,
+                   collective_seam: bool = False):
         """One forward of ``ids`` [B, L] through ``cache``.  The cache may
         be a batch-1 VIEW of a pool's global cache -- ``table`` a [1, MB]
         copy of one slot's row and ``index`` a [1] tensor holding the
         chunk's start -- so a prompt chunk writes its K/V straight into
         the pool's physical blocks; the pool then sets its own index.
         ``adapter`` (a static [B] id buffer, or None for the base model)
-        is the ambient per-row LoRA selection of the forward."""
-        with self._inference(), adapter_ids(adapter):
+        is the ambient per-row LoRA selection of the forward.
+        ``collective_seam`` opts a DECODE step into the mesh's collective
+        seam (the prefill stays dense)."""
+        seam = self._collective_seam() if collective_seam \
+            else contextlib.nullcontext()
+        with self._inference(), adapter_ids(adapter), seam:
             return self._model(ids, cache=cache)
+
+    @contextlib.contextmanager
+    def _collective_seam(self):
+        """The collective seam for one decode step, installed only when
+        the mesh has an mp axis to reduce over.  Mode "none" records the
+        dense ring bytes beside the fp32 reduction, so the comparison
+        column exists.  The sink is published after the step, so a failed
+        step leaves no half-recorded figures."""
+        if self.mesh is None or self.mesh.mp == 1:
+            yield
+            return
+        rec = {"mode": self.collective_quant,
+               "scale_mode": self.collective_quant_scale,
+               "calls": 0, "wire_bytes": 0, "dense_bytes": 0, "tokens": 0}
+        with _qc.collective_quant(self.collective_quant, self.mesh,
+                                  scale_mode=self.collective_quant_scale,
+                                  sink=rec):
+            yield
+        self._collective_trace = rec
+
+    def _gen_cache(self, batch: int, per_slot: bool = False,
+                   num_blocks=None, dtype=None):
+        """The model's decode cache for ``batch`` rows in the session's
+        layout, over the mesh when there is one."""
+        dtype = self._cache_dtype if dtype is None else dtype
+        if self.mesh is not None:
+            return self.mesh.build_cache(
+                self._model, batch, self.max_len, dtype,
+                layout=self.cache_layout, per_slot=per_slot,
+                block_size=self.block_size, num_blocks=num_blocks)
+        return self._model.gen_decode_cache(
+            batch, self.max_len, dtype, per_slot=per_slot,
+            layout=self.cache_layout, block_size=self.block_size,
+            num_blocks=num_blocks)
 
     def _adapter_ids(self, ids):
         """``ids`` when the model had a LoRA bank at construction, else
@@ -398,10 +482,8 @@ class DecodeSession:
         """The session's cache and step buffers for batch size ``b``."""
         st = self._batches.get(b)
         if st is None:
-            cache = self._model.gen_decode_cache(
-                b, self.max_len, self._cache_dtype, layout=self.cache_layout,
-                block_size=self.block_size)
-            st = self._batches[b] = (cache, step_buffers(b, self.device))
+            st = self._batches[b] = (self._gen_cache(b),
+                                     step_buffers(b, self.device))
         return st
 
     def _prefill_step(self, ids, true_len: int, cache, bufs):
@@ -426,7 +508,8 @@ class DecodeSession:
         index and the draw counter advance in place."""
         cache, bufs = self._batches[tok.shape[0]]
         logits, new = self._run_model(tok[:, None].long(), cache,
-                                      self._adapter_ids(bufs.adapter))
+                                      self._adapter_ids(bufs.adapter),
+                                      collective_seam=True)
         self._layout.commit_step(cache, new)
         tok.copy_(sample_logits_data(logits[:, 0], bufs.temperature,
                                      bufs.top_k, bufs.top_p, bufs.seed,
@@ -499,3 +582,26 @@ class DecodeSession:
         """The cost report's version: moves only when a step meets a new
         shape or, on the card, captures its graph."""
         return self._prefill_fn.cost_revision + self._decode_fn.cost_revision
+
+    def collective_report(self) -> dict:
+        """Per-token wire bytes of the decode step's mp reductions, from
+        the shapes the seam recorded (never measured):
+        ``collective_bytes_per_token`` is what the mode moves,
+        ``collective_dense_bytes_per_token`` the fp32 ring equivalent
+        (equal under "none", below it under "int8").  ``{}`` before the
+        first decode step, off-mesh, or at mp == 1 (no mp reductions)."""
+        rec = self._collective_trace
+        if not rec or not rec.get("tokens"):
+            return {}
+        t = float(rec["tokens"])
+        return {
+            "collective_quant": self.collective_quant,
+            "collective_quant_scale": self.collective_quant_scale,
+            "collective_bytes_per_token": rec["wire_bytes"] / t,
+            "collective_dense_bytes_per_token": rec["dense_bytes"] / t,
+            "collective_calls_per_step": int(rec["calls"]),
+            "collective_basis": "per-device ring wire bytes of the "
+                                "decode step's row-parallel reductions "
+                                "(from their shapes) over the per-device "
+                                "tokens the step commits",
+        }

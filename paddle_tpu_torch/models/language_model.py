@@ -154,7 +154,10 @@ class TransformerLM(nn.Module):
         """Final hidden states [B, L, H].  With ``cache`` the input is an
         incremental chunk: positions start at the cache index, causality
         over the cached prefix is enforced inside the attention, and
-        ``(hidden, new_cache)`` is returned."""
+        ``(hidden, new_cache)`` is returned.  A decode mesh's cache
+        (``ShardedCache`` per layer) runs each layer's attention and MLP
+        per shard; the embeddings, norms and the tied head replicate, so
+        they run once over every row, in slot order."""
         seq_len = input_ids.shape[1]
         step = torch.arange(seq_len, device=input_ids.device)
         if cache is not None:

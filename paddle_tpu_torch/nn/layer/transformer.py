@@ -10,9 +10,18 @@ into the cache's own buffers (no copy of a [B, H, max_len, D] buffer per
 step) and returns the tuple with the advanced index; the caller's old tuple
 shares those buffers.
 
-Not ported yet: the sequence-parallel attention and the quantized
-row-parallel collective seam (with its re-application of a LoRA delta; the
-plain path's delta is ``Linear.forward``'s).
+Under a decode mesh (``jit/mesh.py``) a layer's cache is a
+``ShardedCache``: the attention then runs each dp shard's rows and, within
+it, each mp shard's heads -- the shard's q/k/v columns, the decode kernel
+on the shard's own cache tensors at H/mp heads, and its ``out_proj`` rows
+-- and the MLP each shard's ``linear1`` columns and ``linear2`` rows.  Each
+row-parallel projection ends at :func:`_row_parallel_seam`, which reduces
+the shards' partial products (``distributed.qcollectives``), adds the bias
+once and re-applies a LoRA bank's delta on the reduced output from the
+global input; a column-parallel projection's delta uses the shard's
+columns of ``lora_b`` (``lora_a`` whole).
+
+Not ported yet: the sequence-parallel attention.
 """
 from __future__ import annotations
 
@@ -24,9 +33,12 @@ from torch import nn
 
 from ...core.dtype import convert_dtype, dtype_name
 from ...core.errors import InvalidArgumentError
+from ...distributed import qcollectives as _qc
+from ...distributed.sharded import is_sharded, mesh_parts
 from ...ops.flash_attention import (_cache_get, _cache_put, decode_attention,
                                     paged_decode_attention, quantize_kv)
 from .. import functional as F
+from .. import lora as _lora
 from .common import Dropout, Linear
 from .norm import LayerNorm
 
@@ -226,6 +238,11 @@ class MultiHeadAttention(nn.Module):
         (per row when the index is [B]; positions past max_len dropped),
         attend causally over the valid prefix, advance the index."""
         self._check_no_mask(attn_mask)
+        out = self._dense_attend(q, k_new, v_new, cache)
+        return out, cache._replace(index=cache.index + q.shape[2])
+
+    @staticmethod
+    def _dense_attend(q, k_new, v_new, cache):
         quant = cache.k_scale is not None
         k_s = v_s = None
         if quant:
@@ -238,9 +255,8 @@ class MultiHeadAttention(nn.Module):
         if quant:
             _dense_write(cache.k_scale, k_s, pos)
             _dense_write(cache.v_scale, v_s, pos)
-        out = decode_attention(q, cache.k, cache.v, q_pos=pos.to(torch.int32),
-                               k_scale=cache.k_scale, v_scale=cache.v_scale)
-        return out, cache._replace(index=cache.index + length)
+        return decode_attention(q, cache.k, cache.v, q_pos=pos.to(torch.int32),
+                                k_scale=cache.k_scale, v_scale=cache.v_scale)
 
     def _paged_decode_forward(self, q, k_new, v_new, attn_mask, cache):
         """Block-table cached attention: the chunk's K/V scatter into the
@@ -248,6 +264,11 @@ class MultiHeadAttention(nn.Module):
         to the scratch block), queries attend over the valid prefix, the
         index advances."""
         self._check_no_mask(attn_mask)
+        out = self._paged_attend(q, k_new, v_new, cache)
+        return out, cache._replace(index=cache.index + q.shape[2])
+
+    @staticmethod
+    def _paged_attend(q, k_new, v_new, cache):
         quant = cache.k_scale is not None
         k_s = v_s = None
         if quant:
@@ -268,14 +289,47 @@ class MultiHeadAttention(nn.Module):
         if quant:
             _paged_write(cache.k_scale, k_s, phys, off)
             _paged_write(cache.v_scale, v_s, phys, off)
-        out = paged_decode_attention(q, cache.k, cache.v, table,
-                                     q_pos=pos.to(torch.int32),
-                                     k_scale=cache.k_scale,
-                                     v_scale=cache.v_scale)
-        return out, cache._replace(index=cache.index + length)
+        return paged_decode_attention(q, cache.k, cache.v, table,
+                                      q_pos=pos.to(torch.int32),
+                                      k_scale=cache.k_scale,
+                                      v_scale=cache.v_scale)
+
+    def _sharded_forward(self, query, attn_mask, cache):
+        """Self-attention over a ``ShardedCache``: for each dp shard's rows
+        and each mp shard, the shard's q/k/v columns (H/mp heads), the
+        decode kernel on the shard's cache and its ``out_proj`` rows; the
+        seam reduces over mp and the index advances on the whole batch."""
+        self._check_no_mask(attn_mask)
+        mp = cache.mp
+        heads = self.num_heads // mp
+        attend = (self._paged_attend if cache.table is not None
+                  else self._dense_attend)
+        projs = [mesh_parts(p, mp) for p in (self.q_proj, self.k_proj,
+                                              self.v_proj)]
+        width = heads * self.head_dim
+        outs = []
+        for d, (x, ids) in enumerate(_dp_rows(query, cache)):
+            row = []
+            for m in range(mp):
+                cols = slice(m * width, (m + 1) * width)
+                q, k, v = (self._heads(_column_linear(lin, x, *part[m], ids,
+                                                      cols), heads)
+                           for lin, part in zip((self.q_proj, self.k_proj,
+                                                 self.v_proj), projs))
+                row.append(self._merge_heads(
+                    attend(q, k, v, cache.shards[d][m])))
+            outs.append(row)
+        out = _row_parallel_seam(self.out_proj, outs, mp)
+        return out, cache._replace(index=cache.index + query.shape[1])
+
+    def _heads(self, x, heads: int):
+        b, l = x.shape[0], x.shape[1]
+        return x.reshape(b, l, heads, self.head_dim).transpose(1, 2)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
+        if is_sharded(cache):
+            return self._sharded_forward(query, attn_mask, cache)
         key = query if key is None else key
         value = key if value is None else value
         q = self._split_heads(self.q_proj(query))
@@ -333,14 +387,75 @@ class TransformerEncoderLayer(nn.Module):
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
-        hidden = self.dropout(getattr(F, self.activation)(self.linear1(src)))
-        src = residual + self.dropout2(self.linear2(hidden))
+        if is_sharded(cache):
+            out = self._sharded_mlp(src, cache)
+        else:
+            hidden = self.dropout(getattr(F, self.activation)(
+                self.linear1(src)))
+            out = self.linear2(hidden)
+        src = residual + self.dropout2(out)
         if not self.normalize_before:
             src = self.norm2(src)
         return src if cache is None else (src, cache)
 
+    def _sharded_mlp(self, x, cache):
+        """The MLP over a ``ShardedCache``'s grid: each dp shard's rows
+        through each mp shard's ``linear1`` columns, then the ``linear2``
+        seam."""
+        mp = cache.mp
+        w1 = mesh_parts(self.linear1, mp)
+        width = self.linear1.weight.shape[1] // mp
+        act = getattr(F, self.activation)
+        hidden = [[self.dropout(act(_column_linear(
+            self.linear1, xd, *w1[m], ids,
+            slice(m * width, (m + 1) * width)))) for m in range(mp)]
+            for xd, ids in _dp_rows(x, cache)]
+        return _row_parallel_seam(self.linear2, hidden, mp)
+
     def gen_decode_cache(self, *args, **kwargs):
         return self.self_attn.gen_decode_cache(*args, **kwargs)
+
+
+def _dp_rows(x, cache):
+    """``[(rows of x, their adapter ids)]`` per dp shard of ``cache`` (the
+    ambient LoRA ids sliced to the same rows, or None)."""
+    ids = _lora.current_adapter_ids()
+    n = x.shape[0] // cache.dp
+    return [(x[d * n:(d + 1) * n],
+             None if ids is None else ids[d * n:(d + 1) * n])
+            for d in range(cache.dp)]
+
+
+def _column_linear(lin, x, weight, bias, ids, cols):
+    """One mp shard of a column-parallel Linear: ``x @ weight + bias``
+    with the shard's columns, plus the LoRA delta of rows ``ids`` through
+    the bank's columns ``cols`` of ``lora_b`` (a view: bank writes reach
+    it in place)."""
+    out = F.linear(x, weight, bias)
+    lora_a = lin._parameters.get("lora_a")
+    if lora_a is not None and ids is not None:
+        out = _lora.apply_delta(out, x, lora_a, lin.lora_b[:, :, cols], ids)
+    return out
+
+
+def _row_parallel_seam(lin, xs, mp: int):
+    """A row-parallel Linear (attention ``out_proj``, MLP ``linear2``) over
+    a grid of shard inputs ``xs[d][m]``: the shards' partial products
+    reduced through ``qcollectives.row_parallel_linear`` (fp32, or the
+    int8 two-stage sum inside a quantized decode seam), the bias added
+    once, then a bank-attached Linear's LoRA delta re-applied on the
+    reduced output from the GLOBAL input (the delta contracts the whole
+    input against the replicated bank, so it rides outside the mp
+    reduction, unquantized)."""
+    parts = mesh_parts(lin, mp)
+    out = _qc.row_parallel_linear(xs, [w for w, _ in parts], lin.bias,
+                                  _qc.active())
+    lora_a = lin._parameters.get("lora_a")
+    ids = _lora.current_adapter_ids()
+    if lora_a is not None and ids is not None:
+        x = torch.cat([torch.cat(row, dim=-1) for row in xs], dim=0)
+        out = _lora.apply_delta(out, x, lora_a, lin.lora_b, ids)
+    return out
 
 
 class TransformerEncoder(nn.Module):

@@ -46,6 +46,7 @@ from .. import tensor as T
 from ..core.device import resolve_device
 from ..core.dtype import dtype_name
 from ..core.errors import InvalidArgumentError
+from ..distributed.sharded import is_sharded
 from .layer.common import Dropout, Embedding, Linear
 from .layer.norm import LayerNorm
 
@@ -87,30 +88,54 @@ class GatedSSMBlock(nn.Module):
         g = torch.nn.functional.silu(self.gate_proj(h))
         b, length = u.shape[0], u.shape[1]
         inflow = (1.0 - a) * u
-        keep = None
         if cache is None:
             s = torch.zeros((b, self.d_state), dtype=u.dtype,
                             device=u.device)
+            y, _ = self._scan(a, inflow, s, None)
+            return x + self.out_dropout(self.out_proj(y * g))
+        if is_sharded(cache):
+            # the carry shards over dp (each shard's rows, its own state
+            # tensor); the weights replicate, so the projections above ran
+            # once over every row
+            n = b // cache.dp
+            ys, states = [], []
+            for d, row in enumerate(cache.shards):
+                rows = slice(d * n, (d + 1) * n)
+                y, s = self._scan(a[rows], inflow[rows], row[0].state,
+                                  self._keep(row[0], length, u.device))
+                ys.append(y)
+                states.append(s)
+            y = torch.cat(ys, dim=0)
+            new = cache.with_part_field("state", states)._replace(
+                index=cache.index + length)
         else:
-            s = cache.state
-            idx = cache.index.to(torch.int64)
-            step = torch.arange(length, device=u.device)
-            pos = (idx[:, None] + step[None, :] if idx.ndim
-                   else (idx + step)[None, :])
-            keep = (pos < cache.limit)[:, :, None]        # [B or 1, L, 1]
+            y, s = self._scan(a, inflow, cache.state,
+                              self._keep(cache, length, u.device))
+            new = RecurrentDecodeCache(s, cache.index + length, cache.limit)
+        return x + self.out_dropout(self.out_proj(y * g)), new
+
+    @staticmethod
+    def _keep(cache, length: int, device):
+        """[B or 1, L, 1]: positions below the cache's window bound
+        (``limit``) update the carry; the rest are identity steps."""
+        idx = cache.index.to(torch.int64)
+        step = torch.arange(length, device=device)
+        pos = (idx[:, None] + step[None, :] if idx.ndim
+               else (idx + step)[None, :])
+        return (pos < cache.limit)[:, :, None]
+
+    @staticmethod
+    def _scan(a, inflow, s, keep):
+        """The sequential recurrence from carry ``s`` over ``L`` positions:
+        the stacked states ``[B, L, d_state]`` and the final carry."""
         states = []
-        for t in range(length):
+        for t in range(a.shape[1]):
             s_new = a[:, t] * s + inflow[:, t]
             if keep is not None:
                 s_new = torch.where(keep[:, t], s_new, s)
             states.append(s_new)
             s = s_new
-        y = torch.stack(states, dim=1) * g                # [B, L, d_state]
-        out = x + self.out_dropout(self.out_proj(y))
-        if cache is None:
-            return out
-        return out, RecurrentDecodeCache(s, cache.index + length,
-                                         cache.limit)
+        return torch.stack(states, dim=1), s
 
 
 class SSMLM(nn.Module):

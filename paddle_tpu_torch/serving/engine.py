@@ -566,6 +566,21 @@ class ServingEngine:
         self._g_kv_free = m.gauge(
             "serving_kv_free_blocks", "paged allocator free blocks") \
             if paged else None
+        # sharded serving: these gauges exist only over a DecodeMesh.  The
+        # per-shard resident bytes are the per-device headroom figure (a
+        # mesh-total gauge would overstate it by dp)
+        sharded = self._pool.mesh is not None
+        self._g_mesh_devices = m.gauge(
+            "serving_mesh_devices",
+            "shards the decode mesh spans (dp * mp)") if sharded else None
+        self._g_kv_resident_shard = m.gauge(
+            "serving_kv_resident_bytes_per_shard",
+            "KV cache bytes resident in ONE dp shard's partition "
+            "(mesh total / dp)") if sharded else None
+        self._g_kv_reachable_shard = m.gauge(
+            "serving_kv_reachable_bytes_max_shard",
+            "largest per-dp-shard reachable KV bytes right now (the most "
+            "loaded shard's occupancy)") if sharded else None
         sharing = self._pool.prefix_sharing
         self._g_prefix_hit = m.gauge(
             "serving_prefix_hit_rate",
@@ -1945,6 +1960,12 @@ class ServingEngine:
         self._g_kv_resident.set(stats["pool_bytes"])
         if self._g_kv_free is not None:
             self._g_kv_free.set(stats["free_blocks"])
+        if self._g_mesh_devices is not None:
+            per_shard = stats["per_shard"]
+            self._g_mesh_devices.set(stats["mesh"]["devices"])
+            self._g_kv_resident_shard.set(per_shard[0]["pool_bytes"])
+            self._g_kv_reachable_shard.set(
+                max(e["reachable_bytes"] for e in per_shard))
         self._g_preempted.set(pool.preempted_count)
         if self._g_spilled_blocks is not None:
             self._g_spilled_blocks.set(stats["spilled_blocks"])

@@ -1427,3 +1427,97 @@ def test_recurrent_graph_replay_matches_eager(cuda_device, tmp_path):
         np.testing.assert_array_equal(resumed[rid], want[rid])
     assert pool._decode_fn.graphs() == 1
     assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,mp", [(1, 2), (2, 1), (2, 2)])
+@pytest.mark.parametrize("kw,kernel", [
+    (dict(cache_layout="paged", block_size=8, cache_dtype="int8"),
+     "paged_decode_attention_kernel"),
+    (dict(cache_layout="paged", block_size=8, prefill_chunk_tokens=16,
+          prefix_sharing=True), "paged_decode_attention_kernel"),
+    (dict(cache_layout="dense"), "decode_attention_kernel")],
+    ids=["paged-int8", "chunked", "dense"])
+def test_mesh_pool_captured_matches_eager(cuda_device, dp, mp, kw, kernel):
+    """A pool over a ``dp`` x ``mp`` mesh on one card: one captured decode
+    graph whose tokens equal the eager step's and the unsharded pool's,
+    the decode kernel launched ``layers x dp x mp`` times a step (each
+    shard's own contiguous cache at 4/mp heads), the unsharded keys."""
+    import numpy as np
+
+    from paddle_tpu_torch import DecodeMesh, GenerationPool
+
+    model = _tiny_lm(cuda_device)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 512, n) for n in (5, 11, 20, 7, 14, 9)]
+
+    def run(mesh, eager=False):
+        pool = GenerationPool(model, max_len=64, slots=4, buckets=[32],
+                              device=cuda_device, mesh=mesh, **kw)
+        if eager:
+            _eager(pool, "_decode_fn")
+        rids = [pool.submit(p, 6) for p in prompts]
+        dk.reset_launch_counts()
+        out = pool.run()
+        return pool, [out[r] for r in rids], dk.launch_counts()[kernel]
+
+    mesh = DecodeMesh(dp, mp, devices=["cuda:0"] * (dp * mp))
+    pool, got, launches = run(mesh)
+    _, eager, _ = run(mesh, eager=True)
+    flat, want, _ = run(None)
+    for p, g, e, w in zip(prompts, got, eager, want):
+        np.testing.assert_array_equal(g, e)
+        # mp sums its partials in shard order: the unsharded tokens bind
+        # where the top-2 margin along their path clears 1e-3
+        if _top2_margin(model, p, w) >= 1e-3:
+            np.testing.assert_array_equal(g, w)
+    assert pool._decode_fn.graphs() == 1
+    assert launches == 2 * dp * mp * pool.decode_steps_total
+    assert pool.compile_counts() == flat.compile_counts()
+
+
+def _top2_margin(model, prompt, tokens):
+    """Smallest top-2 logit margin along ``prompt`` + ``tokens`` (one
+    uncached forward)."""
+    import numpy as np
+
+    seq = torch.as_tensor(np.concatenate([prompt, tokens[:-1]]),
+                          dtype=torch.int64, device=model.device)
+    with torch.no_grad():
+        top2 = model(seq[None])[0, len(prompt) - 1:].topk(2, dim=-1).values
+    return float((top2[:, 0] - top2[:, 1]).min())
+
+
+@pytest.mark.cuda
+def test_mesh_int8_seam_captured(cuda_device):
+    """The int8 seam inside the captured decode graph: tokens equal the
+    eager step's, and the recorded wire bytes sit below the dense ring's;
+    a grid over two cards is refused."""
+    import numpy as np
+
+    from paddle_tpu_torch import DecodeMesh, GenerationPool
+    from paddle_tpu_torch.core.errors import UnimplementedError
+
+    model = _tiny_lm(cuda_device)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 512, n) for n in (5, 11, 20, 7)]
+    mesh = DecodeMesh(2, 2, devices=["cuda:0"] * 4, collective_quant="int8")
+
+    def run(eager):
+        pool = GenerationPool(model, max_len=64, slots=4, buckets=[32],
+                              device=cuda_device, mesh=mesh,
+                              cache_layout="paged", block_size=8)
+        if eager:
+            _eager(pool, "_decode_fn")
+        return pool, pool.generate(prompts, 6)
+
+    pool, got = run(False)
+    _, want = run(True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert pool._decode_fn.graphs() == 1
+    stats = pool.cache_stats()
+    assert stats["collective_bytes_per_token"] \
+        < stats["collective_dense_bytes_per_token"]
+    with pytest.raises(UnimplementedError):
+        DecodeMesh(2, 1, devices=["cuda:0", "cuda:1"])

@@ -97,7 +97,17 @@ PyTorch twin, and drives the port's two main paths:
   batches, each step its own padding (key-padding lanes eagerly, a
   broadcast bias in the graph), the same two ways, in fp32 and O2 bf16.
   Small 2-layer models train on the card (captured) and on the CPU first,
-  in both precisions, and their losses must agree;
+  in both precisions, and their losses must agree.  Then the reference's
+  fine-tune (config #4): the ERNIE-base classifier in O2 bf16 on 32 x 384
+  tokens of ragged length behind a key-padding mask, eagerly and
+  captured (``train_ernie_cls``: equal losses, one key, K3 bf16 12
+  launches a step each way); a [40000, 768] sparse embedding's lazy Adam
+  held against dense Adam (the rows met equal, every other row and moment
+  bit for bit) and trained under ``TrainStep`` on its dense gradient
+  (``sparse_embedding``); ``FLAGS_check_nan_inf`` raising on an eager inf
+  and the fine-tune step captured with it on (``nan_check``); and every
+  ported ``tensor`` op on the card against the CPU and under autocast
+  (``tensor_ops_cuda``);
 - the custom-op door: the user kernel K4 (``scale_mul``) registered with
   a hand-written backward through ``incubate.register_custom_op``,
   differentiated eagerly (``.backward()``, ``grad`` with
@@ -109,7 +119,8 @@ It then times each kernel at its main path's shape beside its plain twin,
 its bound and the one PyTorch call that computes the same function
 (``scaled_dot_product_attention``; for K4 ``torch.mul(x, y).mul_(2.0)``;
 timed as a yardstick only, the port never calls it): K3 in fp32 and bf16,
-with its tensor-core bound and the CUDA-core one; K1/K2 at the serving
+with its tensor-core bound and the CUDA-core one, and in bf16 at the
+ERNIE fine-tune's shape with its padding lanes; K1/K2 at the serving
 shape in fp32 and int8, at one request, and at a short and a full
 context, and at a verify chunk of 5 queries (K1/K2, per-row positions).
 K1 is also held against its twin on tables whose rows alias one
@@ -119,6 +130,8 @@ D 128 K3 one, spills); after the timing, the kernels SDPA's fp32 forward
 and backward launch.
 
 Every phase raises on failure; the exit code is 0 only when all passed.
+Every phase's record is written in full to ``chiprun_out/chip_smoke.json``
+beside the script.
 The second-to-last lines are the card's name and power limit and a JSON
 object describing every kernel; the last line is a JSON object naming the
 device.  Without a CUDA card, or without the package beside this file, the
@@ -249,6 +262,18 @@ SMALL_TRAIN_RTOL = {"float32": 1e-4, "bfloat16": 2e-3}
 # BERT: every step a batch with its own padding, so the captured step's
 # replays run on other padding than the capture's
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 8, 512, 5
+# the ERNIE fine-tune (the reference's config #4, bench.py:375): its
+# smallest on-chip batch, 6 steps each way, prompts of ragged length
+# 128-384 behind a key-padding mask, 3 classes
+ERNIE_BATCH, ERNIE_SEQ, ERNIE_STEPS = 32, 384, 6
+ERNIE_MIN_LEN, ERNIE_CLASSES = 128, 3
+# replays after the captured leg's steps, to see the loss fall past the
+# first update's kick
+ERNIE_MORE_STEPS = 24
+# sparse_embedding: lazy against dense Adam on the rows a step meets: the
+# same fp32 update, on gradient rows summed in another order (a coalesce
+# against the dense backward's scatter-add)
+SPARSE_RTOL = 1e-6
 # K4 at full width: the GPT-1.3B FFN activation at the training batch
 CUSTOM_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 8192)
 CUSTOM_STEPS = 3
@@ -4009,11 +4034,15 @@ def check_flash_kernels():
     its broadcast sum) against the plain twins: causal and not, key
     padding (segment lanes), segment ids with fully masked rows, full and
     broadcast bias, Lq != Lk, L not a multiple of the tile, D in {64, 128},
-    f32 and bf16, and both training shapes, in f32 and bf16, with the
-    strides the model passes: B 2 x H 16 x L 2048 x D 128 causal (GPT) and
-    B 8 x H 12 x L 512 x D 64 non-causal with ragged key padding (BERT).
-    Returns the GPT shape's max errors, the bf16 ones under names ending
-    in ``_bfloat16``."""
+    f32 and bf16, and the training shapes with the strides the model
+    passes: B 2 x H 16 x L 2048 x D 128 causal (GPT) and B 8 x H 12 x L 512
+    x D 64 non-causal with ragged key padding (BERT), in f32 and bf16, and
+    the ERNIE fine-tune's B 32 x H 12 x L 384 x D 64 in bf16 in both of
+    the ways its step gives K3 the padding: as segment lanes (eagerly) and
+    as the captured step's [B, 1, 1, L] bias, its own mask in bf16
+    (``_ernie_mask_bias``).  Returns the GPT shape's max errors, the bf16
+    ones under names ending in ``_bfloat16``, and the ERNIE shape's under
+    names ending in ``_ernie_lanes`` and ``_ernie_bias``."""
     import torch
 
     from paddle_tpu_torch.ops import flash_kernels as fk
@@ -4033,12 +4062,19 @@ def check_flash_kernels():
                 causal=True)
     bert = dict(b=BERT_BATCH, h=12, lq=BERT_SEQ, lk=BERT_SEQ, d=64,
                 causal=False, seg="pad")
+    ernie = dict(b=ERNIE_BATCH, h=12, lq=ERNIE_SEQ, lk=ERNIE_SEQ, d=64,
+                 causal=False, seg="pad")
+    ernie_bias = dict(ernie, seg=None, bias="pad")
     cases += [(main, torch.float32), (bert, torch.float32),
-              (main, torch.bfloat16), (bert, torch.bfloat16)]
+              (main, torch.bfloat16), (bert, torch.bfloat16),
+              (ernie, torch.bfloat16), (ernie_bias, torch.bfloat16)]
     main_err = {}
     for shape, dtype in cases:
         args, do = flash_case(gen, dtype=dtype, **shape)
-        bias_grad = args["bias"] is not None
+        if shape is ernie_bias:
+            # the captured step's input: a mask that needs no gradient
+            args["bias"] = _ernie_mask_bias()
+        bias_grad = args["bias"] is not None and shape is not ernie_bias
         o, stats = fk.flash_attention_forward_kernel(**args)
         grads = fk.flash_attention_backward_kernel(
             o=o, stats=stats, do=do, bias_grad=bias_grad, **args)
@@ -4054,7 +4090,8 @@ def check_flash_kernels():
                 errs[name] = (g.float() - w.float()).abs().max().item()
         scale = {n: t.float().abs().max().item() for n, t in
                  zip(("dq", "dk", "dv"), want)}
-        if dtype == torch.bfloat16 and (shape is main or shape is bert):
+        if dtype == torch.bfloat16 and shape in (main, bert, ernie,
+                                                 ernie_bias):
             # long rows: the largest outputs and gradients reach magnitudes
             # where two bf16 ulps (2^-6 relative) exceed the small shapes'
             # 2e-2; the element-wise limit below bounds the rest
@@ -4082,8 +4119,10 @@ def check_flash_kernels():
                                  % errs)
         if dtype == torch.bfloat16 and shape is main:
             _check_bf16_limit(args, o, grads, want_o, want)
-        if shape is main:
-            suffix = "" if dtype == torch.float32 else "_bfloat16"
+        if shape is main or shape is ernie or shape is ernie_bias:
+            suffix = {id(ernie): "_ernie_lanes",
+                      id(ernie_bias): "_ernie_bias"}.get(
+                id(shape), "" if dtype == torch.float32 else "_bfloat16")
             main_err["flash_attention_forward_kernel" + suffix] = max(
                 errs["o"], errs["stats"])
             main_err["flash_attention_backward_kernel" + suffix] = max(
@@ -4240,6 +4279,8 @@ class _StepParts:
             return run
 
         for obj, attr, part in self._targets:
+            if getattr(obj, attr) is None:  # an optimizer without a clip
+                continue
             self._saved.append((obj, attr, attr in vars(obj),
                                 getattr(obj, attr)))
             setattr(obj, attr, marked(getattr(obj, attr), part))
@@ -4462,8 +4503,9 @@ def _update_cost(model, opt):
                          dtype=p.dtype) * 1e-3 for p in params]
     lr = torch.full((), 1e-4, device="cuda")
     pairs = list(zip(params, grads))
-    fns = {"clip": lambda: opt._grad_clip(pairs),
-           "update": lambda: opt._functional_step(params, grads, lr)}
+    fns = {"update": lambda: opt._functional_step(params, grads, lr)}
+    if opt._grad_clip is not None:
+        fns = {"clip": lambda: opt._grad_clip(pairs), **fns}
     out = {}
     for name, fn in fns.items():
         torch.cuda.synchronize()
@@ -4473,8 +4515,10 @@ def _update_cost(model, opt):
         out[name + "_launches"] = sum(n for _, _, n in
                                       device_time_rows(prof))
         out[name + "_graph_ms"] = graph_ms([fn], reps=2)
-    out["optimizer_graph_ms"] = out["update_graph_ms"] - out["clip_graph_ms"]
-    out["optimizer_launches"] = out["update_launches"] - out["clip_launches"]
+    out["optimizer_graph_ms"] = out["update_graph_ms"] - out.get(
+        "clip_graph_ms", 0.0)
+    out["optimizer_launches"] = out["update_launches"] - out.get(
+        "clip_launches", 0)
     n = sum(p.numel() for p in params)
     # the AdamW floor: 28 bytes a parameter (ISSUE's count: fp32 master or
     # weight, m1 and m2 read and written, the gradient read, the model
@@ -4484,22 +4528,25 @@ def _update_cost(model, opt):
 
 
 def _train_leg(build, loss_fn, batches, capture, dtype, layers, seq,
-               crit=None):
+               crit=None, then=0):
     """``build()``'s model and optimizer trained by one ``TrainStep``
     over ``batches`` (one call each), captured or eager; the K3 counts are
     set to 0 just before the steps and read just after (every launch in
     ``dtype``, ``layers`` a step).  Steps are timed from the first replay
     (captured) or the second step (eager).  One more step runs under the
     profiler: an eager one with its parts marked (``crit`` given), a
-    captured one as one replay."""
+    captured one as one replay.  ``then`` more steps on the last batch run
+    before it, their losses returned as ``then_losses``."""
     import torch
 
     from paddle_tpu_torch import TrainStep
     from paddle_tpu_torch.ops import flash_kernels as fk
 
     model, opt = build()
-    # batches[i][0] is the [B, L] ids: flops of one step
-    flops = model.flops_per_token(seq) * int(np.prod(np.shape(
+    # batches[i][0] is the [B, L] ids: flops of one step (a classifier's
+    # are its backbone's, as the reference's bench counts them)
+    flops = getattr(model, "backbone", model).flops_per_token(seq) * int(
+        np.prod(np.shape(
         batches[0][0])))
     step = TrainStep(model, loss_fn, opt, capture=capture)
     torch.cuda.synchronize()
@@ -4521,7 +4568,8 @@ def _train_leg(build, loss_fn, batches, capture, dtype, layers, seq,
     mean_ms = float(np.mean(timed))
     peak_flops = BF16_TC_FLOPS_PER_S if dtype == "bfloat16" \
         else FP32_FLOPS_PER_S
-    out = {"capture": capture, "losses": losses,
+    then_losses = [float(step(*batches[-1])) for _ in range(then)]
+    out = {"capture": capture, "losses": losses, "then_losses": then_losses,
            "warmup_step_ms": step_ms[0], "step_ms": step_ms,
            "step_ms_mean": mean_ms, "step_ms_p50": float(np.median(timed)),
            "peak_mem_gb": peak / 2 ** 30,
@@ -4708,6 +4756,607 @@ def train_bert(bf16: bool = False):
     return out
 
 
+def _ernie_batch(rng, cfg):
+    """The fine-tune's batch as the reference's bench draws it (ids, token
+    types, 3-way labels) and a ragged [B, 1, 1, L] additive key-padding
+    mask from lengths of ``ERNIE_MIN_LEN``-``ERNIE_SEQ`` (row 0 full):
+    (ids, types, labels, mask, lengths)."""
+    b, l = ERNIE_BATCH, ERNIE_SEQ
+    ids = rng.randint(0, cfg["vocab_size"], (b, l))
+    types = rng.randint(0, cfg["type_vocab_size"], (b, l))
+    labels = rng.randint(0, ERNIE_CLASSES, (b,))
+    lens = rng.randint(ERNIE_MIN_LEN, l + 1, b)
+    lens[0] = l
+    valid = np.arange(l)[None, :] < lens[:, None]
+    mask = np.where(valid, 0.0, np.finfo(np.float32).min).astype(
+        np.float32)[:, None, None, :]
+    return ids, types, labels, mask, lens
+
+
+def _ernie_mask_bias():
+    """The fine-tune batch's [B, 1, 1, L] additive mask as its captured
+    step hands it to K3: cast to bf16 by the attention (``finfo(float32)
+    .min`` becomes -inf), a broadcast bias on the card."""
+    import torch
+
+    from paddle_tpu_torch import ernie_base_config
+
+    mask = _ernie_batch(np.random.RandomState(0), ernie_base_config())[3]
+    return torch.from_numpy(mask).cuda().to(torch.bfloat16)
+
+
+def _cls_criterion():
+    """The fine-tune's loss as a module (so a profiled step marks it):
+    cross entropy of the logits against the labels."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+
+    class ClassifierLoss(torch.nn.Module):
+        def forward(self, logits, labels):
+            return F.cross_entropy(logits, labels)
+
+    return ClassifierLoss()
+
+
+def _ernie_model(layers=None):
+    """``TransformerForSequenceClassification`` at ``ernie_base_config()``
+    (``layers`` of them), seed 0, dropout 0, on the card, with AdamW(1e-4)
+    -- the reference's config #4 leg without its sharding wrapper --
+    decorated O2 bf16."""
+    from paddle_tpu_torch import (TransformerForSequenceClassification,
+                                  ernie_base_config)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = ernie_base_config()
+    if layers is not None:
+        cfg["num_layers"] = layers
+    model = TransformerForSequenceClassification(
+        num_classes=ERNIE_CLASSES, dropout=0.0, device="cuda", seed=0, **cfg)
+    return _o2(model, AdamW(1e-4, parameters=model.parameters()))
+
+
+def train_ernie_cls():
+    """``train_ernie_cls``: the ERNIE-base sequence-classification
+    fine-tune (12 layers, 768 wide, 12 heads x 64, vocab 40000, 4 token
+    types, 3 classes) in O2 bf16 with AdamW(1e-4) and the loss under
+    ``auto_cast``, on 32 x 384 tokens of ragged length 128-384 given as a
+    [B, 1, 1, L] additive key-padding mask: one batch for 6 steps, eagerly
+    and captured from the same weights (``_train_leg``).  The captured
+    losses must equal the eager ones within ``CAPTURED_RTOL`` and be
+    finite; one graph key; every K3 launch bf16, 12 a step forward and
+    backward.  Eagerly, and in the captured run's warm-up, K3 takes the
+    mask as key-padding lanes; the capture never claims it (a graph
+    input), so the replays run K3 with it as a broadcast bias: the
+    launches are returned by mode (``k3_launches_by_mode``).  AdamW's
+    first step from a random init raises the loss (in the reference too),
+    so the captured step then replays ``ERNIE_MORE_STEPS`` more times on
+    the batch, whose last loss must fall below the first step's.  MFU is
+    given twice: ``mfu`` by the backbone's ``flops_per_token``, as the
+    reference's bench counts it (with the tied LM head, which a
+    classifier never runs), and ``mfu_run`` by the flops the step runs
+    (the head left out; the pooler and the classifier in)."""
+    import torch
+
+    from paddle_tpu_torch import ernie_base_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    cfg = ernie_base_config()
+    crit = _cls_criterion()
+    loss_fn = _amp_loss(lambda m, ids, types, labels, mask: crit(
+        m(ids, attn_mask=mask, token_type_ids=types), labels), True)
+    ids, types, labels, mask, lens = _ernie_batch(np.random.RandomState(0),
+                                                  cfg)
+    batch = (ids, types, labels, torch.from_numpy(mask).cuda())
+    assert fa.detect_padding_additive_mask(batch[3]) is not None
+    model, opt = _ernie_model()
+    params = sum(p.numel() for p in model.parameters())
+    ref_fpt = model.backbone.flops_per_token(ERNIE_SEQ)
+    del model, opt
+    h, v = cfg["hidden_size"], cfg["vocab_size"]
+    run_fpt = ref_fpt - 6.0 * v * h + 6.0 * (h * h + h * ERNIE_CLASSES) \
+        / ERNIE_SEQ
+    layers = cfg["num_layers"]
+    calls = []
+    apply = fk.FlashAttentionFunction.apply
+
+    def recording_apply(*a):
+        # (bias given, segment lanes given, q's dtype)
+        calls[-1].append((a[3] is not None, a[4] is not None,
+                          str(a[0].dtype)[6:]))
+        return apply(*a)
+
+    legs = {}
+    fk.FlashAttentionFunction.apply = recording_apply
+    try:
+        for capture in (False, True):
+            calls.append([])
+            legs[capture] = _train_leg(
+                _ernie_model, loss_fn, [batch] * ERNIE_STEPS, capture,
+                "bfloat16", layers, ERNIE_SEQ, None if capture else crit,
+                then=ERNIE_MORE_STEPS if capture else 0)
+    finally:
+        fk.FlashAttentionFunction.apply = apply
+    eager, captured = legs[False], legs[True]
+    lanes, bias = (False, True, "bfloat16"), (True, False, "bfloat16")
+    # eager: every step (and the profiled one) takes lanes; captured: the
+    # warm-up takes lanes, the capture the bias, and replays call no Python
+    assert calls[0] and all(c == lanes for c in calls[0]), calls[0]
+    assert calls[1] == [lanes] * layers + [bias] * layers, calls[1]
+    # each forward call has its backward in the same mode; the eager run's
+    # counts (read before its profiled step) are all lanes, the captured
+    # run's are the warm-up's lanes and the replays' bias
+    by_mode = {"lanes": {}, "bias": {}}
+    for name in ("flash_attention_forward_kernel",
+                 "flash_attention_backward_kernel"):
+        n_eager = eager["launches_by_dtype"][name]["bfloat16"]
+        n_captured = captured["launches_by_dtype"][name]["bfloat16"]
+        by_mode["lanes"][name] = n_eager + layers
+        by_mode["bias"][name] = n_captured - layers
+        assert by_mode["bias"][name] == layers * (ERNIE_STEPS - 1), by_mode
+    losses = captured["losses"]
+    assert all(np.isfinite(losses)), losses
+    np.testing.assert_allclose(losses, eager["losses"],
+                               rtol=CAPTURED_RTOL["bfloat16"])
+    # AdamW's first step from a random init kicks the loss up (the
+    # reference's too); the replays then fit the batch
+    more = captured["then_losses"]
+    assert all(np.isfinite(more)) and more[-1] < losses[0], (losses, more)
+    out = _eager_beside(captured, eager)
+    tokens = ERNIE_BATCH * ERNIE_SEQ
+    out.update(dtype="bfloat16", layers=layers, params_m=params / 1e6,
+               batch=ERNIE_BATCH, seq=ERNIE_SEQ, steps=ERNIE_STEPS,
+               real_tokens=int(lens.sum()),
+               tokens_per_s=tokens / (captured["step_ms_mean"] / 1e3),
+               mfu_peak_flops_per_s=BF16_TC_FLOPS_PER_S,
+               flops_per_token_reference=ref_fpt, flops_per_token_run=run_fpt,
+               mfu_run=captured["mfu"] * run_fpt / ref_fpt,
+               k3_launches_by_mode=by_mode,
+               k3_calls_eager=len(calls[0]), k3_calls_captured=len(calls[1]))
+    out["eager"]["mfu_run"] = eager["mfu"] * run_fpt / ref_fpt
+    return out
+
+
+def sparse_embedding():
+    """``sparse_embedding``: a [40000, 768] fp32 ``Embedding(sparse=True,
+    padding_idx=0)`` (ERNIE's vocabulary) under eager
+    ``Adam(lazy_mode=True)`` against a dense ``Embedding`` and dense Adam
+    from the same weights, on the same two steps of 32 x 384 ids (pads,
+    id 0, after each row's ragged length) with the same random upstream
+    gradients.  After the second step: the rows it met within
+    ``SPARSE_RTOL`` of dense Adam's; every other row of the weight and
+    both moments bit for bit as after the first step (dense Adam moves the
+    first step's rows again by their momentum); the pad row and its moments
+    untouched.  Then each update alone, by CUDA events over repeated steps
+    on the same gradient, beside its byte floor; then the same table under
+    ``TrainStep`` (with a mean-pool and a 3-way head): the step trains on
+    the dense gradient (no sparse one reaches the update) and captures."""
+    import torch
+
+    from paddle_tpu_torch import TrainStep, ernie_base_config
+    from paddle_tpu_torch.nn import Embedding, Linear
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Adam, param_name
+
+    cfg = ernie_base_config()
+    vocab, dim = cfg["vocab_size"], cfg["hidden_size"]
+    b, l = ERNIE_BATCH, ERNIE_SEQ
+    rng = np.random.RandomState(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def table(sparse_grad):
+        return Embedding(vocab, dim, padding_idx=0, sparse=sparse_grad,
+                         device="cuda", generator=torch.Generator(
+                             device="cuda").manual_seed(0))
+
+    def ragged_ids():
+        ids = rng.randint(1, vocab, (b, l))
+        lens = rng.randint(ERNIE_MIN_LEN, l + 1, b)
+        ids[np.arange(l)[None, :] >= lens[:, None]] = 0
+        return torch.from_numpy(ids).cuda()
+
+    lazy, dense = table(True), table(False)
+    w0 = lazy.weight.detach().clone()
+    assert torch.equal(w0, dense.weight)
+    opts = {"lazy": Adam(1e-3, parameters=lazy.parameters(),
+                         lazy_mode=True),
+            "dense": Adam(1e-3, parameters=dense.parameters())}
+    steps = [(ragged_ids(), torch.randn(b, l, dim, device="cuda",
+                                        generator=gen)) for _ in range(2)]
+    st = None
+    for i, (ids, gout) in enumerate(steps):
+        for name, emb in (("lazy", lazy), ("dense", dense)):
+            emb(ids).backward(gout)
+            assert emb.weight.grad.is_sparse == (name == "lazy")
+            opts[name].step()
+            opts[name].clear_grad()
+        if i == 0:
+            st = opts["lazy"]._states[param_name(lazy.weight)]
+            before = {"weight": lazy.weight.detach().clone(),
+                      "moment1": st["moment1"].clone(),
+                      "moment2": st["moment2"].clone()}
+    ids2 = steps[1][0]
+    met = torch.zeros(vocab, dtype=torch.bool, device="cuda")
+    met[ids2.reshape(-1)] = True
+    met[0] = False  # the pad row gets no gradient
+    rel = ((lazy.weight - dense.weight)[met].abs()
+           / dense.weight[met].abs().clamp(min=1e-30)).max().item()
+    assert rel <= SPARSE_RTOL, rel
+    now = {"weight": lazy.weight.detach(), "moment1": st["moment1"],
+           "moment2": st["moment2"]}
+    for k in now:
+        assert torch.equal(now[k][~met], before[k][~met]), k
+    assert torch.equal(lazy.weight[0], w0[0])
+    assert torch.equal(dense.weight[0], w0[0])
+    assert not st["moment1"][0].any() and not st["moment2"][0].any()
+    moved = (dense.weight.detach() != before["weight"]).any(1) & ~met
+    touched_rows = int(met.sum())
+    nnz = int((ids2 != 0).sum())
+    out = {"rows_met": touched_rows, "ids_not_pad": nnz,
+           "max_rel_err_vs_dense": rel,
+           "dense_rows_moved_by_momentum_alone": int(moved.sum())}
+    # each update alone, on the second step's gradient, repeated
+    for name, emb in (("lazy", lazy), ("dense", dense)):
+        emb(ids2).backward(steps[1][1])
+        out[name + "_update_ms"] = cuda_ms(opts[name].step, iters=20,
+                                           warmup=2)
+        opts[name].clear_grad()
+    # byte floors: dense Adam reads the weight, gradient and both moments
+    # and writes the weight and moments (28 B an element); the lazy one
+    # reads the ids and the gradient's rows once and reads and writes the
+    # met rows of the weight and moments
+    out["dense_bytes"] = 28 * vocab * dim
+    out["lazy_bytes"] = nnz * (8 + 4 * dim) + 24 * touched_rows * dim
+    for name in ("dense", "lazy"):
+        out[name + "_bound_ms"] = out[name + "_bytes"] / HBM_BYTES_PER_S * 1e3
+    out["lazy_vs_dense"] = out["lazy_update_ms"] / out["dense_update_ms"]
+
+    # the same table under TrainStep: the dense gradient, captured
+    class Bag(torch.nn.Module):
+        def __init__(self, emb):
+            super().__init__()
+            self.emb = emb
+            self.head = Linear(dim, ERNIE_CLASSES, device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(1))
+
+        def forward(self, ids):
+            return self.head(self.emb(ids).mean(dim=1))
+
+    model = Bag(lazy)
+    opt = Adam(1e-3, parameters=model.parameters(), lazy_mode=True)
+    seen = []
+    update = opt._functional_step
+
+    def recording(params, grads, lr):
+        seen.extend(g.is_sparse for g in grads)
+        return update(params, grads, lr)
+
+    opt._functional_step = recording
+    step = TrainStep(model, lambda m, x, y: F.cross_entropy(m(x), y), opt)
+    labels = torch.from_numpy(rng.randint(0, ERNIE_CLASSES, (b,))).cuda()
+    losses = [float(step(ids2, labels)) for _ in range(4)]
+    assert step._fn.graphs() == 1 and step.compile_counts() == {
+        "train_step": 1}
+    assert seen and not any(seen), seen  # warm-up and capture: dense
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    out["train_step_losses"] = losses
+    del step, model, opt, lazy, dense, opts, steps, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def nan_check():
+    """``nan_check``: under ``FLAGS_check_nan_inf`` an eager op whose
+    output holds an inf raises ``InvalidArgumentError`` naming it, a clean
+    one passes; then 3 captured steps (warm-up, capture, replay) of the
+    ERNIE fine-tune at 2 layers with the flag on: the check runs on every
+    installed op of the eager warm-up, is skipped while the stream
+    captures (a host read would void the capture), and the step captures
+    and replays with finite losses."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import InvalidArgumentError, TrainStep
+    from paddle_tpu_torch.framework import dispatch
+
+    ptt.set_flags({"FLAGS_check_nan_inf": True})
+    check = dispatch.check_nan_inf
+    calls = []
+
+    def counting(out, op_name):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return check(out, op_name)
+
+    try:
+        msg = expect_raises(InvalidArgumentError, lambda: ptt.log(
+            torch.zeros(4, device="cuda")))
+        assert "'log'" in msg, msg
+        msg_div = expect_raises(InvalidArgumentError, lambda: ptt.divide(
+            torch.ones(4, device="cuda"), torch.zeros(4, device="cuda")))
+        assert "'divide'" in msg_div, msg_div
+        assert torch.isfinite(ptt.log(torch.ones(4, device="cuda"))).all()
+        dispatch.check_nan_inf = counting
+        model, opt = _ernie_model(layers=2)
+        crit = _cls_criterion()
+        loss_fn = _amp_loss(lambda m, ids, types, labels, mask: crit(
+            m(ids, attn_mask=mask, token_type_ids=types), labels), True)
+        from paddle_tpu_torch import ernie_base_config
+
+        ids, types, labels, mask, _ = _ernie_batch(
+            np.random.RandomState(0), ernie_base_config())
+        step = TrainStep(model, loss_fn, opt)
+        batch = (ids, types, labels, torch.from_numpy(mask).cuda())
+        losses = [float(step(*batch)) for _ in range(3)]
+    finally:
+        dispatch.check_nan_inf = check
+        ptt.set_flags({"FLAGS_check_nan_inf": False})
+    assert step._fn.graphs() == 1, step._fn.graphs()
+    assert all(np.isfinite(losses)), losses
+    checked, skipped = calls.count(False), calls.count(True)
+    assert checked > 0 and skipped > 0, (checked, skipped)
+    out = {"eager_error": msg, "losses": losses,
+           "ops_checked": checked, "ops_skipped_in_capture": skipped}
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tensor_op_cases(dev):
+    """(label, op name, args, kwargs) calling every ported ``tensor`` op
+    once on tensors of ``dev`` (inputs from seed 1); ``place`` is ``dev``
+    for the ops with no tensor input."""
+    import torch
+
+    g = torch.Generator().manual_seed(1)
+
+    def t(x):
+        return x.to(dev)
+
+    a = t(torch.randn(3, 4, generator=g))
+    b = t(torch.rand(3, 4, generator=g) + 1)
+    p = t(torch.rand(3, 4, generator=g) * 0.8 + 0.1)
+    i = t(torch.randint(1, 12, (3, 4), generator=g))
+    j = t(torch.randint(1, 12, (3, 4), generator=g))
+    v = t(torch.randn(4, generator=g))
+    m = t(torch.randn(4, 4, generator=g) + 4 * torch.eye(4))
+    spd = m @ m.T + t(torch.eye(4))
+    k = t(torch.randint(0, 3, (3, 6), generator=g))
+    c = t(torch.randn(2, 3, 4, generator=g))
+    v3, w3 = t(torch.randn(5, 3, generator=g)), t(torch.randn(5, 3,
+                                                              generator=g))
+    tall = t(torch.randn(6, 3, generator=g))
+    idx = t(torch.tensor([2, 0]))
+    place = {"place": dev}
+    cases = [(n, (a, b), {}) for n in (
+        "add", "subtract", "multiply", "divide", "mod", "floor_mod",
+        "maximum", "minimum", "fmax", "fmin", "atan2", "heaviside",
+        "equal", "not_equal", "greater_than", "greater_equal", "less_than",
+        "less_equal", "isclose", "allclose", "dist")]
+    cases += [(n, (i, j), {}) for n in (
+        "floor_divide", "remainder", "gcd", "lcm", "bitwise_and",
+        "bitwise_or", "bitwise_xor")]
+    cases += [(n, (a,), {}) for n in (
+        "abs", "exp", "expm1", "sin", "cos", "tan", "sinh", "cosh", "tanh",
+        "stanh", "atan", "asinh", "erf", "sigmoid", "ceil", "floor", "round",
+        "trunc", "sign", "frac", "square", "neg", "deg2rad", "rad2deg",
+        "nan_to_num", "conj", "sum", "nansum", "mean", "nanmean", "max",
+        "min", "amax", "amin", "logsumexp", "std", "var", "cumsum", "norm",
+        "t", "isnan", "isinf", "isfinite", "is_empty", "argmax", "argmin",
+        "argsort", "sort", "median", "nanmedian", "shape", "rank",
+        "is_floating_point", "is_integer", "is_complex", "is_tensor",
+        "real", "imag", "zeros_like", "ones_like", "empty_like", "assign",
+        "clone", "numel", "unstack", "unbind",
+        "matrix_rank", "pinv", "histogram", "nonzero", "unique")]
+    cases += [(n, (b,), {}) for n in (
+        "log", "log1p", "log2", "log10", "sqrt", "rsqrt", "reciprocal",
+        "lgamma", "digamma", "acosh", "prod", "cumprod")]
+    cases += [(n, (p,), {}) for n in ("asin", "acos", "atanh", "erfinv",
+                                      "logit")]
+    cases += [(n, (m,), {}) for n in (
+        "inverse", "inv", "det", "slogdet", "trace", "diagonal", "lu",
+        "cond", "eig", "eigvals", "svd")]
+    cases += [(n, (spd,), {}) for n in ("cholesky", "eigh", "eigvalsh")]
+    cases += [(n, (a > 0,), {}) for n in (
+        "all", "any", "logical_not", "bitwise_not", "where")]
+    cases += [(n, (a > 0, b > 1.5), {}) for n in (
+        "logical_and", "logical_or", "logical_xor")]
+    cases += [
+        ("clip", "clip", (a, -0.5, 0.5), {}),
+        ("lerp", "lerp", (a, b, p), {}), ("cast", "cast", (a, "int32"), {}),
+        ("pow", "pow", (b, a), {}), ("flip", "flip", (a, [0, 1]), {}),
+        ("reverse", "reverse", (a, 1), {}),
+        ("scale", "scale", (a, 2.0, 1.0), {}),
+        ("increment", "increment", (a, 2.0), {}),
+        ("diff", "diff", (a,), {"axis": 1}),
+        ("kron", "kron", (m[:2, :2], m[2:, 2:]), {}),
+        ("outer", "outer", (v, v), {}),
+        ("add_n", "add_n", ([a, b, a],), {}),
+        ("mm", "mm", (a, a.T), {}), ("matmul", "matmul", (a, a.T), {}),
+        ("bmm", "bmm", (c, c.transpose(1, 2)), {}),
+        ("mv", "mv", (a, v), {}), ("dot", "dot", (v, v), {}),
+        ("addmm", "addmm", (m[:3, :3], a, a.T), {}),
+        ("einsum", "einsum", ("ij,kj->ik", a, b), {}),
+        ("multi_dot", "multi_dot", ([a, a.T, a],), {}),
+        ("multiplex", "multiplex", ([a, b], t(torch.tensor([1, 0, 1]))), {}),
+        ("matrix_power", "matrix_power", (m, 3), {}),
+        ("solve", "solve", (m, a.T), {}),
+        ("triangular_solve", "triangular_solve", (torch.tril(m), a.T),
+         {"upper": False}),
+        ("lstsq", "lstsq", (tall, tall[:, :2]), {}),
+        ("qr", "qr", (a.T,), {}), ("cross", "cross", (v3, w3), {"axis": 1}),
+        ("reshape", "reshape", (a, [2, 6]), {}),
+        ("flatten", "flatten", (c,), {"start_axis": 1}),
+        ("squeeze", "squeeze", (a[None],), {}),
+        ("unsqueeze", "unsqueeze", (a, 1), {}),
+        ("concat", "concat", ([a, b],), {"axis": 1}),
+        ("stack", "stack", ([a, b],), {"axis": 2}),
+        ("split", "split", (a, 2), {"axis": 1}),
+        ("chunk", "chunk", (c, 3), {"axis": 2}),
+        ("tile", "tile", (a, [1, 2]), {}),
+        ("expand", "expand", (a[:1], [3, -1]), {}),
+        ("expand_as", "expand_as", (a[:1], b), {}),
+        ("broadcast_to", "broadcast_to", (v, [3, 4]), {}),
+        ("broadcast_tensors", "broadcast_tensors", ([a[:1], b],), {}),
+        ("broadcast_shape", "broadcast_shape", ([3, 1], [1, 4]), {}),
+        ("transpose", "transpose", (c, [2, 0, 1]), {}),
+        ("roll", "roll", (a, 2), {"axis": 1}),
+        ("gather", "gather", (a, idx), {}),
+        ("gather_nd", "gather_nd", (c, t(torch.tensor([[1, 2], [0, 0]]))),
+         {}),
+        ("take_along_axis", "take_along_axis", (a, k[:, :2]), {"axis": 1}),
+        ("put_along_axis", "put_along_axis", (a, k[:, :2], 5.0, 1),
+         {"reduce": "add"}),
+        ("scatter", "scatter", (a, idx, b[:2]), {"overwrite": False}),
+        ("scatter_nd_add", "scatter_nd_add",
+         (a, t(torch.tensor([[0, 1], [2, 3]])), v[:2]), {}),
+        ("scatter_nd", "scatter_nd", (t(torch.tensor([[1], [2]])), b[:2],
+                                      [4, 4]), {}),
+        ("index_select", "index_select", (a, idx), {"axis": 1}),
+        ("slice", "slice", (c, [1, 2], [1, 0], [3, -1]), {}),
+        ("strided_slice", "strided_slice", (c, [2], [3], [0], [-2]), {}),
+        ("crop", "crop", (c,), {"shape": [1, -1, 2], "offsets": [1, 1, 2]}),
+        ("shard_index", "shard_index", (i, 12, 3, 1), {}),
+        ("topk", "topk", (a, 2), {}),
+        ("kthvalue", "kthvalue", (a, 2), {}),
+        ("mode", "mode", (k,), {}),
+        ("where3", "where", (a > 0, a, b), {}),
+        ("masked_select", "masked_select", (a, a > 0), {}),
+        ("index_sample", "index_sample", (a, k[:, :3]), {}),
+        ("searchsorted", "searchsorted", (torch.sort(v).values, a), {}),
+        ("quantile", "quantile", (a, 0.3), {"axis": 0}),
+        ("equal_all", "equal_all", (a, a), {}),
+        ("full_like", "full_like", (a, 2.5), {}),
+        ("meshgrid", "meshgrid", (v, v[:2]), {}),
+        ("diag", "diag", (v,), {"offset": -1, "padding_value": 7.0}),
+        ("diagflat", "diagflat", (v,), {}),
+        ("tril", "tril", (m,), {}), ("triu", "triu", (m, 1), {}),
+        ("zeros", "zeros", ([2, 3],), place),
+        ("ones", "ones", ([3],), place), ("empty", "empty", ([2],), place),
+        ("full", "full", ([2], 3.0), place),
+        ("arange", "arange", (5,), place),
+        ("linspace", "linspace", (0, 1, 5), place),
+        ("eye", "eye", (3,), place),
+        ("to_tensor", "to_tensor", ([1.0, 2.0],), place),
+    ]
+    return [c if len(c) == 4 else (c[0], c[0], c[1], c[2]) for c in cases]
+
+
+# decompositions whose factors are defined up to sign or phase, held by
+# their sign-free parts; results whose values depend on the driver beside
+# the data (nothing to compare) are listed empty
+_SIGN_FREE = {"svd": lambda o: o[1], "qr": lambda o: o[1].abs(),
+              "eigh": lambda o: o[0], "eig": None, "eigvals": None,
+              "lstsq": lambda o: o[0]}
+# card against CPU: fp32 in another summation order; decompositions by
+# other solvers
+TENSOR_OPS_RTOL, TENSOR_OPS_DECOMP_RTOL = 1e-4, 1e-3
+
+
+def _held_equal(got, want, rtol, label):
+    import torch
+
+    if isinstance(want, (tuple, list)):
+        assert len(got) == len(want), label
+        for x, y in zip(got, want):
+            _held_equal(x, y, rtol, label)
+        return
+    if not torch.is_tensor(want):
+        assert got == want, (label, got, want)
+        return
+    assert got.device.type == "cuda", (label, got.device)
+    g, w = got.cpu(), want
+    assert g.shape == w.shape, (label, g.shape, w.shape)
+    if w.is_floating_point():
+        torch.testing.assert_close(g, w, rtol=rtol, atol=rtol * 0.1,
+                                   msg=label)
+    else:
+        assert torch.equal(g, w), label
+
+
+def tensor_ops_cuda():
+    """``tensor_ops_cuda``: every ported ``tensor`` op (``__all__`` but
+    the in-place variants, which the last case drives) called once on
+    ``cuda`` tensors and held against the same op on the CPU
+    (``TENSOR_OPS_RTOL``; decompositions by their sign-free parts); each
+    op the amp lists name once more under ``auto_cast(level="O1",
+    dtype="bfloat16")``: a white op's float32 inputs come out bf16, a black
+    op's bf16 inputs float32; the random ops drawn on the card, a seed
+    replayed."""
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.tensor import random as tr
+
+    cuda_cases = _tensor_op_cases("cuda")
+    cpu_cases = _tensor_op_cases("cpu")
+    covered = {c[1] for c in cuda_cases}
+    ops = {n for n in ptt.tensor.__all__ if not n.endswith("_")}
+    missing = ops - covered - set(tr.__all__)
+    assert not missing, missing
+    colours = {"white": 0, "black": 0}
+    for (label, name, args, kw), (_, _, cargs, ckw) in zip(cuda_cases,
+                                                            cpu_cases):
+        got = getattr(ptt, name)(*args, **kw)
+        want = getattr(ptt, name)(*cargs, **ckw)
+        rtol = TENSOR_OPS_RTOL
+        if name == "histogram":  # a value on a bin edge may fall either way
+            assert int(got.sum()) == int(want.sum()) == args[0].numel()
+            assert int((got.cpu() - want).abs().max()) <= 1, (got, want)
+            continue
+        if name in _SIGN_FREE:
+            if _SIGN_FREE[name] is None:
+                continue
+            got, want = _SIGN_FREE[name](got), _SIGN_FREE[name](want)
+            rtol = TENSOR_OPS_DECOMP_RTOL
+        elif name in ("pinv", "cond", "inverse", "inv", "solve", "lu",
+                      "matrix_power", "triangular_solve", "eigvalsh",
+                      "cholesky", "det", "slogdet"):
+            rtol = TENSOR_OPS_DECOMP_RTOL
+        _held_equal(got, want, rtol, label)
+        white, black = name in amp.WHITE_LIST, name in amp.BLACK_LIST
+        if white or black:
+            cast = [x.to(torch.bfloat16) if torch.is_tensor(x)
+                    and x.is_floating_point() and black else x
+                    for x in args]
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                out = getattr(ptt, name)(*cast, **kw)
+            want_dt = torch.bfloat16 if white else torch.float32
+            assert out.dtype == want_dt, (name, out.dtype)
+            colours["white" if white else "black"] += 1
+    draws = {}
+    for run in range(2):
+        ptt.seed(5)
+        draws[run] = [
+            ptt.rand([64], place="cuda"), ptt.randn([64], place="cuda"),
+            ptt.standard_normal([8], place="cuda"),
+            ptt.uniform([64], min=-2.0, max=0.0, place="cuda"),
+            ptt.uniform([8], seed=9, place="cuda"),
+            ptt.normal(1.0, 2.0, [8], place="cuda"),
+            ptt.randint(3, 9, [64], place="cuda"),
+            ptt.randperm(16, place="cuda"),
+            ptt.bernoulli(torch.full((64,), 0.5, device="cuda")),
+            ptt.multinomial(torch.tensor([0.2, 0.8], device="cuda"), 3,
+                            replacement=True),
+            ptt.poisson(torch.full((8,), 3.0, device="cuda"))]
+    for x, y in zip(draws[0], draws[1]):
+        assert x.device.type == "cuda" and torch.equal(x, y)
+    u, r, perm = draws[0][3], draws[0][6], draws[0][7]
+    assert float(u.min()) >= -2.0 and float(u.max()) <= 0.0
+    assert int(r.min()) >= 3 and int(r.max()) < 9
+    assert sorted(perm.tolist()) == list(range(16))
+    x = torch.tensor([[1.0, 4.0], [9.0, 16.0]], device="cuda")
+    ptt.sqrt_(x)
+    ptt.reshape_(x, [4])
+    assert x.tolist() == [1.0, 2.0, 3.0, 4.0]
+    return {"ops": len(cuda_cases), "amp_colours_checked": colours,
+            "random_ops": len(draws[0])}
+
+
 def time_flash():
     """K3 forward and backward at the training shape (B 2 x H 16 x
     L 2048 x D 128, causal) in fp32 and in bf16, beside the plain twins, the
@@ -4789,6 +5438,95 @@ def time_flash():
                    if "cuda_core_bound_ms" in rec else "", lib_ms,
                    rec["vs_library"]))
         del args, do, o, stats, q, k, v, lib_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_ernie():
+    """K3 at the ERNIE fine-tune's shape (``train_ernie_cls``): bf16,
+    B 32 x H 12 x L 384 x D 64, non-causal, on the padding of the
+    fine-tune's ragged lengths (``_ernie_batch``, seed 0) in both of the
+    ways its step gives it: ``lanes`` (segment ids, eagerly) and ``bias``
+    (the captured step's [B, 1, 1, L] bf16 mask, ``_ernie_mask_bias``).
+    Forward and backward beside the plain twins, the bounds and
+    ``scaled_dot_product_attention`` on the same padding (a boolean [B, 1,
+    1, L] mask for the lanes, the additive bf16 mask itself for the bias),
+    in bf16.  Operations count the visible (query, key) pairs of this
+    data, H x L x sum(lengths): 4 D flops each forward, 10 D backward,
+    over the bf16 tensor-core peak; bytes read each input once (q, k, v,
+    the lanes or the bias; backward also o, dO, the stats) and write each
+    output once (o, stats; dq, dk, dv).  Returns {(name, mode): record}."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch import ernie_base_config
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    b, h, l, d = ERNIE_BATCH, 12, ERNIE_SEQ, 64
+    lens = _ernie_batch(np.random.RandomState(0), ernie_base_config())[4]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lane_args, do = flash_case(gen, b, h, l, l, d, torch.bfloat16,
+                               causal=False, seg="pad")
+    valid = torch.arange(l, device="cuda")[None, :] < torch.from_numpy(
+        lens).cuda()[:, None]
+    lane_args["kv_seg"] = torch.where(valid, 0, 1).to(torch.int32)
+    bias = _ernie_mask_bias()
+    modes = {"lanes": (lane_args, valid[:, None, None, :], 2 * b * l * 4),
+             "bias": (dict(lane_args, q_seg=None, kv_seg=None, bias=bias),
+                      bias, b * l * bias.element_size())}
+    pairs = h * l * int(lens.sum())
+    tensor_bytes = b * h * l * d * 2
+    q, k, v = (lane_args[n].detach().requires_grad_() for n in "qkv")
+    out = {}
+    for mode, (args, mask, mask_bytes) in modes.items():
+        o, stats = fk.flash_attention_forward_kernel(**args)
+        stats_bytes = stats.numel() * 4
+        work = {"flash_attention_forward_kernel":
+                (4 * d * pairs, 4 * tensor_bytes + stats_bytes + mask_bytes),
+                "flash_attention_backward_kernel":
+                (10 * d * pairs, 8 * tensor_bytes + stats_bytes
+                 + mask_bytes)}
+        lib_fwd = cuda_ms(lambda: tF.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters=20)
+        lib_out = tF.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (q, k, v), do, retain_graph=True), iters=10)
+        runs = {"flash_attention_forward_kernel":
+                (lambda: fk.flash_attention_forward_kernel(**args),
+                 lambda: fk.flash_attention_forward_plain(**args), lib_fwd),
+                "flash_attention_backward_kernel":
+                (lambda: fk.flash_attention_backward_kernel(
+                    o=o, stats=stats, do=do, **args),
+                 lambda: fk.flash_attention_backward_plain(
+                     o=o, stats=stats, do=do, **args), lib_bwd)}
+        for name, (kern, plain, lib_ms) in runs.items():
+            flops, nbytes = work[name]
+            t_ops = flops / BF16_TC_FLOPS_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            p1 = cuda_ms(plain, iters=5, warmup=1)
+            k1 = cuda_ms(kern, iters=20, warmup=2)
+            k2 = cuda_ms(kern, iters=20, warmup=1)
+            p2 = cuda_ms(plain, iters=5, warmup=1)
+            rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes
+                   else "bytes",
+                   "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+                   "dtype": "bfloat16", "visible_pairs": pairs,
+                   "mode": mode}
+            rec["achieved_tflop_s"] = flops / rec["ms"] / 1e9
+            rec["vs_library"] = rec["ms"] / lib_ms
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            out[(name, mode)] = rec
+            log("timing %-32s ERNIE B=%d H=%d L=%d D=%d pad (%s) bfloat16: "
+                "kernel %.4f ms (%.2f TFLOP/s), plain %.4f ms, bound %.4f ms "
+                "(%s), sdpa (%s mask) %.4f ms (kernel/sdpa %.3f)"
+                % (name, b, h, l, d, mode, rec["ms"],
+                   rec["achieved_tflop_s"], rec["plain_ms"], rec["bound_ms"],
+                   rec["bound_by"], "bool" if mode == "lanes" else "bf16",
+                   lib_ms, rec["vs_library"]))
+        del o, stats, lib_out
+    del lane_args, do, q, k, v, modes
     torch.cuda.empty_cache()
     return out
 
@@ -5303,9 +6041,28 @@ def main() -> int:
     train["bert_base_pad_bf16"] = train_bert(bf16=True)
     log("train_bert_bf16 (BERT-base O2 bf16, 8 x 512 ragged, key padding):",
         json.dumps(train["bert_base_pad_bf16"]))
+    t0 = time.perf_counter()
+    train["ernie_cls"] = train_ernie_cls()
+    log(card)
+    log("train_ernie_cls (ERNIE-base sequence classification, O2 bf16, "
+        "AdamW 1e-4, 32 x 384 ragged 128-384, key padding; MFU against "
+        "%.0f TFLOP/s):" % (BF16_TC_FLOPS_PER_S / 1e12),
+        json.dumps(train["ernie_cls"]))
+    runs["sparse_embedding"] = sparse_embedding()
+    log("sparse_embedding ([40000, 768] fp32, lazy Adam against dense, "
+        "32 x 384 ids):", json.dumps(runs["sparse_embedding"]))
+    runs["nan_check"] = nan_check()
+    log("nan_check (FLAGS_check_nan_inf: eager raise, captured ERNIE step "
+        "at 2 layers):", json.dumps(runs["nan_check"]))
+    runs["tensor_ops_cuda"] = tensor_ops_cuda()
+    log("tensor_ops_cuda:", json.dumps(runs["tensor_ops_cuda"]))
+    log("fine-tune, sparse, nan-check and tensor-op phases: %.1f s"
+        % (time.perf_counter() - t0))
 
     timing = time_kernels()
     timing.update(time_flash())
+    timing.update({(name, "ernie", mode): rec
+                   for (name, mode), rec in time_flash_ernie().items()})
     sdpa_kernel_names()
     timing["scale_mul_kernel"] = time_custom_kernel()
     kernels = []
@@ -5343,6 +6100,26 @@ def main() -> int:
                 "max_abs_err": parity[label], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the ERNIE fine-tune's K3 (bf16, B 32 x H 12 x L 384 x D 64), one row
+    # for each way train_ernie_cls gives it the padding, each with the
+    # launches made that way: lanes (the eager run and the captured run's
+    # warm-up), bias (the captured run's replays)
+    for name, direction in (("flash_attention_forward_kernel", "forward"),
+                            ("flash_attention_backward_kernel",
+                             "backward")):
+        for mode in ("lanes", "bias"):
+            t = timing[(name, "ernie", mode)]
+            kernels.append({
+                "name": "flash_attention_ernie_%s_%s" % (mode, direction),
+                "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "paddle_tpu/ops/flash_attention.py:78",
+                "launches": train["ernie_cls"]["k3_launches_by_mode"][mode][
+                    name],
+                "max_abs_err": parity[name + "_ernie_" + mode],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]})
     # the speculative verify chunk (Lq 5): K1 on the paged 24-layer
     # target, K2 on the dense 4-layer target (its draft's K2 launches
     # subtracted)
@@ -5427,6 +6204,16 @@ def main() -> int:
         "max_abs_err": parity["scale_mul_kernel"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # every phase's record in full (the end of the output keeps only its
+    # last lines)
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
+              "w") as f:
+        json.dump({"card": card, "runs": runs, "train": train,
+                   "timing": {str(k): v for k, v in timing.items()},
+                   "kernels": kernels}, f,
+                  default=lambda o: o.item() if hasattr(o, "item")
+                  else str(o))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

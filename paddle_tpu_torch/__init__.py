@@ -7,7 +7,17 @@ package.  Its entry points (``TransformerLM``, ``DecodeSession``,
 ``GenerationPool``, ``ServingEngine``) run on ``cuda`` by default and raise
 on a machine without a card unless the caller passes ``device="cpu"``.
 Training goes through ``TrainStep`` (or the optimizer's eager ``step()``)
-on whatever device the model lives.  ``torch.Tensor`` is the port's
+on whatever device the model lives: pretraining a ``TransformerLM``, or
+fine-tuning a ``TransformerForSequenceClassification`` (the ERNIE
+fine-tune, ``ernie_base_config()``).  ``nn.Embedding(sparse=True)`` gives
+row-sparse gradients that ``optimizer.SGD`` and ``Adam(lazy_mode=True)``
+update row by row; ``nn.functional`` has the reference's twenty losses.
+The ``tensor`` ops are exported here too (creation ops take
+``place=``).  ``seed()`` seeds the CPU and CUDA generators
+(``get_rng_state``/``set_rng_state`` carry their states);
+``set_flags``/``get_flags`` hold the reference's ten ``FLAGS_*``, e.g.
+``FLAGS_check_nan_inf``, which makes every installed op raise on a nan or
+inf output.  ``torch.Tensor`` is the port's
 Tensor (paddle's ``stop_gradient`` is ``not requires_grad``); ``grad``,
 ``autograd.PyLayer``, ``incubate.register_custom_op`` and
 ``incubate.autograd`` differentiate through torch's autograd.  ``amp``
@@ -27,17 +37,21 @@ from .convert import load_reference_params  # noqa: F401
 from .core.errors import (EnforceNotMet, InvalidArgumentError,  # noqa: F401
                           NotFoundError, PreconditionNotMetError,
                           UnavailableError)
+from .core.flags import get_flags, set_flags  # noqa: F401
+from .core.random import (get_cuda_rng_state, get_rng_state,  # noqa: F401
+                          seed, set_cuda_rng_state, set_rng_state)
 from .framework.engine import (enable_grad, grad,  # noqa: F401
                                is_grad_enabled, no_grad, set_grad_enabled)
-from .tensor import matmul  # noqa: F401
-from .tensor.creation import to_tensor  # noqa: F401
+from . import tensor  # noqa: F401
+from .tensor import *  # noqa: F401,F403
 from .inference.generation import GenerationPool  # noqa: F401
 from .jit.decode import DecodeSession  # noqa: F401
 from .jit.mesh import DecodeMesh  # noqa: F401
 from .jit.train_step import MultiStepTrainStep, TrainStep  # noqa: F401
-from .models.language_model import (TransformerLM,  # noqa: F401
-                                    TransformerLMCriterion, bert_base_config,
-                                    ernie_base_config, gpt_1p3b_config)
+from .models.language_model import (  # noqa: F401
+    TransformerForSequenceClassification, TransformerLM,
+    TransformerLMCriterion, bert_base_config, ernie_base_config,
+    gpt_1p3b_config)
 from .serving import (AdmissionTightenedError,  # noqa: F401
                       DeadlineUnattainableError, QueueFullError,
                       ServingEngine, ServingHTTPFrontend)

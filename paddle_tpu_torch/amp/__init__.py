@@ -217,16 +217,18 @@ class GradScaler:
                 if p.requires_grad and p.grad is not None]
 
     def unscale_(self, optimizer) -> None:
-        """Divide every gradient by the scale in place and note whether
-        any is non-finite; the per-gradient checks stay on the device and
-        combine before one readback."""
+        """Divide every gradient by the scale in place (a row-sparse
+        one's values) and note whether any is non-finite; the per-gradient
+        checks stay on the device and combine before one readback."""
         if not self._enable or self._unscaled:
             return
         inv = 1.0 / self._scale
         flags = []
         for g in self._grads(optimizer):
-            g.mul_(inv)
-            flags.append(torch.isfinite(g).all())
+            # a row-sparse gradient: its values, which stay sparse
+            vals = g._values() if g.is_sparse else g
+            vals.mul_(inv)
+            flags.append(torch.isfinite(vals).all())
         self._found_inf = bool(flags) and not bool(torch.stack(flags).all())
         self._unscaled = True
 

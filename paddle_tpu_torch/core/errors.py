@@ -4,9 +4,12 @@ The port keeps its own copy rather than importing the reference: importing
 anything under ``paddle_tpu`` runs that package's ``__init__``, which
 imports JAX.  The class names and error codes are the reference's, so a
 caller that catches one package's errors reads the other's the same way.
+With ``FLAGS_log_level`` at 1 or more a message carries the Python frames
+that raised it, as the reference's.
 """
 from __future__ import annotations
 
+import traceback
 from typing import Optional
 
 
@@ -21,6 +24,10 @@ class EnforceNotMet(RuntimeError):
         full = f"[{self.code}] {message}"
         if hint:
             full += f"\n  [Hint: {hint}]"
+        from .flags import _REGISTRY
+        level = _REGISTRY.get("FLAGS_log_level")
+        if level is not None and level.value >= 1:
+            full += "\n  [Python call stack]\n" + current_python_callstack()
         super().__init__(full)
 
 
@@ -66,3 +73,9 @@ class FatalError(EnforceNotMet):
 
 class ExternalError(EnforceNotMet):
     code = "EXTERNAL"
+
+
+def current_python_callstack(limit: int = 8) -> str:
+    """The Python frames that led here (the reference's op-call-stack
+    attribution), this function's own left out."""
+    return "".join(traceback.format_stack(limit=limit)[:-1])

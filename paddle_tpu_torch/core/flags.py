@@ -3,8 +3,16 @@
 ``flag``, with ``FLAGS_*`` environment variables parsed when a flag is
 defined, as the reference parses them.
 
-Only ``FLAGS_amp_dtype``, the one flag ``amp`` reads, is defined here;
-the reference's other flags come with the code that reads them.
+The reference's ten flags are defined here with its names, defaults and
+help.  Where their readers are ported they act as the reference's do:
+``FLAGS_check_nan_inf`` (the op shim's output scan,
+``framework/dispatch.py``), ``FLAGS_seq_block_size``
+(``ops/flash_attention.py``), ``FLAGS_log_level`` (``core/errors.py``)
+and ``FLAGS_amp_dtype`` (``amp``).  ``FLAGS_prefetch_depth``,
+``FLAGS_jit_cache``, ``FLAGS_use_donated_buffers``, ``FLAGS_eager_mode``,
+``FLAGS_deterministic`` and ``FLAGS_benchmark`` are defined and
+round-trip; their readers (io, the static jit, the sampler, the
+profiler) are not ported yet.
 """
 from __future__ import annotations
 
@@ -65,11 +73,12 @@ def set_flags(flags: Dict[str, Any]) -> None:
             f.value = value
 
 
-def get_flags(flags: Iterable[str] | str) -> Dict[str, Any]:
+def get_flags(flags: Iterable[str] | str | None = None) -> Dict[str, Any]:
     """paddle.get_flags: {name: value} of the named flags (one name or a
-    list).  (The reference's ``None`` form, every flag, has no caller
-    here and is left out.)"""
+    list); ``None`` gives every flag."""
     with _lock:
+        if flags is None:
+            return {k: f.value for k, f in _REGISTRY.items()}
         if isinstance(flags, str):
             flags = [flags]
         return {name: _REGISTRY[name].value for name in flags}
@@ -80,5 +89,23 @@ def flag(name: str) -> Any:
     return _REGISTRY[name].value
 
 
+define_flag("FLAGS_check_nan_inf", False,
+            "scan outputs of each jitted step for nan/inf (debug)")
+define_flag("FLAGS_benchmark", False,
+            "block on each step for accurate timing")
+define_flag("FLAGS_deterministic", True,
+            "prefer deterministic XLA reductions")
+define_flag("FLAGS_log_level", 0,
+            "verbosity for paddle_tpu host-side logging (GLOG_v analog)")
+define_flag("FLAGS_use_donated_buffers", True,
+            "donate param/opt-state buffers into jitted train steps")
+define_flag("FLAGS_prefetch_depth", 2,
+            "device prefetch depth for DataLoader double buffering")
 define_flag("FLAGS_amp_dtype", "bfloat16",
             "autocast compute dtype (bfloat16|float16)")
+define_flag("FLAGS_jit_cache", True,
+            "reuse compiled executables across to_static calls")
+define_flag("FLAGS_seq_block_size", 512,
+            "ring/flash attention block length on the sequence axis")
+define_flag("FLAGS_eager_mode", True,
+            "ops execute eagerly (dygraph) when not inside jit")

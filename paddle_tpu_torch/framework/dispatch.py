@@ -1,6 +1,6 @@
-"""The autocast shim of the port's public ops (counterpart of the autocast
-part of the reference's ``framework/dispatch.py``: ``_amp_apply`` and
-``install_ops``).
+"""The op shim of the port's public ops: autocast and the nan/inf check
+(counterpart of those parts of the reference's ``framework/dispatch.py``:
+``_amp_apply``, ``_post_op`` and ``install_ops``).
 
 ``install_ops(namespace)`` wraps every public function of a namespace
 under its own name, and that name is the op name the ``amp`` white and
@@ -9,14 +9,23 @@ floating tensor arguments (nested in lists, tuples and dicts too) cast to
 the amp dtype and a black op gets them cast to float32; every other op
 sees its arguments unchanged.  The cast is ``Tensor.to``, which autograd
 records, so gradients return in the caller's dtype, as the reference's
-vjp transposes its cast.  With autocast off a wrapped op costs one
-thread-local read: no device work and no host sync, so it may run inside
-a captured CUDA graph.
+vjp transposes its cast.  With autocast and the nan check off a wrapped
+op costs one thread-local read and one flag read: no device work and no
+host sync, so it may run inside a captured CUDA graph.
 
-The reference's Tensor facade, tape, NaN check and profiler hooks have no
-counterpart here: ``torch.Tensor`` is the port's Tensor and torch's
-autograd records the graph.  Calls inside a functional module reach the
-raw functions, as the reference's inner ``jnp`` calls do.
+Under ``FLAGS_check_nan_inf`` an op's floating outputs (nested in
+tuples, lists and dicts) are scanned after it runs, and a nan or an inf
+raises :class:`~..core.errors.InvalidArgumentError` naming the op, as the
+reference's eager epilogue does.  The scan reads the device back, so it
+is skipped while a CUDA graph captures on the current stream, as the
+reference skips traced values: a host read would void the capture.  With
+the flag off it costs one flag read.
+
+The reference's Tensor facade, tape and profiler hooks (``FLAGS_benchmark``,
+``record_op_time``) have no counterpart here: ``torch.Tensor`` is the
+port's Tensor and torch's autograd records the graph.  Calls inside a
+functional module reach the raw functions, as the reference's inner
+``jnp`` calls do.
 """
 from __future__ import annotations
 
@@ -27,8 +36,10 @@ from typing import Callable
 import torch
 
 from ..core import amp_state
+from ..core.errors import InvalidArgumentError
+from ..core.flags import _REGISTRY as _FLAGS
 
-__all__ = ["make_op", "install_ops"]
+__all__ = ["make_op", "install_ops", "check_nan_inf"]
 
 
 def _target(st: amp_state.AmpAttrs, op_name: str):
@@ -54,8 +65,40 @@ def _cast(v, tgt: torch.dtype):
     return v
 
 
+def _floating_leaves(v):
+    if isinstance(v, torch.Tensor):
+        if v.is_floating_point() or v.is_complex():
+            yield v
+    elif isinstance(v, (tuple, list)):
+        for x in v:
+            yield from _floating_leaves(x)
+    elif isinstance(v, dict):
+        for x in v.values():
+            yield from _floating_leaves(x)
+
+
+def check_nan_inf(out, op_name: str) -> None:
+    """Raise naming ``op_name`` when a floating tensor of ``out`` holds a
+    nan or an inf; skipped while the current stream captures."""
+    leaves = [t.detach() for t in _floating_leaves(out)]
+    if not leaves:
+        return
+    if any(t.is_cuda for t in leaves) \
+            and torch.cuda.is_current_stream_capturing():
+        return
+    finite = torch.stack([torch.isfinite(t).all() for t in leaves]).all()
+    if not bool(finite):
+        raise InvalidArgumentError(
+            "nan/inf detected in output of op %r (FLAGS_check_nan_inf)"
+            % op_name)
+
+
+_NAN_FLAG = _FLAGS["FLAGS_check_nan_inf"]
+
+
 def make_op(fn: Callable, op_name: str) -> Callable:
-    """``fn`` behind the autocast shim, under the op name ``op_name``."""
+    """``fn`` behind the autocast shim and the nan/inf check, under the op
+    name ``op_name``."""
 
     @functools.wraps(fn)
     def op(*args, **kwargs):
@@ -65,7 +108,10 @@ def make_op(fn: Callable, op_name: str) -> Callable:
             if tgt is not None:
                 args = _cast(args, tgt)
                 kwargs = _cast(kwargs, tgt)
-        return fn(*args, **kwargs)
+        out = fn(*args, **kwargs)
+        if _NAN_FLAG.value:
+            check_nan_inf(out, op_name)
+        return out
 
     op.__paddle_tpu_op__ = True
     return op

@@ -29,6 +29,11 @@ cannot be captured (a host op in the loss, a host read) raises
 and nothing falls back to it silently.  On the CPU every step runs
 eagerly and the keys are still counted.
 
+A sparse embedding (``Embedding(sparse=True)``) trains on its dense
+gradient inside a step (``framework.sparse.dense_gradients``), the
+reference's rule for its compiled step: coalescing a row-sparse gradient
+has a data-dependent shape, which no CUDA graph can hold.
+
 ``donate=`` is accepted and has no effect: torch updates in place.
 Pinned-host (offloaded) optimizer states have no counterpart here.
 """
@@ -41,6 +46,7 @@ import torch
 from torch import nn
 
 from ..core.errors import InvalidArgumentError
+from ..framework import sparse as _sparse
 from .aot import AotFunction, CaptureError, _on_cuda, module_tensors, \
     shape_key
 
@@ -121,8 +127,11 @@ class TrainStep:
         opt = self._optimizer
         for p in self._opt_params:
             p.grad = None
-        loss = self._loss_fn(self._model, *batch)
-        loss.backward()
+        # a sparse embedding gives its dense gradient here, as in the
+        # reference's compiled step: a row-sparse one cannot be captured
+        with _sparse.dense_gradients():
+            loss = self._loss_fn(self._model, *batch)
+            loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._opt_params]
         for p in self._opt_params:

@@ -1,8 +1,8 @@
-"""Transformer language model with a tied LM head, its configurations and
-its LM loss (counterpart of the reference's ``models/language_model.py``).
+"""Transformer language model with a tied LM head, its configurations,
+its LM loss and the sequence-classification fine-tune model (counterpart
+of the reference's ``models/language_model.py``).
 
-Not ported yet: ``TransformerForSequenceClassification`` and sequence
-parallelism."""
+Not ported yet: sequence parallelism."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,7 +14,7 @@ from .. import tensor as T
 from ..core.device import resolve_device
 from ..core.errors import InvalidArgumentError
 from ..nn import functional as F
-from ..nn.layer.common import Dropout, Embedding
+from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
 
@@ -219,3 +219,38 @@ class TransformerLMCriterion(nn.Module):
         v = logits.shape[-1]
         return F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1),
                                reduction="mean")
+
+
+class TransformerForSequenceClassification(nn.Module):
+    """Encoder + BERT-style pooler + classifier: the ERNIE fine-tune head
+    (the reference's config #4).  ``config`` goes to the
+    :class:`TransformerLM` backbone (``causal`` defaults to False), whose
+    ``encode`` gives the hidden states; the pooler is a tanh ``Linear`` on
+    the first (``[CLS]``) position, then dropout and the classifier.
+    Parameter names are the reference's (``backbone.*``, ``pooler.*``,
+    ``classifier.*``); the head's weights come from a generator seeded
+    with ``seed + 1`` on the backbone's device."""
+
+    def __init__(self, num_classes: int = 2, dropout: float = 0.1,
+                 device=None, seed: int = 0, **config):
+        super().__init__()
+        config.setdefault("causal", False)
+        self.backbone = TransformerLM(dropout=dropout, device=device,
+                                      seed=seed, **config)
+        dev = self.backbone.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed) + 1)
+        h = self.backbone.hidden_size
+        self.pooler = Linear(h, h, device=dev, generator=gen)
+        self.classifier_dropout = Dropout(dropout)
+        self.classifier = Linear(h, num_classes, device=dev, generator=gen)
+
+    @property
+    def device(self) -> torch.device:
+        return self.backbone.device
+
+    def forward(self, input_ids, attn_mask=None, token_type_ids=None):
+        """Logits [B, num_classes]."""
+        hidden = self.backbone.encode(input_ids, attn_mask, token_type_ids)
+        pooled = T.tanh(self.pooler(hidden[:, 0]))  # [CLS] pooling
+        return self.classifier(self.classifier_dropout(pooled))

@@ -1,7 +1,8 @@
 """Common functionals (counterpart of the reference's
-``nn/functional/common.py``): the Paddle-layout linear, embedding,
-dropout, and ``scaled_dot_product_attention`` with its routing between
-the flash kernel K3 and the matmul-softmax-matmul composition.
+``nn/functional/common.py``): the Paddle-layout linear, embedding (with
+``padding_idx`` and row-sparse gradients), dropout, and
+``scaled_dot_product_attention`` with its routing between the flash
+kernel K3 and the matmul-softmax-matmul composition.
 
 No library attention is called here: the kernel route goes to the port's
 own K3 (``ops.flash_attention``), the other route is the composition, op
@@ -10,6 +11,7 @@ for op the reference's fallback.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -22,8 +24,29 @@ def linear(x, weight, bias=None):
     return out
 
 
-def embedding(x, weight):
-    return weight[x.long()]
+def embedding(x, weight, padding_idx: Optional[int] = None,
+              sparse: bool = False):
+    """Rows of ``weight`` at the ids ``x``; zeros where an id equals
+    ``padding_idx`` (whatever that row holds), whose row then gets no
+    gradient.  With ``sparse`` the weight's gradient is a sparse COO
+    tensor of the rows met (``framework.sparse``), except inside
+    ``framework.sparse.dense_gradients()`` (a train step), where it is
+    dense.  The forward is the same gather either way."""
+    from ...framework.sparse import sparse_gradients_enabled
+
+    ids = x.long()
+    if sparse and sparse_gradients_enabled():
+        # torch reads a negative padding_idx from the end; the reference
+        # compares the ids with it as given, which no id equals
+        pad = padding_idx if padding_idx is not None and padding_idx >= 0 \
+            else None
+        out = torch.nn.functional.embedding(ids, weight, padding_idx=pad,
+                                            sparse=True)
+    else:
+        out = weight[ids]
+    if padding_idx is not None:
+        out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
+    return out
 
 
 def dropout(x, p: float = 0.5, training: bool = True):

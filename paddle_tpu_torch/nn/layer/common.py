@@ -54,18 +54,27 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """paddle.nn.Embedding: weight [num_embeddings, embedding_dim]."""
+    """paddle.nn.Embedding: weight [num_embeddings, embedding_dim].
+
+    ``padding_idx``: the output is zeros at that id whatever its row
+    holds, and the row gets no gradient.  ``sparse``: the weight's
+    gradient is row-sparse (``framework.sparse``), which the optimizers
+    update row by row where they can; the forward is the same."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
+                 padding_idx: Optional[int] = None, sparse: bool = False,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
+        self._sparse = bool(sparse)
         self.weight = nn.Parameter(xavier_normal_(torch.empty(
             num_embeddings, embedding_dim, device=device), generator))
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
     def extra_repr(self):
         return "%d, %d" % (self._num_embeddings, self._embedding_dim)

@@ -17,6 +17,12 @@ bf16, head_dim a multiple of 8 up to 256), not the reference's TPU
 choices (backend, minimum sequence, L % 128, d in {64, 128, 256}): on a
 CUDA tensor the call launches K3, on a CPU tensor it runs K3's plain twin.
 
+``FLAGS_seq_block_size`` bounds the reference's Pallas sequence tiles (a
+VMEM budget; it changes no value).  K3's tiles are compiled per head_dim
+(at most 128 rows a CTA, ``csrc/flash_attention.cu``), within the flag's
+default of 512; a smaller flag leaves them as compiled, and no value
+changes either way.
+
 Decode routes, per call or ambient through :func:`decode_route`:
 
 - ``"auto"``: the kernels' structural limits decide, not a measured

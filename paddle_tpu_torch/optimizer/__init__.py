@@ -42,8 +42,16 @@ key of its state and the argument of ``apply_decay_param_fun``) is
 :func:`param_name`: ``torch.Tensor.name`` is reserved by torch, so the
 name lives in the ``param_name`` attribute, ``"param_<n>"`` by default.
 
-Not ported yet: sparse (row) updates (``framework/sparse.py``) and the
-static-graph branch of ``minimize``.
+Row-sparse gradients (a sparse embedding's COO ``p.grad``,
+``framework/sparse.py``) take the reference's rules in ``step()``: a
+clip densifies every gradient first; otherwise the gradient is coalesced
+and, where the optimizer has a row path for the parameter (``SGD``;
+``Adam``/``AdamW`` with ``lazy_mode``; no master weight, no regularizer,
+AdamW's decay 0), only the rows met are updated -- every other row of
+the parameter and of its moments stays bit for bit as it was, the beta
+powers advance -- else it is densified and joins its group.
+
+Not ported yet: the static-graph branch of ``minimize``.
 """
 from __future__ import annotations
 
@@ -280,19 +288,32 @@ class Optimizer:
         return torch._foreach_add(grads, torch._foreach_mul(vals,
                                                             reg.coeff))
 
+    @staticmethod
+    def _lr_ratio_of(p) -> float:
+        return float(getattr(p, "optimize_attr", {}).get("learning_rate",
+                                                         1.0))
+
     @torch.no_grad()
     def _update(self, params_grads, lr) -> None:
         if self._grad_clip is not None:
-            params_grads = self._grad_clip(params_grads)
+            # norm-based clipping needs real norms: densify sparse grads
+            params_grads = self._grad_clip([
+                (p, g.to_dense() if g is not None and g.is_sparse else g)
+                for p, g in params_grads])
         groups: Dict[tuple, list] = {}
+        rows = []
         for p, g in params_grads:
             if g is None:
                 continue
             st = self._state_for(p)
+            if g.is_sparse:
+                if self._supports_sparse(p, st):
+                    rows.append((p, g.coalesce(), st))
+                    continue
+                g = g.to_dense()
             reg = None if self._decoupled_decay else self._regularizer(p)
             key = (p.device, p.dtype, g.dtype, "master_weight" in st,
-                   float(getattr(p, "optimize_attr", {}).get(
-                       "learning_rate", 1.0)),
+                   self._lr_ratio_of(p),
                    None if reg is None else (type(reg), reg.coeff),
                    self._group_terms(p))
             ps, gs, sts = groups.setdefault(key, ([], [], []))
@@ -300,15 +321,22 @@ class Optimizer:
             gs.append(g)
             sts.append(st)
         lr_dev = {}
-        for key, (ps, gs, sts) in groups.items():
-            device, ratio, terms = key[0], key[4], key[6]
-            reg = None if key[5] is None else self._regularizer(ps[0])
+
+        def lr_on(device, ratio):
             if device not in lr_dev:  # a fill, not a host-to-device copy
                 lr_dev[device] = (lr.to(device, torch.float32)
                                   if torch.is_tensor(lr) else torch.full(
                                       (), float(lr), dtype=torch.float32,
                                       device=device))
-            plr = lr_dev[device] if ratio == 1.0 else lr_dev[device] * ratio
+            return lr_dev[device] if ratio == 1.0 else lr_dev[device] * ratio
+
+        for p, g, st in rows:
+            self._apply_one_sparse(p, g, st,
+                                   lr_on(p.device, self._lr_ratio_of(p)))
+        for key, (ps, gs, sts) in groups.items():
+            device, ratio, terms = key[0], key[4], key[6]
+            reg = None if key[5] is None else self._regularizer(ps[0])
+            plr = lr_on(device, ratio)
             for part in _chunks(ps):
                 cgs = [gs[i] for i in part]
                 cps = [ps[i] for i in part]
@@ -316,6 +344,21 @@ class Optimizer:
                     cgs = self._regularized(cps, cgs, reg)
                 self._apply_group(cps, cgs, [sts[i] for i in part], plr,
                                   terms)
+
+    def _supports_sparse(self, p, state) -> bool:
+        """Whether a row-sparse gradient of ``p`` updates its rows alone."""
+        return False
+
+    def _apply_one_sparse(self, p, grad, state, lr):
+        """Update the rows of ``p`` (and of its state) met by the coalesced
+        sparse ``grad``; ``lr`` a float32 device scalar."""
+        raise NotImplementedError  # gated by _supports_sparse
+
+    def _plain(self, p, state) -> bool:
+        """No master weight, no regularizer: a row path may apply."""
+        return ("master_weight" not in state
+                and getattr(p, "regularizer", None) is None
+                and self._weight_decay is None)
 
     def step(self) -> None:
         """Eager update from ``p.grad``; parameters without a gradient are
@@ -458,6 +501,14 @@ class SGD(Optimizer):
             _as(grads, [t.dtype for t in m]), lr))
         _finish(params, states)
 
+    def _supports_sparse(self, p, state) -> bool:
+        # the reference's SelectedRows branch: plain row subtraction
+        return self._plain(p, state)
+
+    def _apply_one_sparse(self, p, grad, state, lr):
+        rows = grad._indices()[0]
+        p.index_add_(0, rows, grad._values().to(p.dtype).mul(lr).neg_())
+
 
 class Momentum(Optimizer):
     """Momentum with optional Nesterov: v = mu v + g; p -= lr v (or
@@ -505,11 +556,37 @@ class Adam(Optimizer):
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
-        # lazy_mode selects row updates for row-sparse gradients; the
-        # port's gradients are dense, where it changes nothing
+        # lazy_mode: a row-sparse gradient updates only the rows it meets
+        # (and their moments); dense gradients are unaffected
+        self._lazy_mode = bool(lazy_mode)
 
     def _init_state(self, p):
         return _moment_state(super()._init_state(p), p)
+
+    def _supports_sparse(self, p, state) -> bool:
+        # lazy mode only: the rows met get moment and parameter updates,
+        # the beta powers advance for the whole parameter
+        return self._lazy_mode and self._plain(p, state)
+
+    def _apply_one_sparse(self, p, grad, state, lr):
+        """The dense update's arithmetic, in its order, on the rows of
+        the coalesced ``grad`` alone."""
+        rows = grad._indices()[0]
+        g = grad._values().float()
+        m1 = state["moment1"].index_select(0, rows)
+        m2 = state["moment2"].index_select(0, rows)
+        m1.mul_(self._beta1).add_(g, alpha=1 - self._beta1)
+        m2.mul_(self._beta2).addcmul_(g, g, value=1 - self._beta2)
+        b1p, b2p = state["beta1_pow"], state["beta2_pow"]
+        b1p.mul_(self._beta1)
+        b2p.mul_(self._beta2)
+        delta = m1 / _one_minus([b1p])[0]
+        denom = (m2 / _one_minus([b2p])[0]).sqrt_().add_(self._epsilon)
+        delta.mul_(lr).div_(denom)
+        state["moment1"].index_copy_(0, rows, m1)
+        state["moment2"].index_copy_(0, rows, m2)
+        p.index_copy_(0, rows, p.index_select(0, rows).sub_(
+            delta.to(p.dtype)))
 
     def _adam_delta(self, grads, states, lr):
         """``lr * mhat / (sqrt(vhat) + eps)``: the step to subtract."""
@@ -550,6 +627,17 @@ class AdamW(Adam):
             decay = 0.0
         ratio = 1.0 if self._lr_ratio is None else float(self._lr_ratio(p))
         return (ratio, float(decay))
+
+    def _supports_sparse(self, p, state) -> bool:
+        # decoupled decay touches every row each step: lazy row updates
+        # only where this parameter's decay is 0
+        return self._group_terms(p)[1] == 0.0 \
+            and super()._supports_sparse(p, state)
+
+    def _apply_one_sparse(self, p, grad, state, lr):
+        ratio = self._group_terms(p)[0]
+        super()._apply_one_sparse(p, grad, state,
+                                  lr * ratio if ratio != 1.0 else lr)
 
     def _apply_group(self, params, grads, states, lr, terms):
         ratio, decay = terms

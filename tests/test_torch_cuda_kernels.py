@@ -7,7 +7,8 @@ counted through replays, the pool's and the session's steps against
 their private eager entry, the engine's background loop serving client
 threads while it captures its first keys, a fleet capturing while other
 threads submit and capture, a migration adopted under a warm graph
-without dropping it, and a failed capture raising.
+without dropping it, and a failed capture raising; a sparse embedding's
+lazy Adam rows and the nan/inf check beside a captured train step.
 Skipped without a CUDA card: the kernels have no CPU mode (the CPU runs
 the twins, held against the reference by ``test_torch_decode_attention.py``,
 ``test_torch_flash_attention.py`` and ``test_torch_custom_op.py``).
@@ -1521,3 +1522,102 @@ def test_mesh_int8_seam_captured(cuda_device):
         < stats["collective_dense_bytes_per_token"]
     with pytest.raises(UnimplementedError):
         DecodeMesh(2, 1, devices=["cuda:0", "cuda:1"])
+
+
+# -- the rest of training (sparse rows, the nan/inf check) ---------------------
+
+
+@pytest.mark.cuda
+def test_lazy_adam_rows_on_the_card(cuda_device):
+    """A sparse embedding on the card: after two lazy Adam steps the rows
+    the second step met equal dense Adam's, every other row of the weight
+    and of both moments keeps its bytes from the first step, and the pad
+    row none moved; under a captured ``TrainStep`` the same table trains
+    on its dense gradient (the update sees no sparse one)."""
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch.nn import Embedding
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Adam, param_name
+
+    def table(sparse):
+        return Embedding(500, 32, padding_idx=0, sparse=sparse,
+                         device=cuda_device, generator=torch.Generator(
+                             device=cuda_device).manual_seed(0))
+
+    lazy, dense = table(True), table(False)
+    w0 = lazy.weight.detach().clone()
+    opts = (Adam(0.01, parameters=lazy.parameters(), lazy_mode=True),
+            Adam(0.01, parameters=dense.parameters()))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ids = [torch.randint(0, 500, (4, 64), device=cuda_device, generator=gen)
+           for _ in range(2)]
+    st = opts[0]._state_for(lazy.weight)
+    for i, x in enumerate(ids):
+        for emb, opt in zip((lazy, dense), opts):
+            emb(x).square().sum().backward()
+            assert emb.weight.grad.is_sparse == (emb is lazy)
+            opt.step()
+            opt.clear_grad()
+        if i == 0:
+            before = [t.detach().clone() for t in
+                      (lazy.weight, st["moment1"], st["moment2"])]
+    met = torch.zeros(500, dtype=torch.bool, device=cuda_device)
+    met[ids[1].reshape(-1)] = True
+    met[0] = False
+    torch.testing.assert_close(lazy.weight[met], dense.weight[met],
+                               rtol=1e-6, atol=0)
+    for now, was in zip((lazy.weight.detach(), st["moment1"],
+                         st["moment2"]), before):
+        assert torch.equal(now[~met], was[~met])
+    assert torch.equal(lazy.weight[0], w0[0])
+    assert opts[0]._states[param_name(lazy.weight)] is st
+
+    model = torch.nn.Sequential(lazy, torch.nn.Flatten(),
+                                torch.nn.Linear(64 * 32, 3)).to(cuda_device)
+    opt = Adam(0.01, parameters=model.parameters(), lazy_mode=True)
+    seen = []
+    update = opt._functional_step
+
+    def recording(params, grads, lr):
+        seen.extend(g.is_sparse for g in grads)
+        return update(params, grads, lr)
+
+    opt._functional_step = recording
+    step = TrainStep(model, lambda m, x, y: F.cross_entropy(m(x), y), opt)
+    y = torch.tensor([0, 1, 2, 1], device=cuda_device)
+    losses = [float(step(ids[1], y)) for _ in range(4)]
+    assert step._fn.graphs() == 1 and seen and not any(seen)
+    assert losses[-1] < losses[0], losses
+
+
+@pytest.mark.cuda
+def test_nan_check_raises_eagerly_and_skips_the_capture(cuda_device):
+    """Under ``FLAGS_check_nan_inf`` an installed op with an inf output
+    raises naming itself on the card; a captured train step with the flag
+    on checks its eager warm-up, skips the check while capturing (a host
+    read would void the capture) and replays."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import InvalidArgumentError, TrainStep
+    from paddle_tpu_torch.framework import dispatch
+
+    check = dispatch.check_nan_inf
+    capturing = []
+
+    def counting(out, op_name):
+        capturing.append(torch.cuda.is_current_stream_capturing())
+        return check(out, op_name)
+
+    ptt.set_flags({"FLAGS_check_nan_inf": True})
+    dispatch.check_nan_inf = counting
+    try:
+        with pytest.raises(InvalidArgumentError, match="'log'"):
+            ptt.log(torch.zeros(4, device=cuda_device))
+        model = _train_model(cuda_device, False)
+        step = TrainStep(model, _train_loss(False, [False]), _adamw(model))
+        losses = [float(step(*b)) for b in _train_batches(cuda_device, 3)]
+    finally:
+        dispatch.check_nan_inf = check
+        ptt.set_flags({"FLAGS_check_nan_inf": False})
+    assert step._fn.graphs() == 1
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert True in capturing and False in capturing

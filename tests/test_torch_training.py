@@ -403,3 +403,109 @@ def test_flops_per_token_matches_reference():
                intermediate_size=128, max_position=128)
     port = TransformerLM(**cfg, device="cpu")
     assert port.flops_per_token(96) == RefLM(**cfg).flops_per_token(96)
+
+
+# -- the ERNIE sequence-classification fine-tune (the reference's config #4)
+
+
+def _cls_cfg():
+    """``tests/test_models.py:85``'s small ERNIE config."""
+    from paddle_tpu_torch import ernie_base_config
+
+    cfg = ernie_base_config()
+    cfg.update(num_layers=2, hidden_size=64, num_heads=4,
+               intermediate_size=128, vocab_size=512, max_position=64)
+    return cfg
+
+
+def _cls_batch():
+    """ids, token types and labels as the reference's test draws them, and
+    a ragged [B, 1, 1, L] additive key-padding mask (row 0 full)."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 512, (8, 32))
+    types = rng.randint(0, 4, (8, 32))
+    labels = rng.randint(0, 3, (8,))
+    lens = np.random.RandomState(1).randint(8, 33, 8)
+    lens[0] = 32
+    mask = np.where(np.arange(32)[None] < lens[:, None], 0.0,
+                    np.finfo(np.float32).min).astype(np.float32)
+    return ids, types, labels, mask[:, None, None, :]
+
+
+def _cls_loss(m, ids, types, labels, mask):
+    return F.cross_entropy(m(ids, attn_mask=mask, token_type_ids=types),
+                           labels)
+
+
+@pytest.fixture(scope="module")
+def reference_finetune():
+    """The reference's classifier (seed 0, dropout 0), its weights, and
+    its losses over 4 AdamW(1e-3) ``TrainStep``s on one padded batch."""
+    from paddle_tpu.models import TransformerForSequenceClassification as Ref
+
+    pt.seed(0)
+    ref = Ref(num_classes=3, dropout=0.0, **_cls_cfg())
+    arrays = {n: np.asarray(p.value) for n, p in ref.named_parameters()}
+
+    def loss_fn(m, ids, types, labels, mask):
+        return ref_F.cross_entropy(
+            m(ids, attn_mask=mask, token_type_ids=types), labels)
+
+    step = RefTrainStep(ref, loss_fn, ref_opt.AdamW(
+        1e-3, parameters=ref.parameters()), donate=False)
+    ids, types, labels, mask = _cls_batch()
+    batch = (pt.to_tensor(ids.astype(np.int32)),
+             pt.to_tensor(types.astype(np.int32)),
+             pt.to_tensor(labels.astype(np.int32)), pt.to_tensor(mask))
+    losses = [float(np.asarray(step(*batch).value)) for _ in range(4)]
+    return arrays, losses
+
+
+def _port_classifier(arrays):
+    from paddle_tpu_torch import (TransformerForSequenceClassification,
+                                  load_reference_params)
+
+    model = TransformerForSequenceClassification(
+        num_classes=3, dropout=0.0, device="cpu", **_cls_cfg())
+    return load_reference_params(model, arrays)
+
+
+def test_finetune_train_steps_match_reference(reference_finetune):
+    """4 ``TrainStep``s of the classifier (pooler, classifier and every
+    backbone parameter carried across), fp32, on a padded batch: each
+    step's loss within 1e-5 of the reference's."""
+    arrays, want = reference_finetune
+    model = _port_classifier(arrays)
+    assert set(dict(model.named_parameters())) == set(arrays)
+    step = TrainStep(model, _cls_loss, optimizer.AdamW(
+        1e-3, parameters=model.parameters()))
+    ids, types, labels, mask = _cls_batch()
+    got = [float(step(ids, types, labels, torch.from_numpy(mask)))
+           for _ in range(4)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got[-1] < got[0]
+
+
+def test_finetune_bf16_o2_losses_fall(reference_finetune):
+    """The chip's leg on the CPU: O2 bf16 (the pooler and classifier
+    bf16, the norms float32 with masters), the loss under ``auto_cast``;
+    4 steps whose losses are finite, near the fp32 ones, and falling."""
+    from paddle_tpu_torch import amp
+
+    arrays, want = reference_finetune
+    model = _port_classifier(arrays)
+    opt = optimizer.AdamW(1e-3, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    assert model.classifier.weight.dtype == torch.bfloat16
+
+    def loss_fn(*args):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return _cls_loss(*args)
+
+    step = TrainStep(model, loss_fn, opt)
+    ids, types, labels, mask = _cls_batch()
+    got = [float(step(ids, types, labels, torch.from_numpy(mask)))
+           for _ in range(4)]
+    assert np.isfinite(got).all() and got[-1] < got[0], got
+    # bf16 products: the first loss within bf16's rounding of the fp32 one
+    assert got[0] == pytest.approx(want[0], rel=2e-2)

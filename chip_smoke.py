@@ -108,6 +108,17 @@ PyTorch twin, and drives the port's two main paths:
   and the fine-tune step captured with it on (``nan_check``); and every
   ported ``tensor`` op on the card against the CPU and under autocast
   (``tensor_ops_cuda``);
+- vision training, the reference's configs #1 and #2: ``LeNet`` in fp32
+  with Adam under ``TrainStep`` at batches 512/1024/2048, captured and
+  eagerly, and ``MultiStepTrainStep`` with 32 steps a call
+  (``train_lenet``); ``resnet50`` in O2 bf16 with Momentum at 224 x 224
+  over the reference's five legs (NHWC/NCHW, batch 64-256, every
+  residual block under ``recompute``, the s2d stem), each captured, the
+  running statistics advanced once a call (also under recompute and
+  across the capture), two legs beside an eager run whose step is broken
+  down by part (``train_resnet50``).  Convolutions, pools and BatchNorm
+  are cuDNN/ATen calls, as the reference's are XLA's: no TPU kernel lies
+  on this path;
 - the custom-op door: the user kernel K4 (``scale_mul``) registered with
   a hand-written backward through ``incubate.register_custom_op``,
   differentiated eagerly (``.backward()``, ``grad`` with
@@ -4253,14 +4264,16 @@ class _StepParts:
     gradient clip and the optimizer's grouped update.  A captured replay
     runs none of these functions, so only an eager step is broken down.  The port's
     functions are looked up at call time, so the patch reaches them; on
-    leaving, everything is put back."""
+    leaving, everything is put back.  ``targets`` replaces the
+    transformer's list with another model's ``(object, attribute, part)``
+    triples (``_vision_parts``)."""
 
-    def __init__(self, model, crit, opt):
+    def __init__(self, model, crit, opt, targets=None):
         import paddle_tpu_torch.nn.functional as F
         import paddle_tpu_torch.tensor as T
         from paddle_tpu_torch.framework import dispatch
 
-        self._targets = [
+        self._targets = targets or [
             (model, "forward", "forward"), (F, "embedding", "embedding"),
             (F, "layer_norm", "layer_norm"), (F, "linear", "linear"),
             (F, "scaled_dot_product_attention", "attention"),
@@ -5045,6 +5058,363 @@ def sparse_embedding():
     del step, model, opt, lazy, dense, opts, steps, before
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# -- vision training (the reference's configs #1 and #2) ----------------------
+
+# bench.py:40, copied: ResNet50's forward FLOPs per 224 x 224 image at 2
+# FLOPs a multiply-accumulate (4.089e9 MACs); a training step is 3 forwards
+# (bench.py:47 ``resnet50_mfu``)
+RESNET50_FWD_FLOPS = 2 * 4.089e9
+# config #1 (bench.py:325-370): LeNet, Adam(1e-3), fp32, rand images
+LENET_BATCHES = (512, 1024, 2048)
+LENET_STEPS = 20
+LENET_MULTI_K, LENET_MULTI_BATCH, LENET_MULTI_CALLS = 32, 2048, 4
+# config #2 (bench.py:237-322): ResNet50 at 224 x 224 and 1000 classes, O2
+# bf16, Momentum(0.1); its legs (layout, batch, remat, s2d stem),
+# bench.py:249-252, in its order
+RESNET_LEGS = (("NHWC", 128, False, True), ("NHWC", 128, False, False),
+               ("NHWC", 256, True, True), ("NHWC", 64, False, True),
+               ("NCHW", 128, False, False))
+RESNET_STEPS = 12
+# the legs with an eager run from the same weights beside the captured one
+RESNET_EAGER_LEGS = (("NHWC", 128, False, False),
+                     ("NCHW", 128, False, False))
+# calls at learning rate 0 before a leg's timed steps (the warm-up, the
+# capture + one replay, one replay): the weights stay put, so each call's
+# batch statistics are the same and the running statistics must follow
+# (1 - 0.9^k) * batch after k calls
+RESNET_STATS_CALLS = 3
+# captured against eager losses: cuDNN picks the same algorithms for both
+# (one process, one benchmark cache), but some weight-gradient algorithms
+# sum in a data-race order, so the runs may part in the last bits and
+# drift over the steps: LeNet fp32 over 20 Adam steps, ResNet50 O2 bf16
+# over 15 Momentum steps (three at learning rate 0)
+VISION_CAPTURED_RTOL = {"lenet": 1e-4, "resnet50": 2e-2}
+# running statistics after k calls against (1 - 0.9^k) * batch: the batch
+# statistics of identical calls agree to cuDNN's forward rounding; a call
+# missed or counted twice moves them by 10% or more
+STATS_RTOL = 1e-3
+
+
+def wrap_resnet_remat(model):
+    """bench.py:221's ``wrap_resnet_remat`` on the port: each residual
+    block's forward (``layerN.i``) runs under
+    ``distributed.fleet.utils.recompute``, its activations replayed in the
+    backward instead of held."""
+    from paddle_tpu_torch.distributed.fleet.utils import recompute
+
+    for name, sub in model.named_modules():
+        if name.startswith("layer") and name.count(".") == 1:
+            orig = sub.forward
+            sub.forward = (lambda *a, __o=orig, **kw:
+                           recompute(__o, *a) if not kw else __o(*a, **kw))
+    return model
+
+
+def _vision_parts(model, crit, opt):
+    """``_StepParts`` over a CNN step's parts: the convolutions (the s2d
+    stem's too), BatchNorm, ReLU, the pools, the classifier's product, the
+    autocast casts, the loss and the optimizer's grouped update."""
+    import paddle_tpu_torch.nn.functional as F
+    import paddle_tpu_torch.vision.models.resnet as resnet_mod
+    from paddle_tpu_torch.framework import dispatch
+
+    return _StepParts(model, crit, opt, targets=[
+        (model, "forward", "forward"), (F, "conv2d", "conv"),
+        (resnet_mod, "_s2d_op", "conv"), (F, "_bn_triple", "batch_norm"),
+        (F, "relu", "relu"), (F, "max_pool2d", "pool"),
+        (F, "adaptive_avg_pool2d", "pool"), (F, "linear", "linear"),
+        (dispatch, "_cast", "cast"), (crit, "forward", "loss"),
+        (opt, "_apply_group", "optimizer")])
+
+
+def _bn_stats(model):
+    """Every BatchNorm's running mean and variance, on the host."""
+    return {n: b.detach().double().cpu().numpy()
+            for n, b in model.named_buffers()}
+
+
+def _stats_advanced(stats):
+    """``stats[k]`` (after k = 0..K calls at learning rate 0, the same
+    batch each call) against the reference's rule applied k times: the
+    mean from 0, ``(1 - 0.9^k) * m`` with ``m`` the batch mean (10x the
+    first call's); the variance from 1, ``0.9^k + (1 - 0.9^k) * s``.
+    Returns each call's largest deviation relative to each buffer's scale,
+    and the number of updates the largest running mean says it had."""
+    first = stats[1]
+    dev, counts = [], []
+    for k in range(1, len(stats)):
+        worst = 0.0
+        for n, got in stats[k].items():
+            if n.endswith("_mean"):
+                batch = first[n] / 0.1
+                want = (1 - 0.9 ** k) * batch
+            else:
+                batch = (first[n] - 0.9) / 0.1
+                want = 0.9 ** k + (1 - 0.9 ** k) * batch
+            worst = max(worst, float(np.abs(got - want).max()
+                                     / max(np.abs(want).max(), 1e-12)))
+        dev.append(worst)
+        name = max((n for n in first if n.endswith("_mean")),
+                   key=lambda n: np.abs(first[n]).max())
+        i = int(np.abs(first[name]).argmax())
+        counts.append(float(np.log(1 - stats[k][name][i]
+                                   / (first[name][i] / 0.1))
+                            / np.log(0.9)))
+    return dev, counts
+
+
+def _vision_leg(build, loss_fn, batch, steps, capture, stats_calls=0,
+                crit=None):
+    """``build()``'s model and optimizer trained by one ``TrainStep`` on
+    the device-resident ``batch``: ``stats_calls`` calls at learning rate 0
+    (the running statistics read after each; the optimizer's velocity
+    zeroed after them), then ``steps`` more, each timed to its end.  One
+    more step runs under the profiler: eager with its parts marked
+    (``crit`` given), captured as one replay."""
+    import torch
+
+    from paddle_tpu_torch import TrainStep
+
+    model, opt = build()
+    step = TrainStep(model, loss_fn, opt, capture=capture)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lr = opt.get_lr()
+    stats, losses, step_ms = [], [], []
+    if stats_calls:
+        opt.set_lr(0.0)
+        stats.append(_bn_stats(model))
+        for _ in range(stats_calls):
+            losses.append(float(step(*batch)))
+            stats.append(_bn_stats(model))
+        with torch.no_grad():
+            for st in opt._states.values():
+                for name, t in st.items():
+                    if name == "velocity":
+                        t.zero_()
+        opt.set_lr(lr)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    assert step.compile_counts() == {"train_step": 1}
+    assert step._fn.graphs() == int(capture)
+    # the first step (warm-up) and, captured, the second (capture) are not
+    # timed when they fall in the timed part
+    skip = max(0, (2 if capture else 1) - stats_calls)
+    timed = step_ms[skip:]
+    mean_ms = float(np.mean(timed))
+    out = {"capture": capture, "losses": losses, "step_ms": step_ms,
+           "step_ms_mean": mean_ms, "step_ms_p50": float(np.median(timed)),
+           "peak_mem_gb": peak / 2 ** 30}
+    if stats_calls:
+        dev, counts = _stats_advanced(stats)
+        assert max(dev) < STATS_RTOL, dev
+        out["stats_deviation_by_call"] = dev
+        out["stats_updates_by_call"] = counts
+    parts = None if capture or crit is None else _vision_parts(model, crit,
+                                                               opt)
+    out["profile"] = _profile_step(step, batch, mean_ms, parts)
+    out["launches_per_step"] = out["profile"].pop("launches")
+    out["device_idle_share"] = out["profile"]["device_idle_share"]
+    del step, model, opt
+    gc.collect()  # the step's wrappers hold it in reference cycles
+    torch.cuda.empty_cache()
+    return out
+
+
+def _losses_beside(captured, eager, rtol):
+    """The eager run's losses beside the captured run's: equal within
+    ``rtol``, and whether bit for bit."""
+    np.testing.assert_allclose(captured["losses"], eager["losses"],
+                               rtol=rtol)
+    diff = np.abs(np.subtract(captured["losses"], eager["losses"]))
+    return {"eager_losses": eager["losses"],
+            "losses_bit_equal": bool(captured["losses"] == eager["losses"]),
+            "losses_max_rel_diff": float(np.max(
+                diff / np.abs(eager["losses"])))}
+
+
+def _eager_figures(eager) -> dict:
+    keys = ("step_ms_mean", "step_ms_p50", "launches_per_step",
+            "peak_mem_gb", "device_idle_share", "profile")
+    return {k: eager[k] for k in keys}
+
+
+def train_lenet():
+    """``train_lenet`` (config #1, bench.py:325-370): ``LeNet()`` with
+    ``nn.CrossEntropyLoss`` and Adam(1e-3) in fp32 under ``TrainStep``,
+    on ``rand`` 1 x 28 x 28 images and labels in [0, 10) made on the host
+    from one numpy seed and put on the card before the clock starts.  At
+    each batch of ``LENET_BATCHES`` a fresh model (seed 0) runs
+    ``LENET_STEPS`` + 2 steps captured (warm-up, capture, 20 timed
+    replays) and another from the same weights the same steps eagerly:
+    imgs/s by batch from the captured run, step ms mean and p50, launches
+    a step (one profiled step), device idle share, peak memory, and the
+    captured losses against the eager ones (``VISION_CAPTURED_RTOL``).
+    Then ``MultiStepTrainStep`` with ``LENET_MULTI_K`` steps a call at
+    batch ``LENET_MULTI_BATCH``: the warm-up, the capture, and
+    ``LENET_MULTI_CALLS`` timed replays.  LeNet has no BatchNorm."""
+    import torch
+
+    from paddle_tpu_torch import MultiStepTrainStep, nn, optimizer
+    from paddle_tpu_torch.vision.models import LeNet
+
+    crit = nn.CrossEntropyLoss()
+
+    def loss_fn(m, x, y):
+        return crit(m(x), y)
+
+    def build():
+        model = LeNet(device="cuda", seed=0)
+        return model, optimizer.Adam(1e-3, parameters=model.parameters())
+
+    rng = np.random.RandomState(0)
+    out = {"batches": {}}
+    for batch in LENET_BATCHES:
+        data = (torch.from_numpy(rng.rand(batch, 1, 28, 28).astype(
+                    np.float32)).cuda(),
+                torch.from_numpy(rng.randint(0, 10, (batch,))).cuda())
+        legs = {capture: _vision_leg(build, loss_fn, data, LENET_STEPS + 2,
+                                     capture, crit=None if capture else crit)
+                for capture in (True, False)}
+        rec = dict(legs[True])
+        rec.update(_losses_beside(legs[True], legs[False],
+                                  VISION_CAPTURED_RTOL["lenet"]))
+        rec["eager"] = _eager_figures(legs[False])
+        rec["imgs_per_s"] = batch / (rec["step_ms_mean"] / 1e3)
+        rec["eager"]["imgs_per_s"] = batch / (legs[False]["step_ms_mean"]
+                                              / 1e3)
+        assert all(np.isfinite(rec["losses"])), rec["losses"]
+        out["batches"][batch] = rec
+        log("train_lenet batch %d: %.0f imgs/s captured (%.3f ms a step), "
+            "%.0f eagerly" % (batch, rec["imgs_per_s"], rec["step_ms_mean"],
+                              rec["eager"]["imgs_per_s"]))
+    k, batch = LENET_MULTI_K, LENET_MULTI_BATCH
+    model, opt = build()
+    step = MultiStepTrainStep(model, loss_fn, opt, steps_per_call=k)
+    data = (torch.from_numpy(rng.rand(k, batch, 1, 28, 28).astype(
+                np.float32)).cuda(),
+            torch.from_numpy(rng.randint(0, 10, (k, batch))).cuda())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    call_ms, losses = [], []
+    for _ in range(2 + LENET_MULTI_CALLS):
+        t0 = time.perf_counter()
+        got = step(*data)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(got.cpu().tolist())
+    assert step._fn.graphs() == 1 and len(losses[-1]) == k
+    assert np.isfinite(losses).all()
+    mean_ms = float(np.mean(call_ms[2:]))
+    prof = _profile_step(step, data, mean_ms)
+    out["multi_step"] = {
+        "steps_per_call": k, "batch": batch, "call_ms": call_ms,
+        "call_ms_mean": mean_ms, "step_ms_mean": mean_ms / k,
+        "imgs_per_s": k * batch / (mean_ms / 1e3),
+        "launches_per_call": prof.pop("launches"),
+        "device_idle_share": prof["device_idle_share"], "profile": prof,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "last_losses": losses[-1][-4:]}
+    del step, model, opt, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_resnet50():
+    """``train_resnet50`` (config #2, bench.py:237-322):
+    ``resnet50(num_classes=1000)`` at 224 x 224, ``amp.decorate`` O2 bf16
+    with Momentum(0.1) and ``nn.CrossEntropyLoss`` under ``auto_cast``
+    O1, over the reference's legs (``RESNET_LEGS``: layout, batch,
+    recompute of every residual block (``wrap_resnet_remat``), the s2d
+    stem), one model alive at a time (seed 0), each captured
+    (``torch.backends.cudnn.benchmark`` on: its search runs in the eager
+    warm-up, which meets every shape the capture does).  Each leg first
+    runs ``RESNET_STATS_CALLS`` calls at learning rate 0 -- the warm-up,
+    the capture with its replay, a replay -- after each of which every
+    BatchNorm's running statistics must have advanced exactly once more
+    (``_stats_advanced``), then ``RESNET_STEPS`` timed steps at 0.1, whose
+    losses must be finite.  Per leg: imgs/s, step ms, MFU (bench.py:47's
+    formula against the bf16 tensor-core peak), device idle share of a
+    profiled replay, peak memory.  The legs in ``RESNET_EAGER_LEGS`` run
+    the same calls eagerly from the same weights beside: losses within
+    ``VISION_CAPTURED_RTOL`` (bit-equality recorded), and one more eager
+    step profiled by part (conv forward and backward, BatchNorm forward
+    and backward, the casts, the optimizer)."""
+    import torch
+
+    from paddle_tpu_torch import amp, nn, optimizer
+    from paddle_tpu_torch.vision.models import resnet50
+
+    crit = nn.CrossEntropyLoss()
+
+    def loss_fn(m, x, y):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return crit(m(x), y)
+
+    bench_mode = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    rng = np.random.RandomState(0)
+    out = {"legs": {}, "mfu_peak_flops_per_s": BF16_TC_FLOPS_PER_S,
+           "fwd_flops_per_image": RESNET50_FWD_FLOPS}
+    try:
+        for fmt, batch, remat, s2d in RESNET_LEGS:
+            def build(fmt=fmt, remat=remat, s2d=s2d):
+                model = resnet50(num_classes=1000, data_format=fmt,
+                                 space_to_depth_stem=s2d, device="cuda",
+                                 seed=0)
+                if remat:
+                    wrap_resnet_remat(model)
+                opt = optimizer.Momentum(0.1, parameters=model.parameters())
+                return amp.decorate(model, opt, level="O2",
+                                    dtype="bfloat16")
+
+            data = (torch.from_numpy(rng.randn(batch, 3, 224, 224).astype(
+                        np.float32)).cuda(),
+                    torch.from_numpy(rng.randint(0, 1000, (batch,))).cuda())
+            label = "%s_b%d%s%s" % (fmt.lower(), batch,
+                                    "_remat" if remat else "",
+                                    "_s2d" if s2d else "")
+            t0 = time.perf_counter()
+            rec = _vision_leg(build, loss_fn, data, RESNET_STEPS, True,
+                              stats_calls=RESNET_STATS_CALLS)
+            assert all(np.isfinite(rec["losses"])), rec["losses"]
+            step_s = rec["step_ms_mean"] / 1e3
+            rec.update(data_format=fmt, batch=batch, remat=remat,
+                       s2d_stem=s2d, imgs_per_s=batch / step_s,
+                       mfu=3.0 * RESNET50_FWD_FLOPS * batch / step_s
+                       / BF16_TC_FLOPS_PER_S)
+            if (fmt, batch, remat, s2d) in RESNET_EAGER_LEGS:
+                eager = _vision_leg(build, loss_fn, data, RESNET_STEPS,
+                                    False, stats_calls=RESNET_STATS_CALLS,
+                                    crit=crit)
+                rec.update(_losses_beside(rec, eager,
+                                          VISION_CAPTURED_RTOL["resnet50"]))
+                rec["eager"] = _eager_figures(eager)
+                rec["eager"]["imgs_per_s"] = batch / (
+                    eager["step_ms_mean"] / 1e3)
+                rec["eager"]["mfu"] = 3.0 * RESNET50_FWD_FLOPS * batch / (
+                    eager["step_ms_mean"] / 1e3) / BF16_TC_FLOPS_PER_S
+            rec["leg_s"] = time.perf_counter() - t0
+            out["legs"][label] = rec
+            del data
+            gc.collect()
+            torch.cuda.empty_cache()
+            log("train_resnet50 %s: %.0f imgs/s, %.2f ms a step, MFU %.3f, "
+                "idle %s, peak %.1f GB (%.1f s)"
+                % (label, rec["imgs_per_s"], rec["step_ms_mean"], rec["mfu"],
+                   rec["device_idle_share"], rec["peak_mem_gb"],
+                   rec["leg_s"]))
+    finally:
+        torch.backends.cudnn.benchmark = bench_mode
     return out
 
 
@@ -6051,6 +6421,20 @@ def main() -> int:
     runs["sparse_embedding"] = sparse_embedding()
     log("sparse_embedding ([40000, 768] fp32, lazy Adam against dense, "
         "32 x 384 ids):", json.dumps(runs["sparse_embedding"]))
+    t1 = time.perf_counter()
+    train["lenet"] = train_lenet()
+    log(card)
+    log("train_lenet (config #1: LeNet fp32, Adam 1e-3, batches %s, "
+        "captured and eager; MultiStepTrainStep %d x %d):"
+        % (LENET_BATCHES, LENET_MULTI_K, LENET_MULTI_BATCH),
+        json.dumps(train["lenet"]))
+    train["resnet50"] = train_resnet50()
+    log(card)
+    log("train_resnet50 (config #2: ResNet50 O2 bf16, Momentum 0.1, 224 x "
+        "224, legs %s; MFU against %.0f TFLOP/s):"
+        % (RESNET_LEGS, BF16_TC_FLOPS_PER_S / 1e12),
+        json.dumps(train["resnet50"]))
+    log("vision phases: %.1f s" % (time.perf_counter() - t1))
     runs["nan_check"] = nan_check()
     log("nan_check (FLAGS_check_nan_inf: eager raise, captured ERNIE step "
         "at 2 layers):", json.dumps(runs["nan_check"]))

@@ -12,6 +12,11 @@ fine-tuning a ``TransformerForSequenceClassification`` (the ERNIE
 fine-tune, ``ernie_base_config()``).  ``nn.Embedding(sparse=True)`` gives
 row-sparse gradients that ``optimizer.SGD`` and ``Adam(lazy_mode=True)``
 update row by row; ``nn.functional`` has the reference's twenty losses.
+``vision.models`` has ``LeNet`` and the ResNet family (conv, pooling,
+BatchNorm and the 28 activations in ``nn``), trained through the same
+``TrainStep``; ``ParamAttr``/``create_parameter`` and ``nn.initializer``
+configure parameters, and ``distributed.fleet.utils.recompute``
+checkpoints activations.
 The ``tensor`` ops are exported here too (creation ops take
 ``place=``).  ``seed()`` seeds the CPU and CUDA generators
 (``get_rng_state``/``set_rng_state`` carry their states);
@@ -33,6 +38,7 @@ from . import distributed  # noqa: F401
 from . import incubate  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import serving  # noqa: F401
+from . import vision  # noqa: F401
 from .convert import load_reference_params  # noqa: F401
 from .core.errors import (EnforceNotMet, InvalidArgumentError,  # noqa: F401
                           NotFoundError, PreconditionNotMetError,
@@ -48,6 +54,7 @@ from .inference.generation import GenerationPool  # noqa: F401
 from .jit.decode import DecodeSession  # noqa: F401
 from .jit.mesh import DecodeMesh  # noqa: F401
 from .jit.train_step import MultiStepTrainStep, TrainStep  # noqa: F401
+from .nn.layer.layers import ParamAttr  # noqa: F401
 from .models.language_model import (  # noqa: F401
     TransformerForSequenceClassification, TransformerLM,
     TransformerLMCriterion, bert_base_config, ernie_base_config,
@@ -55,3 +62,19 @@ from .models.language_model import (  # noqa: F401
 from .serving import (AdmissionTightenedError,  # noqa: F401
                       DeadlineUnattainableError, QueueFullError,
                       ServingEngine, ServingHTTPFrontend)
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None, place=None):
+    """paddle.create_parameter: a parameter made as a layer makes one
+    (``nn.layer.layers.create_parameter``), on ``place`` (None: ``cuda``)
+    and named ``name`` for the optimizers."""
+    from .core.device import resolve_device
+    from .nn.layer.layers import create_parameter as _create
+
+    p = _create(shape, attr=attr, dtype=dtype, is_bias=is_bias,
+                default_initializer=default_initializer,
+                device=resolve_device(place))
+    if name:
+        p.param_name = name
+    return p

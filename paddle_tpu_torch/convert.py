@@ -1,8 +1,11 @@
-"""Carry a reference model's parameters into the port's module.
+"""Carry a reference model's parameters and buffers into the port's
+module.
 
 The port never imports JAX: the caller produces ``{name: np.ndarray}``
-from the reference model (its ``named_parameters()`` names), and this
-module copies those arrays into the port's module of the same names and
+from the reference model (its ``named_parameters()`` names, and its
+``named_buffers()`` names where it has floating buffers: a BatchNorm's
+``bn1._mean``/``bn1._variance``), and this module copies those arrays
+into the port's parameters and floating buffers of the same names and
 shapes.  bf16 arrays (numpy dtype ``bfloat16``, as ``np.asarray`` gives
 for a bf16 JAX array) cross bit for bit, viewed through int16 so that no
 ``ml_dtypes`` import is needed.
@@ -35,11 +38,14 @@ def _as_torch(a) -> torch.Tensor:
 
 def load_reference_params(model: nn.Module,
                           arrays: Mapping[str, np.ndarray]) -> nn.Module:
-    """Copy ``arrays`` (keyed by the reference's parameter names) into
-    ``model``'s parameters of the same names, on the model's device and
-    dtype.  Raises :class:`InvalidArgumentError` naming every missing,
-    extra or mis-shaped name; nothing is copied unless all names match."""
+    """Copy ``arrays`` (keyed by the reference's parameter and buffer
+    names) into ``model``'s parameters and floating buffers of the same
+    names, on the model's device and dtype.  Raises
+    :class:`InvalidArgumentError` naming every missing, extra or
+    mis-shaped name; nothing is copied unless all names match."""
     params = dict(model.named_parameters())
+    params.update((n, b) for n, b in model.named_buffers()
+                  if b.is_floating_point())
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
     bad = sorted(
@@ -49,7 +55,8 @@ def load_reference_params(model: nn.Module,
         if tuple(np.shape(arrays[n])) != tuple(params[n].shape))
     if missing or extra or bad:
         raise InvalidArgumentError(
-            "reference parameters do not match the port's module: "
+            "reference parameters and buffers do not match the port's "
+            "module: "
             "missing %s, extra %s, mis-shaped %s" % (missing, extra, bad))
     with torch.no_grad():
         for name, p in params.items():

@@ -106,6 +106,33 @@ __all__ = ["AotFunction", "CaptureError", "StaticInputs", "module_tensors",
 # at most one CUDA graph capture in flight in the process (module docstring)
 CAPTURE_GUARD = threading.RLock()
 
+# the step this thread runs under an AotFunction, for code inside it that
+# prepares the key's capture (``distributed.fleet.utils.recompute``'s
+# generator states), and the callables run with ``(owner, graph)`` just
+# before each capture begins
+_STEP = threading.local()
+PRE_CAPTURE_HOOKS: list = []
+
+
+class _Running:
+    """One warm-up or capture of a key: ``mode`` ("warm_up" or
+    "capture") and ``owner``, ``(id(function), key)``."""
+
+    def __init__(self, mode: str, owner):
+        self.mode, self.owner = mode, owner
+
+    def __enter__(self):
+        self._prev = getattr(_STEP, "now", None)
+        _STEP.now = self
+
+    def __exit__(self, *exc):
+        _STEP.now = self._prev
+
+
+def current_step() -> Optional[_Running]:
+    """The AotFunction warm-up or capture this thread is in, or None."""
+    return getattr(_STEP, "now", None)
+
 # every kernel wrapper whose launch count a replay must advance: K1/K2 and
 # K4 count in ``launches``, K3's two wrappers per dtype in
 # ``launches_by_dtype``
@@ -352,10 +379,11 @@ class AotFunction:
         if entry is _COLD:
             self._keys[key] = None
             if key in self._costs:
-                return self._warm_up(args)
+                with _Running("warm_up", (id(self), key)):
+                    return self._warm_up(args)
             # the warm-up is the real step, and the key's one count
             counter = _CostCounter()
-            with counter:
+            with counter, _Running("warm_up", (id(self), key)):
                 out = self._warm_up(args)
             self._costs[key] = self._cost_entry(key, args, out, counter)
             self.cost_revision += 1
@@ -464,9 +492,13 @@ class AotFunction:
             # operation capture forbids, and invalidates this capture
             collecting = gc.isenabled()
             gc.disable()
+            owner = (id(self), key)
             try:
-                with capturing_inputs(args), torch.cuda.graph(
-                        graph, capture_error_mode="thread_local"):
+                for hook in PRE_CAPTURE_HOOKS:
+                    hook(owner, graph)
+                with capturing_inputs(args), _Running("capture", owner), \
+                        torch.cuda.graph(graph,
+                                         capture_error_mode="thread_local"):
                     outputs = self._fn(*args)
             except Exception as e:  # noqa: BLE001 - re-raised typed
                 raise CaptureError(

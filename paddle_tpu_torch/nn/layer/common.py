@@ -3,41 +3,42 @@
 Parameter names and shapes are the reference's -- ``Linear.weight`` is
 [in_features, out_features], Paddle's layout, not torch's [out, in] -- so
 carrying weights across is a copy (``convert.load_reference_params``).
-A Linear with an attached LoRA bank (``nn.lora.attach_lora``) adds the
-per-row adapter delta while adapter ids are ambient (``nn.lora``).
+``weight_attr``/``bias_attr`` are the reference's (``layers.ParamAttr``,
+an initializer, a name, or ``False`` for none); the default draws come
+from ``generator`` on ``device``.  A Linear with an attached LoRA bank
+(``nn.lora.attach_lora``) adds the per-row adapter delta while adapter
+ids are ambient (``nn.lora``).
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 
 from .. import functional as F
+from .. import initializer as I
 from .. import lora as _lora
-
-
-def xavier_normal_(t: torch.Tensor,
-                   generator: Optional[torch.Generator] = None):
-    """The reference's XavierNormal on a 2-D [fan_in, fan_out] tensor."""
-    fan_in, fan_out = t.shape[0], t.shape[1]
-    with torch.no_grad():
-        return t.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
-                         generator=generator)
+from .layers import create_parameter
 
 
 class Linear(nn.Module):
-    """paddle.nn.Linear: weight [in_features, out_features], bias zeros."""
+    """paddle.nn.Linear: weight [in_features, out_features] (XavierNormal),
+    bias zeros."""
 
-    def __init__(self, in_features: int, out_features: int, device=None,
+    def __init__(self, in_features: int, out_features: int,
+                 weight_attr=None, bias_attr=None, name=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = nn.Parameter(xavier_normal_(torch.empty(
-            in_features, out_features, device=device), generator))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        kw = dict(device=device, generator=generator)
+        self.weight = create_parameter([in_features, out_features],
+                                       weight_attr,
+                                       default_initializer=I.XavierNormal(),
+                                       **kw)
+        self.bias = create_parameter([out_features], bias_attr,
+                                     is_bias=True, **kw)
 
     def forward(self, x):
         out = F.linear(x, self.weight, self.bias)
@@ -59,18 +60,23 @@ class Embedding(nn.Module):
     ``padding_idx``: the output is zeros at that id whatever its row
     holds, and the row gets no gradient.  ``sparse``: the weight's
     gradient is row-sparse (``framework.sparse``), which the optimizers
-    update row by row where they can; the forward is the same."""
+    update row by row where they can; the forward is the same.  A
+    regularizer given in ``weight_attr`` makes that update dense, as in
+    the reference."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  padding_idx: Optional[int] = None, sparse: bool = False,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 weight_attr=None, name=None, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
         self._padding_idx = padding_idx
         self._sparse = bool(sparse)
-        self.weight = nn.Parameter(xavier_normal_(torch.empty(
-            num_embeddings, embedding_dim, device=device), generator))
+        self.weight = create_parameter(
+            [num_embeddings, embedding_dim], weight_attr,
+            default_initializer=I.XavierNormal(), device=device,
+            generator=generator)
 
     def forward(self, x):
         return F.embedding(x, self.weight, padding_idx=self._padding_idx,

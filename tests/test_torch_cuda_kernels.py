@@ -8,7 +8,9 @@ their private eager entry, the engine's background loop serving client
 threads while it captures its first keys, a fleet capturing while other
 threads submit and capture, a migration adopted under a warm graph
 without dropping it, and a failed capture raising; a sparse embedding's
-lazy Adam rows and the nan/inf check beside a captured train step.
+lazy Adam rows and the nan/inf check beside a captured train step; a
+captured BatchNorm step advancing the running statistics once a call
+(with and without recompute), and recompute's random draws under capture.
 Skipped without a CUDA card: the kernels have no CPU mode (the CPU runs
 the twins, held against the reference by ``test_torch_decode_attention.py``,
 ``test_torch_flash_attention.py`` and ``test_torch_custom_op.py``).
@@ -1621,3 +1623,92 @@ def test_nan_check_raises_eagerly_and_skips_the_capture(cuda_device):
     assert step._fn.graphs() == 1
     assert all(torch.isfinite(torch.tensor(losses)))
     assert True in capturing and False in capturing
+
+
+def _bn_net(dev, remat):
+    """A small conv -> BatchNorm -> ReLU stack (ResNet18 at layers [1, 1,
+    1, 1], 10 classes) on the card, its residual blocks under recompute
+    with ``remat``."""
+    from paddle_tpu_torch.distributed.fleet.utils import recompute
+    from paddle_tpu_torch.vision.models import resnet18
+
+    model = resnet18(num_classes=10, layers=[1, 1, 1, 1], device=dev,
+                     seed=0)
+    if remat:
+        for name, sub in model.named_modules():
+            if name.startswith("layer") and name.count(".") == 1:
+                sub.forward = (lambda *a, __o=sub.forward: recompute(__o,
+                                                                     *a))
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_captured_batch_norm_advances_stats_once_a_replay(cuda_device,
+                                                          remat):
+    """At learning rate 0 the weights stay put and every call's batch
+    statistics are the same, so after k calls of a captured step (the
+    warm-up, the capture with its replay, replays) the running mean is
+    (1 - 0.9^k) times the batch mean and the variance 0.9^k + (1 - 0.9^k)
+    times the batch variance: each call advanced them once, the capture
+    neither twice nor not at all, and recompute's second run not at
+    all."""
+    from paddle_tpu_torch import TrainStep, nn, optimizer
+
+    model = _bn_net(cuda_device, remat)
+    crit = nn.CrossEntropyLoss()
+    opt = optimizer.Momentum(0.0, parameters=model.parameters())
+    step = TrainStep(model, lambda m, x, y: crit(m(x), y), opt)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(8, 3, 32, 32, device=cuda_device, generator=gen)
+    y = torch.arange(8, device=cuda_device) % 10
+    stats = []
+    for _ in range(5):
+        step(x, y)
+        stats.append({n: b.double().clone() for n, b in model.named_buffers()})
+    assert step._fn.graphs() == 1
+    for k in range(1, 6):
+        for n, got in stats[k - 1].items():
+            first = stats[0][n]
+            if n.endswith("_mean"):
+                want = (1 - 0.9 ** k) * first / 0.1
+            else:
+                want = 0.9 ** k + (1 - 0.9 ** k) * (first - 0.9) / 0.1
+            torch.testing.assert_close(got, want, rtol=1e-3,
+                                       atol=1e-3 * want.abs().max().item(),
+                                       msg="%s after %d calls" % (n, k))
+
+
+@pytest.mark.cuda
+def test_recompute_under_capture_replays_the_forward_draws(cuda_device):
+    """A dropout region under recompute in a captured step: every replay
+    draws a fresh mask, and the recompute in its backward draws the
+    forward's (the generator pair registered before the capture).  With
+    ``loss = w * sum(dropout(x))`` the gradient is ``loss / w`` exactly
+    when the two masks agree, so SGD moves ``w`` by ``lr * loss / w``."""
+    from paddle_tpu_torch import TrainStep, optimizer
+    from paddle_tpu_torch.distributed.fleet.utils import recompute
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.full((1,), 2.0,
+                                                   device=cuda_device))
+
+        def forward(self, x):
+            return recompute(lambda t: torch.nn.functional.dropout(
+                t * self.w, 0.5, training=True), x)
+
+    model = Net()
+    opt = optimizer.SGD(1e-3, parameters=model.parameters())
+    step = TrainStep(model, lambda m, x: m(x).sum(), opt)
+    x = torch.rand(4096, device=cuda_device) + 0.5
+    losses = []
+    for _ in range(5):
+        w = model.w.detach().clone()
+        loss = step(x)
+        losses.append(float(loss))
+        torch.testing.assert_close(model.w.detach(),
+                                   w - 1e-3 * loss / w, rtol=1e-5, atol=0)
+    assert step._fn.graphs() == 1
+    assert len(set(losses)) == len(losses), losses  # a fresh mask each call

@@ -119,6 +119,21 @@ PyTorch twin, and drives the port's two main paths:
   down by part (``train_resnet50``).  Convolutions, pools and BatchNorm
   are cuDNN/ATen calls, as the reference's are XLA's: no TPU kernel lies
   on this path;
+- the sequence models, at their published widths from random weights:
+  Transformer-base (6 + 6 layers, 512 wide, 8 heads, a shared 33708-token
+  vocabulary; PaddleNLP's WMT14 en-de recipe) trained in fp32 on 128 x 64
+  ragged batches with dropout 0.1, eagerly and captured from the same
+  weights and dropout stream (no K3: dropout keeps training attention on
+  the composition; ``train_transformer_base``), its teacher-forced loss
+  in eval mode with every attention through K3's bias mode, held against
+  the composition (``eval_transformer_base``), and a beam-4 translation
+  of 16 sentences, each step's single query through K3 against the
+  grown ``Cache`` and the memory's ``StaticCache``, held against the same
+  search on the composition (``translate_transformer_base``); then the
+  LSTM seq2seq with attention (2 x 512, IWSLT15 en-vi vocabularies)
+  trained the same two ways (the encoder packed through cuDNN eagerly,
+  its step loop in the graph; ``train_seq2seq_lstm``) and translating at
+  beam 10 against a CPU copy (``translate_seq2seq_lstm``);
 - the custom-op door: the user kernel K4 (``scale_mul``) registered with
   a hand-written backward through ``incubate.register_custom_op``,
   differentiated eagerly (``.backward()``, ``grad`` with
@@ -131,8 +146,9 @@ its bound and the one PyTorch call that computes the same function
 (``scaled_dot_product_attention``; for K4 ``torch.mul(x, y).mul_(2.0)``;
 timed as a yardstick only, the port never calls it): K3 in fp32 and bf16,
 with its tensor-core bound and the CUDA-core one, and in bf16 at the
-ERNIE fine-tune's shape with its padding lanes; K1/K2 at the serving
-shape in fp32 and int8, at one request, and at a short and a full
+ERNIE fine-tune's shape with its padding lanes; K3's forward at the
+sequence models' shapes (fp32, by graph replay, Lq 1 included); K1/K2
+at the serving shape in fp32 and int8, at one request, and at a short and a full
 context, and at a verify chunk of 5 queries (K1/K2, per-row positions).
 K1 is also held against its twin on tables whose rows alias one
 prefix's blocks, for a decode step and for chunks of 4 and 8 queries.  After the build it prints ``ptxas -v``'s registers and spills
@@ -150,6 +166,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -4053,7 +4070,9 @@ def check_flash_kernels():
     as the captured step's [B, 1, 1, L] bias, its own mask in bf16
     (``_ernie_mask_bias``).  Returns the GPT shape's max errors, the bf16
     ones under names ending in ``_bfloat16``, and the ERNIE shape's under
-    names ending in ``_ernie_lanes`` and ``_ernie_bias``."""
+    names ending in ``_ernie_lanes`` and ``_ernie_bias``; then the
+    sequence models' forward shapes (``_check_flash_seq2seq``), their
+    errors under ``flash_attention_s2s_<case>``."""
     import torch
 
     from paddle_tpu_torch.ops import flash_kernels as fk
@@ -4138,6 +4157,8 @@ def check_flash_kernels():
                 errs["o"], errs["stats"])
             main_err["flash_attention_backward_kernel" + suffix] = max(
                 errs["dq"], errs["dk"], errs["dv"])
+    main_err.update(("flash_attention_s2s_" + name, e) for name, e in
+                    _check_flash_seq2seq(gen).items())
     return main_err
 
 
@@ -5495,6 +5516,8 @@ def _tensor_op_cases(dev):
     m = t(torch.randn(4, 4, generator=g) + 4 * torch.eye(4))
     spd = m @ m.T + t(torch.eye(4))
     k = t(torch.randint(0, 3, (3, 6), generator=g))
+    seg = t(torch.tensor([0, 0, 1, -1, 2, 2, 2, 0, 1, 1, -1, 4]))
+    lens = t(torch.tensor([3, 0, 4]))
     c = t(torch.randn(2, 3, 4, generator=g))
     v3, w3 = t(torch.randn(5, 3, generator=g)), t(torch.randn(5, 3,
                                                               generator=g))
@@ -5611,6 +5634,18 @@ def _tensor_op_cases(dev):
         ("linspace", "linspace", (0, 1, 5), place),
         ("eye", "eye", (3,), place),
         ("to_tensor", "to_tensor", ([1.0, 2.0],), place),
+        # the segment ops: ids with dropped (-1) and empty segments, a
+        # zero length
+        ("segment_sum", (a.reshape(-1), seg), {}),
+        ("segment_mean", (a.reshape(-1), seg), {"num_segments": 6}),
+        ("segment_max", (a.reshape(-1), seg), {}),
+        ("segment_min", (i.reshape(-1), seg), {"num_segments": 6}),
+        ("segment_softmax", (a.reshape(-1), seg), {}),
+        ("masked_mean", (a, a > 0), {"axis": 1}),
+        ("sequence_mask", (lens,), {"maxlen": 6}),
+        ("lengths_to_segment_ids", (lens,), {}),
+        ("sequence_pad", ([a[0], a[1, :2]],), {"pad_value": -1.0}),
+        ("sequence_unpad", (a, lens), {}),
     ]
     return [c if len(c) == 4 else (c[0], c[0], c[1], c[2]) for c in cases]
 
@@ -6223,6 +6258,969 @@ def time_custom_kernel():
     return out
 
 
+# -- the sequence models ------------------------------------------------------
+#
+# Two public translation models, each built only from the port's public
+# modules (the wrappers below are harness code: the JAX package has no
+# seq2seq model class).  Token ids: 0 is the pad and the start token (a
+# zero embedding row, as in PaddleNLP's transformer example), 1 the end
+# token; real tokens are drawn from [2, vocab).
+S2S_PAD = S2S_BOS = 0
+S2S_EOS = 1
+# Transformer-base (Vaswani et al. 2017, Table 3 "base", as PaddleNLP's
+# examples/machine_translation/transformer runs it on WMT14 en-de:
+# configs/transformer.base.yaml): pre-norm, one shared 33708-token BPE
+# vocabulary tied to the output projection, dropout 0.1 everywhere, label
+# smoothing 0.1, Adam (0.9, 0.997, 1e-9) under NoamDecay(512, 4000, 2.0),
+# ~4096 tokens a side, beam 4
+TRANSFORMER_BASE = dict(vocab=33708, d_model=512, nhead=8, layers=6,
+                        d_ff=2048, dropout=0.1)
+TF_BATCH, TF_MIN_LEN, TF_MAX_LEN, TF_PAD_LEN = 128, 8, 56, 64
+TF_STEPS, TF_LABEL_SMOOTH = 6, 0.1
+TF_SENTENCES, TF_BEAM, TF_MAX_STEPS = 16, 4, 64
+# the LSTM seq2seq with Luong attention and input feeding, as PaddleNLP's
+# examples/machine_translation/seq2seq runs it on IWSLT15 en-vi: 2 x 512
+# LSTM encoder, two stacked LSTMCells in the decoder, dropout 0.2, uniform
+# init +-0.1, Adam 1e-3 with a global-norm clip of 5, beam 10
+LSTM_S2S = dict(src_vocab=17191, trg_vocab=7709, embed=512, hidden=512,
+                layers=2, dropout=0.2, init_scale=0.1)
+LSTM_BATCH, LSTM_MIN_LEN, LSTM_MAX_LEN, LSTM_STEPS = 128, 8, 50, 6
+LSTM_SENTENCES, LSTM_BEAM, LSTM_MAX_STEPS = 16, 10, 50
+# train legs: captured against eager from the same weights and the same
+# dropout stream (a replay draws the masks the eager step drew).  The
+# Transformer runs the same kernels both ways; the LSTM encoder's
+# recurrence runs packed by length eagerly and as the step loop in the
+# graph (``nn/layer/rnn.py``), whose sums differ in order, and Adam turns
+# gradient differences into updates of up to its learning rate
+S2S_CAPTURED_RTOL = {"transformer": 1e-5, "lstm": 1e-3}
+# eval and beam search, K3 against the composition it stands for (the
+# plain route, ``kernel_takes`` false): the teacher-forced loss; each
+# step's beam scores wherever both searches took the same path (sums of
+# up to 64 log-probabilities of ~-10); ids held while a step's K-th and
+# (K+1)-th best candidates are further apart than the floor
+S2S_LOSS_RTOL = 1e-5
+BEAM_SCORE_TOL = (1e-3, 1e-5)            # absolute, relative
+BEAM_MARGIN_FLOOR = 1e-4
+# K3 at the seq2seq shapes against its plain twin, forward only (fp32:
+# summation order)
+S2S_FLASH_TOL = 1e-5
+# the cache lengths a beam step's Lq 1 self-attention is held at
+S2S_CHECK_LK = (1, 17, 64)
+
+
+def s2s_models():
+    """The two harness model classes (made at the first call, as the
+    port's modules import torch): ``TransformerSeq2Seq`` and
+    ``LSTMSeq2Seq``."""
+    if _S2S_CLASSES:
+        return _S2S_CLASSES
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import initializer as I
+
+    class TransformerSeq2Seq(torch.nn.Module):
+        """PaddleNLP's ``TransformerModel`` with weight sharing: one
+        embedding (N(0, d^-0.5), pad row zero) for source and target,
+        scaled by sqrt(d), plus the fixed sinusoid at each token's
+        position (0 at pads), dropout, ``nn.Transformer`` (pre-norm), and
+        logits against the embedding."""
+
+        def __init__(self, vocab, d_model, nhead, layers, d_ff, dropout,
+                     max_len=256, device=None, seed=0):
+            super().__init__()
+            gen = torch.Generator(device=device).manual_seed(seed)
+            self.d_model = d_model
+            self.embedding = nn.Embedding(
+                vocab, d_model, padding_idx=S2S_PAD,
+                weight_attr=nn.ParamAttr(initializer=I.Normal(
+                    0.0, d_model ** -0.5)), device=device, generator=gen)
+            self.transformer = nn.Transformer(
+                d_model, nhead, layers, layers, d_ff, dropout,
+                normalize_before=True, device=device, generator=gen)
+            self.dropout = nn.Dropout(dropout)
+            self._pos = torch.from_numpy(
+                sinusoid_table(max_len, d_model)).to(device)
+
+        def embed(self, ids, positions=None):
+            if positions is None:
+                positions = (ids != S2S_PAD).long() * torch.arange(
+                    ids.shape[1], device=ids.device)
+            x = self.embedding(ids) * self.d_model ** 0.5 \
+                + self._pos[positions]
+            return self.dropout(x)
+
+        def encode(self, src):
+            bias = (src == S2S_PAD).float()[:, None, None, :] * -1e9
+            return self.transformer.encoder(self.embed(src), bias), bias
+
+        def forward(self, src, trg):
+            memory, bias = self.encode(src)
+            mask = self.transformer.generate_square_subsequent_mask(
+                trg.shape[1])
+            out = self.transformer.decoder(self.embed(trg), memory, mask,
+                                           bias)
+            return torch.matmul(out, self.embedding.weight.t())
+
+        def step_cell(self, memory_bias):
+            """The beam search's cell: [N] ids and the decoder's caches ->
+            [N, V] logits and the grown caches (the position is the
+            self-attention cache's length)."""
+            def cell(ids, caches):
+                t = caches[0][0].k.shape[2]
+                pos = torch.full_like(ids, t)[:, None]
+                out, caches = self.transformer.decoder(
+                    self.embed(ids[:, None], pos), None, None, memory_bias,
+                    caches)
+                cell.logits = torch.matmul(out[:, -1],
+                                           self.embedding.weight.t())
+                return cell.logits, caches
+            return cell
+
+        def translate(self, src, beam, max_steps):
+            """Beam search over ``src``: ``(ids [B, T, K], final scores
+            [B, K], per-step record)``."""
+            with torch.no_grad():
+                memory, bias = self.encode(src)
+                caches = self.transformer.decoder.gen_cache(memory)
+            cell = self.step_cell(
+                nn.BeamSearchDecoder.tile_beam_merge_with_batch(bias, beam))
+            return _run_beam(cell, caches, beam, max_steps, src.shape[0])
+
+    class _AttentionCell(nn.RNNCellBase):
+        """The decoder's step: input feeding (the previous attention output
+        beside the embedded token), two stacked LSTMCells with dropout, and
+        Luong attention over the encoder's outputs (``memory``, set before
+        a run with its [N, 1, Ls] additive padding bias)."""
+
+        def __init__(self, embed, hidden, layers, dropout, attr, device,
+                     gen):
+            super().__init__()
+            cell_kw = dict(weight_ih_attr=attr, weight_hh_attr=attr,
+                           bias_ih_attr=attr, bias_hh_attr=attr,
+                           device=device, generator=gen)
+            self.lstm_cells = nn.LayerList(
+                [nn.LSTMCell(embed + hidden if i == 0 else hidden, hidden,
+                             **cell_kw) for i in range(layers)])
+            self.dropout = nn.Dropout(dropout)
+            lin = dict(weight_attr=attr, bias_attr=False, device=device,
+                       generator=gen)
+            self.input_proj = nn.Linear(hidden, hidden, **lin)
+            self.output_proj = nn.Linear(2 * hidden, hidden, **lin)
+            self.memory = self.memory_bias = None
+
+        def forward(self, step_input, states):
+            lstm_states, input_feed = states
+            x = torch.cat([step_input, input_feed], dim=-1)
+            new_states = []
+            for cell, st in zip(self.lstm_cells, lstm_states):
+                out, st = cell(x, st)
+                x = self.dropout(out)
+                new_states.append(st)
+            q = self.input_proj(x)[:, None]
+            scores = torch.matmul(q, self.memory.transpose(1, 2)) \
+                + self.memory_bias
+            ctx = torch.matmul(F.softmax(scores, axis=-1), self.memory)[:, 0]
+            out = torch.tanh(self.output_proj(torch.cat([ctx, x], dim=-1)))
+            return out, [new_states, out]
+
+    class LSTMSeq2Seq(torch.nn.Module):
+        """PaddleNLP's ``Seq2SeqAttnModel``: an embedding and a
+        multi-layer ``nn.LSTM`` encoder over the source lengths, an
+        ``nn.RNN`` of the attention cell over the embedded target,
+        initialised from the encoder's final states, and an output
+        projection; every parameter Uniform(-init_scale, init_scale)."""
+
+        def __init__(self, src_vocab, trg_vocab, embed, hidden, layers,
+                     dropout, init_scale, device=None, seed=0):
+            super().__init__()
+            gen = torch.Generator(device=device).manual_seed(seed)
+            attr = nn.ParamAttr(initializer=I.Uniform(-init_scale,
+                                                      init_scale))
+            kw = dict(device=device, generator=gen)
+            self.hidden = hidden
+            self.src_embedding = nn.Embedding(src_vocab, embed,
+                                              weight_attr=attr, **kw)
+            self.encoder = nn.LSTM(
+                embed, hidden, layers,
+                dropout=dropout if layers > 1 else 0.0,
+                weight_ih_attr=attr, weight_hh_attr=attr, bias_ih_attr=attr,
+                bias_hh_attr=attr, **kw)
+            self.trg_embedding = nn.Embedding(trg_vocab, embed,
+                                              weight_attr=attr, **kw)
+            self.decoder = nn.RNN(_AttentionCell(embed, hidden, layers,
+                                                 dropout, attr, device, gen))
+            self.output = nn.Linear(hidden, trg_vocab, weight_attr=attr,
+                                    bias_attr=False, **kw)
+
+        def encode(self, src, src_len):
+            out, (h, c) = self.encoder(self.src_embedding(src),
+                                       sequence_length=src_len)
+            mask = (torch.arange(src.shape[1], device=src.device)[None, :]
+                    < src_len[:, None]).float()
+            states = [[(h[i], c[i]) for i in range(h.shape[0])],
+                      torch.zeros(src.shape[0], self.hidden,
+                                  device=src.device)]
+            return out, ((mask - 1.0) * 1e9)[:, None, :], states
+
+        def forward(self, src, src_len, trg):
+            memory, bias, states = self.encode(src, src_len)
+            cell = self.decoder.cell
+            cell.memory, cell.memory_bias = memory, bias
+            out, _ = self.decoder(self.trg_embedding(trg), states)
+            return self.output(out)
+
+        def translate(self, src, src_len, beam, max_steps):
+            with torch.no_grad():
+                memory, bias, states = self.encode(src, src_len)
+            tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+            dec_cell = self.decoder.cell
+            dec_cell.memory, dec_cell.memory_bias = tile(memory, beam), \
+                tile(bias, beam)
+
+            def cell(ids, st):
+                out, st = dec_cell(self.trg_embedding(ids), st)
+                cell.logits = self.output(out)
+                return cell.logits, st
+            return _run_beam(cell, states, beam, max_steps, src.shape[0])
+
+    _S2S_CLASSES.update(transformer=TransformerSeq2Seq, lstm=LSTMSeq2Seq)
+    return _S2S_CLASSES
+
+
+_S2S_CLASSES: dict = {}
+
+
+def sinusoid_table(n: int, d: int):
+    """[n, d] float32 sinusoid position table (sines, then cosines, over
+    geometric timescales from 1 to 1e4), as the transformer example's."""
+    half = d // 2
+    inv = np.exp(np.arange(half) * -(np.log(1e4) / max(half - 1, 1)))
+    t = np.arange(n)[:, None] * inv[None, :]
+    table = np.concatenate([np.sin(t), np.cos(t)], axis=1)
+    return np.pad(table, ((0, 0), (0, d % 2))).astype(np.float32)
+
+
+def beam_margins(logits, log_probs, finished, beam: int, end: int):
+    """[B] the smallest gap between adjacent ones of a step's K+1 best
+    candidates, from the step's logits and the beam state before it (the
+    step's own algebra: fp32 log-softmax, the end-only row of a finished
+    beam, the [B, K*V] scores)."""
+    import torch
+
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    vocab = lp.shape[-1]
+    lp = lp.reshape(-1, beam, vocab)
+    end_only = torch.full((vocab,), -1e9, device=lp.device)
+    end_only[end] = 0.0
+    lp = torch.where(finished[..., None], end_only, lp)
+    top = torch.topk((log_probs[..., None] + lp).reshape(lp.shape[0], -1),
+                     beam + 1).values
+    return (top[:, :-1] - top[:, 1:]).min(dim=1).values
+
+
+def _run_beam(cell, states, beam, max_steps, batch):
+    """``dynamic_decode`` of a ``BeamSearchDecoder`` over ``cell``,
+    recording each step's chosen tokens, parents and scores and its
+    margin (:func:`beam_margins`) on the host after the search:
+    ``(ids [B, T, K], final scores [B, K], record)``."""
+    import torch
+
+    from paddle_tpu_torch.nn import BeamSearchDecoder, dynamic_decode
+
+    steps = []
+
+    class Recording(BeamSearchDecoder):
+        def step(self, time, inputs, states, **kw):
+            out = super().step(time, inputs, states, **kw)
+            steps.append((out[0], beam_margins(
+                cell.logits, states["log_probs"], states["finished"], beam,
+                S2S_EOS)))
+            return out
+
+    dec = Recording(cell, S2S_BOS, S2S_EOS, beam)
+    ids, final = dynamic_decode(dec, inits=states, max_step_num=max_steps)
+    record = {k: torch.stack([o[k] for o, _ in steps], dim=1).cpu().numpy()
+              for k in ("predicted_ids", "parent_ids", "scores")}
+    record["margins"] = torch.stack([m for _, m in steps], dim=1).cpu() \
+        .numpy()
+    return ids, final["log_probs"], record
+
+
+def beam_agreement(got, want, floor=BEAM_MARGIN_FLOOR, tol=BEAM_SCORE_TOL):
+    """Two searches' records (:func:`_run_beam`, ``want`` the one whose
+    margins gate) held against each other.  For each sentence, its steps
+    up to the first whose margin is at most ``floor`` must pick the same
+    tokens and parents; the scores of every step both took along the same
+    path agree within ``tol`` (absolute, relative).  Returns the counts."""
+    b = want["margins"].shape[0]
+    t = min(want["margins"].shape[1], got["margins"].shape[1])
+    same = np.all([got[k][:, :t] == want[k][:, :t]
+                   for k in ("predicted_ids", "parent_ids")], axis=(0, 3))
+    gated = np.cumprod(want["margins"][:, :t] > floor, axis=1).astype(bool)
+    assert not np.any(gated & ~same), (
+        "beam picks differ where the margin clears %g: %s"
+        % (floor, np.argwhere(gated & ~same)[:8].tolist()))
+    path = np.cumprod(same, axis=1).astype(bool)
+    want_scores = want["scores"][:, :t]
+    err = np.abs(got["scores"][:, :t] - want_scores)
+    limit = tol[0] + tol[1] * np.abs(want_scores)
+    bad = path[..., None] & (err > limit)
+    assert not bad.any(), ("beam scores differ along a shared path",
+                           float(err[path].max()))
+    return {"steps": t, "sentences": b,
+            "gated_steps": int(gated.sum()), "same_path_steps":
+            int(path.sum()), "sentences_gated_throughout":
+            int(gated.all(axis=1).sum()),
+            "max_score_err_on_shared_path":
+            float(err[path].max()) if path.any() else None}
+
+
+def _ragged_ids(rng, b, lens, pad_len, vocab):
+    """[B, pad_len] int64 ids of [2, vocab) up to each row's length, 0
+    after it."""
+    ids = rng.randint(2, vocab, (b, pad_len))
+    return np.where(np.arange(pad_len)[None, :] < lens[:, None], ids,
+                    S2S_PAD).astype(np.int64)
+
+
+def s2s_batch(rng, b, vocab_src, vocab_trg, min_len, max_len, pad_len):
+    """A translation batch drawn by ``rng``: source ids, the target input
+    (the start token, then the tokens) and its label (the tokens, then the
+    end token), each [B, pad_len] and padded with 0, and the source and
+    target lengths (tokens, the end token not counted)."""
+    src_len = rng.randint(min_len, max_len + 1, b)
+    trg_len = rng.randint(min_len, min(max_len, pad_len - 1) + 1, b)
+    src = _ragged_ids(rng, b, src_len, pad_len, vocab_src)
+    toks = _ragged_ids(rng, b, trg_len, pad_len, vocab_trg)
+    trg = np.concatenate([np.full((b, 1), S2S_BOS), toks[:, :-1]], axis=1)
+    label = toks.copy()
+    label[np.arange(b), trg_len] = S2S_EOS
+    return src, trg, label, src_len, trg_len
+
+
+def _tf_batch(rng):
+    v = TRANSFORMER_BASE["vocab"]
+    return s2s_batch(rng, TF_BATCH, v, v, TF_MIN_LEN, TF_MAX_LEN,
+                     TF_PAD_LEN)
+
+
+def _tf_sentences():
+    """The translation phase's 16 source sentences, of lengths 8-64."""
+    rng = np.random.RandomState(7)
+    lens = rng.randint(TF_MIN_LEN, TF_PAD_LEN + 1, TF_SENTENCES)
+    return _ragged_ids(rng, TF_SENTENCES, lens, TF_PAD_LEN,
+                       TRANSFORMER_BASE["vocab"]), lens
+
+
+def _pad_bias(lens, pad_len):
+    """[B, 1, 1, pad_len] float32: 0 up to each length, -1e9 after (the
+    source models' additive padding mask)."""
+    valid = np.arange(pad_len)[None, :] < np.asarray(lens)[:, None]
+    return np.where(valid, 0.0, -1e9).astype(np.float32)[:, None, None, :]
+
+
+def label_smoothed_ce(logits, label, epsilon=TF_LABEL_SMOOTH):
+    """The transformer example's criterion: cross entropy of the [B, L, V]
+    logits against one-hot labels smoothed by ``epsilon`` (soft labels),
+    averaged over the non-pad target tokens."""
+    from paddle_tpu_torch.nn import functional as F
+
+    weights = (label != S2S_PAD).float()
+    soft = F.label_smooth(F.one_hot(label, logits.shape[-1]),
+                          epsilon=epsilon)
+    cost = F.cross_entropy(logits, soft, soft_label=True, reduction="none")
+    return (cost * weights).sum() / weights.sum()
+
+
+def masked_token_ce(logits, label):
+    """The seq2seq example's criterion: per-token cross entropy over the
+    non-pad labels, averaged over the batch and summed over time."""
+    from paddle_tpu_torch.nn import functional as F
+
+    cost = F.cross_entropy(logits, label, reduction="none")
+    return (cost * (label != S2S_PAD).float()).mean(dim=0).sum()
+
+
+def transformer_flops(cfg, b, ls, lt) -> float:
+    """A Transformer training step's FLOPs on the padded slots: 2 per
+    multiply-add of every product, forward and backward (3x).  Per source
+    slot the encoder's products and the cross-attentions' key and value
+    projections; per target slot the decoder's other products and the tied
+    projection; the attention products over all (query, key) pairs."""
+    d, f, n, v = cfg["d_model"], cfg["d_ff"], cfg["layers"], cfg["vocab"]
+    src = n * (4 * d * d + 2 * d * f) + n * 2 * d * d
+    trg = n * (4 * d * d + 2 * d * d + 2 * d * f) + d * v
+    attn = n * 2 * d * (ls * ls + lt * lt + lt * ls)
+    return 3.0 * 2 * b * (src * ls + trg * lt + attn)
+
+
+def lstm_flops(cfg, b, ls, lt) -> float:
+    """The LSTM seq2seq's training step FLOPs on the padded slots (3x the
+    forward's 2 per multiply-add): the encoder's gates per source slot;
+    the two cells (input feeding), the attention over ``ls`` keys and the
+    output projection per target slot."""
+    e, h, n, v = cfg["embed"], cfg["hidden"], cfg["layers"], cfg["trg_vocab"]
+    src = sum(4 * h * ((e if i == 0 else h) + h) for i in range(n))
+    trg = sum(4 * h * ((e + h if i == 0 else h) + h) for i in range(n)) \
+        + h * h + 2 * ls * h + 2 * h * h + h * v
+    return 3.0 * 2 * b * (src * ls + trg * lt)
+
+
+def _tf_model(seed=0):
+    return s2s_models()["transformer"](**TRANSFORMER_BASE, device="cuda",
+                                       seed=seed)
+
+
+def _lstm_model(seed=0):
+    return s2s_models()["lstm"](**LSTM_S2S, device="cuda", seed=seed)
+
+
+def _s2s_leg(build, loss_fn, batches, capture, seed=0):
+    """``build()``'s model, optimizer and scheduler (or None) trained by
+    one ``TrainStep`` over ``batches``, captured or eager, the CUDA
+    generator seeded with ``seed`` first (so both legs draw the same
+    dropout masks); the scheduler steps after each call.  No K3 launch
+    may happen (dropout sends every training attention to the
+    composition).  Steps are timed from the first replay (captured) or
+    the second step (eager); one more step is profiled."""
+    import torch
+
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    torch.cuda.manual_seed(seed)
+    model, opt, sched = build()
+    step = TrainStep(model, loss_fn, opt, capture=capture)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    losses, step_ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if sched is not None:
+            sched.step()
+    k3 = fk.launch_counts()
+    assert k3 == dict.fromkeys(k3, 0), k3
+    peak = torch.cuda.max_memory_allocated()
+    assert step.compile_counts() == {"train_step": 1}
+    assert step._fn.graphs() == int(capture)
+    timed = step_ms[2:] if capture else step_ms[1:]
+    mean_ms = float(np.mean(timed))
+    out = {"capture": capture, "losses": losses, "step_ms": step_ms,
+           "warmup_step_ms": step_ms[0], "step_ms_mean": mean_ms,
+           "step_ms_p50": float(np.median(timed)),
+           "peak_mem_gb": peak / 2 ** 30, "k3_launches": k3}
+    out["profile"] = _profile_step(step, batches[-1], mean_ms)
+    out["launches_per_step"] = out["profile"].pop("launches")
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _s2s_train(name, build, loss_fn, batches, flops, src_tokens,
+               trg_tokens):
+    """Both legs of a seq2seq training cell and their figures: the
+    captured losses against the eager ones (``S2S_CAPTURED_RTOL``),
+    finite; tokens/s of real (unpadded) source and target tokens; MFU of
+    ``flops`` a step over the fp32 CUDA-core peak."""
+    eager = _s2s_leg(build, loss_fn, batches, False)
+    captured = _s2s_leg(build, loss_fn, batches, True)
+    losses = captured["losses"]
+    assert all(np.isfinite(losses)), losses
+    np.testing.assert_allclose(losses, eager["losses"],
+                               rtol=S2S_CAPTURED_RTOL[name])
+    out = {"captured": captured, "eager": eager, "flops_per_step": flops,
+           "mfu_peak_flops_per_s": FP32_FLOPS_PER_S}
+    for leg in (captured, eager):
+        s = leg["step_ms_mean"] / 1e3
+        leg.update(src_tokens_per_s=src_tokens / s,
+                   trg_tokens_per_s=trg_tokens / s,
+                   mfu=flops / s / FP32_FLOPS_PER_S,
+                   device_idle_share=leg["profile"]["device_idle_share"])
+    return out
+
+
+def train_transformer_base():
+    """``train_transformer_base``: Transformer-base (6 + 6 layers, 512
+    wide, 8 heads x 64, FFN 2048, shared 33708-token vocabulary, dropout
+    0.1) by ``TrainStep`` with Adam (0.9, 0.997, 1e-9) under
+    NoamDecay(512, 4000, 2.0) and the label-smoothed soft-label cross
+    entropy, on 6 batches of 128 x 64 (lengths 8-56, numpy seed 0),
+    eagerly and captured from the same weights and dropout stream
+    (``_s2s_train``).  Dropout on the attention weights keeps every
+    training attention off K3: 0 launches either way."""
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+
+    cfg = TRANSFORMER_BASE
+
+    def build():
+        model = _tf_model()
+        sched = NoamDecay(cfg["d_model"], 4000, learning_rate=2.0)
+        return model, Adam(sched, beta1=0.9, beta2=0.997, epsilon=1e-9,
+                           parameters=model.parameters()), sched
+
+    rng = np.random.RandomState(0)
+    batches, src_tok, trg_tok = [], 0, 0
+    for _ in range(TF_STEPS):
+        src, trg, label, sl, tl = _tf_batch(rng)
+        batches.append((src, trg, label))
+        src_tok += int(sl.sum())
+        trg_tok += int(tl.sum()) + TF_BATCH
+    out = _s2s_train(
+        "transformer", build,
+        lambda m, src, trg, label: label_smoothed_ce(m(src, trg), label),
+        batches, transformer_flops(cfg, TF_BATCH, TF_PAD_LEN, TF_PAD_LEN),
+        src_tok / TF_STEPS, trg_tok / TF_STEPS)
+    model = _tf_model()
+    out.update(params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+               batch=TF_BATCH, pad_len=TF_PAD_LEN, steps=TF_STEPS,
+               src_tokens_per_step=src_tok / TF_STEPS,
+               trg_tokens_per_step=trg_tok / TF_STEPS)
+    return out
+
+
+def _spy_k3():
+    """Patch ``FlashAttentionFunction.apply`` to record each call's (Lq,
+    Lk, bias given, segment lanes given): ``(calls, restore)``."""
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    calls = []
+    apply = fk.FlashAttentionFunction.apply
+
+    def recording_apply(*a):
+        calls.append((a[0].shape[2], a[1].shape[2], a[3] is not None,
+                      a[4] is not None))
+        return apply(*a)
+
+    fk.FlashAttentionFunction.apply = recording_apply
+
+    def restore():
+        fk.FlashAttentionFunction.apply = apply
+
+    return calls, restore
+
+
+def _plain_route():
+    """Within it, ``flash_attention`` takes the composition it stands for
+    (``kernel_takes`` false) instead of K3."""
+    from unittest import mock
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    return mock.patch.object(fk, "kernel_takes", lambda *a, **kw: False)
+
+
+def eval_transformer_base():
+    """``eval_transformer_base``: the teacher-forced loss of Transformer-
+    base (seed 0) on a 128 x 64 batch under ``no_grad`` and ``eval()``:
+    every attention through K3 in its bias mode (the models' -1e9 masks,
+    which no detection claims), 3 x 6 forward launches a call; the loss
+    and logits against the same forward on the composition."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    model = _tf_model().eval()
+    src, trg, label, _, _ = _tf_batch(np.random.RandomState(1))
+    src, trg, label = (torch.from_numpy(a).cuda() for a in (src, trg, label))
+    layers = TRANSFORMER_BASE["layers"]
+    calls, restore = _spy_k3()
+    try:
+        fk.reset_launch_counts()
+        with torch.no_grad():
+            logits = model(src, trg)
+            loss = float(label_smoothed_ce(logits, label))
+            k3 = fk.launch_counts()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                model(src, trg)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        restore()
+    # the encoder's self-attentions, then each decoder layer's self- and
+    # cross-attention: all 128 x 64 x 64, all given a bias
+    assert k3 == {"flash_attention_forward_kernel": 3 * layers,
+                  "flash_attention_backward_kernel": 0}, k3
+    assert calls[:3 * layers] == [(TF_PAD_LEN, TF_PAD_LEN, True, False)] \
+        * (3 * layers), calls[:3 * layers]
+    with _plain_route(), torch.no_grad():
+        plain_logits = model(src, trg)
+        plain_loss = float(label_smoothed_ce(plain_logits, label))
+    err = (logits - plain_logits).abs().max().item()
+    assert np.isfinite(loss) and abs(loss - plain_loss) \
+        <= S2S_LOSS_RTOL * abs(plain_loss), (loss, plain_loss)
+    out = {"loss": loss, "plain_loss": plain_loss,
+           "logits_max_abs_err": err, "forward_ms": float(np.mean(ms)),
+           "k3_launches_bias_mode": k3["flash_attention_forward_kernel"],
+           "k3_encoder_launches": layers, "k3_decoder_self_launches": layers,
+           "k3_cross_launches": layers}
+    log("eval_transformer_base: loss %.6f (composition %.6f), logits max "
+        "err %.2e, K3 forward %d (bias mode), forward %.2f ms"
+        % (loss, plain_loss, err, out["k3_launches_bias_mode"],
+           out["forward_ms"]))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# the steps of the profiled search a translation phase runs after its
+# timed one (the encoder's share counts into them)
+PROFILED_STEPS = 16
+
+
+def _translate_figures(run, wall_s, steps, rows, profile_fn):
+    """ms a step, generated tokens/s (every beam's token a step) and, from
+    a ``PROFILED_STEPS``-step search under the profiler, device busy ms
+    and kernels a step, and the idle share of the timed search's step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profile_fn(PROFILED_STEPS)
+        torch.cuda.synchronize()
+    rows_t = device_time_rows(prof)
+    busy = sum(r[0] for r in rows_t) / PROFILED_STEPS
+    ms = wall_s * 1e3 / steps
+    run.update(steps=steps, wall_ms=wall_s * 1e3, ms_per_step=ms,
+               beam_tokens_per_s=rows * steps / wall_s,
+               device_busy_ms_per_step=busy,
+               device_idle_share=(1 - busy / ms) if busy else None,
+               launches_per_step=sum(n for _, _, n in rows_t)
+               / PROFILED_STEPS)
+    return run
+
+
+def translate_transformer_base():
+    """``translate_transformer_base``: beam search (beam 4, at most 64
+    steps) over 16 source sentences of lengths 8-64 with Transformer-base
+    (seed 0): the encoder through K3 once (6 launches), then each step's
+    64 rows through the decoder's caches -- the self-attention's
+    concatenated ``Cache`` (Lq 1 against Lk = the step, no mask) and the
+    cross-attention's ``StaticCache`` with the tiled padding bias, both
+    through K3: 12 launches a step.  The ids and scores are held against
+    the same search on the composition (``beam_agreement``)."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    model = _tf_model().eval()
+    src, lens = _tf_sentences()
+    src = torch.from_numpy(src).cuda()
+    model.translate(src, TF_BEAM, 2)  # warm-up
+    torch.cuda.synchronize()
+    layers = TRANSFORMER_BASE["layers"]
+    calls, restore = _spy_k3()
+    try:
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        ids, scores, rec = model.translate(src, TF_BEAM, TF_MAX_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3 = fk.launch_counts()
+    finally:
+        restore()
+    steps = rec["margins"].shape[1]
+    rows = TF_SENTENCES * TF_BEAM
+    enc = [(TF_PAD_LEN, TF_PAD_LEN, True, False)] * layers
+    step_calls = [c for t in range(steps) for c in
+                  [(1, t + 1, False, False), (1, TF_PAD_LEN, True, False)]
+                  * layers]
+    assert calls == enc + step_calls, (len(calls), calls[:20])
+    assert k3 == {"flash_attention_forward_kernel": layers * (1 + 2 * steps),
+                  "flash_attention_backward_kernel": 0}, k3
+    assert tuple(ids.shape) == (TF_SENTENCES, steps, TF_BEAM)
+    assert bool(torch.isfinite(scores).all())
+    with _plain_route():
+        _, plain_scores, plain_rec = model.translate(src, TF_BEAM,
+                                                     TF_MAX_STEPS)
+    agree = beam_agreement(rec, plain_rec)
+    out = {"k3_launches": k3["flash_attention_forward_kernel"],
+           "k3_encoder_launches": layers,
+           "k3_step_self_launches": layers * steps,
+           "k3_step_cross_launches": layers * steps,
+           "k3_launches_per_step": 2 * layers, "agreement": agree,
+           "src_lengths": lens.tolist(),
+           "best_scores": scores[:, 0].tolist()}
+    _translate_figures(out, wall, steps, rows, lambda n: model.translate(
+        src, TF_BEAM, n))
+    log("translate_transformer_base: %d steps, %.3f ms a step, %.0f beam "
+        "tokens/s, idle %s, %.0f kernels a step, K3 %d (%d a step), "
+        "against the composition %s"
+        % (steps, out["ms_per_step"], out["beam_tokens_per_s"],
+           out["device_idle_share"], out["launches_per_step"],
+           out["k3_launches"], 2 * layers, agree))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lstm_batch(rng):
+    c = LSTM_S2S
+    return s2s_batch(rng, LSTM_BATCH, c["src_vocab"], c["trg_vocab"],
+                     LSTM_MIN_LEN, LSTM_MAX_LEN, LSTM_MAX_LEN)
+
+
+def train_seq2seq_lstm():
+    """``train_seq2seq_lstm``: the LSTM seq2seq with attention (2 x 512
+    LSTM encoder, two 512 LSTMCells with input feeding and Luong attention,
+    vocabularies 17191 / 7709, dropout 0.2, uniform init +-0.1) by
+    ``TrainStep`` with Adam 1e-3 and a global-norm clip of 5, on 6 batches
+    of 128 x 50 (lengths 8-50, numpy seed 0), eagerly (the encoder packed
+    by length through cuDNN) and captured (the encoder's step loop) from
+    the same weights and dropout stream.  No K3."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Adam
+
+    def build():
+        model = _lstm_model()
+        return model, Adam(1e-3, parameters=model.parameters(),
+                           grad_clip=ClipGradByGlobalNorm(5.0)), None
+
+    rng = np.random.RandomState(0)
+    batches, src_tok, trg_tok = [], 0, 0
+    for _ in range(LSTM_STEPS):
+        src, trg, label, sl, tl = _lstm_batch(rng)
+        batches.append((src, sl.astype(np.int64), trg, label))
+        src_tok += int(sl.sum())
+        trg_tok += int(tl.sum()) + LSTM_BATCH
+    out = _s2s_train(
+        "lstm", build,
+        lambda m, src, sl, trg, label: masked_token_ce(m(src, sl, trg),
+                                                       label),
+        batches, lstm_flops(LSTM_S2S, LSTM_BATCH, LSTM_MAX_LEN,
+                            LSTM_MAX_LEN),
+        src_tok / LSTM_STEPS, trg_tok / LSTM_STEPS)
+    model = _lstm_model()
+    out.update(params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+               batch=LSTM_BATCH, pad_len=LSTM_MAX_LEN, steps=LSTM_STEPS)
+    return out
+
+
+def translate_seq2seq_lstm():
+    """``translate_seq2seq_lstm``: beam search (beam 10, at most 50 steps)
+    over 16 source sentences of lengths 8-50 with the LSTM seq2seq (seed
+    0): the encoder packed by length, then each step's 160 rows through
+    the attention cell.  No K3.  The ids and scores are held against the
+    same search on a CPU copy of the model (``beam_agreement``)."""
+    import copy
+
+    import torch
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    model = _lstm_model().eval()
+    rng = np.random.RandomState(8)
+    lens = rng.randint(LSTM_MIN_LEN, LSTM_MAX_LEN + 1, LSTM_SENTENCES)
+    src_np = _ragged_ids(rng, LSTM_SENTENCES, lens, LSTM_MAX_LEN,
+                         LSTM_S2S["src_vocab"])
+    src = torch.from_numpy(src_np).cuda()
+    sl = torch.from_numpy(lens.astype(np.int64)).cuda()
+    model.translate(src, sl, LSTM_BEAM, 2)  # warm-up
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids, scores, rec = model.translate(src, sl, LSTM_BEAM, LSTM_MAX_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = fk.launch_counts()
+    assert k3 == dict.fromkeys(k3, 0), k3
+    steps = rec["margins"].shape[1]
+    assert tuple(ids.shape) == (LSTM_SENTENCES, steps, LSTM_BEAM)
+    assert bool(torch.isfinite(scores).all())
+    host = copy.deepcopy(model).cpu()
+    _, _, host_rec = host.translate(torch.from_numpy(src_np),
+                                    torch.from_numpy(lens.astype(np.int64)),
+                                    LSTM_BEAM, LSTM_MAX_STEPS)
+    agree = beam_agreement(rec, host_rec)
+    out = {"k3_launches": 0, "agreement_with_cpu": agree,
+           "src_lengths": lens.tolist(),
+           "best_scores": scores[:, 0].tolist()}
+    _translate_figures(out, wall, steps, LSTM_SENTENCES * LSTM_BEAM,
+                       lambda n: model.translate(src, sl, LSTM_BEAM, n))
+    log("translate_seq2seq_lstm: %d steps, %.3f ms a step, %.0f beam "
+        "tokens/s, idle %s, %.0f kernels a step, against the CPU %s"
+        % (steps, out["ms_per_step"], out["beam_tokens_per_s"],
+           out["device_idle_share"], out["launches_per_step"], agree))
+    del model, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def s2s_flash_cases(gen):
+    """K3's inputs at the seq2seq shapes (fp32, 8 heads x 64, q/k/v as
+    the layers make them), each ``(args, pairs)``: ``encoder`` and
+    ``cross`` (128 x 64 x 64, the training batch's [B, 1, 1, 64] -1e9
+    padding bias), ``encoder_fully_padded`` (the same, with every key of
+    row 1 masked), ``decoder_self`` (the [64, 64] -1e9 subsequent mask,
+    broadcast), ``translate_encoder`` (the 16 sentences), ``step_self_<Lk>``
+    (64 rows, one query against Lk = 1..64 cached keys, no mask) and
+    ``step_cross`` (one query against 64 keys, the sentences' padding
+    tiled by beam)."""
+    import torch
+
+    b, h, d, l = TF_BATCH, 8, 64, TF_PAD_LEN
+    rows = TF_SENTENCES * TF_BEAM
+    f32 = torch.float32
+    pad = torch.from_numpy(_pad_bias(_tf_batch(np.random.RandomState(1))[3],
+                                     l)).cuda()
+    full = pad.clone()
+    full[1] = -1e9
+    sent = torch.from_numpy(_pad_bias(_tf_sentences()[1], l)).cuda()
+    causal = torch.full((l, l), -1e9, device="cuda").triu(1)
+    specs = {"encoder": (b, l, l, pad), "encoder_fully_padded":
+             (b, l, l, full), "decoder_self": (b, l, l, causal),
+             "cross": (b, l, l, pad),
+             "translate_encoder": (TF_SENTENCES, l, l, sent),
+             "step_cross": (rows, 1, l, sent.repeat_interleave(TF_BEAM, 0))}
+    specs.update({"step_self_%d" % lk: (rows, 1, lk, None)
+                  for lk in range(1, l + 1)})
+    out = {}
+    for name, (bb, lq, lk, bias) in specs.items():
+        args, _ = flash_case(gen, bb, h, lq, lk, d, f32, causal=False)
+        args["bias"] = bias
+        out[name] = args
+    return out
+
+
+def _check_flash_seq2seq(gen):
+    """K3's forward against its plain twin at the seq2seq shapes (Lq 1 at
+    each Lk of ``S2S_CHECK_LK``), fp32, within ``S2S_FLASH_TOL``.  Returns
+    the max errors by case."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    cases = s2s_flash_cases(gen)
+    errs = {}
+    for name in ("encoder", "encoder_fully_padded", "decoder_self", "cross",
+                 "translate_encoder", "step_cross") + tuple(
+                     "step_self_%d" % lk for lk in S2S_CHECK_LK):
+        args = cases[name]
+        o, stats = fk.flash_attention_forward_kernel(**args)
+        torch.cuda.synchronize()
+        want_o, want_stats = fk.flash_attention_forward_plain(**args)
+        e = {"o": (o - want_o).abs().max().item(),
+             "stats": (stats - want_stats).abs().max().item()}
+        ok = e["o"] <= S2S_FLASH_TOL and e["stats"] <= S2S_FLASH_TOL \
+            and bool(torch.isfinite(o).all())
+        log("parity flash_attention float32 seq2seq %-20s q %s k %s bias %s"
+            "  errs %s  tol %.0e %s"
+            % (name, tuple(args["q"].shape), tuple(args["k"].shape),
+               None if args["bias"] is None else tuple(args["bias"].shape),
+               {n: "%.2e" % v for n, v in e.items()}, S2S_FLASH_TOL,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("K3 disagrees with its plain twin at the "
+                                 "seq2seq shape %s: %s" % (name, e))
+        errs[name] = max(e.values())
+    errs["step_self"] = max(errs.pop("step_self_%d" % lk)
+                            for lk in S2S_CHECK_LK)
+    return errs
+
+
+def time_flash_seq2seq():
+    """K3's forward at the seq2seq shapes (``s2s_flash_cases``) beside its
+    plain twin, ``scaled_dot_product_attention`` with the same additive
+    mask, and the bound: 4 D flops a (query, key) pair (every pair: a bias
+    masks none) over 3xTF32's 165 TFLOP/s, against q, k, v, the bias, o
+    and the stats read or written once over 3.35 TB/s.  Every time is
+    device time from CUDA-graph replays (``graph_ms``: at these sizes the
+    wrapper's host work outlasts the kernel), with the eager launch's
+    ``eager_ms`` beside the kernel's.  ``step_self`` is the mean a launch
+    over one launch at each Lk of a 64-step search (one graph holding all
+    64), with Lk ``S2S_CHECK_LK`` beside it.  Returns {case: record}."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = s2s_flash_cases(gen)
+    calls = {}
+    out = {}
+    for name, args in cases.items():
+        if name == "encoder_fully_padded":
+            continue
+        q, k, v, bias = args["q"], args["k"], args["v"], args["bias"]
+        bb, h, lq, d = q.shape
+        lk = k.shape[2]
+        flops = 4.0 * d * bb * h * lq * lk
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + 2 * bb * h * lq
+                      + (0 if bias is None else bias.numel()))
+        mask = None if bias is None else bias.expand(bb, 1, lq, lk) \
+            if bias.ndim == 4 else bias
+        calls[name] = (
+            functools.partial(fk.flash_attention_forward_kernel, **args),
+            functools.partial(fk.flash_attention_forward_plain, **args),
+            functools.partial(tF.scaled_dot_product_attention, q, k, v,
+                              attn_mask=mask))
+        out[name] = {"flops": flops, "bytes": nbytes, "q": list(q.shape),
+                     "k": list(k.shape),
+                     "bias": None if bias is None else list(bias.shape)}
+    steps = ["step_self_%d" % lk for lk in range(1, TF_PAD_LEN + 1)]
+    timed = [n for n in out if n not in steps] + [
+        "step_self_%d" % lk for lk in S2S_CHECK_LK]
+    for name in timed:
+        kern, plain, lib = calls[name]
+        # plain, kernel, kernel, plain: compare within one call
+        p1, k1, k2, p2 = (graph_ms([f]) for f in (plain, kern, kern, plain))
+        out[name].update(ms=min(k1, k2), plain_ms=min(p1, p2),
+                         library_ms=graph_ms([lib]),
+                         eager_ms=cuda_ms(kern, iters=20))
+    mean = {key: float(np.mean([out[s][key] for s in steps]))
+            for key in ("flops", "bytes")}
+    for key, i in (("ms", 0), ("plain_ms", 1), ("library_ms", 2)):
+        mean[key] = graph_ms([calls[s][i] for s in steps], reps=3)
+    mean["by_lk"] = {lk: out["step_self_%d" % lk] for lk in S2S_CHECK_LK}
+    for s in steps:
+        del out[s]
+    out["step_self"] = mean
+    for name, rec in out.items():
+        t_ops = rec["flops"] / FP32_3XTF32_FLOPS_PER_S * 1e3
+        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+        rec.update(bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   vs_library=rec["ms"] / rec["library_ms"])
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        log("timing flash_attention_forward_kernel seq2seq %-17s float32: "
+            "kernel %.4f ms (graph; eager %s), plain %.4f ms, bound %.4f ms "
+            "(%s), sdpa %.4f ms (kernel/sdpa %.3f)%s"
+            % (name, rec["ms"], "%.4f" % rec["eager_ms"] if "eager_ms" in
+               rec else "-", rec["plain_ms"], rec["bound_ms"],
+               rec["bound_by"], rec["library_ms"], rec["vs_library"],
+               "" if "by_lk" not in rec else "; at Lk %s: kernel %s, "
+               "sdpa %s" % (S2S_CHECK_LK, ["%.4f" % s["ms"] for s in
+                                           rec["by_lk"].values()],
+                            ["%.4f" % s["library_ms"] for s in
+                             rec["by_lk"].values()])))
+    del cases, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+# the kernels line's K3 rows of the seq2seq path: (row, timed case, the
+# phase and its record key for the launches)
+S2S_K3_ROWS = (
+    ("encoder", "eval", "k3_encoder_launches"),
+    ("decoder_self", "eval", "k3_decoder_self_launches"),
+    ("cross", "eval", "k3_cross_launches"),
+    ("translate_encoder", "translate", "k3_encoder_launches"),
+    ("step_self", "translate", "k3_step_self_launches"),
+    ("step_cross", "translate", "k3_step_cross_launches"))
+
+
 def main() -> int:
     try:
         import torch
@@ -6442,11 +7440,38 @@ def main() -> int:
     log("tensor_ops_cuda:", json.dumps(runs["tensor_ops_cuda"]))
     log("fine-tune, sparse, nan-check and tensor-op phases: %.1f s"
         % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    s2s = {"train_transformer_base": train_transformer_base()}
+    log(card)
+    log("train_transformer_base (Transformer-base, 6 + 6 layers, 512 wide, "
+        "vocab 33708, fp32, Adam + NoamDecay, label smoothing 0.1, %d x %d; "
+        "MFU against %.0f TFLOP/s):" % (TF_BATCH, TF_PAD_LEN,
+                                        FP32_FLOPS_PER_S / 1e12),
+        json.dumps(s2s["train_transformer_base"]))
+    s2s["eval_transformer_base"] = eval_transformer_base()
+    s2s["translate_transformer_base"] = translate_transformer_base()
+    log("translate_transformer_base (beam %d, %d sentences, at most %d "
+        "steps):" % (TF_BEAM, TF_SENTENCES, TF_MAX_STEPS),
+        json.dumps(s2s["translate_transformer_base"]))
+    s2s["train_seq2seq_lstm"] = train_seq2seq_lstm()
+    log(card)
+    log("train_seq2seq_lstm (2 x 512 LSTM encoder, attention decoder, "
+        "vocabs 17191 / 7709, fp32, Adam 1e-3 + clip 5, %d x %d; MFU "
+        "against %.0f TFLOP/s):" % (LSTM_BATCH, LSTM_MAX_LEN,
+                                    FP32_FLOPS_PER_S / 1e12),
+        json.dumps(s2s["train_seq2seq_lstm"]))
+    s2s["translate_seq2seq_lstm"] = translate_seq2seq_lstm()
+    log("translate_seq2seq_lstm (beam %d, %d sentences, at most %d steps):"
+        % (LSTM_BEAM, LSTM_SENTENCES, LSTM_MAX_STEPS),
+        json.dumps(s2s["translate_seq2seq_lstm"]))
+    log("sequence-model phases: %.1f s" % (time.perf_counter() - t0))
 
     timing = time_kernels()
     timing.update(time_flash())
     timing.update({(name, "ernie", mode): rec
                    for (name, mode), rec in time_flash_ernie().items()})
+    timing.update({("s2s", case): rec
+                   for case, rec in time_flash_seq2seq().items()})
     sdpa_kernel_names()
     timing["scale_mul_kernel"] = time_custom_kernel()
     kernels = []
@@ -6504,6 +7529,25 @@ def main() -> int:
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]})
+    # the sequence models' K3 forward in its bias mode (fp32, 8 heads x
+    # 64), one row a shape, each with the launches of the phase that ran
+    # it: eval_transformer_base (128 x 64 x 64) and
+    # translate_transformer_base (its encoder; each step's Lq 1 self- and
+    # cross-attention)
+    s2s_phase = {"eval": s2s["eval_transformer_base"],
+                 "translate": s2s["translate_transformer_base"]}
+    for case, phase, key in S2S_K3_ROWS:
+        t = timing[("s2s", case)]
+        kernels.append({
+            "name": "flash_attention_s2s_%s_forward" % case,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/flash_attention.py:78",
+            "launches": s2s_phase[phase][key],
+            "max_abs_err": parity["flash_attention_s2s_" + case],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     # the speculative verify chunk (Lq 5): K1 on the paged 24-layer
     # target, K2 on the dense 4-layer target (its draft's K2 launches
     # subtracted)
@@ -6594,6 +7638,7 @@ def main() -> int:
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"card": card, "runs": runs, "train": train,
+                   "seq2seq": s2s,
                    "timing": {str(k): v for k, v in timing.items()},
                    "kernels": kernels}, f,
                   default=lambda o: o.item() if hasattr(o, "item")

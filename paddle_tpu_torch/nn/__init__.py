@@ -4,7 +4,10 @@ A layer is a ``torch.nn.Module`` with the reference's constructor,
 parameter names and shapes; a layer with parameters takes ``device=``
 (and, where it draws them, ``generator=``), built on torch's default
 device when none is given.  ``ParamAttr`` and ``initializer`` configure
-parameters as in the reference (``layer.layers``)."""
+parameters as in the reference (``layer.layers``).  The sequence models'
+parts: the encoder-decoder ``Transformer`` and its layers with their
+attention caches, the recurrent cells and stacks (``layer.rnn``), and
+beam search (``BeamSearchDecoder``, ``dynamic_decode``)."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from . import lora  # noqa: F401
@@ -33,6 +36,11 @@ from .layer.pooling import (AdaptiveAvgPool1D,  # noqa: F401
                             AdaptiveMaxPool1D, AdaptiveMaxPool2D,
                             AdaptiveMaxPool3D, AvgPool1D, AvgPool2D,
                             AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
+from .decode import BeamSearchDecoder, Decoder, dynamic_decode  # noqa: F401
+from .layer.rnn import (GRU, LSTM, RNN, BiRNN, GRUCell,  # noqa: F401
+                        LSTMCell, RNNCellBase, SimpleRNN, SimpleRNNCell)
 from .layer.transformer import (MultiHeadAttention,  # noqa: F401
-                                TransformerEncoder, TransformerEncoderLayer)
+                                Transformer, TransformerDecoder,
+                                TransformerDecoderLayer, TransformerEncoder,
+                                TransformerEncoderLayer)
 from .ssm import GatedSSMBlock, RecurrentDecodeCache, SSMLM  # noqa: F401

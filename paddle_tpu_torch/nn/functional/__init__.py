@@ -20,8 +20,9 @@ from .activation import (elu, gelu, glu, gumbel_softmax,  # noqa: F401
                          prelu, relu, relu6, relu_, selu, sigmoid, silu,
                          softmax, softplus, softshrink, softsign, swish, tanh,
                          tanhshrink, thresholded_relu)
-from .common import (dropout, embedding, linear,  # noqa: F401
-                     scaled_dot_product_attention)
+from .common import (dropout, embedding, gather_tree,  # noqa: F401
+                     label_smooth, linear, one_hot,
+                     scaled_dot_product_attention, sequence_mask)
 from .conv import (conv1d, conv1d_transpose, conv2d,  # noqa: F401
                    conv2d_transpose, conv3d, conv3d_transpose)
 from .loss import (bce_loss, binary_cross_entropy,  # noqa: F401

@@ -1,8 +1,10 @@
 """Common functionals (counterpart of the reference's
 ``nn/functional/common.py``): the Paddle-layout linear, embedding (with
-``padding_idx`` and row-sparse gradients), dropout, and
+``padding_idx`` and row-sparse gradients), dropout,
 ``scaled_dot_product_attention`` with its routing between the flash
-kernel K3 and the matmul-softmax-matmul composition.
+kernel K3 and the matmul-softmax-matmul composition, and the sequence
+functions: ``one_hot``, ``label_smooth``, ``sequence_mask`` and
+``gather_tree`` (the beam search's back-trace).
 
 No library attention is called here: the kernel route goes to the port's
 own K3 (``ops.flash_attention``), the other route is the composition, op
@@ -106,3 +108,39 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if dropout_p > 0.0 and training:
         weights = dropout(weights, dropout_p, training=training)
     return torch.matmul(weights, value)
+
+
+def one_hot(x, num_classes: int):
+    """float32 one-hot rows of the ids ``x`` over ``num_classes``; an id
+    outside [0, num_classes) gives a row of zeros, as the reference's."""
+    classes = torch.arange(num_classes, device=x.device)
+    return (x.long()[..., None] == classes).to(torch.float32)
+
+
+def label_smooth(label, prior_dist=None, epsilon: float = 0.1):
+    """``(1 - epsilon) label + epsilon prior`` over the last axis; the
+    prior is uniform (``1 / n``) when ``prior_dist`` is None."""
+    if prior_dist is not None:
+        return (1.0 - epsilon) * label + epsilon * prior_dist
+    return (1.0 - epsilon) * label + epsilon / label.shape[-1]
+
+
+def sequence_mask(lengths, maxlen: Optional[int] = None, dtype="int64"):
+    """``tensor.segment.sequence_mask`` with this API's int64 default."""
+    from ...tensor.segment import sequence_mask as _impl
+
+    return _impl(lengths, maxlen=maxlen, dtype=dtype)
+
+
+def gather_tree(ids, parents):
+    """Back-trace beam-search parent pointers: ``ids``/``parents``
+    [T, B, K] -> the [T, B, K] sequences that end in each final beam.  One
+    reverse loop of T gathers on the device, no host read."""
+    t_len, b, k = ids.shape
+    ptr = torch.arange(k, device=ids.device).expand(b, k)
+    parents = parents.long()
+    out = [None] * t_len
+    for t in range(t_len - 1, -1, -1):
+        out[t] = ids[t].gather(1, ptr)
+        ptr = parents[t].gather(1, ptr)
+    return torch.stack(out) if out else ids.clone()

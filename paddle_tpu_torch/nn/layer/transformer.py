@@ -1,8 +1,13 @@
 """Transformer layers (counterpart of the reference's
 ``nn/layer/transformer.py``): ``MultiHeadAttention`` with its uncached
-forward and its dense and paged decode-cache forwards,
-``TransformerEncoderLayer`` (pre- and post-norm) and
-``TransformerEncoder``.
+forward, the reference's incremental and static attention caches
+(``Cache``, which grows by concatenation, and ``StaticCache``, the
+memory's projection made once) and its dense and paged decode-cache
+forwards; ``TransformerEncoderLayer``/``TransformerEncoder`` and
+``TransformerDecoderLayer``/``TransformerDecoder`` (pre- and post-norm),
+and the encoder-decoder ``Transformer``.  Every uncached attention goes
+through ``F.scaled_dot_product_attention`` and so, without dropout, to
+the flash kernel K3.
 
 Decode caches are named tuples as in the reference.  Unlike JAX arrays,
 torch tensors are written in place: a decode forward scatters the new K/V
@@ -138,24 +143,37 @@ def _paged_write(pool, new, phys, off):
 
 
 class MultiHeadAttention(nn.Module):
-    """paddle.nn.MultiHeadAttention counterpart (self-attention with
-    optional key/value inputs)."""
+    """paddle.nn.MultiHeadAttention counterpart: self-attention, or
+    attention over ``key``/``value`` inputs of widths ``kdim``/``vdim``.
+    With ``need_weights`` the forward also returns the attention weights,
+    which are None here, as in the reference (the kernel never makes
+    them)."""
+
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 kdim: Optional[int] = None, vdim: Optional[int] = None,
+                 need_weights: bool = False, weight_attr=None,
+                 bias_attr=None, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.embed_dim = embed_dim
+        self.kdim = kdim or embed_dim
+        self.vdim = vdim or embed_dim
         self.num_heads = num_heads
         self.dropout = dropout
+        self.need_weights = need_weights
         self.head_dim = embed_dim // num_heads
         if self.head_dim * num_heads != embed_dim:
             raise InvalidArgumentError(
                 "embed_dim %d not divisible by num_heads %d"
                 % (embed_dim, num_heads))
-        kw = dict(device=device, generator=generator)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                  device=device, generator=generator)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
-        self.k_proj = Linear(embed_dim, embed_dim, **kw)
-        self.v_proj = Linear(embed_dim, embed_dim, **kw)
+        self.k_proj = Linear(self.kdim, embed_dim, **kw)
+        self.v_proj = Linear(self.vdim, embed_dim, **kw)
         self.out_proj = Linear(embed_dim, embed_dim, **kw)
 
     def _split_heads(self, x):
@@ -165,6 +183,24 @@ class MultiHeadAttention(nn.Module):
     def _merge_heads(self, x):
         b, h, l, d = x.shape
         return x.transpose(1, 2).reshape(b, l, h * d)
+
+    def gen_cache(self, key, value=None, type=None):
+        """The reference's attention caches.  ``type=StaticCache``: the
+        projections of ``key`` and ``value`` (``key`` when None), made once
+        for every later step (a decoder's memory).  Otherwise a ``Cache``:
+        empty ([B, H, 0, D] on this layer's device and dtype) when
+        ``value`` is None, else ``Cache(key, value)`` as given."""
+        if type == MultiHeadAttention.StaticCache:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(
+                key if value is None else value))
+            return self.StaticCache(k, v)
+        if value is None:
+            w = self.q_proj.weight
+            empty = torch.zeros(key.shape[0], self.num_heads, 0,
+                                self.head_dim, dtype=w.dtype, device=w.device)
+            return self.Cache(empty, empty.clone())
+        return self.Cache(key, value)
 
     def gen_decode_cache(self, batch_size: int, max_length: int,
                          dtype="float32", per_slot: bool = False,
@@ -328,44 +364,69 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
+        """Attention of ``query`` over ``key``/``value`` (``query`` when
+        None).  A ``Cache`` gets this call's keys and values appended
+        (axis 2) and is returned, a ``StaticCache`` is attended as it is,
+        a decode cache is written in place and returned with its index
+        advanced.  Returns ``out``, or ``(out, cache)`` for a ``Cache`` or
+        a decode cache; with ``need_weights`` the weights (None) come
+        after ``out``."""
         if is_sharded(cache):
             return self._sharded_forward(query, attn_mask, cache)
         key = query if key is None else key
         value = key if value is None else value
         q = self._split_heads(self.q_proj(query))
-        k = self._split_heads(self.k_proj(key))
-        v = self._split_heads(self.v_proj(value))
         if isinstance(cache, (DecodeCache, PagedDecodeCache)):
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value))
             fwd = (self._decode_forward if isinstance(cache, DecodeCache)
                    else self._paged_decode_forward)
             out, cache = fwd(q, k, v, attn_mask, cache)
-            return self.out_proj(self._merge_heads(out)), cache
+            out = self.out_proj(self._merge_heads(out))
+            return (out, None, cache) if self.need_weights else (out, cache)
+        if isinstance(cache, self.StaticCache):
+            k, v = cache.k, cache.v
+        else:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value))
+            if isinstance(cache, self.Cache):
+                k = torch.cat([cache.k, k], dim=2)
+                v = torch.cat([cache.v, v], dim=2)
+                cache = self.Cache(k, v)
         mask = _convert_attn_mask(attn_mask, q.dtype)
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                              dropout_p=self.dropout,
                                              training=self.training)
-        return self.out_proj(self._merge_heads(out))
+        out = self.out_proj(self._merge_heads(out))
+        if isinstance(cache, self.Cache):
+            return (out, None, cache) if self.need_weights else (out, cache)
+        return (out, None) if self.need_weights else out
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Encoder block; post-norm by default (``normalize_before=False``)."""
+    """Encoder block; post-norm by default (``normalize_before=False``).
+    ``attn_dropout`` (on the attention weights) and ``act_dropout`` (after
+    the activation) default to ``dropout``."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.1, activation: str = "relu",
-                 normalize_before: bool = False, device=None,
+                 attn_dropout: Optional[float] = None,
+                 act_dropout: Optional[float] = None,
+                 normalize_before: bool = False, weight_attr=None,
+                 bias_attr=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        # constructor arguments, so TransformerEncoder can build siblings
-        self._config = dict(
-            d_model=d_model, nhead=nhead, dim_feedforward=dim_feedforward,
-            dropout=dropout, activation=activation,
-            normalize_before=normalize_before, device=device,
-            generator=generator)
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        # where _clone_args' siblings draw their parameters
+        self._factory = dict(device=device, generator=generator)
         self.normalize_before = normalize_before
-        kw = dict(device=device, generator=generator)
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout, **kw)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                  device=device, generator=generator)
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            **kw)
         self.linear1 = Linear(d_model, dim_feedforward, **kw)
-        self.dropout = Dropout(dropout)
+        self.dropout = Dropout(act_dropout)
         self.linear2 = Linear(dim_feedforward, d_model, **kw)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
@@ -411,6 +472,9 @@ class TransformerEncoderLayer(nn.Module):
             slice(m * width, (m + 1) * width)))) for m in range(mp)]
             for xd, ids in _dp_rows(x, cache)]
         return _row_parallel_seam(self.linear2, hidden, mp)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src)
 
     def gen_decode_cache(self, *args, **kwargs):
         return self.self_attn.gen_decode_cache(*args, **kwargs)
@@ -460,15 +524,16 @@ def _row_parallel_seam(lin, xs, mp: int):
 
 class TransformerEncoder(nn.Module):
     """A stack of ``num_layers`` encoder layers: ``encoder_layer`` first,
-    then fresh siblings built from its constructor arguments."""
+    then fresh siblings built by :func:`_clone_args`; ``norm`` (a
+    ``LayerNorm``, for pre-norm stacks) after the last."""
 
-    def __init__(self, encoder_layer: TransformerEncoderLayer,
-                 num_layers: int):
+    def __init__(self, encoder_layer, num_layers: int, norm=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            [encoder_layer] + [TransformerEncoderLayer(**encoder_layer._config)
-                               for _ in range(num_layers - 1)])
+            [encoder_layer] + [type(encoder_layer)(**_clone_args(
+                encoder_layer)) for _ in range(num_layers - 1)])
         self.num_layers = num_layers
+        self.norm = norm
 
     def forward(self, src, src_mask=None, cache=None):
         output = src
@@ -479,8 +544,194 @@ class TransformerEncoder(nn.Module):
             else:
                 output, new_cache = mod(output, src_mask, cache[i])
                 new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
         return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
 
     def gen_decode_cache(self, *args, **kwargs):
         return [layer.gen_decode_cache(*args, **kwargs)
                 for layer in self.layers]
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Decoder block: masked self-attention, cross-attention over the
+    encoder's ``memory``, the MLP; post-norm by default.  ``cache`` is the
+    pair :meth:`gen_cache` makes: a ``Cache`` for the self-attention
+    (returned grown) and a ``StaticCache`` of the memory."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = 0.1, activation: str = "relu",
+                 attn_dropout: Optional[float] = None,
+                 act_dropout: Optional[float] = None,
+                 normalize_before: bool = False, weight_attr=None,
+                 bias_attr=None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self._factory = dict(device=device, generator=generator)
+        self.normalize_before = normalize_before
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                  device=device, generator=generator)
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            **kw)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.norm1 = LayerNorm(d_model, device=device)
+        self.norm2 = LayerNorm(d_model, device=device)
+        self.norm3 = LayerNorm(d_model, device=device)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.activation = activation
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+            incr_cache = None
+        else:
+            tgt, incr_cache = self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                             cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        if cache is None:
+            tgt = self.cross_attn(tgt, memory, memory, memory_mask)
+        else:
+            tgt = self.cross_attn(tgt, memory, memory, memory_mask, cache[1])
+        if isinstance(tgt, tuple):  # need_weights
+            tgt = tgt[0]
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(getattr(F, self.activation)(
+            self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incr_cache, cache[1]))
+
+    def gen_cache(self, memory):
+        """(an empty ``Cache`` for the self-attention, the memory's
+        ``StaticCache`` for the cross-attention)."""
+        incr = self.self_attn.gen_cache(memory)
+        static = self.cross_attn.gen_cache(
+            memory, memory, type=MultiHeadAttention.StaticCache)
+        return incr, static
+
+
+class TransformerDecoder(nn.Module):
+    """A stack of ``num_layers`` decoder layers, built as
+    :class:`TransformerEncoder` builds its stack; ``norm`` after the
+    last."""
+
+    def __init__(self, decoder_layer, num_layers: int, norm=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [decoder_layer] + [type(decoder_layer)(**_clone_args(
+                decoder_layer)) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output = tgt
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, new_cache = mod(output, memory, tgt_mask,
+                                        memory_mask, cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip: bool = False):
+        """Each layer's (``Cache``, ``StaticCache``) pair; ``do_zip``
+        regroups them as (all ``Cache``s, all ``StaticCache``s)."""
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        if do_zip:
+            cache = list(zip(*cache))
+        return cache
+
+
+def _clone_args(layer) -> dict:
+    """A sibling's constructor arguments, read off a prototype encoder or
+    decoder layer as the reference reads them (its ``weight_attr`` and
+    ``bias_attr`` are not carried over), with the prototype's device and
+    generator."""
+    return dict(
+        d_model=layer.norm1._normalized_shape[0],
+        nhead=layer.self_attn.num_heads,
+        dim_feedforward=layer.linear1.out_features,
+        dropout=layer.dropout1.p,
+        activation=layer.activation,
+        attn_dropout=layer.self_attn.dropout,
+        act_dropout=layer.dropout.p,
+        normalize_before=layer.normalize_before,
+        **layer._factory)
+
+
+class Transformer(nn.Module):
+    """The encoder-decoder Transformer: a ``TransformerEncoder`` and a
+    ``TransformerDecoder`` of the given sizes (each with a final
+    ``LayerNorm`` when ``normalize_before``), or ``custom_encoder`` /
+    ``custom_decoder`` in their place."""
+
+    def __init__(self, d_model: int = 512, nhead: int = 8,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 activation: str = "relu", attn_dropout=None,
+                 act_dropout=None, normalize_before: bool = False,
+                 weight_attr=None, bias_attr=None, custom_encoder=None,
+                 custom_decoder=None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        args = (d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr, device, generator)
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            norm = LayerNorm(d_model, device=device) \
+                if normalize_before else None
+            self.encoder = TransformerEncoder(
+                TransformerEncoderLayer(*args), num_encoder_layers, norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            norm = LayerNorm(d_model, device=device) \
+                if normalize_before else None
+            self.decoder = TransformerDecoder(
+                TransformerDecoderLayer(*args), num_decoder_layers, norm)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    def generate_square_subsequent_mask(self, length: int):
+        """[length, length] float32: 0 on and below the diagonal, -1e9
+        above, on this model's device."""
+        dev = next(self.parameters()).device
+        return torch.full((length, length), -1e9, device=dev).triu(1)

@@ -1,8 +1,9 @@
 """``paddle_tpu_torch.tensor``: the tensor-op surface (counterpart of the
 reference's ``tensor/`` package): ``attribute``, ``creation``,
 ``einsum``, ``linalg``, ``logic``, ``manipulation``, ``math``,
-``random``, ``search`` and ``stat``, with the reference's names and
-argument conventions (``axis=``, ``keepdim=``).
+``random``, ``search``, ``segment`` (sequence masks, padding and segment
+reductions) and ``stat``, with the reference's names and argument
+conventions (``axis=``, ``keepdim=``).
 
 Installed as the reference installs its namespace:
 
@@ -23,7 +24,7 @@ Installed as the reference installs its namespace:
 
 Ops with no tensor input (``zeros``, ``arange``, ``randn``, ...) take the
 device as ``place=`` (``None``: ``cuda``), as ``to_tensor`` does.
-Not ported yet: ``array``, ``control_flow`` and ``segment``.
+Not ported yet: ``array`` and ``control_flow``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import inspect
 import types
 
 from . import (attribute, creation, einsum as _einsum_mod, linalg,
-               logic, manipulation, math, random, search, stat)
+               logic, manipulation, math, random, search, segment, stat)
 from .attribute import *  # noqa: F401,F403
 from .creation import *  # noqa: F401,F403
 from .einsum import einsum  # noqa: F401
@@ -42,6 +43,7 @@ from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .random import *  # noqa: F401,F403
 from .search import *  # noqa: F401,F403
+from .segment import *  # noqa: F401,F403
 from .stat import *  # noqa: F401,F403
 from ..core.errors import InvalidArgumentError
 from ..framework import dispatch as _dispatch
@@ -52,7 +54,7 @@ _INPLACE = ("add", "subtract", "ceil", "clip", "exp", "flatten", "floor",
 
 __all__ = list(dict.fromkeys(
     n for mod in (attribute, creation, _einsum_mod, linalg, logic,
-                  manipulation, math, random, search, stat)
+                  manipulation, math, random, search, segment, stat)
     for n in mod.__all__)) + [n + "_" for n in _INPLACE]
 
 

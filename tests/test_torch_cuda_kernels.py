@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain twins, on the card: K1
 (paged) and K2 (dense) decode attention, K3's flash-attention forward
 and backward, and K4 (``scale_mul``, the custom-op door's kernel); a bf16 O2 training
-step (K3 in bf16) against its CPU twin; then the captured
+step (K3 in bf16) against its CPU twin; K3's forward at the sequence
+models' shapes (Lq 1 included); then the captured
 steps of ``jit/aot.py``: a graph captured once and replayed, launches
 counted through replays, the pool's and the session's steps against
 their private eager entry, the engine's background loop serving client
@@ -10,7 +11,10 @@ threads submit and capture, a migration adopted under a warm graph
 without dropping it, and a failed capture raising; a sparse embedding's
 lazy Adam rows and the nan/inf check beside a captured train step; a
 captured BatchNorm step advancing the running statistics once a call
-(with and without recompute), and recompute's random draws under capture.
+(with and without recompute), and recompute's random draws under capture;
+a captured LSTM step over ragged lengths (the step loop, nothing read
+back), ``sequence_mask`` refusing to read its size back in a capture, and
+a captured step's dropout masks equal to the eager steps'.
 Skipped without a CUDA card: the kernels have no CPU mode (the CPU runs
 the twins, held against the reference by ``test_torch_decode_attention.py``,
 ``test_torch_flash_attention.py`` and ``test_torch_custom_op.py``).
@@ -1712,3 +1716,139 @@ def test_recompute_under_capture_replays_the_forward_draws(cuda_device):
                                    w - 1e-3 * loss / w, rtol=1e-5, atol=0)
     assert step._fn.graphs() == 1
     assert len(set(losses)) == len(losses), losses  # a fresh mask each call
+
+
+# -- the sequence models ------------------------------------------------------
+
+
+def _s2s_flash_case(dev, name):
+    """K3's inputs at a seq2seq shape (fp32, 8 heads x 64): q/k/v as
+    transposed head views, and the bias the layer gives it (the -1e9
+    padding bias, a row of it fully masked, the [L, L] subsequent mask,
+    none for a beam step's self-attention)."""
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    rows, lq, lk = {"encoder": (128, 64, 64), "fully_padded": (128, 64, 64),
+                    "decoder_self": (128, 64, 64), "step_cross": (64, 1, 64),
+                    "step_self_1": (64, 1, 1), "step_self_17": (64, 1, 17),
+                    "step_self_64": (64, 1, 64)}[name]
+
+    def heads(l):
+        return torch.randn(rows, l, 8, 64, device=dev,
+                           generator=gen).transpose(1, 2)
+
+    lens = torch.randint(min(8, lk), lk + 1, (rows,), device=dev,
+                         generator=gen)
+    pad = torch.where(torch.arange(lk, device=dev)[None, :] < lens[:, None],
+                      0.0, -1e9)[:, None, None, :]
+    if name == "fully_padded":
+        pad[1] = -1e9
+    bias = {"decoder_self": torch.full((lq, lk), -1e9, device=dev).triu(1),
+            "encoder": pad, "fully_padded": pad,
+            "step_cross": pad}.get(name)
+    return dict(q=heads(lq), k=heads(lk), v=heads(lk), bias=bias,
+                causal=False, sm_scale=0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["encoder", "fully_padded", "decoder_self",
+                                  "step_cross", "step_self_1",
+                                  "step_self_17", "step_self_64"])
+def test_flash_forward_at_seq2seq_shapes(cuda_device, name):
+    """K3's forward in its bias mode at the Transformer-base shapes,
+    Lq 1 included, against its twin (fp32: summation order, 1e-5); a row
+    whose every key is masked attends uniformly in both."""
+    args = _s2s_flash_case(cuda_device, name)
+    o, stats = fk.flash_attention_forward_kernel(**args)
+    want_o, want_stats = fk.flash_attention_forward_plain(**args)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=1e-5)
+    torch.testing.assert_close(stats, want_stats, rtol=0, atol=1e-5)
+    if name == "fully_padded":
+        torch.testing.assert_close(
+            o[1], args["v"][1].mean(dim=1, keepdim=True).expand_as(o[1]),
+            rtol=0, atol=1e-5)
+
+
+def _lstm_batch(dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(4, 12, 16, device=dev, generator=gen)
+    lens = torch.randint(1, 13, (4,), device=dev, generator=gen)
+    return x, lens
+
+
+@pytest.mark.cuda
+def test_captured_lstm_step_reads_nothing_back(cuda_device, monkeypatch):
+    """A 2-layer bidirectional LSTM over ragged lengths under a captured
+    ``TrainStep``: eagerly (and in the warm-up) the layer packs the rows by
+    length, which reads the lengths back; the capture takes the step loop,
+    which reads nothing back, and every replay runs on that call's
+    lengths.  The losses equal the eager ones within 1e-4 (cuDNN's sums
+    against the loop's)."""
+    from paddle_tpu_torch import TrainStep, nn, optimizer
+    from paddle_tpu_torch.nn.layer import rnn
+
+    routes = []
+    real = rnn._route
+    monkeypatch.setattr(rnn, "_route",
+                        lambda *a: routes.append(real(*a)) or routes[-1])
+    losses = {}
+    for capture in (False, True):
+        model = nn.LSTM(16, 32, 2, direction="bidirect", device=cuda_device,
+                        generator=torch.Generator(device=cuda_device)
+                        .manual_seed(0))
+        opt = optimizer.Adam(1e-3, parameters=model.parameters())
+        step = TrainStep(model, lambda m, x, n: m(
+            x, sequence_length=n)[0].square().mean(), opt, capture=capture)
+        routes.clear()
+        losses[capture] = [float(step(*_lstm_batch(cuda_device, s)))
+                           for s in range(4)]
+        assert step._fn.graphs() == int(capture)
+        want = ["packed"] * 16 if not capture \
+            else ["packed"] * 4 + ["loop"] * 4
+        assert routes == want, routes
+    torch.testing.assert_close(losses[True], losses[False], rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_sequence_ops_need_their_sizes_in_a_capture(cuda_device):
+    """``sequence_mask`` without ``maxlen`` reads the largest length back,
+    which a capture forbids: the capture fails naming the argument; with
+    ``maxlen`` the step captures."""
+    from paddle_tpu_torch import TrainStep, nn, optimizer, sequence_mask
+    from paddle_tpu_torch.jit.aot import CaptureError
+
+    for maxlen in (None, 12):
+        model = nn.Linear(16, 1, device=cuda_device)
+        step = TrainStep(model, lambda m, x, n: m(x).mean() * sequence_mask(
+            n, maxlen, dtype="float32").sum(),
+            optimizer.SGD(0.1, parameters=model.parameters()))
+        x, lens = _lstm_batch(cuda_device, 0)
+        step(x, lens)
+        if maxlen is None:
+            with pytest.raises(CaptureError, match="maxlen"):
+                step(x, lens)
+        else:
+            step(x, lens)
+            assert step._fn.graphs() == 1
+
+
+@pytest.mark.cuda
+def test_captured_dropout_replays_the_eager_masks(cuda_device):
+    """From the same seed, a captured step's replays draw the dropout masks
+    the eager steps drew (the generator's offset advances by the graph's
+    draws at each replay), so the two runs' losses agree to rounding."""
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch.optimizer import SGD
+
+    losses = {}
+    for capture in (False, True):
+        torch.cuda.manual_seed(3)
+        model = _train_model(cuda_device, True, dropout=0.1)
+        step = TrainStep(model, _train_loss(True, [False]),
+                         SGD(1e-2, parameters=model.parameters()),
+                         capture=capture)
+        batch = _train_batches(cuda_device, 1)[0]
+        losses[capture] = [float(step(*batch)) for _ in range(4)]
+    assert len(set(losses[False])) == 4, losses
+    torch.testing.assert_close(losses[True], losses[False], rtol=1e-5,
+                               atol=0)

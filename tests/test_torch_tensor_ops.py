@@ -469,6 +469,21 @@ SIGN_FREE = {"svd": lambda o: o[1], "qr": lambda o: abs(_np(o[1])),
              "eigh": lambda o: o[0]}
 SWEEP += [("svd", (A,), {}), ("qr", (A.T.copy(),), {}),
           ("eigh", (X["spd"],), {})]
+# the segment ops (tensor/segment.py; their edge cases and gradients in
+# tests/test_torch_segment.py): ids with dropped (-1) and empty segments
+SEG = np.array([0, 0, 1, -1, 2, 2, 2, 0, 1, 1, -1, 4], np.int64)
+LENS = np.array([3, 0, 4], np.int64)
+SWEEP += [
+    ("segment_sum", (A.reshape(-1), SEG), {}),
+    ("segment_mean", (A.reshape(-1), SEG), {"num_segments": 6}),
+    ("segment_max", (A.reshape(-1), SEG), {}),
+    ("segment_min", (A.reshape(-1), SEG), {"num_segments": 6}),
+    ("segment_softmax", (A.reshape(-1), SEG), {}),
+    ("masked_mean", (A, A > 0), {"axis": 1}),
+    ("sequence_mask", (LENS,), {"maxlen": 6}),
+    ("lengths_to_segment_ids", (LENS,), {}),
+    ("sequence_pad", ([A[0], A[1, :2]],), {"pad_value": -1.0}),
+    ("sequence_unpad", (A, LENS), {})]
 
 
 @pytest.mark.parametrize("case", SWEEP, ids=[c[0] for c in SWEEP])

@@ -119,6 +119,22 @@ PyTorch twin, and drives the port's two main paths:
   down by part (``train_resnet50``).  Convolutions, pools and BatchNorm
   are cuDNN/ATen calls, as the reference's are XLA's: no TPU kernel lies
   on this path;
+- the vision surface (no TPU kernel either): ``transforms_pipeline``
+  (128 synthetic 256 x 256 uint8 images cropped, flipped, converted and
+  normalized on the host into a pinned batch, uploaded, timed against
+  the step it feeds); ``train_mobilenet_v2`` (``mobilenet_v2(scale=1.0)``
+  at 224 and 1000 classes, O2 bf16, Momentum(0.9) with L2Decay(4e-5),
+  batch 128, captured and eagerly from the same weights, the running
+  statistics advanced once a call, MFU from the layers' FLOPs, the eager
+  step broken down by depthwise and pointwise convolution, BatchNorm,
+  ReLU6 and casts); ``eval_vision_zoo`` (ten families at full width,
+  fp32 batch 64, eager and as one captured forward, logits held against
+  the same module's CPU forward); ``detection_ops`` (YOLOv3's loss,
+  forward and backward, over its three 608 heads at batch 8, its decode
+  by ``yolo_box`` and NMS, ``roi_align`` at FPN P2, DCNv2's
+  ``deform_conv2d`` at ResNet50 stage 5 and ``grid_sample`` at 64 x 224,
+  each held against the CPU); ``vision_functional_cuda`` (every new
+  vision function and layer on the card against the CPU);
 - the sequence models, at their published widths from random weights:
   Transformer-base (6 + 6 layers, 512 wide, 8 heads, a shared 33708-token
   vocabulary; PaddleNLP's WMT14 en-de recipe) trained in fp32 on 128 x 64
@@ -5111,8 +5127,10 @@ RESNET_STATS_CALLS = 3
 # (one process, one benchmark cache), but some weight-gradient algorithms
 # sum in a data-race order, so the runs may part in the last bits and
 # drift over the steps: LeNet fp32 over 20 Adam steps, ResNet50 O2 bf16
-# over 15 Momentum steps (three at learning rate 0)
-VISION_CAPTURED_RTOL = {"lenet": 1e-4, "resnet50": 2e-2}
+# over 15 Momentum steps (three at learning rate 0), MobileNetV2 O2 bf16
+# the same
+VISION_CAPTURED_RTOL = {"lenet": 1e-4, "resnet50": 2e-2,
+                        "mobilenet_v2": 2e-2}
 # running statistics after k calls against (1 - 0.9^k) * batch: the batch
 # statistics of identical calls agree to cuDNN's forward rounding; a call
 # missed or counted twice moves them by 10% or more
@@ -5188,13 +5206,14 @@ def _stats_advanced(stats):
 
 
 def _vision_leg(build, loss_fn, batch, steps, capture, stats_calls=0,
-                crit=None):
+                crit=None, parts_fn=None):
     """``build()``'s model and optimizer trained by one ``TrainStep`` on
     the device-resident ``batch``: ``stats_calls`` calls at learning rate 0
     (the running statistics read after each; the optimizer's velocity
     zeroed after them), then ``steps`` more, each timed to its end.  One
     more step runs under the profiler: eager with its parts marked
-    (``crit`` given), captured as one replay."""
+    (``crit`` given; ``parts_fn(model, crit, opt)``, by default
+    ``_vision_parts``), captured as one replay."""
     import torch
 
     from paddle_tpu_torch import TrainStep
@@ -5239,8 +5258,8 @@ def _vision_leg(build, loss_fn, batch, steps, capture, stats_calls=0,
         assert max(dev) < STATS_RTOL, dev
         out["stats_deviation_by_call"] = dev
         out["stats_updates_by_call"] = counts
-    parts = None if capture or crit is None else _vision_parts(model, crit,
-                                                               opt)
+    parts = None if capture or crit is None else (
+        parts_fn or _vision_parts)(model, crit, opt)
     out["profile"] = _profile_step(step, batch, mean_ms, parts)
     out["launches_per_step"] = out["profile"].pop("launches")
     out["device_idle_share"] = out["profile"]["device_idle_share"]
@@ -7221,6 +7240,730 @@ S2S_K3_ROWS = (
     ("step_cross", "translate", "k3_step_cross_launches"))
 
 
+# -- the vision surface (PR 18) ------------------------------------------------
+
+# MobileNetV2 (Sandler et al. 2018, arXiv:1801.04381, Table 4: 3.4 M
+# parameters, 300 M multiply-adds at 224) trained at 224 x 224 and 1000
+# classes, O2 bf16, Momentum(0.9) at the paper's 0.045 with its L2Decay(4e-5),
+# batch 128, on a batch made by the host pipeline below
+MBV2_BATCH = 128
+MBV2_STEPS = 12
+MBV2_STATS_CALLS = 3
+MBV2_LR = 0.045
+MBV2_DECAY = 4e-5
+MBV2_PAPER_MACS = 300e6
+IMAGE_SIDE = 224
+# the data path: uint8 HWC images of 256 x 256 x 3, random 224 crops,
+# random flips, to CHW float, ImageNet mean / std, a pinned batch uploaded
+PIPE_SOURCE_SIDE = 256
+PIPE_BATCHES = 4
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# the zoo, each family at its default published width, evaluated fp32 at
+# batch 64, eager and as one captured graph of the forward
+ZOO_MODELS = (("alexnet", 224), ("vgg16", 224), ("squeezenet1_1", 224),
+              ("mobilenet_v1", 224), ("mobilenet_v2", 224),
+              ("mobilenet_v3_large", 224), ("shufflenet_v2_x1_0", 224),
+              ("densenet121", 224), ("googlenet", 224),
+              ("inception_v3", 299))
+ZOO_BATCH = 64
+ZOO_ITERS = 10
+# card logits (cuDNN, TF32 off) against the same module's CPU forward, of
+# the largest |logit|: a deep stack of convolutions summed in other orders
+ZOO_CPU_RTOL = 1e-3
+# the captured forward's logits against the eager forward's: the same
+# kernels, so equal up to a different algorithm choice
+ZOO_GRAPH_RTOL = 1e-5
+# YOLOv3 at 608 (Redmon & Farhadi 2018, arXiv:1804.02767): three heads at
+# strides 32/16/8, the COCO anchors and masks, 80 classes, batch 8, 50
+# ground-truth slots with ~10 valid; decoded as PaddleDetection's YOLOv3
+# COCO configs decode: yolo_box at conf 0.005, then NMS over each image's
+# top 1000 boxes at IoU 0.45, keeping 100
+YOLO_SIDE = 608
+YOLO_BATCH = 8
+YOLO_CLASSES = 80
+YOLO_GT_SLOTS = 50
+YOLO_GT_VALID = 10
+YOLO_ANCHORS = (10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326)
+YOLO_HEADS = (((6, 7, 8), 32), ((3, 4, 5), 16), ((0, 1, 2), 8))
+YOLO_IGNORE = 0.7
+YOLO_CONF = 0.005
+NMS_TOP_K = 1000
+NMS_KEEP = 100
+NMS_IOU = 0.45
+# Faster R-CNN FPN's P2 level: 200 x 304 at stride 4 of an 800 x 1216
+# image, 256 channels, 512 RoIs an image, 7 x 7 bins; the CPU holds the
+# first ROI_CPU of each image (each RoI's result is its own)
+ROI_SHAPE = (2, 256, 200, 304)
+ROI_PER_IMAGE = 512
+ROI_OUT = 7
+ROI_SCALE = 0.25
+ROI_CPU = 64
+# DCNv2's ResNet50 stage-5 3 x 3 conv (Zhu et al. 2019, arXiv:1811.11168)
+# at an 800 x 1333 image's stride 32
+DCN_SHAPE = (2, 512, 25, 42)
+# grid_sample at 64 x 3 x 224 x 224; the CPU holds the first GRID_CPU
+GRID_SHAPE = (64, 3, 224, 224)
+GRID_CPU = 8
+# detection ops on the card against the port's CPU run of the same inputs,
+# of each output's largest magnitude
+DET_RTOL = 1e-4
+
+
+def forward_flops(model, side: int) -> float:
+    """2 x the multiply-adds of ``model``'s convolutions and Linear layers
+    for one ``side`` x ``side`` image, counted from the layers' output
+    shapes by forward hooks (eval mode, one image)."""
+    import torch
+
+    from paddle_tpu_torch.nn.layer.common import Linear
+    from paddle_tpu_torch.nn.layer.conv import Conv2D
+
+    macs = [0]
+
+    def conv(m, inp, out):
+        macs[0] += out.numel() * m.weight[0].numel()
+
+    def linear(m, inp, out):
+        macs[0] += out.numel() * m.weight.shape[0]
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv2D)
+                                     else linear)
+             for m in model.modules() if isinstance(m, (Conv2D, Linear))]
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            dev = next(model.parameters()).device
+            model(torch.zeros(1, 3, side, side, device=dev,
+                              dtype=next(model.parameters()).dtype))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was)
+    return 2.0 * macs[0]
+
+
+def image_pipeline():
+    """The training data path: ``Compose([RandomCrop(224),
+    RandomHorizontalFlip(), ToTensor(), Normalize(ImageNet mean/std)])``
+    on uint8 HWC images, on the host, drawing from Python's ``random``."""
+    from paddle_tpu_torch.vision import transforms as T
+
+    return T.Compose([T.RandomCrop(IMAGE_SIDE), T.RandomHorizontalFlip(),
+                      T.ToTensor(), T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+
+
+def _source_images(rng, n):
+    return (rng.rand(n, PIPE_SOURCE_SIDE, PIPE_SOURCE_SIDE, 3)
+            * 255).astype(np.uint8)
+
+
+def transforms_pipeline():
+    """``transforms_pipeline``: ``image_pipeline()`` turns 128 synthetic
+    uint8 256 x 256 x 3 images (numpy, seed 0) into a pinned
+    [128, 3, 224, 224] batch, which is uploaded; ``PIPE_BATCHES`` batches,
+    each timed on the host clock (the transforms; the upload with its
+    synchronize apart).  The uploaded batch must equal the host's, its
+    values what the normalization allows.  Returns the record and the
+    last batch on the card with labels, which ``train_mobilenet_v2``
+    trains on."""
+    import random
+
+    import torch
+
+    rng = np.random.RandomState(0)
+    images = _source_images(rng, MBV2_BATCH)
+    pipe = image_pipeline()
+    pinned = torch.empty((MBV2_BATCH, 3, IMAGE_SIDE, IMAGE_SIDE),
+                         pin_memory=True)
+    dev = torch.empty(pinned.shape, device="cuda")
+    random.seed(0)
+    host_ms, upload_ms = [], []
+    for _ in range(PIPE_BATCHES):
+        t0 = time.perf_counter()
+        for i, img in enumerate(images):
+            pinned[i].copy_(pipe(img))
+        t1 = time.perf_counter()
+        dev.copy_(pinned, non_blocking=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host_ms.append((t1 - t0) * 1e3)
+        upload_ms.append((t2 - t1) * 1e3)
+    assert torch.equal(dev.cpu(), pinned)
+    lo = min((0.0 - m) / s for m, s in zip(IMAGENET_MEAN, IMAGENET_STD))
+    hi = max((1.0 - m) / s for m, s in zip(IMAGENET_MEAN, IMAGENET_STD))
+    assert bool(torch.isfinite(dev).all())
+    assert lo - 1e-5 <= float(dev.min()) and float(dev.max()) <= hi + 1e-5
+    labels = torch.from_numpy(rng.randint(0, 1000, (MBV2_BATCH,))).cuda()
+    out = {"batch": MBV2_BATCH, "source_side": PIPE_SOURCE_SIDE,
+           "host_ms_per_batch": host_ms,
+           "host_ms_mean": float(np.mean(host_ms)),
+           "host_ms_p50": float(np.median(host_ms)),
+           "host_imgs_per_s": MBV2_BATCH / (np.mean(host_ms) / 1e3),
+           "upload_ms_mean": float(np.mean(upload_ms)),
+           "upload_bytes": pinned.numel() * 4}
+    log("transforms_pipeline: %.1f ms a batch of %d on the host (%.0f "
+        "imgs/s), upload %.2f ms" % (out["host_ms_mean"], MBV2_BATCH,
+                                     out["host_imgs_per_s"],
+                                     out["upload_ms_mean"]))
+    return out, (dev, labels)
+
+
+class _MobileNetParts(_StepParts):
+    """``_StepParts`` over a MobileNetV2 step: the convolutions by kind
+    (``conv_depthwise`` when grouped, ``conv_pointwise`` when 1 x 1,
+    ``conv`` otherwise: the stem), BatchNorm, ReLU6, the pool, the
+    classifier's dropout and product, the casts, the loss and the
+    optimizer's grouped update."""
+
+    def __init__(self, model, crit, opt):
+        import paddle_tpu_torch.nn.functional as F
+        from paddle_tpu_torch.framework import dispatch
+
+        super().__init__(model, crit, opt, targets=[
+            (model, "forward", "forward"), (F, "_bn_triple", "batch_norm"),
+            (F, "relu6", "relu6"), (F, "adaptive_avg_pool2d", "pool"),
+            (F, "dropout", "dropout"), (F, "linear", "linear"),
+            (dispatch, "_cast", "cast"), (crit, "forward", "loss"),
+            (opt, "_apply_group", "optimizer")])
+
+    def __enter__(self):
+        import paddle_tpu_torch.nn.functional as F
+        from torch.profiler import record_function
+
+        super().__enter__()
+        conv2d = F.conv2d
+
+        def routed(x, weight, *args, **kwargs):
+            groups = kwargs.get("groups", args[4] if len(args) > 4 else 1)
+            kind = ("conv_depthwise" if groups > 1 else "conv_pointwise"
+                    if tuple(weight.shape[2:]) == (1, 1) else "conv")
+            with record_function("part:" + kind):
+                return conv2d(x, weight, *args, **kwargs)
+
+        self._saved.append((F, "conv2d", "conv2d" in vars(F), conv2d))
+        F.conv2d = routed
+        return self
+
+
+def train_mobilenet_v2(batch):
+    """``train_mobilenet_v2``: ``mobilenet_v2(scale=1.0)`` at 224 x 224
+    and 1000 classes, ``amp.decorate`` O2 bf16, Momentum(0.9) at 0.045
+    with L2Decay(4e-5) and ``nn.CrossEntropyLoss`` under ``auto_cast``
+    O1, on ``batch`` (``transforms_pipeline``'s, on the card), by
+    ``_vision_leg``: captured, then eagerly from the same weights and seed
+    (the classifier's dropout draws the same masks), each first
+    ``MBV2_STATS_CALLS`` calls at learning rate 0 after each of which
+    every BatchNorm's running statistics must have advanced exactly once
+    more, then ``MBV2_STEPS`` timed steps.  Step ms, imgs/s, launches a
+    step, idle share, peak memory, MFU (3 x forward FLOPs x batch / step
+    / 989 TFLOP/s; the FLOPs counted from the layers' shapes by
+    ``forward_flops``, beside the paper's 2 x 300 M), the captured losses
+    against the eager ones, and the eager step's breakdown by part."""
+    import torch
+
+    from paddle_tpu_torch import amp, nn, optimizer, regularizer
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    crit = nn.CrossEntropyLoss()
+
+    def loss_fn(m, x, y):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return crit(m(x), y)
+
+    def build():
+        torch.manual_seed(0)
+        model = mobilenet_v2(scale=1.0, num_classes=1000, device="cuda",
+                             seed=0)
+        opt = optimizer.Momentum(
+            MBV2_LR, momentum=0.9, parameters=model.parameters(),
+            weight_decay=regularizer.L2Decay(MBV2_DECAY))
+        return amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+    probe = mobilenet_v2(device="cuda", seed=0)
+    flops = forward_flops(probe, IMAGE_SIDE)
+    params = sum(p.numel() for p in probe.parameters())
+    del probe
+    bench_mode = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    try:
+        legs = {capture: _vision_leg(build, loss_fn, batch, MBV2_STEPS,
+                                     capture, stats_calls=MBV2_STATS_CALLS,
+                                     crit=None if capture else crit,
+                                     parts_fn=_MobileNetParts)
+                for capture in (True, False)}
+    finally:
+        torch.backends.cudnn.benchmark = bench_mode
+    rec = dict(legs[True])
+    assert all(np.isfinite(rec["losses"])), rec["losses"]
+    rec.update(_losses_beside(legs[True], legs[False],
+                              VISION_CAPTURED_RTOL["mobilenet_v2"]))
+    rec["eager"] = _eager_figures(legs[False])
+    for r, leg in ((rec, legs[True]), (rec["eager"], legs[False])):
+        step_s = leg["step_ms_mean"] / 1e3
+        r["imgs_per_s"] = MBV2_BATCH / step_s
+        r["mfu"] = 3.0 * flops * MBV2_BATCH / step_s / BF16_TC_FLOPS_PER_S
+    rec.update(batch=MBV2_BATCH, params=params, fwd_flops_per_image=flops,
+               paper_fwd_flops_per_image=2 * MBV2_PAPER_MACS,
+               mfu_peak_flops_per_s=BF16_TC_FLOPS_PER_S,
+               phase_s=time.perf_counter() - t0)
+    parts = rec["eager"]["profile"]["breakdown"]["parts"]
+    log("train_mobilenet_v2: captured %.2f ms a step (%.0f imgs/s, MFU "
+        "%.4f, idle %s, %d launches, peak %.1f GB), eager %.2f ms; forward "
+        "%.3f GFLOP an image (paper 2 x 300 M = 0.600); parts (ms): %s"
+        % (rec["step_ms_mean"], rec["imgs_per_s"], rec["mfu"],
+           rec["device_idle_share"], rec["launches_per_step"],
+           rec["peak_mem_gb"], rec["eager"]["step_ms_mean"], flops / 1e9,
+           {k: round(v["ms"], 2) for k, v in parts.items()}))
+    return rec
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (want's scale at least 1e-12)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()
+                 / max(float(want.abs().max()), 1e-12))
+
+
+def _profiled_call(fn, ms):
+    """One more call of ``fn`` under the profiler: kernels launched and
+    the device's idle share against the unprofiled ``ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_time_rows(prof)
+    busy = sum(r[0] for r in rows)
+    return {"launches": sum(n for _, _, n in rows), "device_busy_ms": busy,
+            "device_idle_share": (1 - busy / ms) if busy else None}
+
+
+def _timed_calls(fn, iters):
+    import torch
+
+    ms = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def eval_vision_zoo():
+    """``eval_vision_zoo``: each family of ``ZOO_MODELS`` at its default
+    width (seed 0), ``eval()``, fp32 with TF32 off, on a [64, 3, side,
+    side] batch: ``ZOO_ITERS`` eager forwards under ``no_grad`` and as
+    many replays of the forward captured by ``jit.aot.AotFunction`` (its
+    warm-up, then the capture), each timed to its end on the host clock;
+    launches and idle share of one profiled call each way.  The card's
+    logits on the first 2 images are held against the same module's CPU
+    forward with the same weights (``ZOO_CPU_RTOL``), the replay's against
+    the eager ones (``ZOO_GRAPH_RTOL``).  One model alive at a time."""
+    import copy
+
+    import torch
+
+    from paddle_tpu_torch.jit.aot import AotFunction, shape_key
+    from paddle_tpu_torch.vision import models
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bench_mode = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        for name, side in ZOO_MODELS:
+            t0 = time.perf_counter()
+            model = getattr(models, name)(device="cuda", seed=0).eval()
+            x = torch.randn(ZOO_BATCH, 3, side, side, device="cuda",
+                            generator=gen)
+
+            def fwd(inp, model=model):
+                with torch.no_grad():
+                    return model(inp)
+
+            eager = fwd(x)
+            eager_ms = _timed_calls(lambda: fwd(x), ZOO_ITERS)
+            e_prof = _profiled_call(lambda: fwd(x), float(np.mean(eager_ms)))
+            graph = AotFunction(fwd, lambda inp: shape_key(inp),
+                                "zoo_" + name, capture=True)
+            graph(x)
+            replay = graph(x)
+            assert graph.graphs() == 1
+            graph_ms_ = _timed_calls(lambda: graph(x), ZOO_ITERS)
+            g_prof = _profiled_call(lambda: graph(x),
+                                    float(np.mean(graph_ms_)))
+            eager_t = eager if isinstance(eager, tuple) else (eager,)
+            replay_t = replay if isinstance(replay, tuple) else (replay,)
+            graph_err = max(_rel_err(r, e) for r, e in zip(replay_t,
+                                                           eager_t))
+            cpu_model = copy.deepcopy(model).cpu()
+            with torch.no_grad():
+                cpu = cpu_model(x[:2].cpu())
+            cpu_t = cpu if isinstance(cpu, tuple) else (cpu,)
+            cpu_err = max(_rel_err(e[:2], c) for e, c in zip(eager_t, cpu_t))
+            assert all(bool(torch.isfinite(e).all()) for e in eager_t)
+            assert tuple(eager_t[0].shape) == (ZOO_BATCH, 1000)
+            assert cpu_err <= ZOO_CPU_RTOL, (name, cpu_err)
+            assert graph_err <= ZOO_GRAPH_RTOL, (name, graph_err)
+            rec = {
+                "side": side, "batch": ZOO_BATCH,
+                "params": sum(p.numel() for p in model.parameters()),
+                "fwd_flops_per_image": forward_flops(model, side),
+                "eager_ms": float(np.mean(eager_ms)),
+                "eager_ms_p50": float(np.median(eager_ms)),
+                "graph_ms": float(np.mean(graph_ms_)),
+                "graph_ms_p50": float(np.median(graph_ms_)),
+                "eager_launches": e_prof["launches"],
+                "eager_idle_share": e_prof["device_idle_share"],
+                "graph_launches": g_prof["launches"],
+                "graph_idle_share": g_prof["device_idle_share"],
+                "device_busy_ms": g_prof["device_busy_ms"],
+                "cpu_rel_err": cpu_err, "graph_rel_err": graph_err}
+            rec["imgs_per_s"] = ZOO_BATCH / (rec["graph_ms"] / 1e3)
+            rec["eager_imgs_per_s"] = ZOO_BATCH / (rec["eager_ms"] / 1e3)
+            rec["model_s"] = time.perf_counter() - t0
+            out[name] = rec
+            log("eval_vision_zoo %s (%d px): %.0f imgs/s captured (%.2f ms), "
+                "%.0f eager (%.2f ms), launches %d, idle %s / %s, card-CPU "
+                "%.1e, graph-eager %.1e (%.1f s)"
+                % (name, side, rec["imgs_per_s"], rec["graph_ms"],
+                   rec["eager_imgs_per_s"], rec["eager_ms"],
+                   rec["eager_launches"], rec["eager_idle_share"],
+                   rec["graph_idle_share"], cpu_err, graph_err,
+                   rec["model_s"]))
+            del model, cpu_model, graph, eager, replay, x, fwd
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = bench_mode
+    return out
+
+
+def _yolo_targets(rng):
+    """Ground truths of ``YOLO_BATCH`` images: ``YOLO_GT_VALID`` boxes each
+    (normalized centre, width, height), the other slots zero; labels and
+    mixup scores."""
+    import torch
+
+    gt = np.zeros((YOLO_BATCH, YOLO_GT_SLOTS, 4), np.float32)
+    gt[:, :YOLO_GT_VALID, :2] = rng.rand(YOLO_BATCH, YOLO_GT_VALID, 2) \
+        * 0.9 + 0.05
+    gt[:, :YOLO_GT_VALID, 2:] = rng.rand(YOLO_BATCH, YOLO_GT_VALID, 2) \
+        * 0.6 + 0.02
+    label = rng.randint(0, YOLO_CLASSES, (YOLO_BATCH, YOLO_GT_SLOTS))
+    score = rng.rand(YOLO_BATCH, YOLO_GT_SLOTS).astype(np.float32) * 0.5 \
+        + 0.5
+    return (torch.from_numpy(gt), torch.from_numpy(label),
+            torch.from_numpy(score))
+
+
+def _decode_nms(heads, img_size, ops):
+    """YOLOv3's decode on ``heads``: ``yolo_box`` on each, concatenated,
+    then per image NMS over its ``NMS_TOP_K`` boxes of highest class
+    score (IoU ``NMS_IOU``, at most ``NMS_KEEP`` kept): the boxes and
+    scores, and per image the kept indices into its top-k and their
+    count."""
+    import torch
+
+    boxes, scores = [], []
+    for x, (mask, ratio) in zip(heads, YOLO_HEADS):
+        anchors = [v for a in mask for v in YOLO_ANCHORS[2 * a:2 * a + 2]]
+        b, s = ops.yolo_box(x, img_size, anchors, YOLO_CLASSES, YOLO_CONF,
+                            ratio)
+        boxes.append(b)
+        scores.append(s)
+    boxes = torch.cat(boxes, 1)
+    best = torch.cat(scores, 1).amax(-1)
+    kept = []
+    for i in range(boxes.shape[0]):
+        top = torch.topk(best[i], NMS_TOP_K).indices
+        kept.append((top,) + ops.nms(boxes[i][top], best[i][top], NMS_IOU,
+                                     max_out=NMS_KEEP))
+    return boxes, best, kept
+
+
+def detection_ops():
+    """``detection_ops``: each detection op at a detector's size on the
+    card, against the port's own CPU run of the same inputs
+    (``DET_RTOL`` of each output's largest magnitude): YOLOv3's loss over
+    its three heads at 608 (forward + backward ms; the loss and the
+    heads' gradients), its decode (``yolo_box`` on the three heads, then
+    NMS per image; ms a batch; the kept indices equal to the CPU's NMS on
+    the same decoded boxes), ``roi_align`` at FPN P2's size, DCNv2's
+    ``deform_conv2d`` at ResNet50 stage 5 (forward, and forward +
+    backward ms; the output and the input, offset, mask and weight
+    gradients), and ``affine_grid`` + ``grid_sample`` (bilinear) in each
+    padding mode, beside torch's own ``grid_sample`` for scale.  Times are
+    CUDA-event means (``cuda_ms``)."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import ops
+
+    rng = np.random.RandomState(0)
+    out = {}
+    # -- YOLOv3 loss at 608 --------------------------------------------------
+    gt, label, score = _yolo_targets(rng)
+    ch = 3 * (5 + YOLO_CLASSES)
+    heads_cpu = [torch.from_numpy(rng.randn(
+        YOLO_BATCH, ch, YOLO_SIDE // r, YOLO_SIDE // r).astype(np.float32))
+        for _, r in YOLO_HEADS]
+
+    def yolo_total(heads, gt, label, score):
+        total = 0
+        for x, (mask, ratio) in zip(heads, YOLO_HEADS):
+            total = total + ops.yolo_loss(
+                x, gt, label, YOLO_ANCHORS, mask, YOLO_CLASSES, YOLO_IGNORE,
+                ratio, gt_score=score).sum()
+        return total
+
+    def fwd_bwd(heads, *t):
+        heads = [h.detach().requires_grad_(True) for h in heads]
+        loss = yolo_total(heads, *t)
+        loss.backward()
+        return loss, [h.grad for h in heads]
+
+    dev_t = [t.cuda() for t in (gt, label, score)]
+    heads = [h.cuda() for h in heads_cpu]
+    loss, grads = fwd_bwd(heads, *dev_t)
+    loss_c, grads_c = fwd_bwd(heads_cpu, gt, label, score)
+    errs = [_rel_err(loss, loss_c)] + [_rel_err(g, c)
+                                        for g, c in zip(grads, grads_c)]
+    assert max(errs) <= DET_RTOL, errs
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: yolo_total(heads, *dev_t), iters=10,
+                         warmup=2)
+    out["yolo_loss"] = {
+        "heads": [list(h.shape) for h in heads], "loss": float(loss.detach()),
+        "rel_err": errs, "forward_ms": fwd_ms,
+        "forward_backward_ms": cuda_ms(lambda: fwd_bwd(heads, *dev_t),
+                                       iters=10, warmup=2)}
+    # -- decode: yolo_box + NMS -------------------------------------------
+    img = torch.full((YOLO_BATCH, 2), float(YOLO_SIDE))
+    with torch.no_grad():
+        boxes, best, kept = _decode_nms(heads, img.cuda(), ops)
+        boxes_c, best_c, _ = _decode_nms(heads_cpu, img, ops)
+        box_err = _rel_err(boxes, boxes_c)
+        score_err = _rel_err(best, best_c)
+        assert max(box_err, score_err) <= DET_RTOL, (box_err, score_err)
+        counts = []
+        for i, (top, idx, n) in enumerate(kept):
+            top_c = top.cpu()
+            idx_c, n_c = ops.nms(boxes[i].cpu()[top_c], best[i].cpu()[top_c],
+                                 NMS_IOU, max_out=NMS_KEEP)
+            assert torch.equal(idx.cpu(), idx_c) and int(n) == int(n_c), i
+            counts.append(int(n))
+        decode_ms = cuda_ms(lambda: _decode_nms(heads, img.cuda(), ops),
+                            iters=5, warmup=1)
+    out["yolo_decode"] = {"boxes": int(boxes.shape[1]), "kept": counts,
+                          "box_rel_err": box_err,
+                          "score_rel_err": score_err,
+                          "ms_per_batch": decode_ms,
+                          "nms_trips_per_image": NMS_KEEP}
+    del heads, grads, heads_cpu, grads_c, boxes, best, kept
+    # -- roi_align at FPN P2 ------------------------------------------------------
+    n, c, h, w = ROI_SHAPE
+    feat = torch.from_numpy(rng.randn(*ROI_SHAPE).astype(np.float32))
+    side_y, side_x = h / ROI_SCALE, w / ROI_SCALE
+    x0 = rng.rand(n * ROI_PER_IMAGE) * side_x * 0.9
+    y0 = rng.rand(n * ROI_PER_IMAGE) * side_y * 0.9
+    bw = rng.rand(n * ROI_PER_IMAGE) * side_x * 0.3 + 8
+    bh = rng.rand(n * ROI_PER_IMAGE) * side_y * 0.3 + 8
+    rois = torch.from_numpy(np.stack([x0, y0, x0 + bw, y0 + bh],
+                                     1).astype(np.float32))
+    nums = torch.full((n,), ROI_PER_IMAGE)
+    with torch.no_grad():
+        got = ops.roi_align(feat.cuda(), rois.cuda(), nums.cuda(), ROI_OUT,
+                            ROI_SCALE)
+        sub = torch.cat([rois[i * ROI_PER_IMAGE:i * ROI_PER_IMAGE + ROI_CPU]
+                         for i in range(n)])
+        want = ops.roi_align(feat, sub, torch.full((n,), ROI_CPU), ROI_OUT,
+                             ROI_SCALE)
+        got_sub = torch.cat([got[i * ROI_PER_IMAGE:i * ROI_PER_IMAGE
+                                 + ROI_CPU] for i in range(n)])
+        roi_err = _rel_err(got_sub, want)
+        assert roi_err <= DET_RTOL, roi_err
+        feat_d, rois_d, nums_d = feat.cuda(), rois.cuda(), nums.cuda()
+        roi_ms = cuda_ms(lambda: ops.roi_align(feat_d, rois_d, nums_d,
+                                               ROI_OUT, ROI_SCALE),
+                         iters=10, warmup=2)
+    out["roi_align"] = {"x": list(ROI_SHAPE), "rois": int(rois.shape[0]),
+                        "out": list(got.shape), "rel_err": roi_err,
+                        "cpu_rois": n * ROI_CPU, "forward_ms": roi_ms}
+    del feat, feat_d, got
+    # -- deform_conv2d v2 ----------------------------------------------------------
+    n, c, h, w = DCN_SHAPE
+    arrays = [rng.randn(*DCN_SHAPE).astype(np.float32),
+              (rng.randn(n, 18, h, w) * 2).astype(np.float32),
+              (rng.randn(c, c, 3, 3) / np.sqrt(9 * c)).astype(np.float32),
+              rng.randn(c).astype(np.float32),
+              rng.rand(n, 9, h, w).astype(np.float32)]
+
+    def dcn(ts, backward):
+        ts = [t.detach().requires_grad_(backward) for t in ts]
+        y = ops.deform_conv2d(ts[0], ts[1], ts[2], ts[3], ts[4], padding=1)
+        if backward:
+            y.backward(torch.ones_like(y))
+            return [y] + [t.grad for t in ts]
+        return [y]
+
+    cpu_ts = [torch.from_numpy(a) for a in arrays]
+    dev_ts = [t.cuda() for t in cpu_ts]
+    dcn_errs = [_rel_err(g, c_) for g, c_ in zip(dcn(dev_ts, True),
+                                                 dcn(cpu_ts, True))]
+    assert max(dcn_errs) <= DET_RTOL, dcn_errs
+    with torch.no_grad():
+        dcn_fwd = cuda_ms(lambda: dcn(dev_ts, False), iters=10, warmup=2)
+    out["deform_conv2d"] = {
+        "x": list(DCN_SHAPE), "weight": [c, c, 3, 3], "mask": True,
+        "rel_err": dcn_errs, "forward_ms": dcn_fwd,
+        "forward_backward_ms": cuda_ms(lambda: dcn(dev_ts, True), iters=10,
+                                       warmup=2),
+        "fwd_flops": 2.0 * n * c * c * 9 * h * w}
+    del dev_ts, cpu_ts
+    # -- affine_grid + grid_sample ---------------------------------------------
+    xs = torch.from_numpy(rng.randn(*GRID_SHAPE).astype(np.float32))
+    theta = torch.from_numpy((np.eye(2, 3)[None] + rng.randn(
+        GRID_SHAPE[0], 2, 3) * 0.3).astype(np.float32))
+    xs_d, theta_d = xs.cuda(), theta.cuda()
+    grid_rec = {}
+    with torch.no_grad():
+        for mode in ("zeros", "border", "reflection"):
+            def sample(x_, t_, mode=mode):
+                return F.grid_sample(x_, F.affine_grid(t_, list(x_.shape)),
+                                     "bilinear", mode)
+
+            got = sample(xs_d, theta_d)
+            want = sample(xs[:GRID_CPU], theta[:GRID_CPU])
+            err = _rel_err(got[:GRID_CPU], want)
+            assert err <= DET_RTOL, (mode, err)
+            grid = torch.nn.functional.affine_grid(
+                theta_d, list(GRID_SHAPE), align_corners=True)
+            grid_rec[mode] = {
+                "rel_err": err,
+                "ms": cuda_ms(lambda: sample(xs_d, theta_d), iters=10,
+                              warmup=2),
+                "torch_grid_sample_ms": cuda_ms(
+                    lambda: torch.nn.functional.grid_sample(
+                        xs_d, grid, "bilinear", mode, align_corners=True),
+                    iters=10, warmup=2)}
+    out["grid_sample"] = {"x": list(GRID_SHAPE), "modes": grid_rec}
+    log("detection_ops: yolo_loss fwd %.2f / fwd+bwd %.2f ms, decode %.2f "
+        "ms a batch (kept %s), roi_align %.2f ms, deform_conv2d %.2f / "
+        "%.2f ms, grid_sample %s ms"
+        % (out["yolo_loss"]["forward_ms"],
+           out["yolo_loss"]["forward_backward_ms"], decode_ms, counts,
+           roi_ms, dcn_fwd, out["deform_conv2d"]["forward_backward_ms"],
+           {k: round(v["ms"], 3) for k, v in grid_rec.items()}))
+    del xs_d, theta_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+VISION_FUNCTIONAL_RTOL = 1e-5
+
+
+def _vision_functional_cases(dev):
+    """(label, thunk) pairs: each thunk builds its inputs on ``dev`` from
+    its own seed and returns the op's output."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    def data(seed, *shape):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn(*shape, generator=g).to(dev)
+
+    cases = []
+    interp = [("nearest", False, 0), ("nearest", True, 0),
+              ("bilinear", False, 0), ("bilinear", True, 0),
+              ("bilinear", False, 1), ("bicubic", False, 0),
+              ("area", False, 0)]
+    for mode, align, amode in interp:
+        for size in ((45, 37), (11, 9)):
+            cases.append(("interpolate_%s_ac%d_am%d_%dx%d" % (
+                (mode, align, amode) + size), lambda m=mode, a=align, am=amode,
+                s=size: F.interpolate(data(1, 4, 3, 23, 19), s, None, m, a,
+                                      am)))
+    for mode, align, amode in (("linear", False, 0), ("linear", False, 1),
+                               ("linear", True, 0)):
+        cases.append(("interpolate_%s_ac%d_am%d" % (mode, align, amode),
+                      lambda m=mode, a=align, am=amode: F.interpolate(
+                          data(2, 4, 3, 29), 41, None, m, a, am, "NCL")))
+    for mode, align, amode in (("trilinear", False, 0),
+                               ("trilinear", False, 1),
+                               ("trilinear", True, 0)):
+        cases.append(("interpolate_%s_ac%d_am%d" % (mode, align, amode),
+                      lambda m=mode, a=align, am=amode: F.interpolate(
+                          data(3, 2, 3, 7, 9, 11), (13, 5, 17), None, m, a,
+                          am, "NCDHW")))
+    for mode in ("constant", "reflect", "replicate", "circular"):
+        cases.append(("pad_" + mode, lambda m=mode: F.pad(
+            data(4, 4, 3, 17, 19), [3, 2, 4, 1], m, 0.5)))
+        cases.append(("pad_full_" + mode, lambda m=mode: F.pad(
+            data(5, 4, 3, 17, 19), [0, 0, 1, 2, 2, 3, 1, 0], m, 0.5)))
+    cases.append(("group_norm", lambda: F.group_norm(
+        data(6, 8, 32, 14, 14), 8, data(7, 32), data(8, 32))))
+    cases.append(("instance_norm", lambda: F.instance_norm(
+        data(9, 8, 16, 14, 14), data(10, 16), data(11, 16))))
+    cases.append(("local_response_norm", lambda: F.local_response_norm(
+        data(12, 8, 16, 14, 14), 5)))
+    cases.append(("normalize", lambda: F.normalize(data(13, 8, 64, 9), 2,
+                                                   1)))
+
+    def spectral():
+        layer = nn.SpectralNorm([64, 32, 3, 3], dim=0, power_iters=3,
+                                device=dev, generator=torch.Generator(
+                                    device=dev).manual_seed(0))
+        with torch.no_grad():
+            layer.weight_u.copy_(data(14, 64))
+            layer.weight_v.copy_(data(15, 32 * 9))
+        return layer(data(16, 64, 32, 3, 3))
+
+    cases.append(("spectral_norm", spectral))
+    cases.append(("unfold", lambda: F.unfold(data(17, 4, 8, 15, 13), 3, 2,
+                                             1, 1)))
+    cases.append(("pixel_shuffle", lambda: F.pixel_shuffle(
+        data(18, 4, 32, 9, 7), 2)))
+    return cases
+
+
+def vision_functional_cuda():
+    """``vision_functional_cuda``: every new vision functional and layer
+    on the card against the same call on the CPU (inputs made on the host
+    from each case's seed): ``interpolate`` in its six modes (both
+    ``align_mode``s, ``align_corners``, growing and shrinking), ``pad`` in
+    its four modes and both list forms, ``group_norm``,
+    ``instance_norm``, LRN, ``normalize``, ``SpectralNorm``, ``unfold``
+    and ``pixel_shuffle``; within ``VISION_FUNCTIONAL_RTOL`` of each
+    output's largest magnitude."""
+    import torch
+
+    errs = {}
+    with torch.no_grad():
+        for (label, card), (_, cpu) in zip(_vision_functional_cases("cuda"),
+                                           _vision_functional_cases("cpu")):
+            got, want = card(), cpu()
+            assert got.is_cuda and tuple(got.shape) == tuple(want.shape), \
+                label
+            errs[label] = _rel_err(got, want)
+    bad = {k: v for k, v in errs.items() if v > VISION_FUNCTIONAL_RTOL}
+    assert not bad, bad
+    log("vision_functional_cuda: %d cases, worst %.2e (%s)"
+        % (len(errs), max(errs.values()), max(errs, key=errs.get)))
+    return {"cases": len(errs), "rel_err": errs}
+
+
 def main() -> int:
     try:
         import torch
@@ -7433,6 +8176,30 @@ def main() -> int:
         % (RESNET_LEGS, BF16_TC_FLOPS_PER_S / 1e12),
         json.dumps(train["resnet50"]))
     log("vision phases: %.1f s" % (time.perf_counter() - t1))
+    t1 = time.perf_counter()
+    vision = {}
+    vision["transforms_pipeline"], mbv2_batch = transforms_pipeline()
+    vision["train_mobilenet_v2"] = train_mobilenet_v2(mbv2_batch)
+    del mbv2_batch
+    pipe = vision["transforms_pipeline"]
+    pipe["step_ms_captured"] = vision["train_mobilenet_v2"]["step_ms_mean"]
+    pipe["host_keeps_up"] = pipe["host_ms_mean"] <= pipe["step_ms_captured"]
+    log(card)
+    log("train_mobilenet_v2 (MobileNetV2 1.0, 224 x 224, O2 bf16, "
+        "Momentum(0.9) 0.045 + L2Decay(4e-5), batch %d; MFU against %.0f "
+        "TFLOP/s):" % (MBV2_BATCH, BF16_TC_FLOPS_PER_S / 1e12),
+        json.dumps(vision["train_mobilenet_v2"]))
+    log("transforms_pipeline (RandomCrop 224, flip, ToTensor, Normalize; "
+        "batch %d from 256 x 256 uint8):" % MBV2_BATCH, json.dumps(pipe))
+    vision["eval_vision_zoo"] = eval_vision_zoo()
+    log(card)
+    log("eval_vision_zoo (fp32, batch %d, eager and captured):"
+        % ZOO_BATCH, json.dumps(vision["eval_vision_zoo"]))
+    vision["detection_ops"] = detection_ops()
+    log("detection_ops (YOLOv3 608 x 8, FPN P2 roi_align, DCNv2 stage 5, "
+        "grid_sample 64 x 224):", json.dumps(vision["detection_ops"]))
+    vision["vision_functional_cuda"] = vision_functional_cuda()
+    log("vision surface phases: %.1f s" % (time.perf_counter() - t1))
     runs["nan_check"] = nan_check()
     log("nan_check (FLAGS_check_nan_inf: eager raise, captured ERNIE step "
         "at 2 layers):", json.dumps(runs["nan_check"]))
@@ -7638,7 +8405,7 @@ def main() -> int:
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"card": card, "runs": runs, "train": train,
-                   "seq2seq": s2s,
+                   "seq2seq": s2s, "vision": vision,
                    "timing": {str(k): v for k, v in timing.items()},
                    "kernels": kernels}, f,
                   default=lambda o: o.item() if hasattr(o, "item")

@@ -12,11 +12,14 @@ fine-tuning a ``TransformerForSequenceClassification`` (the ERNIE
 fine-tune, ``ernie_base_config()``).  ``nn.Embedding(sparse=True)`` gives
 row-sparse gradients that ``optimizer.SGD`` and ``Adam(lazy_mode=True)``
 update row by row; ``nn.functional`` has the reference's twenty losses.
-``vision.models`` has ``LeNet`` and the ResNet family (conv, pooling,
-BatchNorm and the 28 activations in ``nn``), trained through the same
-``TrainStep``; ``ParamAttr``/``create_parameter`` and ``nn.initializer``
-configure parameters, and ``distributed.fleet.utils.recompute``
-checkpoints activations.
+``vision.models`` has the reference's zoo (LeNet, ResNet, VGG, the
+MobileNets, AlexNet, SqueezeNet, ShuffleNetV2, DenseNet, GoogLeNet,
+InceptionV3; conv, pooling, the norms and the 28 activations in ``nn``),
+trained through the same ``TrainStep``; ``vision.ops`` the detection ops
+and ``vision.transforms`` the host-side image transforms;
+``ParamAttr``/``create_parameter`` and ``nn.initializer`` configure
+parameters, and ``distributed.fleet.utils.recompute`` checkpoints
+activations.
 The ``tensor`` ops are exported here too (creation ops take
 ``place=``).  ``seed()`` seeds the CPU and CUDA generators
 (``get_rng_state``/``set_rng_state`` carry their states);

@@ -7,7 +7,10 @@ device when none is given.  ``ParamAttr`` and ``initializer`` configure
 parameters as in the reference (``layer.layers``).  The sequence models'
 parts: the encoder-decoder ``Transformer`` and its layers with their
 attention caches, the recurrent cells and stacks (``layer.rnn``), and
-beam search (``BeamSearchDecoder``, ``dynamic_decode``)."""
+beam search (``BeamSearchDecoder``, ``dynamic_decode``).  The vision
+layers: the dropouts, pads, resampling, ``PixelShuffle``, ``Unfold``,
+``Bilinear``, the group, instance and response norms, ``SpectralNorm``,
+and ``utils``' spectral and weight norm hooks."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from . import lora  # noqa: F401
@@ -19,7 +22,13 @@ from .layer.activation import (ELU, GELU, GLU, Hardshrink,  # noqa: F401
                                ReLU, ReLU6, SELU, Sigmoid, Silu, Softmax,
                                Softplus, Softshrink, Softsign, Swish, Tanh,
                                Tanhshrink, ThresholdedReLU)
-from .layer.common import Dropout, Embedding, Linear  # noqa: F401
+from . import utils  # noqa: F401
+from .layer.common import (AlphaDropout, Bilinear,  # noqa: F401
+                           CosineSimilarity, Dropout, Dropout2D, Dropout3D,
+                           Embedding, Flatten, Identity, Linear, Pad1D,
+                           Pad2D, Pad3D, PairwiseDistance, PixelShuffle,
+                           Unfold, Upsample, UpsamplingBilinear2D,
+                           UpsamplingNearest2D)
 from .layer.container import (LayerDict, LayerList,  # noqa: F401
                               ParameterList, Sequential)
 from .layer.conv import (Conv1D, Conv1DTranspose, Conv2D,  # noqa: F401
@@ -30,7 +39,9 @@ from .layer.loss import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
                          HSigmoidLoss, KLDivLoss, L1Loss, MarginRankingLoss,
                          MSELoss, NLLLoss, SmoothL1Loss)
 from .layer.norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
-                         BatchNorm3D, LayerNorm)
+                         BatchNorm3D, GroupNorm, InstanceNorm1D,
+                         InstanceNorm2D, InstanceNorm3D, LayerNorm,
+                         LocalResponseNorm, SpectralNorm)
 from .layer.pooling import (AdaptiveAvgPool1D,  # noqa: F401
                             AdaptiveAvgPool2D, AdaptiveAvgPool3D,
                             AdaptiveMaxPool1D, AdaptiveMaxPool2D,

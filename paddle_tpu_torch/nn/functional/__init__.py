@@ -20,9 +20,11 @@ from .activation import (elu, gelu, glu, gumbel_softmax,  # noqa: F401
                          prelu, relu, relu6, relu_, selu, sigmoid, silu,
                          softmax, softplus, softshrink, softsign, swish, tanh,
                          tanhshrink, thresholded_relu)
-from .common import (dropout, embedding, gather_tree,  # noqa: F401
-                     label_smooth, linear, one_hot,
-                     scaled_dot_product_attention, sequence_mask)
+from .common import (alpha_dropout, bilinear,  # noqa: F401
+                     diag_embed, dropout, dropout2d, dropout3d, embedding,
+                     gather_tree, interpolate, label_smooth, linear, one_hot,
+                     pad, pixel_shuffle, scaled_dot_product_attention,
+                     sequence_mask, temporal_shift, unfold, upsample)
 from .conv import (conv1d, conv1d_transpose, conv2d,  # noqa: F401
                    conv2d_transpose, conv3d, conv3d_transpose)
 from .loss import (bce_loss, binary_cross_entropy,  # noqa: F401
@@ -33,7 +35,9 @@ from .loss import (bce_loss, binary_cross_entropy,  # noqa: F401
                    sigmoid_focal_loss, smooth_l1_loss,
                    softmax_with_cross_entropy, square_error_cost)
 from .norm import batch_norm_ as batch_norm  # noqa: F401
-from .norm import layer_norm  # noqa: F401
+from .norm import (group_norm, instance_norm, layer_norm,  # noqa: F401
+                   local_response_norm, normalize)
+from .vision import affine_grid, grid_sample  # noqa: F401
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,  # noqa: F401
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,

@@ -2,8 +2,11 @@
 ``nn/functional/norm.py``): ``layer_norm``, ``batch_norm_stats`` and
 ``batch_norm`` (the reference's pure triple-return form), and
 ``batch_norm_``, the in-place form the public ``F.batch_norm`` and the
-BatchNorm layers run.  ``instance_norm``, ``group_norm``,
-``local_response_norm`` and ``normalize`` are not ported yet."""
+BatchNorm layers run; ``instance_norm`` and ``group_norm`` (channels
+first, the biased variance, ``epsilon`` inside the square root),
+``local_response_norm`` (across channels: ``x / (k + alpha * sum / size)
+^ beta`` over a window padded ``(size // 2, size - size // 2 - 1)``) and
+``normalize`` (``x / max(||x||_p, epsilon)``)."""
 from __future__ import annotations
 
 import contextlib
@@ -170,3 +173,71 @@ def batch_norm_(x, running_mean, running_var, weight=None, bias=None,
             running_mean.copy_(new_mean)
             running_var.copy_(new_var)
     return out
+
+
+# -- instance, group and response normalization ------------------------------
+
+def _affine_channels(out, weight, bias):
+    cshape = (1, -1) + (1,) * (out.ndim - 2)
+    if weight is not None:
+        out = out * weight.reshape(cshape)
+    if bias is not None:
+        out = out + bias.reshape(cshape)
+    return out
+
+
+def _check_channels_first(data_format, name):
+    if not data_format.startswith("NC"):
+        from ...core.errors import InvalidArgumentError
+
+        raise InvalidArgumentError(
+            "%s supports channel-first layouts only" % name)
+
+
+def instance_norm(x, weight=None, bias=None, eps: float = 1e-5,
+                  data_format: str = "NCHW"):
+    """Each (sample, channel) normalized over its spatial positions."""
+    _check_channels_first(data_format, "instance_norm")
+    axes = tuple(range(2, x.ndim))
+    var, mean = torch.var_mean(x, dim=axes, keepdim=True, correction=0)
+    return _affine_channels((x - mean) * torch.rsqrt(var + eps), weight,
+                            bias)
+
+
+def group_norm(x, num_groups: int, weight=None, bias=None,
+               epsilon: float = 1e-5, data_format: str = "NCHW"):
+    """Each sample's channels in ``num_groups`` groups, each group
+    normalized over its channels and positions."""
+    from ...core.errors import InvalidArgumentError
+
+    _check_channels_first(data_format, "group_norm")
+    n, c = x.shape[:2]
+    if c % num_groups:
+        raise InvalidArgumentError("channels %d not divisible by num_groups "
+                                   "%d" % (c, num_groups))
+    g = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, g.ndim))
+    var, mean = torch.var_mean(g, dim=axes, keepdim=True, correction=0)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape)
+    return _affine_channels(out, weight, bias)
+
+
+def local_response_norm(x, size: int, alpha: float = 1e-4,
+                        beta: float = 0.75, k: float = 1.0,
+                        data_format: str = "NCHW"):
+    """Across-channel LRN on axis 1 (the reference reads axis 1 whatever
+    ``data_format`` says): the squares summed over a window of ``size``
+    channels, averaged, as the reference's."""
+    half = size // 2
+    pads = [0, 0] * (x.ndim - 2) + [half, size - half - 1]
+    sq = tF.pad(x * x, pads)
+    windows = sq.unfold(1, size, 1).sum(dim=-1)
+    return x / torch.pow(k + alpha * windows / size, beta)
+
+
+def normalize(x, p: float = 2, axis: int = 1, epsilon: float = 1e-12):
+    """``x`` over its ``p``-norm along ``axis``, the norm floored at
+    ``epsilon``."""
+    norm = torch.pow(torch.pow(x.abs(), p).sum(dim=axis, keepdim=True),
+                     1.0 / p)
+    return x / torch.clamp(norm, min=epsilon)

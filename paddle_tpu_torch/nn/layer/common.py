@@ -19,6 +19,8 @@ from torch import nn
 from .. import functional as F
 from .. import initializer as I
 from .. import lora as _lora
+from ...tensor import flatten as _flatten
+from ...tensor import norm as _norm
 from .layers import create_parameter
 
 
@@ -87,12 +89,200 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return "p=%s" % self.p
+
+
+class Dropout2D(nn.Module):
+    def __init__(self, p: float = 0.5, data_format: str = "NCHW",
+                 name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(nn.Module):
+    def __init__(self, p: float = 0.5, data_format: str = "NCDHW",
+                 name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(nn.Module):
+    def __init__(self, p: float = 0.5, name=None):
         super().__init__()
         self.p = p
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class Flatten(nn.Module):
+    def __init__(self, start_axis: int = 1, stop_axis: int = -1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return _flatten(x, self.start_axis, self.stop_axis)
+
+
+class Identity(nn.Module):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class _PadNd(nn.Module):
+    _format = "NCHW"
+
+    def __init__(self, padding, mode: str = "constant", value: float = 0.0,
+                 data_format=None, name=None):
+        super().__init__()
+        self._padding = padding
+        self._mode = mode
+        self._value = value
+        self._fmt = data_format or self._format
+
+    def forward(self, x):
+        return F.pad(x, self._padding, self._mode, self._value, self._fmt)
+
+
+class Pad1D(_PadNd):
+    _format = "NCL"
+
+
+class Pad2D(_PadNd):
+    _format = "NCHW"
+
+
+class Pad3D(_PadNd):
+    _format = "NCDHW"
+
+
+class Upsample(nn.Module):
+    def __init__(self, size=None, scale_factor=None, mode: str = "nearest",
+                 align_corners: bool = False, align_mode: int = 0,
+                 data_format: str = "NCHW", name=None):
+        super().__init__()
+        self.size, self.scale_factor, self.mode = size, scale_factor, mode
+        self.align_corners, self.align_mode = align_corners, align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None,
+                 data_format: str = "NCHW", name=None):
+        super().__init__(size, scale_factor, "bilinear", True,
+                         data_format=data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None,
+                 data_format: str = "NCHW", name=None):
+        super().__init__(size, scale_factor, "nearest", False,
+                         data_format=data_format)
+
+
+class Bilinear(nn.Module):
+    """weight [out, in1, in2] (XavierNormal), bias [out] zeros."""
+
+    def __init__(self, in1_features: int, in2_features: int,
+                 out_features: int, weight_attr=None, bias_attr=None,
+                 name=None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.weight = create_parameter(
+            [out_features, in1_features, in2_features], weight_attr,
+            default_initializer=I.XavierNormal(), **kw)
+        self.bias = create_parameter([out_features], bias_attr,
+                                     is_bias=True, **kw)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class PixelShuffle(nn.Module):
+    def __init__(self, upscale_factor: int, data_format: str = "NCHW",
+                 name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class CosineSimilarity(nn.Module):
+    def __init__(self, axis: int = 1, eps: float = 1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class PairwiseDistance(nn.Module):
+    """The ``p``-norm of ``x - y + epsilon`` along the last axis."""
+
+    def __init__(self, p: float = 2.0, epsilon: float = 1e-6,
+                 keepdim: bool = False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        return _norm(x - y + self.epsilon, p=self.p, axis=-1,
+                     keepdim=self.keepdim)
 
     def extra_repr(self):
         return "p=%s" % self.p
+
+
+class Unfold(nn.Module):
+    """im2col over ``F.unfold``."""
+
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)
+
+    def extra_repr(self):
+        return "kernel_sizes=%s, strides=%s" % (self.kernel_sizes,
+                                                self.strides)

@@ -8,8 +8,12 @@ A BatchNorm's running statistics are the buffers ``_mean`` (zeros) and
 reference's rule -- ``momentum * running + (1 - momentum) * batch``, the
 batch's biased variance -- so a captured step's replay advances them, and
 a recompute's second forward (``functional.norm.frozen_running_stats``)
-does not.  ``SyncBatchNorm``, ``GroupNorm``, the instance norms,
-``LocalResponseNorm`` and ``SpectralNorm`` are not ported yet.
+does not.  ``GroupNorm``, ``InstanceNorm1D/2D/3D`` (parameters
+``scale`` and ``bias``, as the reference names them),
+``LocalResponseNorm`` and ``SpectralNorm`` (its power-iteration vectors
+``weight_u``/``weight_v`` are parameters drawn N(0, 1) that take no
+gradient and are read, never written, as the reference's op) follow.
+``SyncBatchNorm`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -126,3 +130,101 @@ class BatchNorm3D(_BatchNormBase):
         if x.ndim != 5:
             raise InvalidArgumentError(
                 "BatchNorm3D expects 5D input, got %dD" % x.ndim)
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, num_groups: int, num_channels: int,
+                 epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
+                 data_format: str = "NCHW", name=None, device=None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = create_parameter(
+            [num_channels], weight_attr,
+            default_initializer=I.Constant(1.0), device=device)
+        self.bias = create_parameter([num_channels], bias_attr,
+                                     is_bias=True, device=device)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self.weight, self.bias,
+                            self._epsilon, self._data_format)
+
+
+class _InstanceNormBase(nn.Module):
+    def __init__(self, num_features: int, epsilon: float = 1e-5,
+                 momentum: float = 0.9, weight_attr=None, bias_attr=None,
+                 data_format: str = "NCHW", name=None, device=None):
+        super().__init__()
+        self._epsilon = epsilon
+        if weight_attr is False:
+            self.scale = None
+            self.bias = None
+        else:
+            self.scale = create_parameter(
+                [num_features], weight_attr,
+                default_initializer=I.Constant(1.0), device=device)
+            self.bias = create_parameter([num_features], bias_attr,
+                                         is_bias=True, device=device)
+
+    def forward(self, x):
+        return F.instance_norm(x, self.scale, self.bias, self._epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class LocalResponseNorm(nn.Module):
+    def __init__(self, size: int, alpha: float = 1e-4, beta: float = 0.75,
+                 k: float = 1.0, data_format: str = "NCHW", name=None):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.local_response_norm(x, self.size, self.alpha, self.beta,
+                                     self.k, self.data_format)
+
+
+class SpectralNorm(nn.Module):
+    """``forward(weight)``: ``weight / sigma``, sigma from
+    ``power_iters`` rounds of power iteration started at the stored
+    ``weight_u`` [weight_shape[dim]] and ``weight_v`` [the rest's
+    product]."""
+
+    def __init__(self, weight_shape, dim: int = 0, power_iters: int = 1,
+                 epsilon: float = 1e-12, name=None, dtype="float32",
+                 device=None, generator=None):
+        super().__init__()
+        if power_iters < 1:
+            raise ValueError("power_iters must be a positive integer")
+        self._weight_shape = [int(v) for v in weight_shape]
+        self._dim = int(dim) % len(self._weight_shape)
+        self._power_iters = int(power_iters)
+        self._eps = float(epsilon)
+        h = self._weight_shape[self._dim]
+        w = 1
+        for i, v in enumerate(self._weight_shape):
+            if i != self._dim:
+                w *= v
+        kw = dict(dtype=dtype, default_initializer=I.Normal(0.0, 1.0),
+                  device=device, generator=generator)
+        self.weight_u = create_parameter([h], **kw)
+        self.weight_u.requires_grad_(False)
+        self.weight_v = create_parameter([w], **kw)
+        self.weight_v.requires_grad_(False)
+
+    def forward(self, weight):
+        from ..utils import _spectral_normalize
+
+        return _spectral_normalize(weight, self.weight_u, self.weight_v,
+                                   self._dim, self._power_iters, self._eps)

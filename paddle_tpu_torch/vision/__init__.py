@@ -1,6 +1,9 @@
-"""``paddle_tpu_torch.vision`` (counterpart of ``paddle_tpu.vision``): the
-model zoo's LeNet and ResNet family.  Datasets, transforms, ``ops`` and
-the other models are not ported yet."""
+"""``paddle_tpu_torch.vision`` (counterpart of ``paddle_tpu.vision``):
+the model zoo (``models``), the detection ops (``ops``) and the image
+preprocessing (``transforms``).  ``datasets`` and the image-backend
+functions are not ported yet."""
 from . import models  # noqa: F401
+from . import ops  # noqa: F401
+from . import transforms  # noqa: F401
 
-__all__ = ["models"]
+__all__ = ["models", "ops", "transforms"]

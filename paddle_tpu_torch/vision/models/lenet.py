@@ -1,12 +1,11 @@
 """LeNet (counterpart of the reference's ``vision/models/lenet.py``)."""
 from __future__ import annotations
 
-import torch
 from torch import nn as tnn
 
 from ... import nn
-from ...core.device import resolve_device
 from ...tensor import flatten
+from ._utils import weight_kw
 
 __all__ = ["LeNet"]
 
@@ -18,10 +17,7 @@ class LeNet(tnn.Module):
 
     def __init__(self, num_classes: int = 10, device=None, seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        kw = dict(device=dev, generator=gen)
+        kw = weight_kw(device, seed)
         self.num_classes = num_classes
         self.features = nn.Sequential(
             nn.Conv2D(1, 6, 3, stride=1, padding=1, **kw),

@@ -28,9 +28,9 @@ import torch.nn.functional as tF
 from torch import nn as tnn
 
 from ... import nn
-from ...core.device import resolve_device
 from ...framework.dispatch import make_op as _make_op
 from ...tensor import flatten, transpose
+from ._utils import refuse_pretrained, weight_kw
 
 __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152", "wide_resnet50_2", "wide_resnet101_2"]
@@ -158,10 +158,8 @@ class ResNet(tnn.Module):
         if space_to_depth_stem and data_format != "NHWC":
             raise ValueError(
                 "space_to_depth_stem requires data_format='NHWC'")
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        self._kw = dict(device=dev, generator=gen)
+        self._kw = weight_kw(device, seed)
+        dev = self._kw["device"]
         self.space_to_depth_stem = bool(space_to_depth_stem)
         layers = layers or layer_cfg[depth]
         self.num_classes = num_classes
@@ -245,10 +243,7 @@ class ResNet(tnn.Module):
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained weights are not bundled; load a checkpoint with "
-            "load_state_dict (or convert.load_reference_params) instead")
+    refuse_pretrained(pretrained)
     return ResNet(block, depth, **kwargs)
 
 

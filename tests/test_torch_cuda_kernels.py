@@ -13,8 +13,11 @@ lazy Adam rows and the nan/inf check beside a captured train step; a
 captured BatchNorm step advancing the running statistics once a call
 (with and without recompute), and recompute's random draws under capture;
 a captured LSTM step over ragged lengths (the step loop, nothing read
-back), ``sequence_mask`` refusing to read its size back in a capture, and
-a captured step's dropout masks equal to the eager steps'.
+back), ``sequence_mask`` refusing to read its size back in a capture, a
+captured step's dropout masks equal to the eager steps'; the vision
+surface: ``nms`` captured into one graph, the detection ops and the
+resampling functions against the CPU, and a captured MobileNetV2 step
+advancing its running statistics once a call.
 Skipped without a CUDA card: the kernels have no CPU mode (the CPU runs
 the twins, held against the reference by ``test_torch_decode_attention.py``,
 ``test_torch_flash_attention.py`` and ``test_torch_custom_op.py``).
@@ -1850,5 +1853,134 @@ def test_captured_dropout_replays_the_eager_masks(cuda_device):
         batch = _train_batches(cuda_device, 1)[0]
         losses[capture] = [float(step(*batch)) for _ in range(4)]
     assert len(set(losses[False])) == 4, losses
+    torch.testing.assert_close(losses[True], losses[False], rtol=1e-5,
+                               atol=0)
+
+
+# -- the vision surface ----------------------------------------------------------
+
+def _vision_data(seed, *shape):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=g)
+
+
+@pytest.mark.cuda
+def test_nms_runs_inside_a_capture(cuda_device):
+    """``vision.ops.nms`` reads nothing back: its fixed trips capture into
+    one CUDA graph, whose replay keeps the CPU's indices."""
+    from paddle_tpu_torch.vision import ops
+
+    gen = torch.Generator().manual_seed(0)
+    xy = torch.rand(300, 2, generator=gen) * 50
+    wh = torch.rand(300, 2, generator=gen) * 10 + 1
+    boxes = torch.cat([xy, xy + wh], 1)
+    scores = torch.rand(300, generator=gen)
+    want = ops.nms(boxes, scores, 0.45, max_out=60)
+    b, s = boxes.to(cuda_device), scores.to(cuda_device)
+    ops.nms(b, s, 0.45, max_out=60)  # warm-up off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ops.nms(b, s, 0.45, max_out=60)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert int(got[1]) == int(want[1])
+
+
+@pytest.mark.cuda
+def test_detection_ops_on_the_card(cuda_device):
+    """``roi_align``, ``deform_conv2d`` (v2) and ``yolo_loss`` with their
+    gradients, and ``yolo_box``, on the card against the CPU."""
+    from paddle_tpu_torch.vision import ops
+
+    def both(fn, *arrays):
+        outs = []
+        for dev in ("cpu", cuda_device):
+            ts = [a.to(dev).requires_grad_(a.is_floating_point())
+                  for a in arrays]
+            y = fn(*ts)
+            y.sum().backward()
+            outs.append([y.detach().cpu()] + [
+                t.grad.cpu() for t in ts if t.grad is not None])
+        for w, g in zip(*outs):
+            torch.testing.assert_close(g, w, rtol=1e-4,
+                                       atol=1e-4 * float(w.abs().max()))
+
+    x = _vision_data(0, 2, 8, 20, 24)
+    boxes = torch.tensor([[1., 2., 30., 40.], [-5., -3., 12., 9.],
+                          [40., 50., 90., 85.], [3., 3., 3., 3.]])
+    both(lambda a, b: ops.roi_align(
+        a, b, torch.tensor([2, 2], device=a.device), 5, 0.25), x, boxes)
+    off = _vision_data(1, 2, 18, 20, 24) * 2
+    mask = torch.rand(2, 9, 20, 24, generator=torch.Generator().manual_seed(2))
+    w = _vision_data(3, 6, 8, 3, 3) * 0.2
+    both(lambda a, o, m, k: ops.deform_conv2d(a, o, k, None, m, padding=1),
+         x, off, mask, w)
+    head = _vision_data(4, 2, 3 * 9, 8, 8)
+    gt = torch.tensor([[[0.3, 0.4, 0.2, 0.3], [0.7, 0.6, 0.4, 0.2],
+                        [0., 0., 0., 0.]]] * 2)
+    label = torch.tensor([[1, 3, 0]] * 2)
+    both(lambda h: ops.yolo_loss(h, gt.to(h.device), label.to(h.device),
+                                 [10, 13, 16, 30, 33, 23], [0, 1, 2], 4, 0.7,
+                                 32), head)
+    got = ops.yolo_box(head.to(cuda_device),
+                       torch.tensor([[256, 256]] * 2, device=cuda_device),
+                       [10, 13, 16, 30, 33, 23], 4, 0.01, 32)
+    want = ops.yolo_box(head, torch.tensor([[256, 256]] * 2),
+                        [10, 13, 16, 30, 33, 23], 4, 0.01, 32)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "bicubic", "area"])
+def test_interpolate_and_grid_sample_on_the_card(cuda_device, mode):
+    from paddle_tpu_torch.nn import functional as F
+
+    x = _vision_data(5, 2, 3, 17, 13)
+    for size in ((31, 29), (7, 5)):
+        want = F.interpolate(x, size, mode=mode)
+        got = F.interpolate(x.to(cuda_device), size, mode=mode).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    theta = torch.tensor([[[0.9, 0.2, 0.1], [-0.1, 1.1, 0.0]]] * 2)
+    grid = F.affine_grid(theta, [2, 3, 11, 9])
+    for pad in ("zeros", "border", "reflection"):
+        want = F.grid_sample(x, grid, padding_mode=pad)
+        got = F.grid_sample(x.to(cuda_device), grid.to(cuda_device),
+                            padding_mode=pad).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_captured_mobilenet_v2_step(cuda_device):
+    """A captured ``TrainStep`` of a narrow MobileNetV2 (scale 0.25) at 64
+    px: at learning rate 0 each call -- the warm-up, the capture with its
+    replay, a replay -- advances every running mean once, by the
+    reference's rule; the captured losses equal the eager ones."""
+    from paddle_tpu_torch import TrainStep, nn, optimizer
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    x = _vision_data(6, 8, 3, 64, 64).to(cuda_device)
+    y = torch.randint(0, 10, (8,), generator=torch.Generator().manual_seed(
+        7)).to(cuda_device)
+    crit = nn.CrossEntropyLoss()
+    losses = {}
+    for capture in (False, True):
+        torch.manual_seed(0)
+        model = mobilenet_v2(scale=0.25, num_classes=10, device=cuda_device)
+        opt = optimizer.Momentum(0.0, parameters=model.parameters())
+        step = TrainStep(model, lambda m, a, b: crit(m(a), b), opt,
+                         capture=capture)
+        means = []
+        losses[capture] = []
+        for _ in range(3):
+            losses[capture].append(float(step(x, y)))
+            means.append(model.features[0][1]._mean.detach().clone())
+        assert step._fn.graphs() == int(capture)
+        first = means[0] / 0.1
+        for k, m in enumerate(means, 1):
+            torch.testing.assert_close(m, (1 - 0.9 ** k) * first, rtol=1e-4,
+                                       atol=1e-6)
     torch.testing.assert_close(losses[True], losses[False], rtol=1e-5,
                                atol=0)

@@ -150,6 +150,17 @@ PyTorch twin, and drives the port's two main paths:
   trained the same two ways (the encoder packed through cuDNN eagerly,
   its step loop in the graph; ``train_seq2seq_lstm``) and translating at
   beam 10 against a CPU copy (``translate_seq2seq_lstm``);
+- the high-level API: config #1 as ``examples/01_mnist_lenet.py``
+  writes it, by ``Model.fit`` over ``io.DataLoader`` with no and 2
+  workers, then ``evaluate``, ``predict``, ``save``/``load`` and
+  ``summary``/``flops`` (``hapi_lenet``); the fp32 ERNIE-base classifier
+  by ``Model.fit`` with callbacks over 2 workers, scored by four metrics
+  (``hapi_ernie_cls``), compressed by QAT, PTQ to int8 and ASP 2:4
+  (``compress_ernie``), killed mid-training and resumed from its
+  ``AutoCheckpoint`` bit for bit (``auto_resume``, a ``--resume-child``
+  process); ResNet50 fp32 by ``Model.fit`` with the image transforms in
+  the loader's workers (``fit_resnet50_workers``); each ``fit`` beside
+  its bare captured step;
 - the custom-op door: the user kernel K4 (``scale_mul``) registered with
   a hand-written backward through ``incubate.register_custom_op``,
   differentiated eagerly (``.backward()``, ``grad`` with
@@ -4084,9 +4095,11 @@ def check_flash_kernels():
     the ERNIE fine-tune's B 32 x H 12 x L 384 x D 64 in bf16 in both of
     the ways its step gives K3 the padding: as segment lanes (eagerly) and
     as the captured step's [B, 1, 1, L] bias, its own mask in bf16
-    (``_ernie_mask_bias``).  Returns the GPT shape's max errors, the bf16
-    ones under names ending in ``_bfloat16``, and the ERNIE shape's under
-    names ending in ``_ernie_lanes`` and ``_ernie_bias``; then the
+    (``_ernie_mask_bias``), and in fp32 as the fp32 classifier's captured
+    step gives it (the mask in fp32; ``hapi_ernie_cls``).  Returns the GPT
+    shape's max errors, the bf16 ones under names ending in ``_bfloat16``,
+    and the ERNIE shape's under names ending in ``_ernie_lanes``,
+    ``_ernie_bias`` and ``_ernie_fp32``; then the
     sequence models' forward shapes (``_check_flash_seq2seq``), their
     errors under ``flash_attention_s2s_<case>``."""
     import torch
@@ -4111,16 +4124,19 @@ def check_flash_kernels():
     ernie = dict(b=ERNIE_BATCH, h=12, lq=ERNIE_SEQ, lk=ERNIE_SEQ, d=64,
                  causal=False, seg="pad")
     ernie_bias = dict(ernie, seg=None, bias="pad")
+    ernie_fp32 = dict(ernie_bias)  # the fp32 classifier's captured step
     cases += [(main, torch.float32), (bert, torch.float32),
               (main, torch.bfloat16), (bert, torch.bfloat16),
-              (ernie, torch.bfloat16), (ernie_bias, torch.bfloat16)]
+              (ernie, torch.bfloat16), (ernie_bias, torch.bfloat16),
+              (ernie_fp32, torch.float32)]
     main_err = {}
     for shape, dtype in cases:
         args, do = flash_case(gen, dtype=dtype, **shape)
-        if shape is ernie_bias:
+        if shape is ernie_bias or shape is ernie_fp32:
             # the captured step's input: a mask that needs no gradient
-            args["bias"] = _ernie_mask_bias()
-        bias_grad = args["bias"] is not None and shape is not ernie_bias
+            args["bias"] = _ernie_mask_bias(str(dtype)[6:])
+        bias_grad = args["bias"] is not None and shape is not ernie_bias \
+            and shape is not ernie_fp32
         o, stats = fk.flash_attention_forward_kernel(**args)
         grads = fk.flash_attention_backward_kernel(
             o=o, stats=stats, do=do, bias_grad=bias_grad, **args)
@@ -4165,9 +4181,11 @@ def check_flash_kernels():
                                  % errs)
         if dtype == torch.bfloat16 and shape is main:
             _check_bf16_limit(args, o, grads, want_o, want)
-        if shape is main or shape is ernie or shape is ernie_bias:
+        if shape is main or shape is ernie or shape is ernie_bias \
+                or shape is ernie_fp32:
             suffix = {id(ernie): "_ernie_lanes",
-                      id(ernie_bias): "_ernie_bias"}.get(
+                      id(ernie_bias): "_ernie_bias",
+                      id(ernie_fp32): "_ernie_fp32"}.get(
                 id(shape), "" if dtype == torch.float32 else "_bfloat16")
             main_err["flash_attention_forward_kernel" + suffix] = max(
                 errs["o"], errs["stats"])
@@ -4456,6 +4474,12 @@ def _profile_step(step, batch, step_ms, parts=None):
            "device_idle_share": (1 - busy / step_ms) if busy else None,
            "launches": sum(n for _, _, n in rows),
            "k3_ms_per_step": sum(ms for ms, k, _ in rows if "flash_" in k),
+           # K3's wrapper launches: its forward kernel, and the dK/dV kernel
+           # of the backward's three (delta, dK/dV, dQ)
+           "k3_launches": {
+               "forward": sum(n for _, k, n in rows if "flash_fwd" in k),
+               "backward": sum(n for _, k, n in rows
+                               if "flash_bwd_dkdv" in k)},
            "gemm_ms_per_step": sum(ms for ms, k, _ in rows
                                    if _kernel_kind(k) == "gemm"),
            # the tensor-list kernels: the optimizer's and the clip's
@@ -4823,16 +4847,17 @@ def _ernie_batch(rng, cfg):
     return ids, types, labels, mask, lens
 
 
-def _ernie_mask_bias():
+def _ernie_mask_bias(dtype="bfloat16"):
     """The fine-tune batch's [B, 1, 1, L] additive mask as its captured
-    step hands it to K3: cast to bf16 by the attention (``finfo(float32)
-    .min`` becomes -inf), a broadcast bias on the card."""
+    step hands it to K3: a broadcast bias on the card, cast to bf16 by an
+    O2 model's attention (``finfo(float32).min`` becomes -inf), as it is
+    in an fp32 one (``hapi_ernie_cls``)."""
     import torch
 
     from paddle_tpu_torch import ernie_base_config
 
     mask = _ernie_batch(np.random.RandomState(0), ernie_base_config())[3]
-    return torch.from_numpy(mask).cuda().to(torch.bfloat16)
+    return torch.from_numpy(mask).cuda().to(getattr(torch, dtype))
 
 
 def _cls_criterion():
@@ -5866,20 +5891,23 @@ def time_flash():
     return out
 
 
-def time_flash_ernie():
+def time_flash_ernie(dtype="bfloat16"):
     """K3 at the ERNIE fine-tune's shape (``train_ernie_cls``): bf16,
     B 32 x H 12 x L 384 x D 64, non-causal, on the padding of the
     fine-tune's ragged lengths (``_ernie_batch``, seed 0) in both of the
     ways its step gives it: ``lanes`` (segment ids, eagerly) and ``bias``
-    (the captured step's [B, 1, 1, L] bf16 mask, ``_ernie_mask_bias``).
-    Forward and backward beside the plain twins, the bounds and
-    ``scaled_dot_product_attention`` on the same padding (a boolean [B, 1,
-    1, L] mask for the lanes, the additive bf16 mask itself for the bias),
-    in bf16.  Operations count the visible (query, key) pairs of this
-    data, H x L x sum(lengths): 4 D flops each forward, 10 D backward,
-    over the bf16 tensor-core peak; bytes read each input once (q, k, v,
-    the lanes or the bias; backward also o, dO, the stats) and write each
-    output once (o, stats; dq, dk, dv).  Returns {(name, mode): record}."""
+    (the captured step's [B, 1, 1, L] bf16 mask, ``_ernie_mask_bias``);
+    with ``dtype="float32"`` the fp32 classifier's captured step
+    (``hapi_ernie_cls``): the bias mode on the fp32 mask, over the
+    3xTF32 peak.  Forward and backward beside the plain twins, the bounds
+    and ``scaled_dot_product_attention`` on the same padding (a boolean
+    [B, 1, 1, L] mask for the lanes, the additive mask itself for the
+    bias), in the same dtype.  Operations count the visible (query, key)
+    pairs of this data, H x L x sum(lengths): 4 D flops each forward, 10 D
+    backward, over the dtype's tensor-core peak; bytes read each input
+    once (q, k, v, the lanes or the bias; backward also o, dO, the stats)
+    and write each output once (o, stats; dq, dk, dv).  Returns {(name,
+    mode): record}."""
     import torch
     import torch.nn.functional as tF
 
@@ -5887,19 +5915,24 @@ def time_flash_ernie():
     from paddle_tpu_torch.ops import flash_kernels as fk
 
     b, h, l, d = ERNIE_BATCH, 12, ERNIE_SEQ, 64
+    tdt = getattr(torch, dtype)
+    peak = BF16_TC_FLOPS_PER_S if dtype == "bfloat16" \
+        else FP32_3XTF32_FLOPS_PER_S
     lens = _ernie_batch(np.random.RandomState(0), ernie_base_config())[4]
     gen = torch.Generator(device="cuda").manual_seed(4)
-    lane_args, do = flash_case(gen, b, h, l, l, d, torch.bfloat16,
-                               causal=False, seg="pad")
+    lane_args, do = flash_case(gen, b, h, l, l, d, tdt, causal=False,
+                               seg="pad")
     valid = torch.arange(l, device="cuda")[None, :] < torch.from_numpy(
         lens).cuda()[:, None]
     lane_args["kv_seg"] = torch.where(valid, 0, 1).to(torch.int32)
-    bias = _ernie_mask_bias()
+    bias = _ernie_mask_bias(dtype)
     modes = {"lanes": (lane_args, valid[:, None, None, :], 2 * b * l * 4),
              "bias": (dict(lane_args, q_seg=None, kv_seg=None, bias=bias),
                       bias, b * l * bias.element_size())}
+    if dtype == "float32":
+        del modes["lanes"]
     pairs = h * l * int(lens.sum())
-    tensor_bytes = b * h * l * d * 2
+    tensor_bytes = b * h * l * d * tdt.itemsize
     q, k, v = (lane_args[n].detach().requires_grad_() for n in "qkv")
     out = {}
     for mode, (args, mask, mask_bytes) in modes.items():
@@ -5925,7 +5958,7 @@ def time_flash_ernie():
                      o=o, stats=stats, do=do, **args), lib_bwd)}
         for name, (kern, plain, lib_ms) in runs.items():
             flops, nbytes = work[name]
-            t_ops = flops / BF16_TC_FLOPS_PER_S * 1e3
+            t_ops = flops / peak * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             p1 = cuda_ms(plain, iters=5, warmup=1)
             k1 = cuda_ms(kern, iters=20, warmup=2)
@@ -5936,18 +5969,18 @@ def time_flash_ernie():
                    "bound_by": "operations" if t_ops >= t_bytes
                    else "bytes",
                    "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
-                   "dtype": "bfloat16", "visible_pairs": pairs,
+                   "dtype": dtype, "visible_pairs": pairs,
                    "mode": mode}
             rec["achieved_tflop_s"] = flops / rec["ms"] / 1e9
             rec["vs_library"] = rec["ms"] / lib_ms
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
             out[(name, mode)] = rec
-            log("timing %-32s ERNIE B=%d H=%d L=%d D=%d pad (%s) bfloat16: "
+            log("timing %-32s ERNIE B=%d H=%d L=%d D=%d pad (%s) %s: "
                 "kernel %.4f ms (%.2f TFLOP/s), plain %.4f ms, bound %.4f ms "
                 "(%s), sdpa (%s mask) %.4f ms (kernel/sdpa %.3f)"
-                % (name, b, h, l, d, mode, rec["ms"],
+                % (name, b, h, l, d, mode, dtype, rec["ms"],
                    rec["achieved_tflop_s"], rec["plain_ms"], rec["bound_ms"],
-                   rec["bound_by"], "bool" if mode == "lanes" else "bf16",
+                   rec["bound_by"], "bool" if mode == "lanes" else dtype,
                    lib_ms, rec["vs_library"]))
         del o, stats, lib_out
     del lane_args, do, q, k, v, modes
@@ -7335,9 +7368,9 @@ def forward_flops(model, side: int) -> float:
     model.eval()
     try:
         with torch.no_grad():
-            dev = next(model.parameters()).device
+            dev = next(iter(model.parameters())).device
             model(torch.zeros(1, 3, side, side, device=dev,
-                              dtype=next(model.parameters()).dtype))
+                              dtype=next(iter(model.parameters())).dtype))
     finally:
         for h in hooks:
             h.remove()
@@ -7964,6 +7997,736 @@ def vision_functional_cuda():
     return {"cases": len(errs), "rel_err": errs}
 
 
+# -- the high-level API: Model.fit over io.DataLoader, compression, resume --
+
+HAPI_LENET_IMAGES, HAPI_LENET_BATCH, HAPI_LENET_EPOCHS = 512, 64, 2
+HAPI_LENET_WORKERS = (0, 2)
+# the constants the reference counts for LeNet at 1 x 1 x 28 x 28
+# (tests/test_torch_hapi.py holds the port's against them)
+LENET_PARAMS, LENET_FLOPS = 61610, 349136
+HAPI_BARE_STEPS = 16
+HAPI_ERNIE_STEPS, HAPI_ERNIE_EVAL = 12, 64
+HAPI_ERNIE_DROPOUT, HAPI_ERNIE_LR, HAPI_ERNIE_WARMUP = 0.1, 5e-5, 4
+HAPI_ERNIE_WORKERS = 2
+COMPRESS_STEPS, COMPRESS_CALIB = 4, 4
+# a sanity bound on PTQ's eval logits against fp32, relative to the
+# logits' largest magnitude: 12 layers of random weights, every Linear's
+# input clipped at its range over 4 calibration batches
+PTQ_REL_BOUND = 0.5
+RESUME_STEPS, RESUME_KILL_AFTER, RESUME_EVERY = 8, 5, 2
+RESUME_TIMEOUT_S = 300
+R50_FIT_BATCH, R50_FIT_STEPS = 128, 6
+R50_FIT_LR = 0.05  # 0.1 a batch of 256, scaled linearly
+
+
+def _step_clock():
+    """A ``Callback`` that stamps the end of every training batch (the
+    step's ``float(loss)`` has synchronized by then): the periods between
+    stamps are the steps as ``fit`` runs them, loader waits included."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.stamps, self.losses = [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.stamps.append(time.perf_counter())
+            self.losses.append(float(logs["loss"][0]))
+
+        def periods_ms(self, skip=0):
+            """The periods after the first ``skip`` steps."""
+            t = self.stamps[skip:]
+            return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+    return StepClock()
+
+
+def _bare_ms(step, batch, steps=HAPI_BARE_STEPS):
+    """Mean ms of ``steps`` calls of a warmed ``TrainStep`` on a batch
+    already on the card, one synchronize at the end (no loss read)."""
+    import torch
+
+    step(*batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(*batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _mnist(n=HAPI_LENET_IMAGES, seed=0):
+    """``examples/01_mnist_lenet.py``'s synthetic MNIST: uniform images
+    with a label-dependent bright patch planted, numpy seed 0."""
+    rng = np.random.RandomState(seed)
+    images = rng.rand(n, 1, 28, 28).astype("float32")
+    labels = rng.randint(0, 10, (n,)).astype("int64")
+    for i, y in enumerate(labels):
+        images[i, 0, y * 2:y * 2 + 4, :4] += 2.0
+    return images, labels
+
+
+def hapi_lenet(root):
+    """``hapi_lenet``: config #1 as ``examples/01_mnist_lenet.py`` writes
+    it -- ``Model(LeNet())`` on the card, Adam 1e-3, ``CrossEntropyLoss``,
+    ``Accuracy``, 2 epochs of batch 64 over 512 synthetic images -- once
+    over a ``DataLoader`` with no workers and once with 2, then
+    ``evaluate``, ``predict``, ``save``/``load`` into a fresh model (its
+    logits bit-equal) and ``summary``/``flops`` (the reference's counts).
+    Beside each fit: the same batches through a bare captured
+    ``TrainStep`` (no loss read a step): the gap is ``fit``'s host cost."""
+    import shutil
+
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import LeNet
+
+    images, labels = _mnist()
+    out = {}
+    for workers in HAPI_LENET_WORKERS:
+        paddle.seed(0)
+        model = paddle.Model(LeNet(seed=0))
+        model.prepare(paddle.optimizer.Adam(
+            1e-3, parameters=model.network.parameters()),
+            paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        clock = _step_clock()
+        t0 = time.perf_counter()
+        model.fit(paddle.io.TensorDataset([images, labels]),
+                  epochs=HAPI_LENET_EPOCHS, batch_size=HAPI_LENET_BATCH,
+                  verbose=0, num_workers=workers, callbacks=[clock])
+        fit_s = time.perf_counter() - t0
+        step = model._train_step
+        assert step.compile_counts() == {"train_step": 1}
+        assert step._fn.graphs() == 1
+        steps = HAPI_LENET_EPOCHS * HAPI_LENET_IMAGES // HAPI_LENET_BATCH
+        assert len(clock.losses) == steps and all(
+            np.isfinite(clock.losses)), clock.losses
+        periods = clock.periods_ms(skip=2)
+        period = float(np.mean(periods))
+        # the first step of epoch 2 waits for the new epoch's iterator (with
+        # workers: forked anew)
+        per_epoch = HAPI_LENET_IMAGES // HAPI_LENET_BATCH
+        res = model.evaluate(paddle.io.TensorDataset([images, labels]),
+                             batch_size=HAPI_LENET_BATCH, verbose=0)
+        assert np.isfinite(res["eval_loss"][0]) and 0.2 < res["eval_acc"] \
+            <= 1.0, res
+        pred = model.predict(paddle.io.TensorDataset([images]),
+                             batch_size=HAPI_LENET_BATCH,
+                             stack_outputs=True)[0]
+        assert pred.shape == (HAPI_LENET_IMAGES, 10) and np.isfinite(
+            pred).all()
+        x = torch.from_numpy(images[:HAPI_LENET_BATCH]).cuda()
+        y = torch.from_numpy(labels[:HAPI_LENET_BATCH]).cuda()
+        bare = _bare_ms(step, (x, y))
+        prof = _profile_step(step, (x, y), period)
+        busy = prof["device_busy_ms_per_step"]
+        rec = {"workers": workers, "steps": steps, "fit_s": fit_s,
+               "step_period_ms": period,
+               "step_period_ms_p50": float(np.median(periods)),
+               "epoch_start_ms": (clock.stamps[per_epoch]
+                                  - clock.stamps[per_epoch - 1]) * 1e3,
+               "imgs_per_s": HAPI_LENET_BATCH / (period / 1e3),
+               "bare_step_ms": bare,
+               "bare_imgs_per_s": HAPI_LENET_BATCH / (bare / 1e3),
+               "fit_host_ms_per_step": period - bare,
+               "device_busy_ms_per_step": busy,
+               "device_idle_share_fit": prof["device_idle_share"],
+               "launches_per_step": prof["launches"],
+               "first_loss": clock.losses[0], "last_loss": clock.losses[-1],
+               "eval": res}
+        out["workers_%d" % workers] = rec
+        log("hapi_lenet workers %d: fit %.3f ms a step (p50 %.3f, %.0f "
+            "imgs/s; epoch 2's first %.1f ms), bare TrainStep %.3f ms (%.0f "
+            "imgs/s); eval %s"
+            % (workers, period, rec["step_period_ms_p50"],
+               rec["imgs_per_s"], rec["epoch_start_ms"], bare,
+               rec["bare_imgs_per_s"], res))
+    ck = os.path.join(root, "scratch_chip", "hapi_lenet")
+    try:
+        model.save(os.path.join(ck, "lenet"))
+        fresh = paddle.Model(LeNet(seed=1))
+        fresh.prepare(paddle.optimizer.Adam(
+            1e-3, parameters=fresh.network.parameters()),
+            paddle.nn.CrossEntropyLoss())
+        fresh.load(os.path.join(ck, "lenet"))
+        assert torch.equal(fresh.predict_batch(x), model.predict_batch(x))
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    counts = paddle.summary(model.network, (1, 1, 28, 28))
+    flops = paddle.flops(model.network, [1, 1, 28, 28])
+    assert counts["total_params"] == LENET_PARAMS and flops == LENET_FLOPS
+    out.update(save_load_logits_bit_equal=True, flops=flops, **counts)
+    del model, fresh, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ernie_dataset(n, seed, labels=True):
+    """A ``Dataset`` of ``n`` ERNIE classification samples as
+    ``_ernie_batch`` draws them (ids, token types, 3-way labels, ragged
+    lengths 128-384), each ``(ids, attn_mask [1, 1, L], token_type_ids,
+    label)`` in numpy (the mask made per item, in the worker)."""
+    from paddle_tpu_torch import ernie_base_config
+    from paddle_tpu_torch.io import Dataset
+
+    cfg = ernie_base_config()
+    rng = np.random.RandomState(seed)
+    l = ERNIE_SEQ
+    ids = rng.randint(0, cfg["vocab_size"], (n, l))
+    types = rng.randint(0, cfg["type_vocab_size"], (n, l))
+    ys = rng.randint(0, ERNIE_CLASSES, (n,))
+    lens = rng.randint(ERNIE_MIN_LEN, l + 1, n)
+    lens[::ERNIE_BATCH] = l  # each batch's first row full
+
+    class ErnieSamples(Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            mask = np.where(np.arange(l) < lens[i], 0.0,
+                            np.finfo(np.float32).min).astype(np.float32)
+            item = (ids[i], mask[None, None, :], types[i])
+            return item + (ys[i],) if labels else item
+
+    return ErnieSamples()
+
+
+def _ernie_cls(seed=0, dropout=HAPI_ERNIE_DROPOUT):
+    """The ERNIE-base classifier on the card (the default device), its
+    hidden dropout ``dropout`` and its attention-probability dropout 0
+    (each encoder layer's ``attn_dropout``): K3 has no dropout, and
+    attention with dropout keeps the composition, as in the reference."""
+    from paddle_tpu_torch import (TransformerForSequenceClassification,
+                                  ernie_base_config)
+
+    net = TransformerForSequenceClassification(
+        num_classes=ERNIE_CLASSES, dropout=dropout, seed=seed,
+        **ernie_base_config())
+    for layer in net.backbone.encoder.layers:
+        layer.self_attn.dropout = 0.0
+    return net
+
+
+def _ovr(base):
+    """``base`` (Precision, Recall, Auc) over class 1 of the 3-way logits
+    against the rest: the softmax's class-1 column and ``label == 1``."""
+    import torch
+
+    class OneVsRest(base):
+        def compute(self, pred, label, *args):
+            return torch.softmax(pred.float(), -1)[:, 1], (label == 1).long()
+
+    return OneVsRest()
+
+
+def _numpy_metrics(logits, p1, labels, buckets=4095):
+    """Accuracy, and precision, recall and the bucketed ROC AUC of class 1
+    (probabilities ``p1``) against the rest, written out in numpy."""
+    pos, true = p1 > 0.5, labels == 1
+    tp, fp, fn = (pos & true).sum(), (pos & ~true).sum(), (~pos & true).sum()
+    b = np.clip((p1 * buckets).astype(np.int64), 0, buckets)
+    hp = np.bincount(b[true], minlength=buckets + 1)[::-1]
+    hn = np.bincount(b[~true], minlength=buckets + 1)[::-1]
+    cp = np.cumsum(hp)
+    area = float(np.sum(hn * (cp - hp + cp) / 2.0))
+    auc = area / (cp[-1] * hn.sum()) if cp[-1] and hn.sum() else 0.0
+    return {"eval_acc": float((logits.argmax(-1) == labels).mean()),
+            "eval_precision": float(tp / (tp + fp)) if tp + fp else 0.0,
+            "eval_recall": float(tp / (tp + fn)) if tp + fn else 0.0,
+            "eval_auc": auc}
+
+
+def _fp32_k3():
+    """K3's fp32 launches by wrapper since the counts were last reset."""
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    counts = fk.launch_counts_by_dtype()
+    return {name: counts[name]["float32"] for name in counts}
+
+
+def _k3_since(before):
+    now = _fp32_k3()
+    return {name: now[name] - before[name] for name in now}
+
+
+def hapi_ernie_cls(root):
+    """``hapi_ernie_cls``: the ERNIE-base classifier (12 x 768, 12 heads,
+    3 classes, dropout 0.1, fp32) by ``Model.fit`` with AdamW under a
+    ``LinearWarmup`` stepped by the ``LRScheduler`` callback, beside
+    ``EarlyStopping`` and ``ModelCheckpoint``, over a ``DataLoader`` with 2
+    workers of ragged 32 x 384 batches (``(ids, attn_mask,
+    token_type_ids, label)``), 12 steps, then scored on 64 eval samples by
+    ``Accuracy`` and class 1's ``Precision``/``Recall``/``Auc``, each
+    held against numpy over ``predict``'s logits.  K3 runs fp32: lanes in
+    the eager warm-up, the [B, 1, 1, L] mask as a bias in the captured
+    step; its launches are counted by the wrappers and, over one more
+    replay, by ``torch.profiler`` (12 a step each way; a long run's
+    profiler may miss some, so it is held only to at most that).  Reports
+    the step period, the same batch through the bare captured step, and
+    the idle share."""
+    import shutil
+
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi import callbacks as cbs
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    paddle.seed(0)
+    model = paddle.Model(_ernie_cls())
+    layers = model.network.backbone.num_layers
+    sched = paddle.optimizer.lr.LinearWarmup(
+        HAPI_ERNIE_LR, HAPI_ERNIE_WARMUP, 0.0, HAPI_ERNIE_LR)
+    opt = paddle.optimizer.AdamW(sched,
+                                 parameters=model.network.parameters())
+    metrics = [paddle.metric.Accuracy(), _ovr(paddle.metric.Precision),
+               _ovr(paddle.metric.Recall), _ovr(paddle.metric.Auc)]
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(), metrics)
+    train = DataLoader(_ernie_dataset(HAPI_ERNIE_STEPS * ERNIE_BATCH, 0),
+                       batch_size=ERNIE_BATCH,
+                       num_workers=HAPI_ERNIE_WORKERS)
+    evals = _ernie_dataset(HAPI_ERNIE_EVAL, 1)
+    clock = _step_clock()
+    stop = cbs.EarlyStopping(monitor="eval_loss", patience=1, verbose=0)
+    ck = os.path.join(root, "scratch_chip", "hapi_ernie")
+    calls, restore = _spy_k3()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        model.fit(train, eval_data=DataLoader(evals, batch_size=ERNIE_BATCH),
+                  epochs=1, verbose=0,
+                  callbacks=[clock, cbs.LRScheduler(), stop,
+                             cbs.ModelCheckpoint(save_dir=ck)])
+        fit_s = time.perf_counter() - t0
+        train_k3 = _fp32_k3()
+        final = paddle.load(os.path.join(ck, "final.pdparams"))
+        live = model.network.state_dict()
+        assert set(final) == set(live) and all(
+            torch.equal(final[k], live[k].cpu()) for k in live)
+    finally:
+        restore()
+        shutil.rmtree(ck, ignore_errors=True)
+    step = model._train_step
+    assert step.compile_counts() == {"train_step": 1} \
+        and step._fn.graphs() == 1
+    assert len(clock.losses) == HAPI_ERNIE_STEPS and all(
+        np.isfinite(clock.losses)), clock.losses
+    assert sched.last_epoch == HAPI_ERNIE_STEPS \
+        and opt.get_lr() == HAPI_ERNIE_LR
+    assert np.isfinite(stop.best) and not model.stop_training
+    # the warm-up step's forward took lanes, the capture the bias; eval
+    # forwards run eagerly (lanes); replays call no Python
+    eval_calls = HAPI_ERNIE_EVAL // ERNIE_BATCH * layers
+    modes = ["bias" if c[2] else "lanes" if c[3] else "none" for c in calls]
+    assert modes == ["lanes"] * layers + ["bias"] * layers \
+        + ["lanes"] * eval_calls, modes
+    steps_k3 = layers * HAPI_ERNIE_STEPS
+    assert train_k3["flash_attention_forward_kernel"] == steps_k3 \
+        + eval_calls and train_k3["flash_attention_backward_kernel"] \
+        == steps_k3, train_k3
+    logs = model.evaluate(evals, batch_size=ERNIE_BATCH, verbose=0)
+    logits = model.predict(_ernie_dataset(HAPI_ERNIE_EVAL, 1, labels=False),
+                           batch_size=ERNIE_BATCH, stack_outputs=True)[0]
+    eval_k3 = _k3_since(train_k3)
+    # class 1's probabilities as the metrics' compute makes them
+    p1 = torch.softmax(torch.from_numpy(logits).cuda(), -1)[:, 1]
+    want = _numpy_metrics(logits, p1.cpu().numpy(), np.array(
+        [evals[i][3] for i in range(HAPI_ERNIE_EVAL)]))
+    for k, v in want.items():
+        assert abs(logs[k] - v) <= 1e-12, (k, logs[k], v)
+    # the bare captured step and the profile, on one training batch
+    ids, mask, types, labels = next(iter(DataLoader(
+        _ernie_dataset(ERNIE_BATCH, 0), batch_size=ERNIE_BATCH)))
+    period = float(np.mean(clock.periods_ms(skip=2)))
+    bare = _bare_ms(step, (ids, mask, types, labels), steps=4)
+    before = _fp32_k3()
+    prof = _profile_step(lambda: model.train_batch([ids, mask, types],
+                                                   [labels]), (), period)
+    replay_k3 = _k3_since(before)
+    busy = prof["device_busy_ms_per_step"]
+    # the wrappers' counts are exact; a long run's profiler can drop
+    # kernel records (PERF.md §7), so its count is held only to be positive
+    # and at most the wrappers'
+    assert replay_k3 == dict.fromkeys(replay_k3, layers), replay_k3
+    assert all(0 < n <= layers for n in prof["k3_launches"].values()), \
+        prof["k3_launches"]
+    out = {"layers": layers, "batch": ERNIE_BATCH, "seq": ERNIE_SEQ,
+           "dtype": "float32", "dropout": HAPI_ERNIE_DROPOUT,
+           "steps": HAPI_ERNIE_STEPS, "workers": HAPI_ERNIE_WORKERS,
+           "fit_s": fit_s, "losses": clock.losses,
+           "step_period_ms": period,
+           "step_period_ms_p50": float(np.median(clock.periods_ms(skip=2))),
+           "bare_step_ms": bare, "fit_host_ms_per_step": period - bare,
+           "device_busy_ms_per_step": busy,
+           "device_idle_share_fit": prof["device_idle_share"],
+           "device_idle_share_bare": None if busy is None
+           else 1 - busy / bare,
+           "launches_per_step": prof["launches"],
+           "tokens_per_s": ERNIE_BATCH * ERNIE_SEQ / (period / 1e3),
+           "eval": logs, "eval_numpy": want,
+           "k3_fp32_launches_fit": train_k3,
+           "k3_fp32_launches_eval_predict": eval_k3,
+           "k3_fp32_launches_profiled": replay_k3,
+           "k3_profiled_launches_per_step": prof["k3_launches"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # every fp32 K3 launch of the phase (the bare steps' too)
+    out["k3_fp32_launches"] = _fp32_k3()
+    del model, step, opt, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _act_scales(layers):
+    import torch
+
+    return torch.stack([m._act_scale for m in layers]).cpu().numpy()
+
+
+def compress_ernie():
+    """``compress_ernie``: the same classifier compressed three ways.
+    QAT: ``ImperativeQuantAware`` swaps every Linear, then 4 captured
+    ``Model.fit`` steps; every ``_act_scale`` is read after each step and
+    must have moved each step (-1 before the first).  PTQ: a fresh fp32
+    model's eval logits on 2 batches, then ``ImperativePTQ`` calibrated on
+    4 batches and converted to ``Int8Linear``: the logits' largest error
+    against fp32 relative to their largest magnitude, ms a batch int8
+    against fp32, and which int8 product route ran.  ASP: 2:4 masks on the
+    encoder's Linears (pooler and classifier excluded), ``decorate(AdamW)``
+    and 4 captured ``fit`` steps; every pruned weight must still be 2:4
+    after them."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    out = {}
+    data = DataLoader(_ernie_dataset(COMPRESS_STEPS * ERNIE_BATCH, 2),
+                      batch_size=ERNIE_BATCH)
+    fk.reset_launch_counts()
+    # QAT
+    paddle.seed(0)
+    net = _ernie_cls()
+    Q.ImperativeQuantAware().quantize(net)
+    qlayers = [m for m in net.modules() if isinstance(m, Q.QuantedLinear)]
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.AdamW(1e-5, parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss())
+    scales = [_act_scales(qlayers)]
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Scales(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            scales.append(_act_scales(qlayers))
+
+    clock = _step_clock()
+    model.fit(data, verbose=0, callbacks=[clock, Scales()])
+    assert model._train_step._fn.graphs() == 1
+    s = np.stack(scales)
+    assert (s[0] == -1).all() and (s[1:] > 0).all()
+    assert (np.diff(s[1:], axis=0) != 0).all(), "a scale stood still"
+    out["qat"] = {"quanted_linears": len(qlayers), "losses": clock.losses,
+                  "step_period_ms": float(np.mean(clock.periods_ms(skip=2))),
+                  "act_scale_moves": int((np.diff(s[1:], axis=0) != 0)
+                                         .sum())}
+    assert all(np.isfinite(clock.losses))
+    del model, net, qlayers
+    gc.collect()
+    # PTQ
+    net = _ernie_cls()
+    net.eval()
+    batches = list(data)
+    xs = [b[:3] for b in batches]
+    with torch.no_grad():
+        fp32 = torch.cat([net(*x) for x in xs[:2]])
+        fp32_ms = cuda_ms(lambda: net(*xs[0]), iters=5, warmup=1)
+    ptq = Q.ImperativePTQ()
+    ptq.quantize(net)
+    with torch.no_grad():
+        for x in xs[:COMPRESS_CALIB]:
+            net(*x)
+    ptq.convert(net)
+    n_int8 = sum(isinstance(m, Q.Int8Linear) for m in net.modules())
+    with torch.no_grad():
+        before = dict(Q.Int8Linear.routes)
+        int8 = torch.cat([net(*x) for x in xs[:2]])
+        routes = {k: (Q.Int8Linear.routes[k] - before[k]) // 2
+                  for k in before}  # a forward's Int8Linear calls by route
+        int8_ms = cuda_ms(lambda: net(*xs[0]), iters=5, warmup=1)
+    err = float((int8 - fp32).abs().max() / fp32.abs().max())
+    assert bool(torch.isfinite(int8).all()) and err <= PTQ_REL_BOUND, err
+    assert routes["int_mm"] > 0, routes
+    out["ptq"] = {"int8_linears": n_int8, "logits_rel_err": err,
+                  "fp32_ms_per_batch": fp32_ms, "int8_ms_per_batch": int8_ms,
+                  "int8_over_fp32": int8_ms / fp32_ms,
+                  "routes_per_forward": routes}
+    del net, ptq
+    gc.collect()
+    # ASP
+    net = _ernie_cls()
+    asp.reset_excluded_layers()
+    asp.set_excluded_layers([net.pooler.weight.param_name,
+                             net.classifier.weight.param_name])
+    masks = asp.prune_model(net)
+    pruned = [m.weight for m in net.modules()
+              if getattr(getattr(m, "weight", None), "param_name", None)
+              in masks]
+    model = paddle.Model(net)
+    model.prepare(asp.decorate(paddle.optimizer.AdamW(
+        1e-4, parameters=net.parameters())), paddle.nn.CrossEntropyLoss())
+    clock = _step_clock()
+    model.fit(data, verbose=0, callbacks=[clock])
+    assert model._train_step._fn.graphs() == 1
+    assert len(pruned) == 6 * net.backbone.num_layers
+    assert all(asp.check_sparsity(w) for w in pruned)
+    assert all(np.isfinite(clock.losses))
+    out["asp"] = {"pruned_weights": len(pruned), "losses": clock.losses,
+                  "sparsity_kept": True}
+    asp.reset_excluded_layers()
+    asp._masks.clear()
+    out["k3_fp32_launches"] = _fp32_k3()
+    del model, net, pruned, data, batches, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resume_child(workdir, mode) -> int:
+    """``auto_resume``'s trainer (``--resume-child DIR MODE``): the ERNIE
+    classifier (seed 0, dropout 0.1, fp32) by ``Model.train_batch`` on
+    ``RESUME_STEPS`` batches, with ``AutoCheckpoint(every_n_steps=2)`` in
+    DIR unless MODE is ``full``.  Prints ``START n``, then ``STEP i
+    <loss.hex()>`` after each step's snapshot; in MODE ``crash`` it blocks
+    after step ``RESUME_KILL_AFTER`` for the parent's SIGKILL.  Ends with
+    ``LAUNCHES <json>``, its fp32 K3 launches."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import AutoCheckpoint
+    from paddle_tpu_torch.io import DataLoader
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.seed(0)
+    model = paddle.Model(_ernie_cls())
+    opt = paddle.optimizer.AdamW(HAPI_ERNIE_LR,
+                                 parameters=model.network.parameters())
+    model.prepare(opt, paddle.nn.CrossEntropyLoss())
+    batches = list(DataLoader(_ernie_dataset(RESUME_STEPS * ERNIE_BATCH, 3),
+                              batch_size=ERNIE_BATCH))
+    acp = None
+    if mode != "full":
+        acp = AutoCheckpoint({"model": model.network, "opt": opt},
+                             checkpoint_dir=workdir,
+                             every_n_steps=RESUME_EVERY)
+    start = acp.start_step if acp is not None else 0
+    print("START %d" % start, flush=True)
+    for i in range(start, RESUME_STEPS):
+        ids, mask, types, labels = batches[i]
+        loss = model.train_batch([ids, mask, types], [labels])[0]
+        if acp is not None:
+            acp.after_step(i)
+        print("STEP %d %s" % (i, float(loss).hex()), flush=True)
+        if mode == "crash" and i == RESUME_KILL_AFTER:
+            sys.stdin.readline()  # the parent kills us here
+    print("LAUNCHES %s" % json.dumps(_fp32_k3()), flush=True)
+    return 0
+
+
+def _resume_run(root, workdir, mode):
+    """One ``--resume-child`` process: ({step: loss}, start, launches);
+    in ``crash`` mode it is killed with SIGKILL after its step
+    ``RESUME_KILL_AFTER``."""
+    import signal
+
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(root, "chip_smoke.py"),
+         "--resume-child", workdir, mode], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True, cwd=root)
+    losses, start, launches = {}, None, {}
+    deadline = time.monotonic() + RESUME_TIMEOUT_S
+    try:
+        for line in proc.stdout:
+            if time.monotonic() > deadline:
+                raise TimeoutError("resume child %s timed out" % mode)
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "START":
+                start = int(parts[1])
+            elif parts[0] == "STEP":
+                losses[int(parts[1])] = float.fromhex(parts[2])
+                if mode == "crash" and int(parts[1]) == RESUME_KILL_AFTER:
+                    os.kill(proc.pid, signal.SIGKILL)
+            elif parts[0] == "LAUNCHES":
+                launches = json.loads(line.split(None, 1)[1])
+        rc = proc.wait(timeout=RESUME_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    want_rc = -signal.SIGKILL if mode == "crash" else 0
+    assert rc == want_rc, (mode, rc)
+    return losses, start, launches
+
+
+def auto_resume(root):
+    """``auto_resume``: the classifier trained ``RESUME_STEPS`` steps in a
+    child with ``AutoCheckpoint(every_n_steps=2)``, killed by SIGKILL after
+    step ``RESUME_KILL_AFTER``, relaunched: the relaunch must start at the
+    step after the last snapshot and its losses must equal an
+    uninterrupted child's bit for bit (dropout 0.1: the snapshot carries
+    the CUDA generator's seed and offset).  The snapshots go to the
+    git-ignored ``scratch_chip/resume/``, removed after."""
+    import shutil
+
+    workdir = os.path.join(root, "scratch_chip", "resume")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        full, _, full_k3 = _resume_run(root, workdir, "full")
+        t1 = time.perf_counter()
+        crashed, _, _ = _resume_run(root, workdir, "crash")
+        t2 = time.perf_counter()
+        resumed, start, resumed_k3 = _resume_run(root, workdir, "resume")
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    assert sorted(full) == list(range(RESUME_STEPS))
+    assert sorted(crashed) == list(range(RESUME_KILL_AFTER + 1))
+    # snapshots after steps 1, 3, 5: the relaunch starts at 6
+    assert start == RESUME_KILL_AFTER + 1 and sorted(resumed) == list(
+        range(start, RESUME_STEPS)), (start, sorted(resumed))
+    before = [crashed[i] for i in sorted(crashed)]
+    after = [resumed[i] for i in sorted(resumed)]
+    want_before = [full[i] for i in sorted(crashed)]
+    want_after = [full[i] for i in sorted(resumed)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(before + after,
+                                                   want_before + want_after))
+    bit_equal = before == want_before and after == want_after
+    assert bit_equal, (before, want_before, after, want_after, rel)
+    out = {"steps": RESUME_STEPS, "killed_after": RESUME_KILL_AFTER,
+           "resumed_at": start, "every_n_steps": RESUME_EVERY,
+           "losses_full": [full[i] for i in sorted(full)],
+           "losses_resumed": after, "bit_equal": bit_equal,
+           "max_rel_diff": rel, "full_s": t1 - t0, "crash_s": t2 - t1,
+           "resume_s": t3 - t2,
+           "k3_fp32_launches": {k: full_k3.get(k, 0) + resumed_k3.get(k, 0)
+                                for k in set(full_k3) | set(resumed_k3)}}
+    return out
+
+
+def _r50_dataset(n):
+    """ImageNet-shaped samples for ``fit_resnet50_workers``: uint8
+    256 x 256 x 3 images (numpy seed 0) through RandomCrop(224), a flip,
+    HWC -> CHW and Normalize by ImageNet's mean and std scaled to [0, 255]
+    (``vision.transforms``, numpy only: the loader's workers run no torch
+    op), each with a label."""
+    from paddle_tpu_torch.io import Dataset
+    from paddle_tpu_torch.vision import transforms as T
+
+    rng = np.random.RandomState(0)
+    images = _source_images(rng, n)
+    labels = rng.randint(0, 1000, (n,))
+    pipe = T.Compose([T.RandomCrop(IMAGE_SIDE), T.RandomHorizontalFlip(),
+                      T.Transpose((2, 0, 1)),
+                      T.Normalize([255 * m for m in IMAGENET_MEAN],
+                                  [255 * s for s in IMAGENET_STD])])
+
+    class Images(Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return np.ascontiguousarray(pipe(images[i]), np.float32), \
+                labels[i]
+
+    return Images()
+
+
+def _seed_worker(worker_id):
+    import random
+
+    random.seed(1000 + worker_id)
+
+
+def fit_resnet50_workers():
+    """``fit_resnet50_workers``: ``Model.fit`` of ResNet50 (fp32, 224,
+    batch 128, Momentum 0.05) over ``DataLoader``s whose ``Dataset`` runs the
+    transforms on the host per sample: ``R50_FIT_STEPS`` steps with no
+    workers, then as many with ``min(4, cpu_count)`` forked workers, each
+    beside the same model's bare captured step on a batch already on the
+    card: images a second, the step period and the device idle share
+    (1 - the profiled replay's busy ms over the period).  With no workers
+    the host's transforms run between steps; with workers and the
+    prefetch thread they should hide behind the step."""
+    import random
+
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.models import resnet50
+
+    paddle.seed(0)
+    model = paddle.Model(resnet50(num_classes=1000, seed=0))
+    model.prepare(paddle.optimizer.Momentum(
+        R50_FIT_LR, momentum=0.9, parameters=model.network.parameters()),
+        paddle.nn.CrossEntropyLoss())
+    ds = _r50_dataset(R50_FIT_STEPS * R50_FIT_BATCH)
+    workers_n = min(4, os.cpu_count() or 1)
+    out = {"batch": R50_FIT_BATCH, "steps": R50_FIT_STEPS}
+    random.seed(0)
+    for leg, workers in enumerate((0, workers_n)):
+        clock = _step_clock()
+        loader = DataLoader(ds, batch_size=R50_FIT_BATCH,
+                            num_workers=workers, worker_init_fn=_seed_worker
+                            if workers else None)
+        t0 = time.perf_counter()
+        model.fit(loader, verbose=0, callbacks=[clock])
+        wall = time.perf_counter() - t0
+        assert len(clock.losses) == R50_FIT_STEPS and all(
+            np.isfinite(clock.losses)), clock.losses
+        periods = clock.periods_ms(skip=2 if leg == 0 else 1)
+        out["workers_%d" % workers] = {
+            "workers": workers, "fit_s": wall, "losses": clock.losses,
+            "step_period_ms": float(np.mean(periods)),
+            "step_period_ms_p50": float(np.median(periods)),
+            "imgs_per_s": R50_FIT_BATCH / (np.mean(periods) / 1e3)}
+    step = model._train_step
+    assert step.compile_counts() == {"train_step": 1} \
+        and step._fn.graphs() == 1
+    x, y = next(iter(DataLoader(ds, batch_size=R50_FIT_BATCH)))
+    bare = _bare_ms(step, (x, y), steps=4)
+    prof = _profile_step(step, (x, y), bare)
+    busy = prof["device_busy_ms_per_step"]
+    out.update(bare_step_ms=bare,
+               bare_imgs_per_s=R50_FIT_BATCH / (bare / 1e3),
+               device_busy_ms_per_step=busy,
+               launches_per_step=prof["launches"],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for workers in (0, workers_n):
+        rec = out["workers_%d" % workers]
+        rec["device_idle_share"] = None if busy is None \
+            else 1 - busy / rec["step_period_ms"]
+        rec["fit_over_bare"] = rec["step_period_ms"] / bare
+        log("fit_resnet50_workers %d workers: %.1f ms a step (%.0f imgs/s), "
+            "bare %.1f ms (%.0f imgs/s), idle %s"
+            % (workers, rec["step_period_ms"], rec["imgs_per_s"], bare,
+               out["bare_imgs_per_s"], rec["device_idle_share"]))
+    del model, step, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -7983,6 +8746,8 @@ def main() -> int:
     sys.path.insert(0, root)
     if sys.argv[1:2] == ["--crash-child"]:
         return crash_child(sys.argv[2])
+    if sys.argv[1:2] == ["--resume-child"]:
+        return resume_child(sys.argv[2], sys.argv[3])
     from paddle_tpu_torch import TransformerLM, gpt_1p3b_config
     from paddle_tpu_torch.ops import _build
 
@@ -8232,11 +8997,40 @@ def main() -> int:
         % (LSTM_BEAM, LSTM_SENTENCES, LSTM_MAX_STEPS),
         json.dumps(s2s["translate_seq2seq_lstm"]))
     log("sequence-model phases: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    hapi = {"hapi_lenet": hapi_lenet(root)}
+    log(card)
+    log("hapi_lenet (config #1 by Model.fit: LeNet, Adam 1e-3, batch %d, "
+        "%d images, %d epochs, over DataLoaders of %s workers):"
+        % (HAPI_LENET_BATCH, HAPI_LENET_IMAGES, HAPI_LENET_EPOCHS,
+           HAPI_LENET_WORKERS), json.dumps(hapi["hapi_lenet"]))
+    hapi["hapi_ernie_cls"] = hapi_ernie_cls(root)
+    log(card)
+    log("hapi_ernie_cls (ERNIE-base classifier by Model.fit, fp32, dropout "
+        "0.1, AdamW + LinearWarmup, %d x %d ragged, %d steps, %d workers; "
+        "eval by Accuracy/Precision/Recall/Auc):"
+        % (ERNIE_BATCH, ERNIE_SEQ, HAPI_ERNIE_STEPS, HAPI_ERNIE_WORKERS),
+        json.dumps(hapi["hapi_ernie_cls"]))
+    hapi["compress_ernie"] = compress_ernie()
+    log("compress_ernie (QAT, PTQ to Int8Linear, ASP 2:4 on the classifier):",
+        json.dumps(hapi["compress_ernie"]))
+    hapi["auto_resume"] = auto_resume(root)
+    log("auto_resume (AutoCheckpoint every %d steps, SIGKILL after step %d, "
+        "relaunch):" % (RESUME_EVERY, RESUME_KILL_AFTER),
+        json.dumps(hapi["auto_resume"]))
+    hapi["fit_resnet50_workers"] = fit_resnet50_workers()
+    log(card)
+    log("fit_resnet50_workers (ResNet50 fp32 224 by Model.fit, batch %d, "
+        "host transforms in the Dataset):" % R50_FIT_BATCH,
+        json.dumps(hapi["fit_resnet50_workers"]))
+    log("high-level API phases: %.1f s" % (time.perf_counter() - t0))
 
     timing = time_kernels()
     timing.update(time_flash())
     timing.update({(name, "ernie", mode): rec
                    for (name, mode), rec in time_flash_ernie().items()})
+    timing.update({(name, "ernie_fp32", mode): rec for (name, mode), rec
+                   in time_flash_ernie("float32").items()})
     timing.update({("s2s", case): rec
                    for case, rec in time_flash_seq2seq().items()})
     sdpa_kernel_names()
@@ -8296,6 +9090,26 @@ def main() -> int:
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]})
+    # the fp32 ERNIE classifier's K3 (B 32 x H 12 x L 384 x D 64) as the
+    # high-level API's captured steps give it the padding (a bias), with
+    # every fp32 launch of hapi_ernie_cls, compress_ernie and auto_resume
+    # (their eager warm-ups' and evaluations' lanes included)
+    for name, direction in (("flash_attention_forward_kernel", "forward"),
+                            ("flash_attention_backward_kernel",
+                             "backward")):
+        t = timing[(name, "ernie_fp32", "bias")]
+        kernels.append({
+            "name": "flash_attention_ernie_fp32_%s" % direction,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/flash_attention.py:78",
+            "launches": sum(hapi[phase]["k3_fp32_launches"][name] for phase
+                            in ("hapi_ernie_cls", "compress_ernie",
+                                "auto_resume")),
+            "max_abs_err": parity[name + "_ernie_fp32"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     # the sequence models' K3 forward in its bias mode (fp32, 8 heads x
     # 64), one row a shape, each with the launches of the phase that ran
     # it: eval_transformer_base (128 x 64 x 64) and
@@ -8405,7 +9219,7 @@ def main() -> int:
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"card": card, "runs": runs, "train": train,
-                   "seq2seq": s2s, "vision": vision,
+                   "seq2seq": s2s, "vision": vision, "hapi": hapi,
                    "timing": {str(k): v for k, v in timing.items()},
                    "kernels": kernels}, f,
                   default=lambda o: o.item() if hasattr(o, "item")

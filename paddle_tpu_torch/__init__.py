@@ -34,13 +34,31 @@ and ``amp.auto_cast`` around the loss, as the reference's training legs.
 A server is ``ServingEngine(model, ...).start()`` behind
 ``ServingHTTPFrontend(engine).start()``; ``mesh=DecodeMesh(dp, mp,
 devices=["cuda:0"] * (dp * mp))`` shards its pool (``jit.mesh``).
+
+The high-level API: every layer and model is an ``nn.Layer``;
+``Model(network, device=None)`` prepares, fits, evaluates, predicts,
+saves and loads it over ``io.DataLoader`` (batches staged on the card
+by a prefetch thread, forked workers for the host work), scored by
+``metric`` and steered by ``callbacks``; ``save``/``load`` write and read
+the reference's checkpoint format; ``summary``/``flops`` count a
+network; ``quantization`` (QAT, PTQ, int8 layers), ``incubate.asp`` (2:4
+sparsity), ``incubate.auto_checkpoint`` (resume after a crash) and
+``distribution`` complete it.
 """
 from . import amp  # noqa: F401
 from . import autograd  # noqa: F401
 from . import distributed  # noqa: F401
+from . import distribution  # noqa: F401
+from . import hapi  # noqa: F401
 from . import incubate  # noqa: F401
+from . import io  # noqa: F401
+from . import metric  # noqa: F401
+from . import nn  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import profiler  # noqa: F401
+from . import quantization  # noqa: F401
 from . import serving  # noqa: F401
+from . import utils  # noqa: F401
 from . import vision  # noqa: F401
 from .convert import load_reference_params  # noqa: F401
 from .core.errors import (EnforceNotMet, InvalidArgumentError,  # noqa: F401
@@ -51,6 +69,8 @@ from .core.random import (get_cuda_rng_state, get_rng_state,  # noqa: F401
                           seed, set_cuda_rng_state, set_rng_state)
 from .framework.engine import (enable_grad, grad,  # noqa: F401
                                is_grad_enabled, no_grad, set_grad_enabled)
+from .framework.io import load, save  # noqa: F401
+from .hapi import Model, callbacks, flops, summary  # noqa: F401
 from . import tensor  # noqa: F401
 from .tensor import *  # noqa: F401,F403
 from .inference.generation import GenerationPool  # noqa: F401

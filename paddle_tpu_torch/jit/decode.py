@@ -331,7 +331,7 @@ class DecodeSession:
             raise InvalidArgumentError(
                 "DecodeSession requires a causal model (got causal=False): "
                 "bidirectional encoders cannot decode incrementally")
-        model_dev = next(model.parameters()).device
+        model_dev = next(iter(model.parameters())).device
         if not same_device(model_dev, self.device):
             raise InvalidArgumentError(
                 "the model lives on %s but the session runs on %s: build "

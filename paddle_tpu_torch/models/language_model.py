@@ -8,13 +8,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from .. import tensor as T
 from ..core.device import resolve_device
 from ..core.errors import InvalidArgumentError
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding, Linear
+from ..nn.layer.layers import Layer
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
 
@@ -65,7 +65,7 @@ def gpt_1p3b_config() -> dict:
     )
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(Layer):
     """Transformer language model with tied input/output embeddings.
 
     Parameter names and shapes are the reference's, so
@@ -204,7 +204,7 @@ class TransformerLM(nn.Module):
         return 6.0 * matmul_params + attn
 
 
-class TransformerLMCriterion(nn.Module):
+class TransformerLMCriterion(Layer):
     """Next-token (``shift_labels=True``) or masked LM loss: softmax cross
     entropy over the vocabulary, mean over the positions."""
 
@@ -221,7 +221,7 @@ class TransformerLMCriterion(nn.Module):
                                reduction="mean")
 
 
-class TransformerForSequenceClassification(nn.Module):
+class TransformerForSequenceClassification(Layer):
     """Encoder + BERT-style pooler + classifier: the ERNIE fine-tune head
     (the reference's config #4).  ``config`` goes to the
     :class:`TransformerLM` backbone (``causal`` defaults to False), whose

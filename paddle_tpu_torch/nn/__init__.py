@@ -1,6 +1,7 @@
 """Layers and functionals of the port (counterpart of ``paddle_tpu.nn``).
 
-A layer is a ``torch.nn.Module`` with the reference's constructor,
+A layer is a :class:`Layer` (a ``torch.nn.Module`` with paddle's
+``Layer`` surface, ``layer.layers``) with the reference's constructor,
 parameter names and shapes; a layer with parameters takes ``device=``
 (and, where it draws them, ``generator=``), built on torch's default
 device when none is given.  ``ParamAttr`` and ``initializer`` configure
@@ -33,7 +34,8 @@ from .layer.container import (LayerDict, LayerList,  # noqa: F401
                               ParameterList, Sequential)
 from .layer.conv import (Conv1D, Conv1DTranspose, Conv2D,  # noqa: F401
                          Conv2DTranspose, Conv3D, Conv3DTranspose)
-from .layer.layers import ParamAttr, create_parameter  # noqa: F401
+from .layer.layers import (HookRemoveHelper, Layer,  # noqa: F401
+                           ParamAttr, create_parameter)
 from .layer.loss import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
                          CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss,
                          HSigmoidLoss, KLDivLoss, L1Loss, MarginRankingLoss,

@@ -3,16 +3,15 @@
 name with the arguments it was built with."""
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
 from .. import initializer as I
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 
 def _simple(name, fn_name, extra_args=()):
     def __init__(self, *args, name=None, **kwargs):
-        nn.Module.__init__(self)
+        Layer.__init__(self)
         for (argname, default), val in zip(
                 extra_args, list(args) + [None] * len(extra_args)):
             setattr(self, argname,
@@ -22,9 +21,9 @@ def _simple(name, fn_name, extra_args=()):
         args = [getattr(self, argname) for argname, _ in extra_args]
         return getattr(F, fn_name)(x, *args)
 
-    return type(name, (nn.Module,), {"__init__": __init__,
-                                     "forward": forward,
-                                     "__module__": __name__})
+    return type(name, (Layer,), {"__init__": __init__,
+                                 "forward": forward,
+                                 "__module__": __name__})
 
 
 ReLU = _simple("ReLU", "relu")
@@ -53,7 +52,7 @@ LogSigmoid = _simple("LogSigmoid", "log_sigmoid")
 GLU = _simple("GLU", "glu", (("axis", -1),))
 
 
-class Softmax(nn.Module):
+class Softmax(Layer):
     def __init__(self, axis: int = -1, name=None):
         super().__init__()
         self.axis = axis
@@ -62,7 +61,7 @@ class Softmax(nn.Module):
         return F.softmax(x, self.axis)
 
 
-class LogSoftmax(nn.Module):
+class LogSoftmax(Layer):
     def __init__(self, axis: int = -1, name=None):
         super().__init__()
         self.axis = axis
@@ -71,7 +70,7 @@ class LogSoftmax(nn.Module):
         return F.log_softmax(x, self.axis)
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     """``num_parameters`` slopes (1: shared; C: one per channel on axis
     1), each ``init``."""
 
@@ -87,7 +86,7 @@ class PReLU(nn.Module):
         return F.prelu(x, self.weight)
 
 
-class Maxout(nn.Module):
+class Maxout(Layer):
     def __init__(self, groups: int, axis: int = 1, name=None):
         super().__init__()
         self.groups, self.axis = groups, axis

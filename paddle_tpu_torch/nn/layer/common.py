@@ -14,17 +14,16 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from .. import functional as F
 from .. import initializer as I
 from .. import lora as _lora
 from ...tensor import flatten as _flatten
 from ...tensor import norm as _norm
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """paddle.nn.Linear: weight [in_features, out_features] (XavierNormal),
     bias zeros."""
 
@@ -56,7 +55,7 @@ class Linear(nn.Module):
                                                     self.out_features)
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """paddle.nn.Embedding: weight [num_embeddings, embedding_dim].
 
     ``padding_idx``: the output is zeros at that id whatever its row
@@ -88,7 +87,7 @@ class Embedding(nn.Module):
         return "%d, %d" % (self._num_embeddings, self._embedding_dim)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     def __init__(self, p: float = 0.5, axis=None,
                  mode: str = "upscale_in_train", name=None):
         super().__init__()
@@ -104,7 +103,7 @@ class Dropout(nn.Module):
         return "p=%s" % self.p
 
 
-class Dropout2D(nn.Module):
+class Dropout2D(Layer):
     def __init__(self, p: float = 0.5, data_format: str = "NCHW",
                  name=None):
         super().__init__()
@@ -116,7 +115,7 @@ class Dropout2D(nn.Module):
                            data_format=self.data_format)
 
 
-class Dropout3D(nn.Module):
+class Dropout3D(Layer):
     def __init__(self, p: float = 0.5, data_format: str = "NCDHW",
                  name=None):
         super().__init__()
@@ -128,7 +127,7 @@ class Dropout3D(nn.Module):
                            data_format=self.data_format)
 
 
-class AlphaDropout(nn.Module):
+class AlphaDropout(Layer):
     def __init__(self, p: float = 0.5, name=None):
         super().__init__()
         self.p = p
@@ -137,7 +136,7 @@ class AlphaDropout(nn.Module):
         return F.alpha_dropout(x, self.p, training=self.training)
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     def __init__(self, start_axis: int = 1, stop_axis: int = -1):
         super().__init__()
         self.start_axis = start_axis
@@ -147,7 +146,7 @@ class Flatten(nn.Module):
         return _flatten(x, self.start_axis, self.stop_axis)
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     def __init__(self, *args, **kwargs):
         super().__init__()
 
@@ -155,7 +154,7 @@ class Identity(nn.Module):
         return x
 
 
-class _PadNd(nn.Module):
+class _PadNd(Layer):
     _format = "NCHW"
 
     def __init__(self, padding, mode: str = "constant", value: float = 0.0,
@@ -182,7 +181,7 @@ class Pad3D(_PadNd):
     _format = "NCDHW"
 
 
-class Upsample(nn.Module):
+class Upsample(Layer):
     def __init__(self, size=None, scale_factor=None, mode: str = "nearest",
                  align_corners: bool = False, align_mode: int = 0,
                  data_format: str = "NCHW", name=None):
@@ -211,7 +210,7 @@ class UpsamplingNearest2D(Upsample):
                          data_format=data_format)
 
 
-class Bilinear(nn.Module):
+class Bilinear(Layer):
     """weight [out, in1, in2] (XavierNormal), bias [out] zeros."""
 
     def __init__(self, in1_features: int, in2_features: int,
@@ -230,7 +229,7 @@ class Bilinear(nn.Module):
         return F.bilinear(x1, x2, self.weight, self.bias)
 
 
-class PixelShuffle(nn.Module):
+class PixelShuffle(Layer):
     def __init__(self, upscale_factor: int, data_format: str = "NCHW",
                  name=None):
         super().__init__()
@@ -241,7 +240,7 @@ class PixelShuffle(nn.Module):
         return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
 
 
-class CosineSimilarity(nn.Module):
+class CosineSimilarity(Layer):
     def __init__(self, axis: int = 1, eps: float = 1e-8):
         super().__init__()
         self.axis, self.eps = axis, eps
@@ -250,7 +249,7 @@ class CosineSimilarity(nn.Module):
         return F.cosine_similarity(x1, x2, self.axis, self.eps)
 
 
-class PairwiseDistance(nn.Module):
+class PairwiseDistance(Layer):
     """The ``p``-norm of ``x - y + epsilon`` along the last axis."""
 
     def __init__(self, p: float = 2.0, epsilon: float = 1e-6,
@@ -268,7 +267,7 @@ class PairwiseDistance(nn.Module):
         return "p=%s" % self.p
 
 
-class Unfold(nn.Module):
+class Unfold(Layer):
     """im2col over ``F.unfold``."""
 
     def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,

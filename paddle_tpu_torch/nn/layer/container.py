@@ -14,9 +14,10 @@ from typing import Iterable
 from torch import nn
 
 from ...core.errors import InvalidArgumentError
+from .layers import Layer
 
 
-class Sequential(nn.Module):
+class Sequential(Layer):
     def __init__(self, *layers):
         super().__init__()
         if len(layers) == 1 and isinstance(layers[0],
@@ -47,7 +48,7 @@ class Sequential(nn.Module):
         return x
 
 
-class LayerList(nn.Module):
+class LayerList(Layer):
     def __init__(self, sublayers: Iterable[nn.Module] = None):
         super().__init__()
         if sublayers is not None:
@@ -86,7 +87,7 @@ class LayerList(nn.Module):
         return self
 
 
-class ParameterList(nn.Module):
+class ParameterList(Layer):
     def __init__(self, parameters: Iterable[nn.Parameter] = None):
         super().__init__()
         if parameters is not None:
@@ -107,7 +108,7 @@ class ParameterList(nn.Module):
         return self
 
 
-class LayerDict(nn.Module):
+class LayerDict(Layer):
     def __init__(self, sublayers=None):
         super().__init__()
         if sublayers is not None:

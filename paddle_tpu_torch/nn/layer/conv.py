@@ -9,16 +9,15 @@ the bias is zeros.  ``weight_attr``/``bias_attr`` are the reference's
 from __future__ import annotations
 
 import numpy as np
-from torch import nn
 
 from ...core.errors import InvalidArgumentError
 from .. import functional as F
 from .. import initializer as I
 from ..functional.conv import _normalize_tuple
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  n: int, stride=1, padding=0, dilation=1, groups: int = 1,
                  padding_mode: str = "zeros", weight_attr=None,

@@ -4,15 +4,14 @@ from __future__ import annotations
 
 import math
 
-from torch import nn
 
 from ...core.errors import InvalidArgumentError
 from .. import functional as F
 from .. import initializer as I
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index: int = -100,
                  reduction: str = "mean", soft_label: bool = False,
                  axis: int = -1, use_softmax: bool = True,
@@ -34,7 +33,7 @@ class CrossEntropyLoss(nn.Module):
             label_smoothing=self.label_smoothing)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction: str = "mean"):
         super().__init__()
         self.reduction = reduction
@@ -43,7 +42,7 @@ class MSELoss(nn.Module):
         return F.mse_loss(input, label, self.reduction)
 
 
-class L1Loss(nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction: str = "mean", name=None):
         super().__init__()
         self.reduction = reduction
@@ -52,7 +51,7 @@ class L1Loss(nn.Module):
         return F.l1_loss(input, label, self.reduction)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index: int = -100,
                  reduction: str = "mean", name=None):
         super().__init__()
@@ -65,7 +64,7 @@ class NLLLoss(nn.Module):
                           self.reduction)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction: str = "mean", name=None):
         super().__init__()
         self.weight = weight
@@ -75,7 +74,7 @@ class BCELoss(nn.Module):
         return F.bce_loss(input, label, self.weight, self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction: str = "mean",
                  pos_weight=None, name=None):
         super().__init__()
@@ -88,7 +87,7 @@ class BCEWithLogitsLoss(nn.Module):
             logit, label, self.weight, self.reduction, self.pos_weight)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction: str = "mean", delta: float = 1.0,
                  name=None):
         super().__init__()
@@ -99,7 +98,7 @@ class SmoothL1Loss(nn.Module):
         return F.smooth_l1_loss(input, label, self.reduction, self.delta)
 
 
-class KLDivLoss(nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction: str = "mean"):
         super().__init__()
         self.reduction = reduction
@@ -108,7 +107,7 @@ class KLDivLoss(nn.Module):
         return F.kl_div(input, label, self.reduction)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin: float = 0.0, reduction: str = "mean",
                  name=None):
         super().__init__()
@@ -120,7 +119,7 @@ class MarginRankingLoss(nn.Module):
                                      self.reduction)
 
 
-class HingeEmbeddingLoss(nn.Module):
+class HingeEmbeddingLoss(Layer):
     def __init__(self, margin: float = 1.0, reduction: str = "mean",
                  name=None):
         super().__init__()
@@ -132,7 +131,7 @@ class HingeEmbeddingLoss(nn.Module):
                                       self.reduction)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     """nn.CTCLoss over ``F.ctc_loss`` (warpctc semantics)."""
 
     def __init__(self, blank: int = 0, reduction: str = "mean"):
@@ -147,7 +146,7 @@ class CTCLoss(nn.Module):
                           norm_by_times=norm_by_times)
 
 
-class HSigmoidLoss(nn.Module):
+class HSigmoidLoss(Layer):
     """nn.HSigmoidLoss: holds the [num_classes - 1, feature] internal node
     weights of ``F.hsigmoid_loss``'s complete-binary-tree default (custom
     trees pass ``path_table``/``path_code`` through ``forward``)."""

@@ -18,16 +18,15 @@ gradient and are read, never written, as the reference's op) follow.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...core.errors import InvalidArgumentError
 from .. import functional as F
 from .. import initializer as I
 from ..functional import norm as _norm
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """paddle.nn.LayerNorm: weight ones, bias zeros, epsilon 1e-5;
     ``weight_attr``/``bias_attr`` as ``Linear``'s (``False``: none)."""
 
@@ -53,7 +52,7 @@ class LayerNorm(nn.Module):
                                                     self._epsilon)
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features: int, momentum: float = 0.9,
                  epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
                  data_format: str = "NCHW", use_global_stats=None,
@@ -132,7 +131,7 @@ class BatchNorm3D(_BatchNormBase):
                 "BatchNorm3D expects 5D input, got %dD" % x.ndim)
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     def __init__(self, num_groups: int, num_channels: int,
                  epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
                  data_format: str = "NCHW", name=None, device=None):
@@ -151,7 +150,7 @@ class GroupNorm(nn.Module):
                             self._epsilon, self._data_format)
 
 
-class _InstanceNormBase(nn.Module):
+class _InstanceNormBase(Layer):
     def __init__(self, num_features: int, epsilon: float = 1e-5,
                  momentum: float = 0.9, weight_attr=None, bias_attr=None,
                  data_format: str = "NCHW", name=None, device=None):
@@ -183,7 +182,7 @@ class InstanceNorm3D(_InstanceNormBase):
     pass
 
 
-class LocalResponseNorm(nn.Module):
+class LocalResponseNorm(Layer):
     def __init__(self, size: int, alpha: float = 1e-4, beta: float = 0.75,
                  k: float = 1.0, data_format: str = "NCHW", name=None):
         super().__init__()
@@ -195,7 +194,7 @@ class LocalResponseNorm(nn.Module):
                                      self.k, self.data_format)
 
 
-class SpectralNorm(nn.Module):
+class SpectralNorm(Layer):
     """``forward(weight)``: ``weight / sigma``, sigma from
     ``power_iters`` rounds of power iteration started at the stored
     ``weight_u`` [weight_shape[dim]] and ``weight_v`` [the rest's

@@ -2,12 +2,12 @@
 ``nn/layer/pooling.py``): the twelve pools over ``nn.functional``'s."""
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 
-class _PoolNd(nn.Module):
+class _PoolNd(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  data_format=None):
         super().__init__()
@@ -93,7 +93,7 @@ class AvgPool3D(_PoolNd):
                             self.divisor_override, self.data_format)
 
 
-class AdaptiveAvgPool1D(nn.Module):
+class AdaptiveAvgPool1D(Layer):
     def __init__(self, output_size, name=None):
         super().__init__()
         self.output_size = output_size
@@ -102,7 +102,7 @@ class AdaptiveAvgPool1D(nn.Module):
         return F.adaptive_avg_pool1d(x, self.output_size)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size = output_size
@@ -112,7 +112,7 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
 
 
-class AdaptiveAvgPool3D(nn.Module):
+class AdaptiveAvgPool3D(Layer):
     def __init__(self, output_size, data_format="NCDHW", name=None):
         super().__init__()
         self.output_size = output_size
@@ -122,7 +122,7 @@ class AdaptiveAvgPool3D(nn.Module):
         return F.adaptive_avg_pool3d(x, self.output_size, self.data_format)
 
 
-class AdaptiveMaxPool1D(nn.Module):
+class AdaptiveMaxPool1D(Layer):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
         self.output_size = output_size
@@ -131,7 +131,7 @@ class AdaptiveMaxPool1D(nn.Module):
         return F.adaptive_max_pool1d(x, self.output_size)
 
 
-class AdaptiveMaxPool2D(nn.Module):
+class AdaptiveMaxPool2D(Layer):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
         self.output_size = output_size
@@ -140,7 +140,7 @@ class AdaptiveMaxPool2D(nn.Module):
         return F.adaptive_max_pool2d(x, self.output_size)
 
 
-class AdaptiveMaxPool3D(nn.Module):
+class AdaptiveMaxPool3D(Layer):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
         self.output_size = output_size

@@ -31,14 +31,13 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
 from torch.nn.utils.rnn import (PackedSequence, pack_padded_sequence,
                                 pad_packed_sequence)
 
 from ...core.errors import InvalidArgumentError
 from .. import functional as F
 from .. import initializer as I
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 __all__ = [
     "RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell",
@@ -106,7 +105,7 @@ def _reverse_sequence(x_tm, seq_len):
 # -- cells ------------------------------------------------------------------
 
 
-class RNNCellBase(nn.Module):
+class RNNCellBase(Layer):
     """A single-step recurrence with the reference's initial states."""
 
     def get_initial_states(self, batch_ref, shape=None, dtype=None,
@@ -389,7 +388,7 @@ def _run_layer(cell, inputs, init_states, sequence_length, reverse,
     return (outs if time_major else outs.transpose(0, 1)), final
 
 
-class RNN(nn.Module):
+class RNN(Layer):
     """Runs ``cell`` over a sequence: (outputs, final states)."""
 
     def __init__(self, cell, is_reverse: bool = False,
@@ -404,7 +403,7 @@ class RNN(nn.Module):
                           sequence_length, self.is_reverse, self.time_major)
 
 
-class BiRNN(nn.Module):
+class BiRNN(Layer):
     """A forward and a reverse cell over one sequence, their outputs
     concatenated; states (forward's, reverse's)."""
 
@@ -425,7 +424,7 @@ class BiRNN(nn.Module):
         return torch.cat([out_fw, out_bw], dim=-1), (st_fw, st_bw)
 
 
-class _RNNBase(nn.Module):
+class _RNNBase(Layer):
     """A stack of built-in cells, one or two directions a layer; states
     [num_layers * directions, B, H] (an LSTM's as (h, c)); dropout between
     layers."""

@@ -46,6 +46,7 @@ from .. import functional as F
 from .. import lora as _lora
 from .common import Dropout, Linear
 from .norm import LayerNorm
+from .layers import Layer
 
 # Decode-cache storage dtypes: the float dtypes store K/V verbatim; "int8"
 # stores K/V quantized with per-head fp32 absmax scales riding alongside.
@@ -142,7 +143,7 @@ def _paged_write(pool, new, phys, off):
     pool[phys, :, off] = new.transpose(1, 2).to(pool.dtype)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """paddle.nn.MultiHeadAttention counterpart: self-attention, or
     attention over ``key``/``value`` inputs of widths ``kdim``/``vdim``.
     With ``need_weights`` the forward also returns the attention weights,
@@ -403,7 +404,7 @@ class MultiHeadAttention(nn.Module):
         return (out, None) if self.need_weights else out
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Encoder block; post-norm by default (``normalize_before=False``).
     ``attn_dropout`` (on the attention weights) and ``act_dropout`` (after
     the activation) default to ``dropout``."""
@@ -522,7 +523,7 @@ def _row_parallel_seam(lin, xs, mp: int):
     return out
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """A stack of ``num_layers`` encoder layers: ``encoder_layer`` first,
     then fresh siblings built by :func:`_clone_args`; ``norm`` (a
     ``LayerNorm``, for pre-norm stacks) after the last."""
@@ -556,7 +557,7 @@ class TransformerEncoder(nn.Module):
                 for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Decoder block: masked self-attention, cross-attention over the
     encoder's ``memory``, the MLP; post-norm by default.  ``cache`` is the
     pair :meth:`gen_cache` makes: a ``Cache`` for the self-attention
@@ -636,7 +637,7 @@ class TransformerDecoderLayer(nn.Module):
         return incr, static
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """A stack of ``num_layers`` decoder layers, built as
     :class:`TransformerEncoder` builds its stack; ``norm`` after the
     last."""
@@ -690,7 +691,7 @@ def _clone_args(layer) -> dict:
         **layer._factory)
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """The encoder-decoder Transformer: a ``TransformerEncoder`` and a
     ``TransformerDecoder`` of the given sizes (each with a final
     ``LayerNorm`` when ``normalize_before``), or ``custom_encoder`` /
@@ -733,5 +734,5 @@ class Transformer(nn.Module):
     def generate_square_subsequent_mask(self, length: int):
         """[length, length] float32: 0 on and below the diagonal, -1e9
         above, on this model's device."""
-        dev = next(self.parameters()).device
+        dev = self.parameters()[0].device
         return torch.full((length, length), -1e9, device=dev).triu(1)

@@ -49,6 +49,7 @@ from ..core.errors import InvalidArgumentError
 from ..distributed.sharded import is_sharded
 from .layer.common import Dropout, Embedding, Linear
 from .layer.norm import LayerNorm
+from .layer.layers import Layer
 
 __all__ = ["RecurrentDecodeCache", "GatedSSMBlock", "SSMLM"]
 
@@ -59,7 +60,7 @@ RecurrentDecodeCache = collections.namedtuple(
     "RecurrentDecodeCache", ["state", "index", "limit"])
 
 
-class GatedSSMBlock(nn.Module):
+class GatedSSMBlock(Layer):
     """Pre-norm gated linear-recurrence block with a residual path."""
 
     def __init__(self, hidden_size: int, d_state: int, dropout: float = 0.0,
@@ -138,7 +139,7 @@ class GatedSSMBlock(nn.Module):
         return torch.stack(states, dim=1), s
 
 
-class SSMLM(nn.Module):
+class SSMLM(Layer):
     """Recurrent (SSM) language model with tied input/output embeddings:
     ``TransformerLM``'s ``forward(input_ids, cache=...)`` /
     ``gen_decode_cache`` surface, so ``DecodeSession``/``GenerationPool``/

@@ -56,7 +56,6 @@ Not ported yet: the static-graph branch of ``minimize``.
 from __future__ import annotations
 
 import contextlib
-import itertools
 import warnings
 from typing import Dict, Optional, Sequence
 
@@ -65,6 +64,7 @@ import torch
 
 from ..core.errors import InvalidArgumentError
 from ..regularizer import L1Decay, L2Decay, WeightDecayRegularizer
+from ..utils import unique_name as _unique_name
 from . import lr as lr_sched
 from .lr import LRScheduler
 
@@ -74,16 +74,15 @@ __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
 
 lr = lr_sched
 
-_names = itertools.count()
-
 
 def param_name(p: torch.Tensor) -> str:
-    """The parameter's optimizer name, given on first use as the reference
-    names a ``Parameter``: ``"param_<n>"`` from a process-wide counter."""
+    """The parameter's optimizer name: ``p.param_name``, which every
+    parameter made or registered by a ``Layer`` has; a bare tensor gets
+    one on first use, ``"param_<n>"`` from the process-wide counter
+    (``utils.unique_name.parameter_name``)."""
     name = getattr(p, "param_name", None)
     if name is None:
-        name = "param_%d" % next(_names)
-        p.param_name = name
+        name = p.param_name = _unique_name.parameter_name()
     return name
 
 

@@ -1,5 +1,5 @@
-"""Step timing (counterpart of the reference's ``profiler``, its
-``StepTimer`` only).
+"""Step timing and scalar logging (counterpart of the reference's
+``profiler``: its ``StepTimer`` and ``LogWriter``).
 
 The serving engine times each tick with :class:`StepTimer`; its mean
 step time is what the deadline-shed estimate and the
@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import time
 
-__all__ = ["StepTimer"]
+from .visual import LogWriter  # noqa: F401
+
+__all__ = ["StepTimer", "LogWriter"]
 
 
 class StepTimer:

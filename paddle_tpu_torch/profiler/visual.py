@@ -1,18 +1,63 @@
-"""Chrome trace export (counterpart of the reference's
-``profiler/visual.py``, its shared writer only).
+"""Scalar logging and the chrome trace writer (counterpart of the
+reference's ``profiler/visual.py``, without its op-table export).
 
-:func:`chrome_trace_json` is the one writer behind the serving flight
-recorder's export (``serving.trace.export_chrome_trace``): a prepared
-trace-event list becomes the standard ``{"traceEvents": [...]}``
-document that ``chrome://tracing`` and Perfetto load.  The reference's
-``LogWriter`` and op-table export wait for the rest of the profiler.
+:class:`LogWriter` is VisualDL's scalar surface over a JSONL file (one
+point a line: tag, value, step, wall time), as the reference stores it;
+``hapi.callbacks.VisualDL`` writes through it.  :func:`chrome_trace_json`
+is the one writer behind the serving flight recorder's export
+(``serving.trace.export_chrome_trace``): a prepared trace-event list
+becomes the standard ``{"traceEvents": [...]}`` document that
+``chrome://tracing`` and Perfetto load.
 """
 from __future__ import annotations
 
 import json
-from typing import List, Optional
+import os
+import time
+from typing import Dict, List, Optional
 
-__all__ = ["chrome_trace_json"]
+__all__ = ["LogWriter", "chrome_trace_json"]
+
+
+class LogWriter:
+    """VisualDL's ``LogWriter`` (scalars) over ``<logdir>/<file_name>``."""
+
+    def __init__(self, logdir: str, file_name: str = "scalars.jsonl"):
+        os.makedirs(logdir, exist_ok=True)
+        self.logdir = logdir
+        self._path = os.path.join(logdir, file_name)
+        self._f = open(self._path, "a", buffering=1)
+
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        self._f.write(json.dumps(
+            {"tag": tag, "value": float(value), "step": int(step),
+             "wall": time.time()}) + "\n")
+
+    def add_scalars(self, main_tag: str, tag_value: Dict, step: int) -> None:
+        for k, v in tag_value.items():
+            self.add_scalar("%s/%s" % (main_tag, k), v, step)
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    @staticmethod
+    def read(logdir: str, tag: Optional[str] = None,
+             file_name: str = "scalars.jsonl") -> List[dict]:
+        """The points written so far (of ``tag`` only, when given)."""
+        out = []
+        with open(os.path.join(logdir, file_name)) as f:
+            for line in f:
+                rec = json.loads(line)
+                if tag is None or rec["tag"] == tag:
+                    out.append(rec)
+        return out
 
 
 def chrome_trace_json(trace_events: List[dict],

@@ -2,7 +2,6 @@
 ``vision/models/alexnet.py``) for 3 x 224 x 224 inputs."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...tensor import flatten
@@ -11,7 +10,7 @@ from ._utils import refuse_pretrained, weight_kw
 __all__ = ["AlexNet", "alexnet"]
 
 
-class AlexNet(tnn.Module):
+class AlexNet(nn.Layer):
     def __init__(self, num_classes: int = 1000, dropout: float = 0.5,
                  device=None, seed: int = 0):
         super().__init__()

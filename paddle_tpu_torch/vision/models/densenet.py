@@ -3,7 +3,6 @@
 the chosen config."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...core.errors import InvalidArgumentError
@@ -22,7 +21,7 @@ _CFG = {
 }
 
 
-class _DenseLayer(tnn.Module):
+class _DenseLayer(nn.Layer):
     """BN-ReLU-1x1(bn_size * k)-BN-ReLU-3x3(k), concatenated onto its
     input."""
 
@@ -51,7 +50,7 @@ class _Transition(nn.Sequential):
             nn.AvgPool2D(2, 2))
 
 
-class DenseNet(tnn.Module):
+class DenseNet(nn.Layer):
     def __init__(self, layers: int = 121, num_classes: int = 1000,
                  bn_size: int = 4, block_config=None, growth_rate=None,
                  device=None, seed: int = 0):

@@ -4,7 +4,6 @@ returns ``(out, aux1, aux2)``, the auxiliary heads hanging off inception
 4a and 4d."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...tensor import concat, flatten
@@ -13,7 +12,7 @@ from ._utils import weight_kw
 __all__ = ["GoogLeNet", "googlenet"]
 
 
-class _Inception(tnn.Module):
+class _Inception(nn.Layer):
     """Four parallel branches concatenated on channels."""
 
     def __init__(self, in_c, c1, c3r, c3, c5r, c5, proj, kw):
@@ -34,7 +33,7 @@ class _Inception(tnn.Module):
                       axis=1)
 
 
-class _AuxHead(tnn.Module):
+class _AuxHead(nn.Layer):
     def __init__(self, in_c, num_classes, kw):
         super().__init__()
         self.pool = nn.AdaptiveAvgPool2D(4)
@@ -50,7 +49,7 @@ class _AuxHead(tnn.Module):
         return self.fc2(self.dropout(x))
 
 
-class GoogLeNet(tnn.Module):
+class GoogLeNet(nn.Layer):
     def __init__(self, num_classes: int = 1000, device=None, seed: int = 0):
         super().__init__()
         kw = weight_kw(device, seed)

@@ -3,7 +3,6 @@
 one logits output (no auxiliary head)."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...tensor import concat, flatten
@@ -24,7 +23,7 @@ def _cat(xs):
     return concat(xs, axis=1)
 
 
-class _InceptionA(tnn.Module):
+class _InceptionA(nn.Layer):
     def __init__(self, in_c, pool_c, kw):
         super().__init__()
         self.b1 = _ConvBN(in_c, 64, 1, kw)
@@ -40,7 +39,7 @@ class _InceptionA(tnn.Module):
         return _cat([self.b1(x), self.b5(x), self.b3(x), self.bp(x)])
 
 
-class _InceptionB(tnn.Module):  # grid reduction 35 -> 17
+class _InceptionB(nn.Layer):  # grid reduction 35 -> 17
     def __init__(self, in_c, kw):
         super().__init__()
         self.b3 = _ConvBN(in_c, 384, 3, kw, stride=2)
@@ -53,7 +52,7 @@ class _InceptionB(tnn.Module):  # grid reduction 35 -> 17
         return _cat([self.b3(x), self.b3d(x), self.pool(x)])
 
 
-class _InceptionC(tnn.Module):  # factorized 7x7
+class _InceptionC(nn.Layer):  # factorized 7x7
     def __init__(self, in_c, c7, kw):
         super().__init__()
         self.b1 = _ConvBN(in_c, 192, 1, kw)
@@ -74,7 +73,7 @@ class _InceptionC(tnn.Module):  # factorized 7x7
         return _cat([self.b1(x), self.b7(x), self.b7d(x), self.bp(x)])
 
 
-class _InceptionD(tnn.Module):  # grid reduction 17 -> 8
+class _InceptionD(nn.Layer):  # grid reduction 17 -> 8
     def __init__(self, in_c, kw):
         super().__init__()
         self.b3 = nn.Sequential(_ConvBN(in_c, 192, 1, kw),
@@ -90,7 +89,7 @@ class _InceptionD(tnn.Module):  # grid reduction 17 -> 8
         return _cat([self.b3(x), self.b7(x), self.pool(x)])
 
 
-class _InceptionE(tnn.Module):  # expanded filter bank
+class _InceptionE(nn.Layer):  # expanded filter bank
     def __init__(self, in_c, kw):
         super().__init__()
         self.b1 = _ConvBN(in_c, 320, 1, kw)
@@ -111,7 +110,7 @@ class _InceptionE(tnn.Module):  # expanded filter bank
                      _cat([self.b3d_a(d), self.b3d_b(d)]), self.bp(x)])
 
 
-class InceptionV3(tnn.Module):
+class InceptionV3(nn.Layer):
     def __init__(self, num_classes: int = 1000, with_pool: bool = True,
                  device=None, seed: int = 0):
         super().__init__()

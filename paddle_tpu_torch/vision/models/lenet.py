@@ -1,7 +1,6 @@
 """LeNet (counterpart of the reference's ``vision/models/lenet.py``)."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...tensor import flatten
@@ -10,7 +9,7 @@ from ._utils import weight_kw
 __all__ = ["LeNet"]
 
 
-class LeNet(tnn.Module):
+class LeNet(nn.Layer):
     """LeNet-5 for 1 x 28 x 28 inputs, the reference's layers and
     parameter names (``features.0.weight``, ``fc.2.bias``, ...), built on
     ``device`` (None: ``cuda``) from a generator seeded with ``seed``."""

@@ -4,7 +4,6 @@ blocks (``blocks.i.dw``, ``blocks.i.pw``), ``scale`` the width
 multiplier."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...tensor import flatten
@@ -17,7 +16,7 @@ def _round(c: float) -> int:
     return max(1, int(c))
 
 
-class _DepthwiseSeparable(tnn.Module):
+class _DepthwiseSeparable(nn.Layer):
     """3x3 depthwise then 1x1 pointwise, each Conv-BN-ReLU."""
 
     def __init__(self, in_c, out_c, stride, kw):
@@ -35,7 +34,7 @@ class _DepthwiseSeparable(tnn.Module):
         return self.pw(self.dw(x))
 
 
-class MobileNetV1(tnn.Module):
+class MobileNetV1(nn.Layer):
     def __init__(self, scale: float = 1.0, num_classes: int = 1000,
                  with_pool: bool = True, device=None, seed: int = 0):
         super().__init__()

@@ -5,7 +5,6 @@ are the reference's (``features.1.conv.0.0.weight``,
 ``features.1.conv.1._mean``, ``classifier.1.weight``)."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...tensor import flatten
@@ -33,7 +32,7 @@ class ConvBNReLU(nn.Sequential):
         )
 
 
-class InvertedResidual(tnn.Module):
+class InvertedResidual(nn.Layer):
     def __init__(self, inp, oup, stride, expand_ratio, kw):
         super().__init__()
         self.stride = stride
@@ -54,7 +53,7 @@ class InvertedResidual(tnn.Module):
         return x + out if self.use_res else out
 
 
-class MobileNetV2(tnn.Module):
+class MobileNetV2(nn.Layer):
     """``scale`` x the published widths; ``num_classes`` 0 drops the
     classifier, ``with_pool=False`` the pool."""
 

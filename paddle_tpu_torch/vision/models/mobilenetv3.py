@@ -3,7 +3,6 @@
 squeeze-excite and hardswish, ``scale`` the width multiplier."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...tensor import flatten
@@ -14,7 +13,7 @@ __all__ = ["MobileNetV3Small", "MobileNetV3Large",
            "mobilenet_v3_small", "mobilenet_v3_large"]
 
 
-class _SqueezeExcite(tnn.Module):
+class _SqueezeExcite(nn.Layer):
     def __init__(self, c, kw, reduction=4):
         super().__init__()
         mid = _make_divisible(c // reduction)
@@ -28,7 +27,7 @@ class _SqueezeExcite(tnn.Module):
         return x * self.hsig(self.fc2(self.relu(self.fc1(self.pool(x)))))
 
 
-class _InvertedResidualV3(tnn.Module):
+class _InvertedResidualV3(nn.Layer):
     def __init__(self, in_c, exp_c, out_c, kernel, stride, use_se, act, kw):
         super().__init__()
         dev = kw["device"]
@@ -74,7 +73,7 @@ _LARGE = [
 ]
 
 
-class _MobileNetV3(tnn.Module):
+class _MobileNetV3(nn.Layer):
     def __init__(self, cfg, last_exp, hidden, num_classes=1000, scale=1.0,
                  with_pool=True, device=None, seed=0):
         super().__init__()

@@ -25,7 +25,6 @@ from typing import List, Optional
 
 import torch
 import torch.nn.functional as tF
-from torch import nn as tnn
 
 from ... import nn
 from ...framework.dispatch import make_op as _make_op
@@ -36,7 +35,7 @@ __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152", "wide_resnet50_2", "wide_resnet101_2"]
 
 
-class BasicBlock(tnn.Module):
+class BasicBlock(nn.Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -68,7 +67,7 @@ class BasicBlock(tnn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(tnn.Module):
+class BottleneckBlock(nn.Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -134,7 +133,7 @@ def _space_to_depth_stem(x_nhwc, w_oihw):
 _s2d_op = _make_op(_space_to_depth_stem, "s2d_stem")
 
 
-class ResNet(tnn.Module):
+class ResNet(nn.Layer):
     """vision/models/resnet.py's ResNet: ``block`` (BasicBlock or
     BottleneckBlock), ``depth`` in 18/34/50/101/152 (or ``layers=``),
     ``data_format`` NCHW or NHWC, ``space_to_depth_stem`` NHWC only."""

@@ -3,7 +3,6 @@
 each ending in a two-group channel shuffle."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...core.errors import InvalidArgumentError
@@ -28,7 +27,7 @@ def _channel_shuffle(x, groups: int):
         n, c, h, w)
 
 
-class _Unit(tnn.Module):
+class _Unit(nn.Layer):
     def __init__(self, in_c, out_c, stride, kw):
         super().__init__()
         dev = kw["device"]
@@ -64,7 +63,7 @@ class _Unit(tnn.Module):
         return _channel_shuffle(out, 2)
 
 
-class ShuffleNetV2(tnn.Module):
+class ShuffleNetV2(nn.Layer):
     """``scale`` one of 0.25, 0.5, 1.0, 1.5, 2.0."""
 
     def __init__(self, scale: float = 1.0, num_classes: int = 1000,

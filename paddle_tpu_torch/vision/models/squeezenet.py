@@ -2,7 +2,6 @@
 ``vision/models/squeezenet.py``)."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...core.errors import InvalidArgumentError
@@ -12,7 +11,7 @@ from ._utils import weight_kw
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
 
 
-class _Fire(tnn.Module):
+class _Fire(nn.Layer):
     """A 1x1 squeeze, then 1x1 and 3x3 expands concatenated."""
 
     def __init__(self, in_c, squeeze_c, e1_c, e3_c, kw):
@@ -28,7 +27,7 @@ class _Fire(tnn.Module):
                        self.relu(self.expand3(s))], axis=1)
 
 
-class SqueezeNet(tnn.Module):
+class SqueezeNet(nn.Layer):
     """``version`` "1.0" or "1.1"."""
 
     def __init__(self, version: str = "1.0", num_classes: int = 1000,

@@ -3,7 +3,6 @@
 ``features.i`` and ``classifier.i`` index as the reference's."""
 from __future__ import annotations
 
-from torch import nn as tnn
 
 from ... import nn
 from ...tensor import flatten
@@ -38,7 +37,7 @@ def _make_features(cfg, batch_norm=False, device=None, seed: int = 0):
     return nn.Sequential(*layers)
 
 
-class VGG(tnn.Module):
+class VGG(nn.Layer):
     """``features`` (``_make_features``) then a 7 x 7 pool and the
     three-layer classifier; the classifier's draws continue ``seed + 1``'s
     generator on the features' device."""
@@ -52,7 +51,7 @@ class VGG(tnn.Module):
         if with_pool:
             self.avgpool = nn.AdaptiveAvgPool2D((7, 7))
         if num_classes > 0:
-            dev = next(features.parameters()).device
+            dev = next(iter(features.parameters())).device
             kw = weight_kw(dev, seed + 1)
             self.classifier = nn.Sequential(
                 nn.Linear(512 * 7 * 7, 4096, **kw), nn.ReLU(), nn.Dropout(),

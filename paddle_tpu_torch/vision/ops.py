@@ -34,10 +34,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..core.errors import InvalidArgumentError, UnavailableError
 from ..framework.dispatch import make_op as _make_op
+from ..nn.layer.layers import Layer
 
 __all__ = ["box_iou", "nms", "box_coder", "yolo_box", "roi_align",
            "deform_conv2d", "DeformConv2D", "read_file", "decode_jpeg",
@@ -286,7 +286,7 @@ def _deform_conv2d(x, offset, weight, bias=None, mask=None, stride=1,
 deform_conv2d = _make_op(_deform_conv2d, "deform_conv2d")
 
 
-class DeformConv2D(nn.Module):
+class DeformConv2D(Layer):
     """``deform_conv2d``'s layer: weight [out, in / groups, kh, kw]
     (XavierUniform), bias zeros; ``forward(x, offset, mask=None)``."""
 

@@ -4125,6 +4125,9 @@ def check_flash_kernels():
                  causal=False, seg="pad")
     ernie_bias = dict(ernie, seg=None, bias="pad")
     ernie_fp32 = dict(ernie_bias)  # the fp32 classifier's captured step
+    dist_shapes = {name: dict(b=b, h=h, lq=l, lk=l, d=d, causal=True)
+                   for name, (b, h, l, d) in DIST_K3_SHAPES.items()}
+    cases += [(shape, torch.bfloat16) for shape in dist_shapes.values()]
     cases += [(main, torch.float32), (bert, torch.float32),
               (main, torch.bfloat16), (bert, torch.bfloat16),
               (ernie, torch.bfloat16), (ernie_bias, torch.bfloat16),
@@ -4152,8 +4155,9 @@ def check_flash_kernels():
                 errs[name] = (g.float() - w.float()).abs().max().item()
         scale = {n: t.float().abs().max().item() for n, t in
                  zip(("dq", "dk", "dv"), want)}
-        if dtype == torch.bfloat16 and shape in (main, bert, ernie,
-                                                 ernie_bias):
+        if dtype == torch.bfloat16 and (shape in (main, bert, ernie,
+                                                  ernie_bias)
+                                        or shape in dist_shapes.values()):
             # long rows: the largest outputs and gradients reach magnitudes
             # where two bf16 ulps (2^-6 relative) exceed the small shapes'
             # 2e-2; the element-wise limit below bounds the rest
@@ -4181,6 +4185,12 @@ def check_flash_kernels():
                                  % errs)
         if dtype == torch.bfloat16 and shape is main:
             _check_bf16_limit(args, o, grads, want_o, want)
+        for name, dshape in dist_shapes.items():
+            if shape is dshape:
+                main_err["flash_attention_forward_kernel_" + name] = max(
+                    errs["o"], errs["stats"])
+                main_err["flash_attention_backward_kernel_" + name] = max(
+                    errs["dq"], errs["dk"], errs["dv"])
         if shape is main or shape is ernie or shape is ernie_bias \
                 or shape is ernie_fp32:
             suffix = {id(ernie): "_ernie_lanes",
@@ -8727,6 +8737,788 @@ def fit_resnet50_workers():
     return out
 
 
+# -- distributed training on one card (the reference's configs #3-#5) ------
+
+# the device of the distributed phases (every rank of each mesh sits on it)
+DIST_DEVICE = "cuda"
+# hybrid_gpt_pp2_mp2 (config #5, bench.py:431): GPT-1.3B at full width and
+# depth, dp 1 x mp 2 x pp 2, 4 microbatches of 2 x 1024, O2 bf16 AdamW,
+# recompute; 2 eager steps, then a captured step's warm-up, capture and
+# replays
+HYB_MP, HYB_PP, HYB_MICRO, HYB_MB, HYB_SEQ = 2, 2, 4, 2, 1024
+HYB_EAGER_STEPS, HYB_CAPTURED_STEPS = 2, 6
+# the pipelined first step against the unsharded one on the same weights
+# and batch, both O2 bf16: the loss (a mean of microbatch means against
+# one mean; rank-order sums of bf16 partial products at the row-parallel
+# seams) and sampled gradients (accumulated in bf16 over 4 microbatches
+# against one backward), as relative L2 errors
+HYB_LOSS_RTOL, HYB_GRAD_REL = 1e-2, 5e-2
+HYB_GRAD_SAMPLES = ("word_embeddings.weight",
+                    "encoder.layers.0.self_attn.q_proj.weight",
+                    "encoder.layers.11.linear2.weight",
+                    "encoder.layers.12.linear1.bias",
+                    "encoder.layers.23.self_attn.out_proj.weight",
+                    "final_norm.weight")
+# zero2_ernie (config #4, bench.py:375): ZeRO over a sharding group of 4,
+# against the unsharded fine-tune step in the same process; 4 steps held
+# bit-equal (warm-up, capture, 2 replays), then ZERO_TIMED more replays
+ZERO_GROUP, ZERO_STEPS, ZERO_TIMED = 4, 4, 6
+# dp_bert (config #3): BERT-base 8 x 512 at dp 4; the fp16 wire against
+# the dense step after its first update (the reference test's bound)
+DP_DEGREE, DP_BATCH, DP_SEQ, DP_STEPS = 4, 8, 512, 4
+DP_FP16_RTOL = 5e-2
+# captured against unsharded where the program is the same but for the
+# order of a float32 sum (the global batch's in one program, or the
+# ranks' in rank order)
+DP_SAME_RTOL = 1e-5
+# sep_longseq (bench.py:452): the causal LM at hidden 1024, 4 layers, 8
+# heads, seq 8192, batch 1, sep 4, O2 bf16
+SEP_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=4,
+               num_heads=8, intermediate_size=4096, max_position=8192,
+               causal=True)
+SEP_DEGREE, SEP_SEQ, SEP_STEPS = 4, 8192, 5
+SEP_LOSS_RTOL, SEP_GRAD_REL = 1e-2, 5e-2
+SEP_GRAD_SAMPLES = ("word_embeddings.weight",
+                    "encoder.layers.0.self_attn.q_proj.weight",
+                    "encoder.layers.3.linear2.weight")
+# moe_sync_bn: an MoE block at dp 2 x ep 2 (8 experts, top-2, 1024 ->
+# 4096, 4096 tokens) against a per-token routing loop, fp32; ResNet50
+# fp32 224 x 128 with SyncBatchNorm at dp 4 against one BatchNorm over
+# the global batch
+MOE_DP, MOE_EP, MOE_EXPERTS, MOE_D, MOE_FFN, MOE_SEQ = 2, 2, 8, 1024, \
+    4096, 2048
+MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
+SYNC_BN_DP, SYNC_BN_BATCH, SYNC_BN_STEPS = 4, 128, 5
+SYNC_BN_RTOL, SYNC_BN_ATOL = 1e-3, 1e-4
+# the K3 shapes the distributed phases add (bf16, causal): the pp x mp
+# shard's 8 of 16 heads at L 1024, and a Ulysses rank's 2 of 8 heads over
+# the whole L 8192
+DIST_K3_SHAPES = {"gpt_mp_shard": (HYB_MB, 16 // HYB_MP, HYB_SEQ, 128),
+                  "ulysses": (1, SEP_CFG["num_heads"] // SEP_DEGREE,
+                              SEP_SEQ, 128)}
+
+
+def _sync():
+    import torch
+
+    if torch.device(DIST_DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in float32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def _timed_steps(step, batch, n):
+    """``n`` calls of ``step(*batch)``: (losses, host ms each, with a
+    synchronize on both sides)."""
+    losses, ms = [], []
+    for _ in range(n):
+        _sync()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        _sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, ms
+
+
+def _hybrid_fleet(**degrees):
+    """``fleet.init`` of a strategy whose ``hybrid_configs`` are the
+    given degrees (1 for the others), on ``DIST_DEVICE``; its hcg."""
+    import paddle_tpu_torch.distributed as dist
+
+    st = dist.fleet.DistributedStrategy()
+    for k, v in degrees.items():
+        st.hybrid_configs[k + "_degree"] = v
+    dist.fleet.init(strategy=st, device=DIST_DEVICE)
+    return dist.fleet.get_hybrid_communicate_group()
+
+
+def _release():
+    """After a phase has dropped its references: the groups, the
+    TrainSteps' reference cycles and the allocator's cached blocks."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+
+    dist.destroy_process_group()
+    gc.collect()  # TrainSteps hold themselves in reference cycles
+    if torch.device(DIST_DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _gpt_pipeline(model, crit):
+    """GPT-1.3B as the reference's pipeline describes it: the embeddings
+    (prefix), one entry a block (each with the model's cached causal
+    mask), the final norm and tied head (suffix), over ``model``'s own
+    parameters; 2 stages."""
+    import torch
+
+    from paddle_tpu_torch import tensor as T
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineLayer
+    from paddle_tpu_torch.nn import Layer
+
+    class GPTEmbed(Layer):
+        def __init__(self, lm):
+            super().__init__()
+            self.word_embeddings = lm.word_embeddings
+            self.position_embeddings = lm.position_embeddings
+
+        def forward(self, ids):
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            return self.word_embeddings(ids) + self.position_embeddings(pos)
+
+    class GPTBlock(Layer):
+        def __init__(self, layer, lm):
+            super().__init__()
+            self.layer = layer
+            self.__dict__["_lm"] = lm  # not a sublayer: its mask cache
+
+        def forward(self, h):
+            return self.layer(h, self._lm._causal_mask(h.shape[1], h.dtype))
+
+    class GPTHead(Layer):
+        def __init__(self, lm):
+            super().__init__()
+            self.final_norm = lm.final_norm
+            self.word_embeddings = lm.word_embeddings
+
+        def forward(self, h):
+            return T.matmul(self.final_norm(h), self.word_embeddings.weight,
+                            transpose_y=True)
+
+    return PipelineLayer([GPTEmbed(model)]
+                         + [GPTBlock(lyr, model)
+                            for lyr in model.encoder.layers]
+                         + [GPTHead(model)], num_stages=HYB_PP,
+                         loss_fn=crit)
+
+
+def hybrid_gpt_pp2_mp2():
+    """``hybrid_gpt_pp2_mp2`` (config #5): GPT-1.3B (24 layers, 2048 wide,
+    16 heads, ffn 8192, vocab 50304) at seq 1024 through ``fleet.init``
+    (dp 1 / mp 2 / pp 2), a ``PipelineLayer`` of its blocks and
+    ``PipelineTrainStep`` with ``megatron_param_spec``: 4 microbatches of
+    2, O2 bf16 AdamW(1e-4, clip 1.0), recompute of every block.  The first
+    step's loss and sampled gradients are held against the unsharded
+    model's step on the same weights and batch (``HYB_LOSS_RTOL``,
+    ``HYB_GRAD_REL``); then 2 eager steps and a captured step's warm-up,
+    capture and replays.  K3 runs at the mp shard's 8 heads: 24 blocks x
+    2 ranks x 4 microbatches forward, twice with recompute, a step."""
+    import torch
+
+    from paddle_tpu_torch import (TransformerLM, TransformerLMCriterion,
+                                  amp, gpt_1p3b_config)
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        PipelineTrainStep, megatron_param_spec, partition_pipeline)
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    cfg = gpt_1p3b_config()
+    hcg = _hybrid_fleet(mp=HYB_MP, pp=HYB_PP)
+    t0 = time.perf_counter()
+    model = TransformerLM(**cfg, dropout=0.0, device=DIST_DEVICE, seed=0)
+    model, opt = _o2(model, _adamw(model))
+    build_s = time.perf_counter() - t0
+    crit = TransformerLMCriterion(shift_labels=True)
+    batch = HYB_MICRO * HYB_MB
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg["vocab_size"], (batch, HYB_SEQ))).to(DIST_DEVICE)
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = crit(model(ids), ids)
+    loss.backward()
+    ref_loss = float(loss.detach())
+    named = dict(model.named_parameters())
+    ref_grads = {n: named[n].grad.float().clone() for n in HYB_GRAD_SAMPLES}
+    for p in model.parameters():
+        p.grad = None
+    del loss
+    gc.collect()
+    pl = _gpt_pipeline(model, crit)
+    spec = megatron_param_spec(partition_pipeline(pl)[1][0])
+    amp_cfg = {"level": "O1", "dtype": "bfloat16"}
+    eager = PipelineTrainStep(pl, opt, hcg, HYB_MICRO, mp_param_spec=spec,
+                              amp_configs=amp_cfg, capture=False)
+    assert eager.mp == HYB_MP
+    pp_loss = float(eager.forward_backward(ids, ids))
+    grad_err = {n: _rel_l2(named[n].grad, ref_grads[n])
+                for n in HYB_GRAD_SAMPLES}
+    for p in model.parameters():
+        p.grad = None
+    del ref_grads
+    loss_err = abs(pp_loss - ref_loss) / abs(ref_loss)
+    log("hybrid_gpt_pp2_mp2 first step: loss %.6f pipelined vs %.6f "
+        "unsharded (rel %.2e, limit %.0e); gradient rel L2 %s (limit %.0e)"
+        % (pp_loss, ref_loss, loss_err, HYB_LOSS_RTOL,
+           {n: "%.2e" % e for n, e in grad_err.items()}, HYB_GRAD_REL))
+    assert loss_err <= HYB_LOSS_RTOL and max(grad_err.values()) \
+        <= HYB_GRAD_REL, (loss_err, grad_err)
+    fk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, eager_ms = _timed_steps(eager, (ids, ids), HYB_EAGER_STEPS)
+    step = PipelineTrainStep(pl, opt, hcg, HYB_MICRO, mp_param_spec=spec,
+                             amp_configs=amp_cfg, capture=True)
+    more, ms = _timed_steps(step, (ids, ids), HYB_CAPTURED_STEPS)
+    losses += more
+    by_dtype = fk.launch_counts_by_dtype()
+    steps = HYB_EAGER_STEPS + HYB_CAPTURED_STEPS
+    layers = cfg["num_layers"]
+    per_step = layers * HYB_MP * HYB_MICRO
+    assert by_dtype["flash_attention_forward_kernel"]["bfloat16"] == \
+        2 * per_step * steps and by_dtype["flash_attention_backward_kernel"][
+            "bfloat16"] == per_step * steps, by_dtype
+    assert step._fn.graphs() == 1 and step.compile_counts() == {
+        "train_step": 1}
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    replay_ms = float(np.mean(ms[2:]))
+    prof = _profile_step(step, (ids, ids), replay_ms)
+    h, ff = cfg["hidden_size"], cfg["intermediate_size"]
+    fpt = model.flops_per_token(HYB_SEQ)
+    # recompute runs every block's forward again: its matmuls and the
+    # attention's forward
+    run_fpt = fpt + 2.0 * layers * (4 * h * h + 2 * h * ff) \
+        + 4.0 * layers * h * HYB_SEQ
+    tokens = batch * HYB_SEQ
+    state_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters()) + sum(
+        t.numel() * t.element_size() for st in opt._states.values()
+        for t in st.values() if torch.is_tensor(t))
+    out = {"dp": 1, "mp": HYB_MP, "pp": HYB_PP, "microbatches": HYB_MICRO,
+           "microbatch": HYB_MB, "seq": HYB_SEQ, "layers": layers,
+           "build_s": build_s, "first_step_loss": pp_loss,
+           "unsharded_first_step_loss": ref_loss, "loss_rel_err": loss_err,
+           "grad_rel_l2": grad_err, "losses": losses,
+           "eager_step_ms": eager_ms, "captured_step_ms": ms,
+           "step_ms_mean": replay_ms, "tokens_per_s": tokens
+           / (replay_ms / 1e3),
+           "mfu_run": tokens * run_fpt / (replay_ms / 1e3)
+           / BF16_TC_FLOPS_PER_S,
+           "mfu_model": tokens * fpt / (replay_ms / 1e3)
+           / BF16_TC_FLOPS_PER_S,
+           "k3_launches": {n: c["bfloat16"] for n, c in by_dtype.items()},
+           "k3_launches_per_step": {
+               "forward": 2 * per_step, "backward": per_step},
+           "device_idle_share": prof["device_idle_share"],
+           "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+           "launches_per_step": prof["launches"],
+           "k3_ms_per_step": prof["k3_ms_per_step"],
+           "gemm_ms_per_step": prof["gemm_ms_per_step"],
+           "state_gb": state_bytes / 2 ** 30,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del model, opt, pl, eager, step, ids
+    _release()
+    return out
+
+
+def _ernie_cls_model(bf16: bool):
+    from paddle_tpu_torch import (TransformerForSequenceClassification,
+                                  ernie_base_config)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = TransformerForSequenceClassification(
+        num_classes=ERNIE_CLASSES, dropout=0.0, device=DIST_DEVICE, seed=0,
+        **ernie_base_config())
+    opt = AdamW(1e-4, parameters=model.parameters())
+    return _o2(model, opt) if bf16 else (model, opt)
+
+
+def zero2_ernie():
+    """``zero2_ernie`` (config #4): the ERNIE-base classifier's fine-tune
+    step (32 x 384 ragged, AdamW 1e-4) under ZeRO over a sharding group
+    of 4 on one card, against the unsharded step in the same process:
+    ``ShardingOptimizerStage2`` in O2 bf16, the same in fp32, stage 3
+    (``group_sharded_parallel(level="p_g_os")``) in bf16, and stage 2
+    with ``offload=True`` (states in pinned host memory) in bf16.  Every
+    leg's losses over ``ZERO_STEPS`` captured steps (and the timed
+    replays after) must be bit-equal to the unsharded leg's; each rank's
+    state bytes are a quarter of the whole."""
+    import torch
+
+    from paddle_tpu_torch import TrainStep, ernie_base_config
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        ShardingOptimizerStage2, group_sharded_parallel)
+
+    hcg = _hybrid_fleet(sharding=ZERO_GROUP)
+    group = hcg.get_sharding_parallel_group()
+    crit = _cls_criterion()
+    ids, types, labels, mask, _ = _ernie_batch(np.random.RandomState(0),
+                                               ernie_base_config())
+    batch = (ids, types, labels, torch.from_numpy(mask).to(DIST_DEVICE))
+
+    def wrap(kind, model, opt):
+        if kind == "stage3":
+            model, opt, _ = group_sharded_parallel(model, opt, "p_g_os",
+                                                   group=group)
+        elif kind != "unsharded":
+            opt = ShardingOptimizerStage2(opt, group=group,
+                                          offload=kind == "offload")
+        return model, opt
+
+    out = {"group": ZERO_GROUP, "steps": ZERO_STEPS, "timed": ZERO_TIMED}
+    for dtype, kinds in (("bfloat16", ("unsharded", "stage2", "stage3",
+                                       "offload")),
+                         ("float32", ("unsharded", "stage2"))):
+        bf16 = dtype == "bfloat16"
+        loss_fn = _amp_loss(lambda m, i, t, y, am: crit(
+            m(i, attn_mask=am, token_type_ids=t), y), bf16)
+        base = None
+        for kind in kinds:
+            model, opt = wrap(kind, *_ernie_cls_model(bf16))
+            step = TrainStep(model, loss_fn, opt)
+            losses, ms = _timed_steps(step, batch, ZERO_STEPS + ZERO_TIMED)
+            rec = {"losses": losses, "losses_hex": [x.hex() for x in losses],
+                   "step_ms_mean": float(np.mean(ms[2:])),
+                   "graphs": step._fn.graphs()}
+            assert all(np.isfinite(losses)) and rec["graphs"] == 1
+            sharded = getattr(step._optimizer, "rank_state_bytes", None)
+            if sharded is not None:
+                rec["rank_state_bytes"] = sharded()
+                rec["state_bytes"] = step._optimizer.state_bytes()
+                share = max(rec["rank_state_bytes"][1:]) / rec["state_bytes"]
+                rec["rank_share"] = share
+                assert abs(share - 1.0 / ZERO_GROUP) < 1e-3, rec
+            if kind == "stage3":
+                rec["rank_param_bytes"] = model.rank_param_bytes()
+            if kind == "offload":
+                st = step._optimizer._states
+                rec["states_pinned"] = all(
+                    t.is_pinned() for s in st.values() for t in s.values()
+                    if torch.is_tensor(t) and t.ndim > 0)
+                assert rec["states_pinned"] or torch.device(
+                    DIST_DEVICE).type == "cpu"
+            if base is None:
+                base = rec
+            else:
+                rec["bit_equal"] = losses == base["losses"]
+                rec["ms_over_unsharded"] = rec["step_ms_mean"] \
+                    / base["step_ms_mean"]
+                assert rec["bit_equal"], (kind, dtype, losses,
+                                          base["losses"])
+            out["%s_%s" % (kind, dtype)] = rec
+            log("zero2_ernie %s %s: %.2f ms a step, losses %s%s"
+                % (kind, dtype, rec["step_ms_mean"],
+                   ["%.6f" % x for x in losses[:ZERO_STEPS]],
+                   "" if kind == "unsharded"
+                   else ", bit-equal to unsharded"))
+            del model, opt, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    _release()
+    return out
+
+
+def dp_bert():
+    """``dp_bert`` (config #3): BERT-base (12 layers, 768 wide), 8 x 512,
+    fp32, AdamW(1e-4, clip 1.0), masked-LM loss on its own ids, at dp 4
+    through ``fleet.distributed_model``/``distributed_optimizer``: plain
+    (``DataParallel``: the global batch's program), with
+    ``fp16_allreduce`` and with DGC (sparsity 0.999, momentum 0.9), the
+    last two by ``fleet.compressed_train_step`` (each rank's backward
+    apart, the gradient sync written out over the ranks).  Each leg runs
+    ``DP_STEPS`` captured steps from the same weights beside the unsharded
+    step: plain within fp32 order (``DP_SAME_RTOL``), the compressed legs'
+    first loss (before any update) too, fp16's later losses within
+    ``DP_FP16_RTOL``; the wire bytes a step by the reference's formulas
+    (``comm_hooks.wire_bytes``)."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import (TrainStep, TransformerLM,
+                                  TransformerLMCriterion, bert_base_config)
+    from paddle_tpu_torch.distributed.comm_hooks import wire_bytes
+
+    cfg = bert_base_config()
+    crit = TransformerLMCriterion(shift_labels=False)
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg["vocab_size"], (DP_BATCH, DP_SEQ))).to(DIST_DEVICE)
+
+    def loss_fn(m, x):
+        return crit(m(x), x)
+
+    def model_opt():
+        model = TransformerLM(**cfg, dropout=0.0, device=DIST_DEVICE,
+                              seed=0)
+        return model, _adamw(model)
+
+    out = {"dp": DP_DEGREE, "batch": DP_BATCH, "seq": DP_SEQ,
+           "steps": DP_STEPS}
+    base = None
+    for leg in ("unsharded", "plain", "fp16_allreduce", "dgc"):
+        model, opt = model_opt()
+        params = sum(p.numel() for p in model.parameters())
+        if leg == "unsharded":
+            step = TrainStep(model, loss_fn, opt)
+        else:
+            st = dist.fleet.DistributedStrategy()
+            st.hybrid_configs["dp_degree"] = DP_DEGREE
+            st.fp16_allreduce = leg == "fp16_allreduce"
+            st.dgc = leg == "dgc"
+            dist.fleet.init(strategy=st, device=DIST_DEVICE)
+            if leg == "plain":
+                step = TrainStep(dist.fleet.distributed_model(model),
+                                 loss_fn,
+                                 dist.fleet.distributed_optimizer(opt))
+            else:
+                step = dist.fleet.fleet.compressed_train_step(model,
+                                                              loss_fn, opt)
+        losses, ms = _timed_steps(step, (ids,), DP_STEPS)
+        rec = {"losses": losses, "step_ms_mean": float(np.mean(ms[2:])),
+               "step_ms": ms, "graphs": step._fn.graphs()}
+        assert all(np.isfinite(losses)) and rec["graphs"] == 1, rec
+        if leg == "unsharded":
+            base = rec
+        else:
+            rec["first_loss_rel_err"] = abs(losses[0] - base["losses"][0]) \
+                / base["losses"][0]
+            assert rec["first_loss_rel_err"] <= DP_SAME_RTOL, rec
+            rec["max_loss_rel_err"] = float(np.max(np.abs(
+                np.array(losses) - base["losses"]) / base["losses"]))
+            if leg == "plain":
+                assert rec["max_loss_rel_err"] <= DP_SAME_RTOL, rec
+            elif leg == "fp16_allreduce":
+                assert rec["max_loss_rel_err"] <= DP_FP16_RTOL, rec
+            if leg == "plain":
+                rec["wire_bytes_per_step"] = wire_bytes(params, DP_DEGREE,
+                                                        "none")
+            else:
+                rec["wire_bytes_per_step"] = step.wire_bytes_per_step()
+            rec["ms_over_unsharded"] = rec["step_ms_mean"] \
+                / base["step_ms_mean"]
+        out[leg] = rec
+        log("dp_bert %s: %.2f ms a step, losses %s" % (
+            leg, rec["step_ms_mean"], ["%.6f" % x for x in losses]))
+        del model, opt, step
+        _release()
+    return out
+
+
+def _sep_mode(model, group, mode):
+    """Every attention of ``model`` over ``group``'s ranks in ``mode``
+    ("ring", "ulysses"), or unsharded (None)."""
+    for layer in model.encoder.layers:
+        layer.self_attn._sep = None if mode is None \
+            else (group, mode, True)
+    model._sequence_parallel = mode is not None
+
+
+def sep_longseq():
+    """``sep_longseq``: the causal LM of ``bench.py:452`` (vocab 32000,
+    hidden 1024, 4 layers, 8 heads, ffn 4096) at seq 8192, batch 1, O2
+    bf16, sequence-parallel over sep 4 in ``ulysses`` mode (K3 per rank,
+    2 heads over the whole sequence) and in ``ring`` mode (the block
+    composition), against the unsharded model (K3 over the whole
+    sequence) on the same weights: the loss and sampled gradients of one
+    forward and backward within ``SEP_LOSS_RTOL``/``SEP_GRAD_REL``; then
+    each mode's captured step (SGD at learning rate 0, so the weights stay
+    the same for every mode) timed, with its K3 launches."""
+    import torch
+
+    from paddle_tpu_torch import TrainStep, TransformerLM, \
+        TransformerLMCriterion
+    from paddle_tpu_torch.ops import flash_kernels as fk
+    from paddle_tpu_torch.optimizer import SGD
+
+    hcg = _hybrid_fleet(sep=SEP_DEGREE)
+    group = hcg.get_sep_parallel_group()
+    model = TransformerLM(**SEP_CFG, dropout=0.0, device=DIST_DEVICE,
+                          seed=0)
+    model, opt = _o2(model, SGD(0.0, parameters=model.parameters()))
+    crit = TransformerLMCriterion(shift_labels=True)
+    loss_fn = _amp_loss(lambda m, x: crit(m(x), x), True)
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, SEP_CFG["vocab_size"], (1, SEP_SEQ))).to(DIST_DEVICE)
+    named = dict(model.named_parameters())
+    layers = SEP_CFG["num_layers"]
+    out = {"sep": SEP_DEGREE, "seq": SEP_SEQ, "layers": layers}
+    base = None
+    for mode in (None, "ulysses", "ring"):
+        name = mode or "unsharded"
+        _sep_mode(model, group, mode)
+        loss = loss_fn(model, ids)
+        loss.backward()
+        grads = {n: named[n].grad.float().clone() for n in SEP_GRAD_SAMPLES}
+        for p in model.parameters():
+            p.grad = None
+        rec = {"loss": float(loss.detach())}
+        del loss
+        if base is None:
+            base = (rec["loss"], grads)
+        else:
+            rec["loss_rel_err"] = abs(rec["loss"] - base[0]) / abs(base[0])
+            rec["grad_rel_l2"] = {n: _rel_l2(grads[n], base[1][n])
+                                  for n in SEP_GRAD_SAMPLES}
+            assert rec["loss_rel_err"] <= SEP_LOSS_RTOL and max(
+                rec["grad_rel_l2"].values()) <= SEP_GRAD_REL, (mode, rec)
+        del grads
+        step = TrainStep(model, loss_fn, opt)
+        fk.reset_launch_counts()
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = _timed_steps(step, (ids,), SEP_STEPS)
+        counts = fk.launch_counts_by_dtype()
+        per_step = {"unsharded": layers, "ulysses": layers * SEP_DEGREE,
+                    "ring": 0}[name]
+        for kname in ("flash_attention_forward_kernel",
+                      "flash_attention_backward_kernel"):
+            assert counts[kname] == {"float32": 0, "bfloat16":
+                                     per_step * SEP_STEPS}, (name, counts)
+        assert step._fn.graphs() == 1 and all(np.isfinite(losses))
+        rec.update(step_ms_mean=float(np.mean(ms[2:])), step_ms=ms,
+                   losses=losses, k3_launches_per_step=per_step,
+                   k3_launches={k: c["bfloat16"] for k, c in counts.items()},
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        rec["profile"] = _profile_step(step, (ids,), rec["step_ms_mean"])
+        rec["device_idle_share"] = rec["profile"]["device_idle_share"]
+        out[name] = rec
+        log("sep_longseq %s: %.2f ms a step, loss %.6f, K3 %d a step"
+            % (name, rec["step_ms_mean"], rec["loss"], per_step))
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+    _sep_mode(model, group, None)
+    del model, opt, ids
+    _release()
+    return out
+
+
+def _moe_routing_loop(probs, capacity, top_k=2):
+    """The GShard routing token by token (host numpy): for each pick in
+    turn, each token in order takes its best remaining expert while that
+    expert has room.  Returns ``[(row, token, expert, gate)]`` of the
+    kept picks, gates renormalized over each token's kept picks."""
+    b, s, e = probs.shape
+    picks = []
+    for row in range(b):
+        remaining = probs[row].copy()
+        fills = np.zeros(e, np.int64)
+        kept = {}
+        for _ in range(top_k):
+            chosen = np.argmax(remaining, axis=-1)
+            counts = fills.copy()
+            for t in range(s):
+                x = chosen[t]
+                if counts[x] < capacity:
+                    kept.setdefault(t, []).append((x, remaining[t, x]))
+                counts[x] += 1
+            fills = np.minimum(counts, capacity)
+            remaining[np.arange(s), chosen] = 0.0
+        for t, lst in kept.items():
+            total = max(sum(g for _, g in lst), 1e-9)
+            picks.extend((row, t, x, g / total) for x, g in lst)
+    return picks
+
+
+def moe_sync_bn():
+    """``moe_sync_bn``: an ``MoELayer`` at dp 2 x ep 2 (8 experts, top-2,
+    d_model 1024, ffn 4096, 2 x 2048 tokens, fp32) against the per-token
+    routing loop (``_moe_routing_loop``, each kept pick's expert MLP on its
+    token), then its captured training step; ResNet50 fp32 at 224 x 128
+    with ``SyncBatchNorm.convert_sync_batchnorm`` at dp 4 against the same
+    network with BatchNorm: the running statistics after one train-mode
+    forward on the same batch within ``SYNC_BN_RTOL``, and each one's
+    captured step (Momentum 0.1) timed."""
+    import torch
+
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch.distributed.meta_parallel import MoELayer
+    from paddle_tpu_torch.nn import BatchNorm2D, SyncBatchNorm
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Adam, Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    out = {}
+    _hybrid_fleet(dp=MOE_DP, ep=MOE_EP)
+    torch.manual_seed(0)
+    moe = MoELayer(MOE_D, MOE_FFN, MOE_EXPERTS, top_k=2,
+                   device=DIST_DEVICE)
+    assert moe.ep_degree == MOE_EP
+    gen = torch.Generator(device=DIST_DEVICE).manual_seed(5)
+    x = torch.randn(MOE_DP, MOE_SEQ, MOE_D, device=DIST_DEVICE,
+                    generator=gen)
+    with torch.no_grad():
+        got = moe(x)
+        probs = torch.softmax(torch.matmul(x, moe.gate_weight), -1)
+        cap = moe.capacity(MOE_SEQ)
+        picks = _moe_routing_loop(probs.cpu().numpy(), cap)
+        want = torch.zeros_like(x)
+        for e in range(MOE_EXPERTS):
+            mine = [(r, t, g) for r, t, x_, g in picks if x_ == e]
+            if not mine:
+                continue
+            rows = torch.tensor([r for r, _, _ in mine], device=x.device)
+            toks = torch.tensor([t for _, t, _ in mine], device=x.device)
+            gates = torch.tensor([g for _, _, g in mine], device=x.device,
+                                 dtype=x.dtype)
+            h = F.gelu(x[rows, toks] @ moe.w1[e] + moe.b1[e],
+                       approximate=True)
+            y = h @ moe.w2[e] + moe.b2[e]
+            want.index_put_((rows, toks), gates[:, None] * y,
+                            accumulate=True)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    dropped = 2 * MOE_DP * MOE_SEQ - len(picks)
+    log("moe_sync_bn MoE against the routing loop: max abs err %.3e "
+        "(scale %.3e), %d of %d picks dropped at capacity %d"
+        % (err, scale, dropped, 2 * MOE_DP * MOE_SEQ, cap))
+    assert torch.allclose(got, want, rtol=MOE_RTOL, atol=MOE_ATOL * scale)
+    opt = Adam(1e-4, parameters=moe.parameters())
+    step = TrainStep(moe, lambda m, v: m(v).square().mean()
+                     + 0.01 * m.aux_loss, opt)
+    losses, ms = _timed_steps(step, (x,), 6)
+    assert step._fn.graphs() == 1 and all(np.isfinite(losses))
+    out["moe"] = {"dp": MOE_DP, "ep": MOE_EP, "experts": MOE_EXPERTS,
+                  "tokens": MOE_DP * MOE_SEQ, "capacity": cap,
+                  "max_abs_err": err, "scale": scale, "picks": len(picks),
+                  "dropped": dropped, "losses": losses,
+                  "step_ms_mean": float(np.mean(ms[2:]))}
+    del moe, opt, step, x, got, want
+    _release()
+
+    _hybrid_fleet(dp=SYNC_BN_DP)
+    gen = torch.Generator(device=DIST_DEVICE).manual_seed(6)
+    img = torch.randn(SYNC_BN_BATCH, 3, IMAGE_SIDE, IMAGE_SIDE,
+                      device=DIST_DEVICE, generator=gen)
+    labels = torch.randint(0, 1000, (SYNC_BN_BATCH,), device=DIST_DEVICE,
+                           generator=gen)
+    stats, bn = {}, {}
+    for sync in (False, True):
+        net = resnet50(num_classes=1000, device=DIST_DEVICE, seed=0)
+        if sync:
+            n_bn = sum(isinstance(m, BatchNorm2D) for m in net.modules())
+            SyncBatchNorm.convert_sync_batchnorm(net)
+            assert sum(isinstance(m, SyncBatchNorm)
+                       for m in net.modules()) == n_bn > 0
+        with torch.no_grad():
+            net(img)
+        stats[sync] = [b.clone() for n, b in net.named_buffers()
+                       if n.endswith(("_mean", "_variance"))]
+        opt = Momentum(0.1, parameters=net.parameters())
+        step = TrainStep(net, lambda m, v, y: F.cross_entropy(m(v), y), opt)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = _timed_steps(step, (img, labels), SYNC_BN_STEPS)
+        assert step._fn.graphs() == 1 and all(np.isfinite(losses))
+        bn["sync" if sync else "batch_norm"] = {
+            "losses": losses, "step_ms_mean": float(np.mean(ms[2:])),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del net, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(float(((a - b).abs() / (SYNC_BN_ATOL + SYNC_BN_RTOL
+                                        * b.abs())).max())
+                for a, b in zip(stats[True], stats[False]))
+    log("moe_sync_bn SyncBatchNorm at dp %d: running statistics of %d "
+        "buffers against BatchNorm, worst ratio to the limit %.3f"
+        % (SYNC_BN_DP, len(stats[True]), worst))
+    assert worst <= 1.0, worst
+    bn["sync"]["ms_over_batch_norm"] = bn["sync"]["step_ms_mean"] \
+        / bn["batch_norm"]["step_ms_mean"]
+    out["sync_batch_norm"] = dict(bn, dp=SYNC_BN_DP, batch=SYNC_BN_BATCH,
+                                  stats_worst_ratio=worst,
+                                  buffers=len(stats[True]))
+    _release()
+    return out
+
+
+def time_flash_dist():
+    """K3 at the shapes the distributed phases add (``DIST_K3_SHAPES``:
+    the pp x mp shard, B 2 x H 8 x L 1024 x D 128, and the Ulysses rank,
+    B 1 x H 2 x L 8192 x D 128; bf16, causal), forward and backward beside
+    the plain twins, the bounds (as ``time_flash``: operations over the
+    bf16 tensor-core peak against bytes over HBM) and
+    ``scaled_dot_product_attention(is_causal=True)``.  Returns {(name,
+    shape): record}."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for shape, (b, h, l, d) in DIST_K3_SHAPES.items():
+        args, do = flash_case(gen, b, h, l, l, d, torch.bfloat16,
+                              causal=True)
+        o, stats = fk.flash_attention_forward_kernel(**args)
+        pairs = b * h * l * (l + 1) // 2
+        tensor_bytes = b * h * l * d * 2
+        work = {"flash_attention_forward_kernel":
+                (4 * d * pairs, 4 * tensor_bytes + stats.numel() * 4),
+                "flash_attention_backward_kernel":
+                (10 * d * pairs, 8 * tensor_bytes + stats.numel() * 4)}
+        q, k, v = (args[n].detach().requires_grad_() for n in "qkv")
+        lib_fwd = cuda_ms(lambda: tF.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=10)
+        lib_out = tF.scaled_dot_product_attention(q, k, v, is_causal=True)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (q, k, v), do, retain_graph=True), iters=10)
+        runs = {"flash_attention_forward_kernel":
+                (lambda: fk.flash_attention_forward_kernel(**args),
+                 lambda: fk.flash_attention_forward_plain(**args), lib_fwd),
+                "flash_attention_backward_kernel":
+                (lambda: fk.flash_attention_backward_kernel(
+                    o=o, stats=stats, do=do, **args),
+                 lambda: fk.flash_attention_backward_plain(
+                     o=o, stats=stats, do=do, **args), lib_bwd)}
+        for name, (kern, plain, lib_ms) in runs.items():
+            flops, nbytes = work[name]
+            t_ops = flops / BF16_TC_FLOPS_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            p1 = cuda_ms(plain, iters=3, warmup=1)
+            k1 = cuda_ms(kern, iters=10, warmup=2)
+            k2 = cuda_ms(kern, iters=10, warmup=1)
+            p2 = cuda_ms(plain, iters=3, warmup=1)
+            rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+                   "dtype": "bfloat16", "shape": [b, h, l, d]}
+            rec["achieved_tflop_s"] = flops / rec["ms"] / 1e9
+            rec["vs_library"] = rec["ms"] / lib_ms
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            out[(name, shape)] = rec
+            log("timing %-32s %s B=%d H=%d L=%d D=%d causal bfloat16: "
+                "kernel %.4f ms (%.2f TFLOP/s), plain %.4f ms, bound %.4f ms "
+                "(%s), sdpa %.4f ms (kernel/sdpa %.3f)"
+                % (name, shape, b, h, l, d, rec["ms"],
+                   rec["achieved_tflop_s"], rec["plain_ms"], rec["bound_ms"],
+                   rec["bound_by"], lib_ms, rec["vs_library"]))
+        del args, do, o, stats, q, k, v, lib_out
+        torch.cuda.empty_cache()
+    return out
+
+
+def distributed_phases():
+    """The five distributed-training phases in turn (each cleans up after
+    itself); their records by name."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, fn, what in (
+            ("hybrid_gpt_pp2_mp2", hybrid_gpt_pp2_mp2,
+             "config #5: GPT-1.3B, dp 1 x mp 2 x pp 2, 4 x 2 x 1024, O2 "
+             "bf16 AdamW, recompute; MFU against %.0f TFLOP/s"
+             % (BF16_TC_FLOPS_PER_S / 1e12)),
+            ("zero2_ernie", zero2_ernie,
+             "config #4: ERNIE-base classifier 32 x 384, ZeRO over 4 "
+             "ranks: stage 2 bf16 / fp32, stage 3, offload"),
+            ("dp_bert", dp_bert,
+             "config #3: BERT-base 8 x 512 fp32 at dp 4: plain, fp16 "
+             "all-reduce, DGC"),
+            ("sep_longseq", sep_longseq,
+             "causal LM 1024 wide, 4 layers, 8 heads, 1 x 8192, O2 bf16, "
+             "sep 4: ulysses and ring against unsharded"),
+            ("moe_sync_bn", moe_sync_bn,
+             "MoE dp 2 x ep 2 against the routing loop; ResNet50 224 x "
+             "128 fp32 SyncBatchNorm at dp 4")):
+        t1 = time.perf_counter()
+        runs[name] = fn()
+        runs[name]["phase_s"] = time.perf_counter() - t1
+        log(card_line())
+        log("%s (%s):" % (name, what), json.dumps(runs[name]))
+    log("distributed phases: %.1f s" % (time.perf_counter() - t0))
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -9024,6 +9816,7 @@ def main() -> int:
         "host transforms in the Dataset):" % R50_FIT_BATCH,
         json.dumps(hapi["fit_resnet50_workers"]))
     log("high-level API phases: %.1f s" % (time.perf_counter() - t0))
+    dist_runs = distributed_phases()
 
     timing = time_kernels()
     timing.update(time_flash())
@@ -9034,6 +9827,7 @@ def main() -> int:
     timing.update({("s2s", case): rec
                    for case, rec in time_flash_seq2seq().items()})
     sdpa_kernel_names()
+    timing.update(time_flash_dist())
     timing["scale_mul_kernel"] = time_custom_kernel()
     kernels = []
     for name, tpu, run, kv in (
@@ -9204,6 +9998,27 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    # the distributed phases' K3 (bf16, causal): the pp x mp shard's 8
+    # heads at L 1024 with hybrid_gpt_pp2_mp2's launches, a Ulysses rank's
+    # 2 heads over L 8192 with sep_longseq's ulysses launches
+    for shape, launches in (
+            ("gpt_mp_shard", dist_runs["hybrid_gpt_pp2_mp2"]["k3_launches"]),
+            ("ulysses", dist_runs["sep_longseq"]["ulysses"]["k3_launches"])):
+        for name, direction in (("flash_attention_forward_kernel",
+                                 "forward"),
+                                ("flash_attention_backward_kernel",
+                                 "backward")):
+            t = timing[(name, shape)]
+            kernels.append({
+                "name": "flash_attention_%s_%s" % (shape, direction),
+                "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "paddle_tpu/ops/flash_attention.py:78",
+                "launches": launches[name],
+                "max_abs_err": parity["%s_%s" % (name, shape)],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]})
     t = timing["scale_mul_kernel"]["float32"]
     kernels.append({
         "name": "scale_mul_kernel", "route": "cuda",
@@ -9220,6 +10035,7 @@ def main() -> int:
               "w") as f:
         json.dump({"card": card, "runs": runs, "train": train,
                    "seq2seq": s2s, "vision": vision, "hapi": hapi,
+                   "distributed": dist_runs,
                    "timing": {str(k): v for k, v in timing.items()},
                    "kernels": kernels}, f,
                   default=lambda o: o.item() if hasattr(o, "item")

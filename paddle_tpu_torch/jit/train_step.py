@@ -35,7 +35,9 @@ reference's rule for its compiled step: coalescing a row-sparse gradient
 has a data-dependent shape, which no CUDA graph can hold.
 
 ``donate=`` is accepted and has no effect: torch updates in place.
-Pinned-host (offloaded) optimizer states have no counterpart here.
+Optimizer states in pinned host memory are
+``distributed.meta_parallel.ShardingOptimizerStage2(offload=True)``'s: its
+update's copies are captured with the step.
 """
 from __future__ import annotations
 

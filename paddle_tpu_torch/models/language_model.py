@@ -1,8 +1,7 @@
 """Transformer language model with a tied LM head, its configurations,
 its LM loss and the sequence-classification fine-tune model (counterpart
-of the reference's ``models/language_model.py``).
-
-Not ported yet: sequence parallelism."""
+of the reference's ``models/language_model.py``).  ``enable_sequence_
+parallel`` trains with the sequence split over a ``sep`` group."""
 from __future__ import annotations
 
 from typing import Optional
@@ -114,10 +113,22 @@ class TransformerLM(Layer):
         # one causal mask per (seq_len, dtype, device): the attention's
         # identity-cached mask detection then reads each back only once
         self._causal_masks: dict = {}
+        self._sequence_parallel = False
 
     @property
     def device(self) -> torch.device:
         return self.word_embeddings.weight.device
+
+    def enable_sequence_parallel(self, group=None, mode: str = "ring"):
+        """Every attention block attends over the sequence split on the
+        ``sep`` group's ranks (``mode`` "ring" or "ulysses",
+        ``distributed.meta_parallel.sequence_parallel``); causality moves
+        from the [L, L] mask into the attention, so none is built."""
+        for layer in self.encoder.layers:
+            layer.self_attn.enable_sequence_parallel(group, mode=mode,
+                                                     causal=self.causal)
+        self._sequence_parallel = True
+        return self
 
     def gen_decode_cache(self, batch_size: int, max_length: int,
                          dtype="float32", per_slot: bool = False,
@@ -176,7 +187,7 @@ class TransformerLM(Layer):
         if cache is not None:
             h, new_cache = self.encoder(h, attn_mask, cache)
             return self.final_norm(h), new_cache
-        if attn_mask is None and self.causal:
+        if attn_mask is None and self.causal and not self._sequence_parallel:
             attn_mask = self._causal_mask(seq_len, h.dtype)
         return self.final_norm(self.encoder(h, attn_mask))
 

@@ -43,7 +43,7 @@ from .layer.loss import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
 from .layer.norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
                          BatchNorm3D, GroupNorm, InstanceNorm1D,
                          InstanceNorm2D, InstanceNorm3D, LayerNorm,
-                         LocalResponseNorm, SpectralNorm)
+                         LocalResponseNorm, SpectralNorm, SyncBatchNorm)
 from .layer.pooling import (AdaptiveAvgPool1D,  # noqa: F401
                             AdaptiveAvgPool2D, AdaptiveAvgPool3D,
                             AdaptiveMaxPool1D, AdaptiveMaxPool2D,

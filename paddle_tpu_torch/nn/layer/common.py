@@ -25,7 +25,9 @@ from .layers import Layer, create_parameter
 
 class Linear(Layer):
     """paddle.nn.Linear: weight [in_features, out_features] (XavierNormal),
-    bias zeros."""
+    bias zeros.  Marked tensor-parallel
+    (``distributed.meta_parallel.shard_linear``) it runs each rank's
+    columns or rows on views of its weight."""
 
     def __init__(self, in_features: int, out_features: int,
                  weight_attr=None, bias_attr=None, name=None, device=None,
@@ -42,6 +44,13 @@ class Linear(Layer):
                                      is_bias=True, **kw)
 
     def forward(self, x):
+        tp = self.__dict__.get("_tp")
+        if tp is not None:  # distributed.meta_parallel.shard_linear
+            from ...distributed.meta_parallel import mp_layers
+            if tp[0] == "column":
+                return mp_layers.column_linear(x, self.weight, self.bias,
+                                               tp[1])
+            return mp_layers.row_linear(x, self.weight, self.bias, tp[1])
         out = F.linear(x, self.weight, self.bias)
         lora_a = self._parameters.get("lora_a")
         if lora_a is not None:

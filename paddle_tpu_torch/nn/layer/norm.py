@@ -13,7 +13,8 @@ does not.  ``GroupNorm``, ``InstanceNorm1D/2D/3D`` (parameters
 ``LocalResponseNorm`` and ``SpectralNorm`` (its power-iteration vectors
 ``weight_u``/``weight_v`` are parameters drawn N(0, 1) that take no
 gradient and are read, never written, as the reference's op) follow.
-``SyncBatchNorm`` is not ported yet.
+``SyncBatchNorm`` reduces its batch statistics over a data-parallel
+group's ranks.
 """
 from __future__ import annotations
 
@@ -129,6 +130,94 @@ class BatchNorm3D(_BatchNormBase):
         if x.ndim != 5:
             raise InvalidArgumentError(
                 "BatchNorm3D expects 5D input, got %dD" % x.ndim)
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Cross-replica BatchNorm (the reference's ``SyncBatchNorm``): in
+    training the batch statistics are the whole batch's over ``group``'s
+    dp ranks (the fleet's dp group when None and fleet is initialized,
+    else one rank).  The ranks share one device and own consecutive
+    slices of dim 0: each rank's per-channel sum, then its sum of squared
+    deviations from the global mean, are reduced in rank order in float32
+    (the all-reduces), and every rank normalizes by the result -- one
+    ``BatchNorm`` over the global batch, to rounding.  The running
+    statistics advance by the reference's rule, with the biased
+    variance."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
+                 data_format: str = "NCHW", name=None, device=None,
+                 group=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, None, name, device)
+        self._group = group
+
+    def _ranks(self) -> int:
+        if self._group is not None:
+            return self._group.nranks
+        from ...distributed.fleet import fleet
+
+        if fleet.is_initialized:
+            return fleet.get_hybrid_communicate_group() \
+                .get_data_parallel_world_size()
+        return 1
+
+    def forward(self, x):
+        if not self.training or self._use_global_stats:
+            return super().forward(x)
+        from ...distributed.collective import rank_sum
+
+        n = self._ranks()
+        if x.shape[0] % n:
+            raise InvalidArgumentError(
+                "SyncBatchNorm: batch %d not divisible by the dp degree %d"
+                % (x.shape[0], n))
+        axes = _norm._reduce_axes(x, self._data_format)
+        ch = [1] * x.ndim
+        ch[x.ndim - 1 if self._data_format.endswith("C") and x.ndim > 2
+           else 1] = -1
+        shards = [s.float() for s in torch.chunk(x, n, dim=0)]
+        count = x.numel() // self._num_features
+        mean = rank_sum([s.sum(dim=axes) for s in shards]) / count
+        var = rank_sum([(s - mean.view(ch)).square().sum(dim=axes)
+                        for s in shards]) / count
+        out = (x.float() - mean.view(ch)) * torch.rsqrt(
+            var.view(ch) + self._epsilon)
+        out_dtype = x.dtype
+        if self.weight is not None:
+            out = out * self.weight.float().view(ch)
+            out_dtype = torch.promote_types(out_dtype, self.weight.dtype)
+        if self.bias is not None:
+            out = out + self.bias.float().view(ch)
+        if not _norm.running_stats_frozen():
+            with torch.no_grad():
+                m = self._momentum
+                self._mean.mul_(m).add_(mean.detach().to(self._mean.dtype),
+                                        alpha=1 - m)
+                self._variance.mul_(m).add_(
+                    var.detach().to(self._variance.dtype), alpha=1 - m)
+        return out.to(out_dtype)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer, group=None):
+        """``layer`` with every BatchNorm under it (itself included)
+        replaced by a ``SyncBatchNorm`` holding its parameters and running
+        statistics."""
+        if isinstance(layer, _BatchNormBase) \
+                and not isinstance(layer, SyncBatchNorm):
+            new = cls(layer._num_features, layer._momentum, layer._epsilon,
+                      data_format=layer._data_format,
+                      device=layer._mean.device, group=group)
+            new.weight = layer.weight
+            new.bias = layer.bias
+            new._mean = layer._mean
+            new._variance = layer._variance
+            new.train(layer.training)
+            return new
+        for name, sub in list(layer._modules.items()):
+            if sub is not None:
+                layer._modules[name] = cls.convert_sync_batchnorm(sub, group)
+        return layer
 
 
 class GroupNorm(Layer):

@@ -26,7 +26,12 @@ once and re-applies a LoRA bank's delta on the reduced output from the
 global input; a column-parallel projection's delta uses the shard's
 columns of ``lora_b`` (``lora_a`` whole).
 
-Not ported yet: the sequence-parallel attention.
+Tensor and sequence parallelism (``distributed.meta_parallel``): with
+its q/k/v column-parallel and ``out_proj`` row-parallel
+(``shard_linear``) an attention runs each mp rank's heads apart, and an
+encoder layer with ``linear1``/``linear2`` marked each rank's MLP
+columns; ``enable_sequence_parallel`` splits the sequence over a ``sep``
+group (ring or Ulysses, ``meta_parallel.sequence_parallel``).
 """
 from __future__ import annotations
 
@@ -176,6 +181,7 @@ class MultiHeadAttention(Layer):
         self.k_proj = Linear(self.kdim, embed_dim, **kw)
         self.v_proj = Linear(self.vdim, embed_dim, **kw)
         self.out_proj = Linear(embed_dim, embed_dim, **kw)
+        self._sep = None  # (group, mode, causal): enable_sequence_parallel
 
     def _split_heads(self, x):
         b, l = x.shape[0], x.shape[1]
@@ -359,6 +365,93 @@ class MultiHeadAttention(Layer):
         out = _row_parallel_seam(self.out_proj, outs, mp)
         return out, cache._replace(index=cache.index + query.shape[1])
 
+    # -- tensor and sequence parallelism ------------------------------
+    def _tp_degree(self) -> int:
+        """mp when q/k/v are marked column-parallel and ``out_proj``
+        row-parallel over mp ranks (``meta_parallel.shard_linear``), else
+        1."""
+        marks = [lin.__dict__.get("_tp") for lin in
+                 (self.q_proj, self.k_proj, self.v_proj, self.out_proj)]
+        if marks[0] is None:
+            return 1
+        mp = marks[0][1]
+        if marks != [("column", mp)] * 3 + [("row", mp)]:
+            raise InvalidArgumentError(
+                "a tensor-parallel attention needs q/k/v column-parallel "
+                "and out_proj row-parallel over one mp degree, got %s"
+                % (marks,))
+        if self.num_heads % mp:
+            raise InvalidArgumentError(
+                "mp=%d must divide num_heads=%d" % (mp, self.num_heads))
+        return mp
+
+    def _tp_forward(self, query, key, value, attn_mask, mp: int):
+        """Megatron attention: each mp rank's q/k/v columns (views of the
+        weights) give its H/mp heads, which attend on their own (one
+        attention call a rank); ``out_proj``'s rows sum the ranks' partial
+        products in rank order."""
+        from ...distributed.meta_parallel.mp_layers import (column_linear,
+                                                            row_linear)
+
+        heads = self.num_heads // mp
+        q, k, v = (column_linear(x, lin.weight, lin.bias, mp, gather=False)
+                   for x, lin in ((query, self.q_proj), (key, self.k_proj),
+                                  (value, self.v_proj)))
+        outs = []
+        for m in range(mp):
+            qm, km, vm = (self._heads(t[m], heads) for t in (q, k, v))
+            mask = _convert_attn_mask(attn_mask, qm.dtype)
+            outs.append(self._merge_heads(F.scaled_dot_product_attention(
+                qm, km, vm, attn_mask=mask, dropout_p=self.dropout,
+                training=self.training)))
+        return row_linear(outs, self.out_proj.weight, self.out_proj.bias,
+                          mp)
+
+    def enable_sequence_parallel(self, group=None, mode: str = "ring",
+                                 causal: bool = False):
+        """Attention over the sequence split on the ``sep`` group's ranks
+        (the reference's ``enable_sequence_parallel``): ``mode="ring"``
+        passes the K/V blocks round the ranks with an online softmax,
+        ``"ulysses"`` regroups sequence blocks into head groups, each
+        rank attending over the whole sequence through
+        ``ops.flash_attention`` (K3).  Causality is ``causal``, not a
+        mask; no attention-probability dropout, no cache."""
+        if self.dropout:
+            raise InvalidArgumentError(
+                "sequence-parallel attention has no prob-dropout path; "
+                "construct the layer with dropout=0.0")
+        if mode not in ("ring", "ulysses"):
+            raise InvalidArgumentError(
+                "sequence_parallel mode must be 'ring' or 'ulysses', got %r"
+                % mode)
+        if group is None:
+            from ...distributed.fleet import fleet
+
+            group = fleet.get_hybrid_communicate_group() \
+                .get_sep_parallel_group()
+        if mode == "ulysses" and self.num_heads % group.nranks:
+            raise InvalidArgumentError(
+                "ulysses needs num_heads %% sep_degree == 0, got H=%d n=%d"
+                % (self.num_heads, group.nranks))
+        self._sep = (group, mode, bool(causal))
+        return self
+
+    def _sep_forward(self, q, k, v, attn_mask, cache):
+        from ...distributed.meta_parallel.sequence_parallel import \
+            sep_attention
+
+        if attn_mask is not None:
+            raise InvalidArgumentError(
+                "sequence-parallel attention supports causality via "
+                "enable_sequence_parallel(causal=True), not additive "
+                "masks; pass attn_mask=None")
+        if cache is not None:
+            raise InvalidArgumentError(
+                "sequence-parallel attention does not support decode "
+                "caches; disable SP for incremental decoding")
+        group, mode, causal = self._sep
+        return sep_attention(q, k, v, group, mode, causal)
+
     def _heads(self, x, heads: int):
         b, l = x.shape[0], x.shape[1]
         return x.reshape(b, l, heads, self.head_dim).transpose(1, 2)
@@ -376,6 +469,10 @@ class MultiHeadAttention(Layer):
             return self._sharded_forward(query, attn_mask, cache)
         key = query if key is None else key
         value = key if value is None else value
+        mp = self._tp_degree() if cache is None else 1
+        if mp > 1:
+            out = self._tp_forward(query, key, value, attn_mask, mp)
+            return (out, None) if self.need_weights else out
         q = self._split_heads(self.q_proj(query))
         if isinstance(cache, (DecodeCache, PagedDecodeCache)):
             k = self._split_heads(self.k_proj(key))
@@ -394,10 +491,13 @@ class MultiHeadAttention(Layer):
                 k = torch.cat([cache.k, k], dim=2)
                 v = torch.cat([cache.v, v], dim=2)
                 cache = self.Cache(k, v)
-        mask = _convert_attn_mask(attn_mask, q.dtype)
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                             dropout_p=self.dropout,
-                                             training=self.training)
+        if self._sep is not None:
+            out = self._sep_forward(q, k, v, attn_mask, cache)
+        else:
+            mask = _convert_attn_mask(attn_mask, q.dtype)
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                 dropout_p=self.dropout,
+                                                 training=self.training)
         out = self.out_proj(self._merge_heads(out))
         if isinstance(cache, self.Cache):
             return (out, None, cache) if self.need_weights else (out, cache)
@@ -451,6 +551,8 @@ class TransformerEncoderLayer(Layer):
             src = self.norm2(src)
         if is_sharded(cache):
             out = self._sharded_mlp(src, cache)
+        elif "_tp" in self.linear1.__dict__:
+            out = self._tp_mlp(src)
         else:
             hidden = self.dropout(getattr(F, self.activation)(
                 self.linear1(src)))
@@ -459,6 +561,25 @@ class TransformerEncoderLayer(Layer):
         if not self.normalize_before:
             src = self.norm2(src)
         return src if cache is None else (src, cache)
+
+    def _tp_mlp(self, x):
+        """Megatron MLP: each mp rank's ``linear1`` columns and activation,
+        ``linear2``'s rows summed in rank order (marked by
+        ``meta_parallel.shard_linear``: linear1 column, linear2 row)."""
+        from ...distributed.meta_parallel.mp_layers import (column_linear,
+                                                            row_linear)
+
+        kind, mp = self.linear1.__dict__["_tp"]
+        if kind != "column" or self.linear2.__dict__.get("_tp") != (
+                "row", mp):
+            raise InvalidArgumentError(
+                "a tensor-parallel MLP needs linear1 column-parallel and "
+                "linear2 row-parallel over one mp degree")
+        act = getattr(F, self.activation)
+        hidden = [self.dropout(act(h)) for h in column_linear(
+            x, self.linear1.weight, self.linear1.bias, mp, gather=False)]
+        return row_linear(hidden, self.linear2.weight, self.linear2.bias,
+                          mp)
 
     def _sharded_mlp(self, x, cache):
         """The MLP over a ``ShardedCache``'s grid: each dp shard's rows

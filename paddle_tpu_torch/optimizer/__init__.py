@@ -293,8 +293,14 @@ class Optimizer:
                                                          1.0))
 
     @torch.no_grad()
-    def _update(self, params_grads, lr) -> None:
-        if self._grad_clip is not None:
+    def _update(self, params_grads, lr, state_of=None,
+                clip: bool = True) -> None:
+        """Update each ``(param, grad)`` pair in place, in groups.
+        ``state_of(p)``: the state dict to use for ``p`` (default this
+        optimizer's by name; a ZeRO rank passes its slices).  ``clip``:
+        apply the gradient clip (a ZeRO step clips the whole gradients
+        once, before its ranks' updates)."""
+        if clip and self._grad_clip is not None:
             # norm-based clipping needs real norms: densify sparse grads
             params_grads = self._grad_clip([
                 (p, g.to_dense() if g is not None and g.is_sparse else g)
@@ -304,7 +310,7 @@ class Optimizer:
         for p, g in params_grads:
             if g is None:
                 continue
-            st = self._state_for(p)
+            st = self._state_for(p) if state_of is None else state_of(p)
             if g.is_sparse:
                 if self._supports_sparse(p, st):
                     rows.append((p, g.coalesce(), st))

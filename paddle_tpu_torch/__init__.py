@@ -44,6 +44,16 @@ the reference's checkpoint format; ``summary``/``flops`` count a
 network; ``quantization`` (QAT, PTQ, int8 layers), ``incubate.asp`` (2:4
 sparsity), ``incubate.auto_checkpoint`` (resume after a crash) and
 ``distribution`` complete it.
+
+Deployment: ``jit.to_static`` runs a function or layer as a program
+exported once per input signature (``torch.export``), converting a
+tensor ``if``/``while`` into ``torch.cond``/``torch.while_loop``
+(``jit.dy2static``); ``jit.save``/``jit.load`` write and read that program
+with a dynamic batch, and ``inference.create_predictor`` serves it, from
+Python or from C (``capi``).  ``onnx.export`` writes an ONNX file, and
+``static`` builds and runs programs of deferred ops (``Program``,
+``Executor``, ``optimizer.minimize``).  ``enable_static``/
+``disable_static`` set the mode ``in_dynamic_mode`` reports.
 """
 from . import amp  # noqa: F401
 from . import autograd  # noqa: F401
@@ -73,6 +83,9 @@ from .framework.io import load, save  # noqa: F401
 from .hapi import Model, callbacks, flops, summary  # noqa: F401
 from . import tensor  # noqa: F401
 from .tensor import *  # noqa: F401,F403
+from .tensor import (TensorArray, array_length, array_read,  # noqa: F401
+                     array_write, case, create_array, switch_case, tolist,
+                     while_loop)
 from .inference.generation import GenerationPool  # noqa: F401
 from .jit.decode import DecodeSession  # noqa: F401
 from .jit.mesh import DecodeMesh  # noqa: F401
@@ -101,3 +114,42 @@ def create_parameter(shape, dtype="float32", name=None, attr=None,
     if name:
         p.param_name = name
     return p
+
+
+# ``static`` registers the op shim's static-graph bridge when imported, so
+# it (with ``onnx`` and ``capi``) is imported at first use, not here
+_LAZY_MODULES = ("static", "onnx", "capi")
+
+
+def __getattr__(name):
+    if name in _LAZY_MODULES:
+        import importlib
+
+        return importlib.import_module("." + name, __name__)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))
+
+
+_static_mode = False
+
+
+def disable_static(*args, **kwargs) -> None:
+    """Return to dygraph, the default mode."""
+    global _static_mode
+    _static_mode = False
+
+
+def enable_static(*args, **kwargs) -> None:
+    """Enter static-graph mode: ``in_dynamic_mode`` then reports False.
+    ``static`` builds its programs from ``static.data`` placeholders in
+    either mode; the flag exists for code written against the
+    reference."""
+    global _static_mode
+    _static_mode = True
+
+
+def in_dynamic_mode() -> bool:
+    """True unless ``enable_static`` is in force (or ``FLAGS_eager_mode``
+    is off)."""
+    from .core.flags import flag
+
+    return bool(flag("FLAGS_eager_mode")) and not _static_mode

@@ -21,6 +21,12 @@ is skipped while a CUDA graph captures on the current stream, as the
 reference skips traced values: a host read would void the capture.  With
 the flag off it costs one flag read.
 
+An op called with a ``static.Variable`` among its arguments (at the top
+level, in a top-level list or tuple, or as a keyword) is recorded into the
+variable's program instead of running (``register_symbolic``, which
+``static`` calls on import; the reference's static-graph bridge).  Until
+then the check costs one global read.
+
 The reference's Tensor facade, tape and profiler hooks (``FLAGS_benchmark``,
 ``record_op_time``) have no counterpart here: ``torch.Tensor`` is the
 port's Tensor and torch's autograd records the graph.  Calls inside a
@@ -39,7 +45,7 @@ from ..core import amp_state
 from ..core.errors import InvalidArgumentError
 from ..core.flags import _REGISTRY as _FLAGS
 
-__all__ = ["make_op", "install_ops", "check_nan_inf"]
+__all__ = ["make_op", "install_ops", "check_nan_inf", "register_symbolic"]
 
 
 def _target(st: amp_state.AmpAttrs, op_name: str):
@@ -102,6 +108,8 @@ def make_op(fn: Callable, op_name: str) -> Callable:
 
     @functools.wraps(fn)
     def op(*args, **kwargs):
+        if _symbolic_cls is not None and _has_symbolic(args, kwargs):
+            return _symbolic_handler(fn, op_name, args, kwargs)
         st = amp_state.current()
         if st.enabled:
             tgt = _target(st, op_name)
@@ -126,3 +134,29 @@ def install_ops(namespace: dict) -> None:
         if isinstance(val, types.FunctionType) \
                 and not getattr(val, "__paddle_tpu_op__", False):
             namespace[key] = make_op(val, key)
+
+
+# -- static-graph bridge ----------------------------------------------------
+# ``static`` registers its Variable type and a handler: an op called with a
+# Variable among its arguments is recorded into the variable's program.
+_symbolic_cls = None
+_symbolic_handler = None
+
+
+def _has_symbolic(args, kwargs) -> bool:
+    cls = _symbolic_cls
+    for a in list(args) + list(kwargs.values()):
+        if isinstance(a, cls):
+            return True
+        if isinstance(a, (list, tuple)) and any(isinstance(x, cls)
+                                                for x in a):
+            return True
+    return False
+
+
+def register_symbolic(cls, handler) -> None:
+    """Record ops on ``cls`` instances through ``handler(fn, op_name, args,
+    kwargs)``."""
+    global _symbolic_cls, _symbolic_handler
+    _symbolic_cls = cls
+    _symbolic_handler = handler

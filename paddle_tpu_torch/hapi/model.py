@@ -17,8 +17,9 @@ in eval mode under ``no_grad`` and restore each sublayer's mode after.
 ``save(path)`` writes ``path.pdparams`` (the network's ``state_dict``)
 and ``path.pdopt`` (the optimizer's) in ``paddle.save``'s format, which
 the reference's ``load`` reads and whose files the port's ``load``
-reads.  ``save(training=False)`` needs ``jit.save`` and raises
-``UnimplementedError``.  ``prepare(amp_configs=)`` is kept and unused,
+reads.  ``save(training=False)`` writes the network by ``jit.save`` over
+``Model(inputs=)``'s ``InputSpec``s.  ``prepare(amp_configs=)`` is kept
+and unused,
 as in the reference.
 """
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core.errors import InvalidArgumentError, UnimplementedError
+from ..core.errors import InvalidArgumentError
 from ..framework.io import load as _load
 from ..framework.io import save as _save
 from ..io import DataLoader, Dataset, TensorDataset
@@ -297,13 +298,17 @@ class Model:
 
     # -- persistence --------------------------------------------------------
     def save(self, path: str, training: bool = True) -> None:
-        """``training``: ``path.pdparams`` and ``path.pdopt``; the
-        inference artifact (``training=False``) needs ``jit.save``."""
+        """``training``: ``path.pdparams`` and ``path.pdopt``; otherwise
+        the inference artifact by ``jit.save`` over ``Model(inputs=)``'s
+        ``InputSpec``s."""
         if not training:
-            raise UnimplementedError(
-                "Model.save(training=False) writes an inference program "
-                "through jit.save, which is not ported (ROADMAP queue 1 "
-                "item 5); save(path) writes the training checkpoint")
+            from .. import jit
+
+            if not self._inputs:
+                raise InvalidArgumentError(
+                    "save(training=False) needs Model(inputs=[InputSpec...])")
+            jit.save(self.network, path, input_spec=self._inputs)
+            return
         _save(self.network.state_dict(), path + ".pdparams")
         if self._optimizer is not None:
             _save(self._optimizer.state_dict(), path + ".pdopt")

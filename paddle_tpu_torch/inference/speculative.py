@@ -40,8 +40,8 @@ the same mp rules and its slot cache over dp and mp like the target's.
 The verify step reduces its mp partials in fp32 (its multi-token rows
 amortize the reduction over ``k+1`` tokens; the quantized seam is the
 one-token decode step's), so ``collective_quant`` is accepted and
-validated but moves no verify byte.  The
-reference's ``cost_report`` is not ported yet.
+validated but moves no verify byte.  ``cost_report()`` counts each step
+key (draft decode, verify, fix-up) once, as the plain pool's does.
 """
 from __future__ import annotations
 

@@ -25,8 +25,8 @@ acceptance lengths.
 
 ``SpeculativeDecodeSession`` is the single-request unit (batch 1: an
 aligned batch would stall every row on the slowest acceptance);
-``inference.SpeculativePool`` is the slot-batched serving variant.  The
-reference's ``cost_report`` is not ported yet.
+``inference.SpeculativePool`` is the slot-batched serving variant.
+``cost_report()`` counts each step key once, as the session's does.
 """
 from __future__ import annotations
 

@@ -143,7 +143,8 @@ _DETECT_CACHE_MAX = 64
 # call is never claimed (it reaches K3 as a broadcast bias, as the
 # reference's traced masks take the general bias path), any other mask is
 # claimed only from its cached verdict (the model's own causal mask, cached
-# by the warm-up), and nothing new is cached.
+# by the warm-up), and nothing new is cached.  While ``torch.export``
+# traces, no mask is claimed and nothing is cached (``_exporting``).
 _capture = threading.local()
 
 
@@ -169,8 +170,15 @@ def _graph_input(mask) -> bool:
         getattr(_capture, "storages", None) or ())
 
 
+def _exporting() -> bool:
+    """``torch.export`` traces: every mask is a traced value (an input of
+    the program or made from one), so nothing is read back, claimed or
+    cached, and a mask reaches K3 as a broadcast bias."""
+    return torch.compiler.is_compiling()
+
+
 def _cache_get(cache, mask):
-    if _graph_input(mask):
+    if _graph_input(mask) or _exporting():
         return False, None
     hit = cache.get(id(mask))
     if hit is not None and hit[0]() is mask and hit[1] == mask._version:
@@ -179,7 +187,7 @@ def _cache_get(cache, mask):
 
 
 def _cache_put(cache, mask, verdict):
-    if _capturing(mask):
+    if _capturing(mask) or _exporting():
         return verdict
     if len(cache) >= _DETECT_CACHE_MAX:
         for key in [k for k, v in cache.items() if v[0]() is None]:
@@ -205,7 +213,7 @@ def detect_padding_additive_mask(mask):
     if mask.ndim != 4 or mask.shape[1] != 1 or mask.shape[2] != 1:
         return None
     found, valid = _cache_get(_pad_detect_cache, mask)
-    if found or _capturing(mask):
+    if found or _capturing(mask) or _exporting():
         return valid
     m = mask[:, 0, 0, :]
     if m.dtype == torch.bool:
@@ -237,7 +245,7 @@ def detect_causal_additive_mask(mask, seq_len: Optional[int] = None) -> bool:
     if seq_len is not None and l != seq_len:
         return False
     found, verdict = _cache_get(_detect_cache, mask)
-    if found or _capturing(mask):
+    if found or _capturing(mask) or _exporting():
         return bool(verdict)
     m = mask.float()
     allow = torch.ones(l, l, dtype=torch.bool, device=m.device).tril()

@@ -32,10 +32,23 @@ backward wrapper counts one per call; a call launches its three kernels
 (delta, dK/dV pass, dQ pass).  No captured CUDA graph runs K3 (the
 captured steps are decode steps), so ``jit.aot``'s replays do not count
 these wrappers.
+
+The forward is also the registered operator
+``torch.ops.paddle_tpu_torch.flash_attention_forward``, which is what a
+program traced by ``torch.export`` (``jit.to_static``, ``jit.save``) holds:
+the wrappers pass ``data_ptr()``s to a ``ctypes`` library, which a fake
+tensor of the trace does not have.  Its fake implementation gives the
+output and statistics shapes; its CPU implementation is the plain twin and
+its CUDA implementation is the hand kernel, counted where it launches, so
+a loaded program's launches count at run time.  It never runs the plain
+twin on a CUDA tensor.  The forward wrapper calls the operator, eager or
+traced; the operator's autograd formula is the K3 backward, so a traced
+training program differentiates through it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +56,7 @@ from ..core.errors import ExternalError, InvalidArgumentError
 from . import kernel_cost
 
 __all__ = ["FlashAttentionFunction", "flash_attention_forward_kernel",
+           "flash_attention_forward_op",
            "flash_attention_backward_kernel", "flash_attention_forward_plain",
            "flash_attention_backward_plain", "head_dim_and_dtype_supported",
            "kernel_takes", "MAX_HEAD_DIM", "reset_launch_counts",
@@ -70,7 +84,8 @@ def _bias4(bias, b, h, lq, lk):
         return None
     b4 = bias.reshape((1,) * (4 - bias.ndim) + tuple(bias.shape))
     for got, full in zip(b4.shape, (b, h, lq, lk)):
-        if got not in (1, full):
+        # full first: a traced batch equals itself without a guard on 1
+        if got not in (full, 1):
             return None
     return b4
 
@@ -241,9 +256,12 @@ def flash_attention_forward_kernel(q, k, v, bias=None, q_seg=None,
     [B, H, Lq, 2] fp32.  CPU tensors run
     :func:`flash_attention_forward_plain`."""
     _check_inputs(q, k, v, bias, q_seg, kv_seg)
-    if q.device.type == "cpu":
-        return flash_attention_forward_plain(q, k, v, bias, q_seg, kv_seg,
-                                             causal, sm_scale)
+    return torch.ops.paddle_tpu_torch.flash_attention_forward(
+        q, k, v, bias, q_seg, kv_seg, bool(causal), float(sm_scale))
+
+
+def _launch_forward(q, k, v, bias, q_seg, kv_seg, causal, sm_scale):
+    """Launch the K3 forward on the card and count it."""
     _on_card(q, (("k", k), ("v", v), ("bias", bias), ("q_seg", q_seg),
                  ("kv_seg", kv_seg)), "flash_attention_forward_kernel")
     q, k, v = _unit_d(q), _unit_d(k), _unit_d(v)
@@ -342,6 +360,48 @@ def flash_attention_backward_kernel(q, k, v, o, stats, do, bias=None,
     kernel_cost.report(2.5 * _forward_flops(q, k, causal), kernel_cost.nbytes(
         q, k, v, o, stats, do, bias, q_seg, kv_seg, delta, dq, dk, dv, ds))
     return dq, dk, dv, ds
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_forward",
+                         mutates_args=(), device_types="cpu")
+def flash_attention_forward_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        bias: Optional[torch.Tensor], q_seg: Optional[torch.Tensor],
+        kv_seg: Optional[torch.Tensor], causal: bool,
+        sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K3 forward as a registered operator (module docstring): the
+    plain twin on the CPU, the hand kernel on the card."""
+    return flash_attention_forward_plain(q, k, v, bias, q_seg, kv_seg,
+                                         causal, sm_scale)
+
+
+@flash_attention_forward_op.register_kernel("cuda")
+def _flash_attention_forward_cuda(q, k, v, bias, q_seg, kv_seg, causal,
+                                  sm_scale):
+    return _launch_forward(q, k, v, bias, q_seg, kv_seg, causal, sm_scale)
+
+
+@flash_attention_forward_op.register_fake
+def _flash_attention_forward_fake(q, k, v, bias, q_seg, kv_seg, causal,
+                                  sm_scale):
+    b, h, lq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, lq, 2), dtype=torch.float32))
+
+
+def _op_setup_context(ctx, inputs, output):
+    q, k, v, bias, q_seg, kv_seg, causal, sm_scale = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1], bias, q_seg,
+                          kv_seg)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+
+
+def _op_backward(ctx, do, _dstats):
+    return FlashAttentionFunction.backward(ctx, do)[:8]
+
+
+flash_attention_forward_op.register_autograd(
+    _op_backward, setup_context=_op_setup_context)
 
 
 _WRAPPERS = {"flash_attention_forward_kernel": flash_attention_forward_kernel,

@@ -51,11 +51,13 @@ AdamW's decay 0), only the rows met are updated -- every other row of
 the parameter and of its moments stays bit for bit as it was, the beta
 powers advance -- else it is densified and joins its group.
 
-Not ported yet: the static-graph branch of ``minimize``.
+``minimize`` on a ``static.Variable`` appends the update to the
+variable's program (the reference's ``_minimize_static``).
 """
 from __future__ import annotations
 
 import contextlib
+import sys
 import warnings
 from typing import Dict, Optional, Sequence
 
@@ -397,8 +399,14 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """Dygraph minimize: backward + step.  Returns ``(None, None)``
-        as the reference's dygraph branch."""
+        """Dygraph minimize: backward + step; returns ``(None, None)`` as
+        the reference's dygraph branch.  A ``static.Variable`` loss
+        appends this optimizer's update of its program's parameters to
+        the program instead (``static.graph.minimize``; ``Executor.run``
+        applies it after its fetches)."""
+        graph = sys.modules.get("paddle_tpu_torch.static.graph")
+        if graph is not None and isinstance(loss, graph.Variable):
+            return graph.minimize(self, loss, parameters)
         if loss.requires_grad:
             loss.backward()
         self.step()

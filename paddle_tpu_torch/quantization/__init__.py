@@ -29,16 +29,19 @@ gradient) and post-training quantization to int8 layers.
   ``Int8Linear.routes`` counts which route ran.
 
 The swap walks ``_modules``, where the reference walks ``_sub_layers``.
-``save_quantized_model`` needs ``jit.save`` and raises
-``UnimplementedError``.
+``save_quantized_model`` writes the model by ``jit.save``; on the card an
+``Int8Linear``'s product stays ``torch._int_mm`` in the program whatever
+the batch (where the traced rows are not known above 16 from the
+program's shapes, the product pads 16 zero rows).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.fx.experimental.symbolic_shapes import statically_known_true
 
-from ..core.errors import InvalidArgumentError, UnimplementedError
+from ..core.errors import InvalidArgumentError
 from ..nn import functional as F
 from ..nn.layer.common import Linear
 from ..nn.layer.conv import Conv2D
@@ -217,17 +220,28 @@ class ImperativeQuantAware:
         return model
 
     def save_quantized_model(self, model, path: str, input_spec=None):
-        raise UnimplementedError(
-            "save_quantized_model writes an inference program through "
-            "jit.save, which is not ported (ROADMAP queue 1 item 5)")
+        """The quantized model as a ``jit.save`` artifact."""
+        from ..jit import save as jit_save
+
+        jit_save(model, path, input_spec=input_spec)
 
 
 def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> tuple:
     """``a`` [M, K] int8 @ ``b`` [K, N] int8 -> (int32 [M, N], route)."""
     m, k = a.shape
     n = b.shape[1]
-    if a.is_cuda and m > 16 and k % 8 == 0 and n % 8 == 0:
-        return torch._int_mm(a, b), "int_mm"
+    # M is tested only as far as it is known without a guard: in a traced
+    # program M holds the open batch, and a guard on it would pin the
+    # batch's range.  A program whose M is known above 16 from its shape
+    # (ERNIE's batch x 384) runs the product as it is.
+    if a.is_cuda and k % 8 == 0 and n % 8 == 0:
+        if statically_known_true(m > 16):
+            return torch._int_mm(a, b), "int_mm"
+        if torch.compiler.is_compiling():
+            # some batch the program serves may give 16 rows or fewer: 16
+            # zero rows keep M above _int_mm's 16 whatever the batch
+            return torch._int_mm(torch.cat([a, a.new_zeros(16, k)]),
+                                 b)[:m], "int_mm"
     out = torch.zeros(m, n, dtype=torch.int32, device=a.device)
     for k0 in range(0, k, _CHUNK_K):
         part = torch.matmul(a[:, k0:k0 + _CHUNK_K].to(torch.float32),

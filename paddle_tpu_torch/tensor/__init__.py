@@ -24,7 +24,14 @@ Installed as the reference installs its namespace:
 
 Ops with no tensor input (``zeros``, ``arange``, ``randn``, ...) take the
 device as ``place=`` (``None``: ``cuda``), as ``to_tensor`` does.
-Not ported yet: ``array`` and ``control_flow``.
+``array`` (tensor arrays) and ``control_flow`` (``while_loop``, ``case``,
+``switch_case``; ``cond`` stays linalg's condition number here, as in the
+reference, and the control-flow ``cond`` is ``static.nn.cond`` or
+``tensor.control_flow.cond``) run eagerly as Python and become
+``torch.while_loop``/``torch.cond`` under ``torch.export``.  ``tolist``
+reads a tensor into nested lists; ``install_methods`` attaches the ops as
+``torch.Tensor`` methods where torch has no method of that name (it is
+not run at import: torch's own methods are never replaced).
 """
 from __future__ import annotations
 
@@ -32,9 +39,14 @@ import functools
 import inspect
 import types
 
-from . import (attribute, creation, einsum as _einsum_mod, linalg,
+import torch
+
+from . import (array, attribute, creation, einsum as _einsum_mod, linalg,
                logic, manipulation, math, random, search, segment, stat)
+from ._compat import accept_name_kwarg
+from .array import *  # noqa: F401,F403
 from .attribute import *  # noqa: F401,F403
+from .control_flow import case, switch_case, while_loop  # noqa: F401
 from .creation import *  # noqa: F401,F403
 from .einsum import einsum  # noqa: F401
 from .linalg import *  # noqa: F401,F403
@@ -56,19 +68,51 @@ __all__ = list(dict.fromkeys(
     n for mod in (attribute, creation, _einsum_mod, linalg, logic,
                   manipulation, math, random, search, segment, stat)
     for n in mod.__all__)) + [n + "_" for n in _INPLACE]
+# the tensor arrays, the control flow and ``tolist`` take containers,
+# callables or a read-back rather than tensors to ops: they stay out of
+# the op shim and of ``__all__`` (the root imports them by name)
+STRUCTURE = list(array.__all__) + ["case", "switch_case", "while_loop",
+                                   "tolist"]
 
 
-def _accept_name(fn):
-    """``fn`` taking (and ignoring) a keyword-only ``name=``."""
-    params = inspect.signature(fn).parameters
-    if "name" in params:
-        return fn
+def tolist(x):
+    """Nested Python lists of ``x``'s values (read back to the host)."""
+    return x.tolist()
 
-    @functools.wraps(fn)
-    def op(*args, name=None, **kwargs):
-        return fn(*args, **kwargs)
 
-    return op
+# first parameters that are not the tensor: creation-style ops (the
+# reference's list), an array, the control flow's predicates and callables
+_NOT_METHODS = ("data", "shape", "dtype", "equation", "start", "num_rows",
+                "low", "array", "pred_fn_pairs", "cond_fn", "branch_index")
+
+
+def install_methods(cls=torch.Tensor) -> list:
+    """Attach every op of this namespace whose first parameter is the
+    tensor as a method of ``cls`` (``x.op(...)``, as the reference's
+    ``install_methods``), skipping every name ``cls`` already has: torch's
+    own methods and operators are never replaced.  Returns the names
+    added."""
+    ns = globals()
+    added = []
+    for name in __all__ + STRUCTURE:
+        fn = ns.get(name)
+        if not isinstance(fn, types.FunctionType) or hasattr(cls, name):
+            continue
+        try:
+            params = list(inspect.signature(fn).parameters)
+        except (TypeError, ValueError):
+            continue
+        if not params or params[0] in _NOT_METHODS:
+            continue
+
+        def method(self, *args, _f=fn, **kwargs):
+            return _f(self, *args, **kwargs)
+
+        method.__name__ = name
+        method.__doc__ = fn.__doc__
+        setattr(cls, name, method)
+        added.append(name)
+    return added
 
 
 def _make_inplace(op, name: str):
@@ -98,7 +142,7 @@ def _install(namespace: dict) -> None:
     for key in __all__:
         val = namespace.get(key)
         if isinstance(val, types.FunctionType):
-            namespace[key] = _accept_name(val)
+            namespace[key] = accept_name_kwarg(val)
     _dispatch.install_ops(namespace)
     for base in _INPLACE:
         namespace[base + "_"] = _make_inplace(namespace[base], base + "_")

@@ -28,8 +28,7 @@ from paddle_tpu.vision.models import LeNet as RefLeNet
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch import load_reference_params
 from paddle_tpu_torch.core.errors import (InvalidArgumentError,
-                                          UnavailableError,
-                                          UnimplementedError)
+                                          UnavailableError)
 from paddle_tpu_torch.hapi import callbacks as pcb
 from paddle_tpu_torch.vision.models import LeNet
 
@@ -290,8 +289,18 @@ def test_save_load_round_trip_and_refusals(tmp_path):
     for (_, a), (_, b) in zip(m._optimizer.state_dict().items(),
                               opt2.state_dict().items()):
         assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
-    with pytest.raises(UnimplementedError, match="jit.save"):
+    # the inference artifact needs the Model's input specs; with them it
+    # is a jit.save program that predicts as the network does
+    with pytest.raises(InvalidArgumentError, match="InputSpec"):
         m.save(str(tmp_path / "infer"), training=False)
+    from paddle_tpu_torch.jit import InputSpec, load
+
+    m3 = ptt.Model(net, inputs=[InputSpec([None, 1, 28, 28])],
+                   device="cpu")
+    m3.save(str(tmp_path / "infer"), training=False)
+    np.testing.assert_allclose(
+        load(str(tmp_path / "infer"), device="cpu")(x).numpy(),
+        m.predict_batch(x).numpy(), rtol=1e-6, atol=1e-6)
     with pytest.raises(InvalidArgumentError, match="nn.Layer"):
         ptt.Model(torch.nn.Linear(2, 2), device="cpu")
     if not torch.cuda.is_available():

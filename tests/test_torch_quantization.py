@@ -27,7 +27,6 @@ from paddle_tpu import quantization as rq
 
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch import load_reference_params, quantization as pq
-from paddle_tpu_torch.core.errors import UnimplementedError
 
 
 def _x(seed, *shape):
@@ -141,7 +140,7 @@ def test_int8_linear_matches_reference(m, k, n):
                                   a.astype(np.int64) @ w_q.astype(np.int64))
 
 
-def test_ptq_convert_is_close_to_fp32_and_to_the_reference():
+def test_ptq_convert_is_close_to_fp32_and_to_the_reference(tmp_path):
     ref, port = _qat_pair()
     rng = np.random.RandomState(7)
     calib = [rng.randn(8, 2, 6, 6).astype(np.float32) for _ in range(4)]
@@ -166,5 +165,13 @@ def test_ptq_convert_is_close_to_fp32_and_to_the_reference():
     scale = np.abs(fp32).max()
     assert np.abs(got - fp32).max() <= 0.2 * scale
     assert np.abs(got - want).max() <= 1e-5 * scale
-    with pytest.raises(UnimplementedError, match="jit.save"):
-        pptq.save_quantized_model(port, "/nowhere")
+    # the converted model saves as a jit.save artifact whose program
+    # gives the same logits at another batch
+    from paddle_tpu_torch.jit import InputSpec, load
+
+    path = str(tmp_path / "int8")
+    pptq.save_quantized_model(port, path,
+                              input_spec=[InputSpec([None, 2, 6, 6])])
+    loaded = load(path, device="cpu")
+    np.testing.assert_array_equal(loaded(torch.from_numpy(x[:5])).numpy(),
+                                  got[:5])

@@ -185,3 +185,51 @@ class RefEngines:
             if plane is not None:
                 ref_faults.uninstall()
         return [s.result(timeout_s=0) for s in streams]
+
+
+# -- the deployment slice: ERNIE at a small size -----------------------------
+
+# ERNIE with 2 layers, hidden 64, 4 heads, sequence 32 (the reference's
+# ``ernie_base_config`` narrowed)
+ERNIE_SMALL = dict(vocab_size=512, hidden_size=64, num_layers=2,
+                   num_heads=4, intermediate_size=128, max_position=64,
+                   causal=False, type_vocab_size=4)
+ERNIE_SEQ = 32
+
+
+def ernie_cls_pair(seed: int = 0):
+    """(reference classifier, port classifier with its weights), 3 classes,
+    dropout 0, eval mode, both on the CPU."""
+    from paddle_tpu.models import TransformerForSequenceClassification as Ref
+
+    from paddle_tpu_torch import TransformerForSequenceClassification
+
+    pt.seed(seed)
+    ref = Ref(num_classes=3, dropout=0.0, **ERNIE_SMALL)
+    ref.eval()
+    port = TransformerForSequenceClassification(
+        num_classes=3, dropout=0.0, device="cpu", **ERNIE_SMALL)
+    load_reference_params(port, reference_arrays(ref))
+    port.eval()
+    return ref, port
+
+
+def ernie_batch(b: int, seed: int = 0):
+    """ids [B, L] int64, a ragged [B, 1, 1, L] float32 additive padding
+    mask (row 0 full) and token types [B, L] int64, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, ERNIE_SMALL["vocab_size"], (b, ERNIE_SEQ))
+    types = rng.randint(0, 2, (b, ERNIE_SEQ))
+    lens = rng.randint(ERNIE_SEQ // 4, ERNIE_SEQ + 1, b)
+    lens[0] = ERNIE_SEQ
+    mask = np.where(np.arange(ERNIE_SEQ)[None] < lens[:, None], 0.0,
+                    np.finfo(np.float32).min).astype(np.float32)
+    return ids.astype(np.int64), mask[:, None, None, :], types.astype(np.int64)
+
+
+def ernie_specs(ns, int_dtype="int64"):
+    """The artifact's input specs in ``ns`` (``paddle_tpu.jit`` or
+    ``paddle_tpu_torch.jit``): ids, mask, token types with an open batch."""
+    return [ns.InputSpec([None, ERNIE_SEQ], int_dtype),
+            ns.InputSpec([None, 1, 1, ERNIE_SEQ], "float32"),
+            ns.InputSpec([None, ERNIE_SEQ], int_dtype)]

@@ -156,17 +156,28 @@ PyTorch twin, and drives the port's two main paths:
   ``summary``/``flops`` (``hapi_lenet``); the fp32 ERNIE-base classifier
   by ``Model.fit`` with callbacks over 2 workers, scored by four metrics
   (``hapi_ernie_cls``), compressed by QAT, PTQ to int8 and ASP 2:4
-  (``compress_ernie``), killed mid-training and resumed from its
-  ``AutoCheckpoint`` bit for bit (``auto_resume``, a ``--resume-child``
-  process); ResNet50 fp32 by ``Model.fit`` with the image transforms in
-  the loader's workers (``fit_resnet50_workers``); each ``fit`` beside
-  its bare captured step;
+  (``compress_ernie``); ResNet50 fp32 by ``Model.fit`` with the image
+  transforms in the loader's workers (``fit_resnet50_workers``); each
+  ``fit`` beside its bare captured step (a trainer killed by SIGKILL and
+  resumed from its ``AutoCheckpoint`` is ``launch_imdb_ernie``'s, below);
 - the custom-op door: the user kernel K4 (``scale_mul``) registered with
   a hand-written backward through ``incubate.register_custom_op``,
   differentiated eagerly (``.backward()``, ``grad`` with
   ``create_graph``, a ``PyLayer``) and trained by 3 ``TrainStep``s at the
   GPT-1.3B FFN activation's shape [2, 2048, 8192]; then host ops compiled
-  by ``utils.cpp_extension`` and called with cuda tensors.
+  by ``utils.cpp_extension`` and called with cuda tensors;
+- the last modules, after the distributed and deployment phases: config
+  #4's ERNIE-base fine-tuned O2 bf16 by ``Model.fit`` in a trainer that
+  ``python -m paddle_tpu_torch.distributed.launch`` starts (this script
+  with ``--launch-child``), on an aclImdb corpus written from numpy seed
+  0 and read by ``text.Imdb``, once uninterrupted and once killed by
+  SIGKILL after step 5 on its first attempt: the launcher relaunches it,
+  the resumed
+  losses must equal the uninterrupted ones bit for bit, and K3 must run
+  bf16 in the trainer (``launch_imdb_ernie``); the corpus through the
+  WordPiece tokenizer natively, in Python and in loader workers, with
+  identical ids (``tokenize_imdb``); ``utils.run_check`` and the op
+  profiler on the card (``run_check_and_profiler``).
 
 It then times each kernel at its main path's shape beside its plain twin,
 its bound and the one PyTorch call that computes the same function
@@ -4084,7 +4095,7 @@ def _check_bf16_limit(args, o, grads, want_o, want):
     return ratios
 
 
-def check_flash_kernels():
+def check_flash_kernels(imdb_mask):
     """K3 forward (O and stats) and backward (dQ/dK/dV, and dbias before
     its broadcast sum) against the plain twins: causal and not, key
     padding (segment lanes), segment ids with fully masked rows, full and
@@ -4096,10 +4107,12 @@ def check_flash_kernels():
     the ways its step gives K3 the padding: as segment lanes (eagerly) and
     as the captured step's [B, 1, 1, L] bias, its own mask in bf16
     (``_ernie_mask_bias``), and in fp32 as the fp32 classifier's captured
-    step gives it (the mask in fp32; ``hapi_ernie_cls``).  Returns the GPT
+    step gives it (the mask in fp32; ``hapi_ernie_cls``), and in bf16 on
+    the launched IMDB fine-tune's first batch, ``imdb_mask`` as its
+    captured step's bias (``launch_imdb_ernie``).  Returns the GPT
     shape's max errors, the bf16 ones under names ending in ``_bfloat16``,
     and the ERNIE shape's under names ending in ``_ernie_lanes``,
-    ``_ernie_bias`` and ``_ernie_fp32``; then the
+    ``_ernie_bias``, ``_ernie_fp32`` and ``_ernie_imdb``; then the
     sequence models' forward shapes (``_check_flash_seq2seq``), their
     errors under ``flash_attention_s2s_<case>``."""
     import torch
@@ -4125,21 +4138,24 @@ def check_flash_kernels():
                  causal=False, seg="pad")
     ernie_bias = dict(ernie, seg=None, bias="pad")
     ernie_fp32 = dict(ernie_bias)  # the fp32 classifier's captured step
+    ernie_imdb = dict(ernie_bias)  # the launched trainer's captured step
     dist_shapes = {name: dict(b=b, h=h, lq=l, lk=l, d=d, causal=True)
                    for name, (b, h, l, d) in DIST_K3_SHAPES.items()}
     cases += [(shape, torch.bfloat16) for shape in dist_shapes.values()]
     cases += [(main, torch.float32), (bert, torch.float32),
               (main, torch.bfloat16), (bert, torch.bfloat16),
               (ernie, torch.bfloat16), (ernie_bias, torch.bfloat16),
-              (ernie_fp32, torch.float32)]
+              (ernie_fp32, torch.float32), (ernie_imdb, torch.bfloat16)]
     main_err = {}
     for shape, dtype in cases:
         args, do = flash_case(gen, dtype=dtype, **shape)
-        if shape is ernie_bias or shape is ernie_fp32:
+        captured = shape is ernie_bias or shape is ernie_fp32 \
+            or shape is ernie_imdb
+        if captured:
             # the captured step's input: a mask that needs no gradient
-            args["bias"] = _ernie_mask_bias(str(dtype)[6:])
-        bias_grad = args["bias"] is not None and shape is not ernie_bias \
-            and shape is not ernie_fp32
+            args["bias"] = _ernie_mask_bias(
+                str(dtype)[6:], imdb_mask if shape is ernie_imdb else None)
+        bias_grad = args["bias"] is not None and not captured
         o, stats = fk.flash_attention_forward_kernel(**args)
         grads = fk.flash_attention_backward_kernel(
             o=o, stats=stats, do=do, bias_grad=bias_grad, **args)
@@ -4156,7 +4172,7 @@ def check_flash_kernels():
         scale = {n: t.float().abs().max().item() for n, t in
                  zip(("dq", "dk", "dv"), want)}
         if dtype == torch.bfloat16 and (shape in (main, bert, ernie,
-                                                  ernie_bias)
+                                                  ernie_bias, ernie_imdb)
                                         or shape in dist_shapes.values()):
             # long rows: the largest outputs and gradients reach magnitudes
             # where two bf16 ulps (2^-6 relative) exceed the small shapes'
@@ -4191,11 +4207,11 @@ def check_flash_kernels():
                     errs["o"], errs["stats"])
                 main_err["flash_attention_backward_kernel_" + name] = max(
                     errs["dq"], errs["dk"], errs["dv"])
-        if shape is main or shape is ernie or shape is ernie_bias \
-                or shape is ernie_fp32:
+        if shape is main or shape is ernie or captured:
             suffix = {id(ernie): "_ernie_lanes",
                       id(ernie_bias): "_ernie_bias",
-                      id(ernie_fp32): "_ernie_fp32"}.get(
+                      id(ernie_fp32): "_ernie_fp32",
+                      id(ernie_imdb): "_ernie_imdb"}.get(
                 id(shape), "" if dtype == torch.float32 else "_bfloat16")
             main_err["flash_attention_forward_kernel" + suffix] = max(
                 errs["o"], errs["stats"])
@@ -4460,20 +4476,27 @@ def _step_breakdown(prof, busy_ms: float) -> dict:
                                 for ms, n, part, op in elementwise[:20]]}
 
 
-def _profile_step(step, batch, step_ms, parts=None):
+def _profile_step(step, batch, step_ms, parts=None, trace_dir=None):
     """One more step under ``torch.profiler``: device busy time (CUDA
     kernel time, one stream) against the unprofiled step time, and the
     kernels that take it; with ``parts`` (a :class:`_StepParts`) entered
-    around it, also the step's breakdown by part and aten op."""
+    around it, also the step's breakdown by part and aten op.  With
+    ``trace_dir`` the profiler is ``paddle_tpu_torch.profiler.xla_trace``,
+    which also writes the step's Chrome trace there."""
     import contextlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    if trace_dir is None:
+        ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    else:
+        from paddle_tpu_torch.profiler import xla_trace
+
+        ctx = xla_trace(trace_dir)
     with parts or contextlib.nullcontext():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with ctx as prof:
             step(*batch)
             torch.cuda.synchronize()
     rows = device_time_rows(prof)
@@ -4857,16 +4880,18 @@ def _ernie_batch(rng, cfg):
     return ids, types, labels, mask, lens
 
 
-def _ernie_mask_bias(dtype="bfloat16"):
+def _ernie_mask_bias(dtype="bfloat16", mask=None):
     """The fine-tune batch's [B, 1, 1, L] additive mask as its captured
     step hands it to K3: a broadcast bias on the card, cast to bf16 by an
     O2 model's attention (``finfo(float32).min`` becomes -inf), as it is
-    in an fp32 one (``hapi_ernie_cls``)."""
+    in an fp32 one (``hapi_ernie_cls``).  ``mask``: another batch's numpy
+    mask (``_ernie_batch``'s, seed 0, by default)."""
     import torch
 
     from paddle_tpu_torch import ernie_base_config
 
-    mask = _ernie_batch(np.random.RandomState(0), ernie_base_config())[3]
+    if mask is None:
+        mask = _ernie_batch(np.random.RandomState(0), ernie_base_config())[3]
     return torch.from_numpy(mask).cuda().to(getattr(torch, dtype))
 
 
@@ -5901,7 +5926,7 @@ def time_flash():
     return out
 
 
-def time_flash_ernie(dtype="bfloat16"):
+def time_flash_ernie(dtype="bfloat16", mask=None):
     """K3 at the ERNIE fine-tune's shape (``train_ernie_cls``): bf16,
     B 32 x H 12 x L 384 x D 64, non-causal, on the padding of the
     fine-tune's ragged lengths (``_ernie_batch``, seed 0) in both of the
@@ -5917,7 +5942,9 @@ def time_flash_ernie(dtype="bfloat16"):
     backward, over the dtype's tensor-core peak; bytes read each input
     once (q, k, v, the lanes or the bias; backward also o, dO, the stats)
     and write each output once (o, stats; dq, dk, dv).  Returns {(name,
-    mode): record}."""
+    mode): record}.  ``mask``: another batch's numpy mask (the launched
+    IMDB fine-tune's, ``imdb_first_batch_mask``), timed in the bias mode
+    only, as its captured step gives it."""
     import torch
     import torch.nn.functional as tF
 
@@ -5928,24 +5955,28 @@ def time_flash_ernie(dtype="bfloat16"):
     tdt = getattr(torch, dtype)
     peak = BF16_TC_FLOPS_PER_S if dtype == "bfloat16" \
         else FP32_3XTF32_FLOPS_PER_S
-    lens = _ernie_batch(np.random.RandomState(0), ernie_base_config())[4]
+    bias_only = dtype == "float32" or mask is not None
+    if mask is None:
+        lens = _ernie_batch(np.random.RandomState(0), ernie_base_config())[4]
+    else:
+        lens = (mask[:, 0, 0, :] == 0).sum(-1)
     gen = torch.Generator(device="cuda").manual_seed(4)
     lane_args, do = flash_case(gen, b, h, l, l, d, tdt, causal=False,
                                seg="pad")
     valid = torch.arange(l, device="cuda")[None, :] < torch.from_numpy(
         lens).cuda()[:, None]
     lane_args["kv_seg"] = torch.where(valid, 0, 1).to(torch.int32)
-    bias = _ernie_mask_bias(dtype)
+    bias = _ernie_mask_bias(dtype, mask)
     modes = {"lanes": (lane_args, valid[:, None, None, :], 2 * b * l * 4),
              "bias": (dict(lane_args, q_seg=None, kv_seg=None, bias=bias),
                       bias, b * l * bias.element_size())}
-    if dtype == "float32":
+    if bias_only:
         del modes["lanes"]
     pairs = h * l * int(lens.sum())
     tensor_bytes = b * h * l * d * tdt.itemsize
     q, k, v = (lane_args[n].detach().requires_grad_() for n in "qkv")
     out = {}
-    for mode, (args, mask, mask_bytes) in modes.items():
+    for mode, (args, sdpa_mask, mask_bytes) in modes.items():
         o, stats = fk.flash_attention_forward_kernel(**args)
         stats_bytes = stats.numel() * 4
         work = {"flash_attention_forward_kernel":
@@ -5954,8 +5985,9 @@ def time_flash_ernie(dtype="bfloat16"):
                 (10 * d * pairs, 8 * tensor_bytes + stats_bytes
                  + mask_bytes)}
         lib_fwd = cuda_ms(lambda: tF.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), iters=20)
-        lib_out = tF.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            q, k, v, attn_mask=sdpa_mask), iters=20)
+        lib_out = tF.scaled_dot_product_attention(q, k, v,
+                                                  attn_mask=sdpa_mask)
         lib_bwd = cuda_ms(lambda: torch.autograd.grad(
             lib_out, (q, k, v), do, retain_graph=True), iters=10)
         runs = {"flash_attention_forward_kernel":
@@ -8023,8 +8055,6 @@ COMPRESS_STEPS, COMPRESS_CALIB = 4, 4
 # logits' largest magnitude: 12 layers of random weights, every Linear's
 # input clipped at its range over 4 calibration batches
 PTQ_REL_BOUND = 0.5
-RESUME_STEPS, RESUME_KILL_AFTER, RESUME_EVERY = 8, 5, 2
-RESUME_TIMEOUT_S = 300
 R50_FIT_BATCH, R50_FIT_STEPS = 128, 6
 R50_FIT_LR = 0.05  # 0.1 a batch of 256, scaled linearly
 
@@ -8204,7 +8234,8 @@ def _ernie_dataset(n, seed, labels=True):
     return ErnieSamples()
 
 
-def _ernie_cls(seed=0, dropout=HAPI_ERNIE_DROPOUT):
+def _ernie_cls(seed=0, dropout=HAPI_ERNIE_DROPOUT,
+               num_classes=ERNIE_CLASSES):
     """The ERNIE-base classifier on the card (the default device), its
     hidden dropout ``dropout`` and its attention-probability dropout 0
     (each encoder layer's ``attn_dropout``): K3 has no dropout, and
@@ -8213,7 +8244,7 @@ def _ernie_cls(seed=0, dropout=HAPI_ERNIE_DROPOUT):
                                   ernie_base_config)
 
     net = TransformerForSequenceClassification(
-        num_classes=ERNIE_CLASSES, dropout=dropout, seed=seed,
+        num_classes=num_classes, dropout=dropout, seed=seed,
         **ernie_base_config())
     for layer in net.backbone.encoder.layers:
         layer.self_attn.dropout = 0.0
@@ -8505,131 +8536,6 @@ def compress_ernie():
     del model, net, pruned, data, batches, xs
     gc.collect()
     torch.cuda.empty_cache()
-    return out
-
-
-def resume_child(workdir, mode) -> int:
-    """``auto_resume``'s trainer (``--resume-child DIR MODE``): the ERNIE
-    classifier (seed 0, dropout 0.1, fp32) by ``Model.train_batch`` on
-    ``RESUME_STEPS`` batches, with ``AutoCheckpoint(every_n_steps=2)`` in
-    DIR unless MODE is ``full``.  Prints ``START n``, then ``STEP i
-    <loss.hex()>`` after each step's snapshot; in MODE ``crash`` it blocks
-    after step ``RESUME_KILL_AFTER`` for the parent's SIGKILL.  Ends with
-    ``LAUNCHES <json>``, its fp32 K3 launches."""
-    import torch
-
-    import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.incubate import AutoCheckpoint
-    from paddle_tpu_torch.io import DataLoader
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    paddle.seed(0)
-    model = paddle.Model(_ernie_cls())
-    opt = paddle.optimizer.AdamW(HAPI_ERNIE_LR,
-                                 parameters=model.network.parameters())
-    model.prepare(opt, paddle.nn.CrossEntropyLoss())
-    batches = list(DataLoader(_ernie_dataset(RESUME_STEPS * ERNIE_BATCH, 3),
-                              batch_size=ERNIE_BATCH))
-    acp = None
-    if mode != "full":
-        acp = AutoCheckpoint({"model": model.network, "opt": opt},
-                             checkpoint_dir=workdir,
-                             every_n_steps=RESUME_EVERY)
-    start = acp.start_step if acp is not None else 0
-    print("START %d" % start, flush=True)
-    for i in range(start, RESUME_STEPS):
-        ids, mask, types, labels = batches[i]
-        loss = model.train_batch([ids, mask, types], [labels])[0]
-        if acp is not None:
-            acp.after_step(i)
-        print("STEP %d %s" % (i, float(loss).hex()), flush=True)
-        if mode == "crash" and i == RESUME_KILL_AFTER:
-            sys.stdin.readline()  # the parent kills us here
-    print("LAUNCHES %s" % json.dumps(_fp32_k3()), flush=True)
-    return 0
-
-
-def _resume_run(root, workdir, mode):
-    """One ``--resume-child`` process: ({step: loss}, start, launches);
-    in ``crash`` mode it is killed with SIGKILL after its step
-    ``RESUME_KILL_AFTER``."""
-    import signal
-
-    proc = subprocess.Popen(
-        [sys.executable, os.path.join(root, "chip_smoke.py"),
-         "--resume-child", workdir, mode], stdin=subprocess.PIPE,
-        stdout=subprocess.PIPE, text=True, cwd=root)
-    losses, start, launches = {}, None, {}
-    deadline = time.monotonic() + RESUME_TIMEOUT_S
-    try:
-        for line in proc.stdout:
-            if time.monotonic() > deadline:
-                raise TimeoutError("resume child %s timed out" % mode)
-            parts = line.split()
-            if not parts:
-                continue
-            if parts[0] == "START":
-                start = int(parts[1])
-            elif parts[0] == "STEP":
-                losses[int(parts[1])] = float.fromhex(parts[2])
-                if mode == "crash" and int(parts[1]) == RESUME_KILL_AFTER:
-                    os.kill(proc.pid, signal.SIGKILL)
-            elif parts[0] == "LAUNCHES":
-                launches = json.loads(line.split(None, 1)[1])
-        rc = proc.wait(timeout=RESUME_TIMEOUT_S)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    want_rc = -signal.SIGKILL if mode == "crash" else 0
-    assert rc == want_rc, (mode, rc)
-    return losses, start, launches
-
-
-def auto_resume(root):
-    """``auto_resume``: the classifier trained ``RESUME_STEPS`` steps in a
-    child with ``AutoCheckpoint(every_n_steps=2)``, killed by SIGKILL after
-    step ``RESUME_KILL_AFTER``, relaunched: the relaunch must start at the
-    step after the last snapshot and its losses must equal an
-    uninterrupted child's bit for bit (dropout 0.1: the snapshot carries
-    the CUDA generator's seed and offset).  The snapshots go to the
-    git-ignored ``scratch_chip/resume/``, removed after."""
-    import shutil
-
-    workdir = os.path.join(root, "scratch_chip", "resume")
-    shutil.rmtree(workdir, ignore_errors=True)
-    t0 = time.perf_counter()
-    try:
-        full, _, full_k3 = _resume_run(root, workdir, "full")
-        t1 = time.perf_counter()
-        crashed, _, _ = _resume_run(root, workdir, "crash")
-        t2 = time.perf_counter()
-        resumed, start, resumed_k3 = _resume_run(root, workdir, "resume")
-        t3 = time.perf_counter()
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    assert sorted(full) == list(range(RESUME_STEPS))
-    assert sorted(crashed) == list(range(RESUME_KILL_AFTER + 1))
-    # snapshots after steps 1, 3, 5: the relaunch starts at 6
-    assert start == RESUME_KILL_AFTER + 1 and sorted(resumed) == list(
-        range(start, RESUME_STEPS)), (start, sorted(resumed))
-    before = [crashed[i] for i in sorted(crashed)]
-    after = [resumed[i] for i in sorted(resumed)]
-    want_before = [full[i] for i in sorted(crashed)]
-    want_after = [full[i] for i in sorted(resumed)]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(before + after,
-                                                   want_before + want_after))
-    bit_equal = before == want_before and after == want_after
-    assert bit_equal, (before, want_before, after, want_after, rel)
-    out = {"steps": RESUME_STEPS, "killed_after": RESUME_KILL_AFTER,
-           "resumed_at": start, "every_n_steps": RESUME_EVERY,
-           "losses_full": [full[i] for i in sorted(full)],
-           "losses_resumed": after, "bit_equal": bit_equal,
-           "max_rel_diff": rel, "full_s": t1 - t0, "crash_s": t2 - t1,
-           "resume_s": t3 - t2,
-           "k3_fp32_launches": {k: full_k3.get(k, 0) + resumed_k3.get(k, 0)
-                                for k in set(full_k3) | set(resumed_k3)}}
     return out
 
 
@@ -10123,6 +10029,728 @@ def deploy_phases(root):
     return out
 
 
+# -- the last modules: the launcher, elastic relaunch, text, the profiler -----
+
+# the aclImdb corpus the launched fine-tune reads: 2,048 train and 512 test
+# reviews (the real corpus has 25,000 + 25,000), lengths log-normal around
+# IMDB's median of 174 words, words drawn zipf(ZIPF_A) from IMDB_WORDS
+# made-up words, numpy seed 0
+IMDB_TRAIN, IMDB_TEST = 2048, 512
+IMDB_MEDIAN_WORDS, IMDB_LEN_SIGMA, IMDB_MAX_WORDS = 174, 0.65, 2470
+IMDB_WORDS = 30000
+# Imdb's frequency cutoff: the reference's 150 over 25,000 reviews, scaled
+# to the cut corpus
+IMDB_CUTOFF = 12
+ERNIE_VOCAB = 40000
+# 8 steps, the kill after step 5 and the resume at 4 (16, 9 and 8 cut
+# to keep the new phases inside the run's time limit: each snapshot of the
+# bf16 classifier's state takes ~3.7 s on the card)
+LAUNCH_STEPS, LAUNCH_FAIL_AFTER, LAUNCH_EVERY = 8, 5, 2
+LAUNCH_CLASSES, LAUNCH_WORKERS = 2, 2
+LAUNCH_TIMEOUT_S = 420
+# the heartbeat's period and the launcher's stale limit: a snapshot of the
+# bf16 classifier's state (~1.5 GB) is written between two beats
+LAUNCH_BEAT_S, LAUNCH_STALE_S = 1.0, 120.0
+# the tokenizer: the whole words of this many top ranks, then pieces
+WORDPIECE_WHOLE = 20000
+TOKENIZE_BATCH, TOKENIZE_WORKERS = 64, 2
+PROFILER_SIDE, PROFILER_CALLS = 2048, 4
+
+
+def _imdb_words(rng):
+    """``IMDB_WORDS`` distinct made-up lowercase words of 3-10 letters."""
+    letters = np.array(list("etaoinshrdlucmfwypvbgkjqxz"))
+    freq = 1.0 / np.arange(1, 27) ** 0.8
+    words, seen = [], set()
+    while len(words) < IMDB_WORDS:
+        n = int(rng.randint(3, 11))
+        w = "".join(rng.choice(letters, n, p=freq / freq.sum()))
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    return words
+
+
+def _imdb_review(rng, words, probs):
+    """One review: log-normal length, Zipf words, a capital after each
+    full stop, commas and stops sprinkled in."""
+    n = int(np.clip(rng.lognormal(np.log(IMDB_MEDIAN_WORDS),
+                                  IMDB_LEN_SIGMA), 10, IMDB_MAX_WORDS))
+    toks = [words[i] for i in rng.choice(len(words), n, p=probs)]
+    marks = rng.rand(n)
+    out, cap = [], True
+    for tok, m in zip(toks, marks):
+        if cap:
+            tok = tok.capitalize()
+        cap = m < 0.06
+        out.append(tok + ("." if cap else "," if m < 0.1 else ""))
+    return " ".join(out) + ("!" if marks[0] < 0.5 else ".")
+
+
+def write_imdb_corpus(path, seed=0):
+    """The aclImdb tarball (``aclImdb/{train,test}/{pos,neg}/<id>_<rating>
+    .txt``, the layout ``text.Imdb`` parses) at ``path``; returns (every
+    review in the order written, the word list)."""
+    import io
+    import tarfile
+
+    rng = np.random.RandomState(seed)
+    words = _imdb_words(rng)
+    probs = 1.0 / np.arange(1, len(words) + 1) ** ZIPF_A
+    probs /= probs.sum()
+    texts = []
+    with tarfile.open(path, "w:gz") as tf:
+        for split, n in (("train", IMDB_TRAIN), ("test", IMDB_TEST)):
+            for label in ("pos", "neg"):
+                for i in range(n // 2):
+                    text = _imdb_review(rng, words, probs)
+                    rating = rng.randint(7, 11) if label == "pos" \
+                        else rng.randint(1, 5)
+                    data = text.encode("utf-8")
+                    info = tarfile.TarInfo("aclImdb/%s/%s/%d_%d.txt"
+                                           % (split, label, i, rating))
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+                    texts.append(text)
+    return texts, words
+
+
+_IMDB = {}
+
+
+def imdb_corpus(root):
+    """The last-module phases' corpus, written once per run
+    (``write_imdb_corpus``) into the git-ignored ``scratch_chip/imdb/``,
+    which ``main`` removes after those phases: (its path, every review,
+    the word list, the seconds the write took)."""
+    if not _IMDB:
+        base = os.path.join(root, "scratch_chip", "imdb")
+        os.makedirs(base, exist_ok=True)
+        path = os.path.join(base, "aclImdb_v1.tar.gz")
+        t0 = time.perf_counter()
+        texts, words = write_imdb_corpus(path)
+        _IMDB.update(path=path, texts=texts, words=words,
+                     write_s=time.perf_counter() - t0)
+    return _IMDB["path"], _IMDB["texts"], _IMDB["words"], _IMDB["write_s"]
+
+
+def imdb_first_batch_mask(root):
+    """The launched fine-tune's first batch's [B, 1, 1, L] additive
+    padding mask, made as its trainer makes it (``text.Imdb`` over the
+    corpus, ``_imdb_order``, ``_imdb_collate``): K3's IMDB parity case
+    and its timing rows."""
+    from paddle_tpu_torch import text
+
+    ds = text.Imdb(data_file=imdb_corpus(root)[0], mode="train",
+                   cutoff=IMDB_CUTOFF)
+    return _imdb_collate([ds[int(i)] for i in
+                          _imdb_order()[:ERNIE_BATCH]])[1]
+
+
+def _imdb_order():
+    """The fine-tune's fixed order of the train reviews (Imdb lists the
+    negatives first): a permutation from numpy seed 0."""
+    return np.random.RandomState(0).permutation(IMDB_TRAIN)
+
+
+def _imdb_collate(samples):
+    """(ids, label) samples to (ids [B, L] cut or padded with 0, the
+    additive key-padding mask [B, 1, 1, L], token types [B, L], labels),
+    in numpy (it runs in the loader's workers)."""
+    b, l = len(samples), ERNIE_SEQ
+    ids = np.zeros((b, l), np.int64)
+    lens = np.array([min(len(doc), l) for doc, _ in samples])
+    for row, (doc, _) in enumerate(samples):
+        ids[row, :lens[row]] = doc[:lens[row]]
+    mask = np.where(np.arange(l)[None, :] < lens[:, None], 0.0,
+                    np.finfo(np.float32).min).astype(np.float32)
+    labels = np.array([label for _, label in samples], np.int64)
+    return ids, mask[:, None, None, :], np.zeros_like(ids), labels
+
+
+def _imdb_steps(ds, start):
+    """The reviews of steps ``start``..``LAUNCH_STEPS - 1`` in the
+    fine-tune's order, as a ``Dataset``."""
+    from paddle_tpu_torch.io import Dataset
+
+    order = _imdb_order()[start * ERNIE_BATCH:LAUNCH_STEPS * ERNIE_BATCH]
+
+    class Steps(Dataset):
+        def __len__(self):
+            return len(order)
+
+        def __getitem__(self, i):
+            return ds[int(order[i])]
+
+    return Steps()
+
+
+def _process_start_time() -> float:
+    """This process's start on the ``time.time()`` clock, from
+    ``/proc/self/stat`` (field 22, clock ticks after boot) and ``/proc/stat``
+    (``btime``): 10 ms resolution."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f
+                     if line.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _autocast_net(net):
+    """``net`` whose forward runs under ``auto_cast(level="O1",
+    dtype="bfloat16")``: ``Model`` calls the network outside its loss, and
+    an O2 model's forward needs the autocast its training legs give it."""
+    from paddle_tpu_torch import amp, nn
+
+    class Autocast(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, *args):
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                return self.net(*args)
+
+    return Autocast()
+
+
+def launch_child(workdir, corpus, elastic_dir, sentinel, gate) -> int:
+    """``launch_imdb_ernie``'s trainer (``--launch-child WORKDIR CORPUS
+    ELASTIC SENTINEL GATE``), started by ``distributed.launch``: joins the
+    world
+    (one process: no rendezvous), heartbeats into ``ELASTIC``, reads the
+    train split with ``text.Imdb``, and fine-tunes the ERNIE-base
+    classifier (2 classes, hidden dropout 0.1, attention dropout 0) O2
+    bf16 with AdamW by ``Model.fit`` over a 2-worker ``DataLoader``,
+    ``LAUNCH_STEPS`` steps of 32 x 384, snapshotting with
+    ``AutoCheckpoint(every_n_steps=2)`` into the launcher's
+    ``$PADDLE_AUTO_CHECKPOINT_DIR`` and resuming from it.  Each step's loss
+    goes through ``LocalFS`` as a file ``step<i>_from<start>_<hex>``.
+    With a SENTINEL that does not exist yet, it makes it and kills itself
+    with SIGKILL after step ``LAUNCH_FAIL_AFTER``, before that step's
+    snapshot: no cleanup runs, its loader's workers are orphaned.  SENTINEL
+    ``-`` is the uninterrupted reference run: no snapshots (it never
+    resumes), and it also times the bare captured step and profiles one,
+    then makes the file GATE; any other run waits for GATE before it
+    builds its model, so the two launches share the card only at their
+    ends.  Writes ``record_from<start>.json``; its start-up seconds run
+    from the process's start (``/proc``)."""
+    t_entry = _process_start_time()
+    import signal
+
+    import torch
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import text
+    from paddle_tpu_torch.distributed.fleet import elastic
+    from paddle_tpu_torch.distributed.fleet.utils.fs import LocalFS
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.incubate import AutoCheckpoint
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    t_imports = time.time()
+    _build.load("flash_attention")
+    t_k3 = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.init_parallel_env()
+    rank = dist.get_rank()
+    assert world.nranks == 1 and not world.process_backed and rank == 0
+    beats = elastic.ElasticManager(elastic_dir, 1,
+                                   heartbeat_timeout=LAUNCH_STALE_S)
+    beats.register(rank, os.environ["PADDLE_CURRENT_ENDPOINT"])
+    stop_beats = elastic.start_heartbeat(beats, rank, LAUNCH_BEAT_S)
+    ds = text.Imdb(data_file=corpus, mode="train", cutoff=IMDB_CUTOFF)
+    t_data = time.time()
+    reference = sentinel == "-"
+    deadline = time.monotonic() + LAUNCH_TIMEOUT_S
+    while not reference and not os.path.exists(gate):
+        if time.monotonic() > deadline:
+            raise TimeoutError("the reference trainer never opened %s" % gate)
+        time.sleep(0.2)
+    paddle.seed(0)
+    net = _ernie_cls(num_classes=LAUNCH_CLASSES)
+    opt = paddle.optimizer.AdamW(HAPI_ERNIE_LR, parameters=net.parameters())
+    net, opt = _o2(net, opt)
+    model = paddle.Model(_autocast_net(net))
+    model.prepare(opt, _amp_loss(paddle.nn.CrossEntropyLoss(), True))
+    # the uninterrupted launch is the reference run: it resumes from
+    # nothing and writes no snapshots (a snapshot only reads the state)
+    ckpt = None if reference else AutoCheckpoint(
+        {"model": net, "opt": opt}, every_n_steps=LAUNCH_EVERY,
+        name="imdb_ernie")
+    start = 0 if reference else ckpt.start_step
+    fs = LocalFS()
+    losses = os.path.join(workdir, "losses")
+    fs.mkdirs(losses)
+    fs.touch(os.path.join(workdir, "start_%02d" % start))
+    fail = sentinel != "-" and not os.path.exists(sentinel)
+    loader = DataLoader(_imdb_steps(ds, start), batch_size=ERNIE_BATCH,
+                        num_workers=LAUNCH_WORKERS, collate_fn=_imdb_collate)
+    rec = {"start": start, "rank": rank, "world": world.nranks,
+           "word_dict": len(ds.word_idx), "reviews": len(ds),
+           "t_entry": t_entry, "imports_s": t_imports - t_entry,
+           "k3_load_s": t_k3 - t_imports, "dataset_s": t_data - t_k3,
+           "endpoint": os.environ["PADDLE_CURRENT_ENDPOINT"],
+           "checkpoint_dir": os.environ["PADDLE_AUTO_CHECKPOINT_DIR"],
+           "snapshots_ms": []}
+
+    def write_record():
+        rec["k3_launches_by_dtype"] = fk.launch_counts_by_dtype()
+        with open(os.path.join(workdir, "record_from%02d.json" % start),
+                  "w") as f:
+            json.dump(rec, f)
+
+    class Steps(Callback):
+        """Stamps each step's start and end and the end of its
+        bookkeeping (the loss file, the snapshot)."""
+
+        def __init__(self):
+            super().__init__()
+            self.begins, self.ends, self.dones = [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.begins.append(time.perf_counter())
+            if step == 0:
+                rec["t_first_step"] = time.time()
+                rec["startup_s"] = rec["t_first_step"] - t_entry
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ends.append(time.perf_counter())
+            i = start + step
+            fs.touch(os.path.join(losses, "step%02d_from%02d_%s" % (
+                i, start, float(logs["loss"][0]).hex())))
+            if fail and i == LAUNCH_FAIL_AFTER:
+                rec["t_fail"] = time.time()
+                with open(sentinel, "w") as f:
+                    f.write("killed after step %d" % i)
+                write_record()
+                os.kill(os.getpid(), signal.SIGKILL)
+            if ckpt is not None:
+                ckpt.after_step(i)
+            self.dones.append(time.perf_counter())
+            if ckpt is not None and (i + 1) % LAUNCH_EVERY == 0:
+                rec["snapshots_ms"].append((self.dones[-1]
+                                            - self.ends[-1]) * 1e3)
+
+    clock = Steps()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(loader, epochs=1, verbose=0, callbacks=[clock])
+    rec["fit_s"] = time.perf_counter() - t0
+    rec["steps_run"] = len(clock.ends)
+    # after the warm-up and capture steps: a step's period runs from the
+    # end of the previous step's bookkeeping (its loss file, its snapshot,
+    # timed apart) to the end of the step, the loader's wait from there
+    # to the step's start
+    skip = max(0, min(2, len(clock.ends) - 2))
+    periods = [(b - a) * 1e3 for a, b in zip(clock.dones[skip:],
+                                             clock.ends[skip + 1:])]
+    waits = [(b - a) * 1e3 for a, b in zip(clock.dones[skip:],
+                                           clock.begins[skip + 1:])]
+    rec["step_period_ms"] = float(np.mean(periods))
+    rec["step_period_ms_p50"] = float(np.median(periods))
+    rec["loader_wait_share"] = float(np.sum(waits) / np.sum(periods))
+    # real tokens: each review's ids up to ERNIE_SEQ, without the padding
+    order = _imdb_order()
+    real = [sum(min(len(ds[int(j)][0]), ERNIE_SEQ) for j in
+                order[i * ERNIE_BATCH:(i + 1) * ERNIE_BATCH])
+            for i in range(start, start + len(clock.ends))]
+    rec["real_tokens_per_step"] = float(np.mean(real))
+    rec["tokens_per_s"] = float(np.sum(real[skip + 1:])
+                                / (np.sum(periods) / 1e3))
+    rec["positions_per_s"] = ERNIE_BATCH * ERNIE_SEQ / (
+        rec["step_period_ms"] / 1e3)
+    write_record()
+    if reference:
+        step = model._train_step
+        assert step.compile_counts() == {"train_step": 1} \
+            and step._fn.graphs() == 1
+        batch = [torch.from_numpy(a).cuda() for a in _imdb_collate(
+            [ds[int(i)] for i in _imdb_order()[:ERNIE_BATCH]])]
+        rec["first_batch_lens"] = [int(v) for v in (
+            batch[1][:, 0, 0, :] == 0).sum(-1).cpu()]
+        bare = _bare_ms(step, batch, steps=4)
+        # the profiled replay under profiler.xla_trace, in this fresh
+        # process (the long smoke process's profiler delivers no kernel
+        # records late in its run): its Chrome trace must hold the kernels
+        trace_dir = os.path.join(workdir, "trace")
+        prof = _profile_step(step, batch, rec["step_period_ms"],
+                             trace_dir=trace_dir)
+        busy = prof["device_busy_ms_per_step"]
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            kernels = [e.get("name", "") for e in json.load(f)[
+                "traceEvents"] if e.get("cat") == "kernel"]
+        rec["trace_kernel_events"] = len(kernels)
+        rec["trace_k3_events"] = sum("flash_" in k for k in kernels)
+        rec.update(bare_step_ms=bare,
+                   fit_host_ms_per_step=rec["step_period_ms"] - bare,
+                   device_busy_ms_per_step=busy,
+                   device_idle_share_fit=prof["device_idle_share"],
+                   device_idle_share_bare=None if busy is None
+                   else 1 - busy / bare,
+                   launches_per_step=prof["launches"],
+                   k3_profiled_launches_per_step=prof["k3_launches"],
+                   k3_ms_per_step=prof["k3_ms_per_step"],
+                   gemm_ms_per_step=prof["gemm_ms_per_step"],
+                   profile_top=prof["top"],
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        # the counts of the fit alone (the bare and profiled steps add
+        # replays): the main path's launches
+        k3 = rec["k3_launches_by_dtype"]
+        rec["k3_launches_with_bare"] = fk.launch_counts_by_dtype()
+        with open(os.path.join(workdir, "record_from%02d.json" % start),
+                  "w") as f:
+            json.dump(dict(rec, k3_launches_by_dtype=k3), f)
+        open(gate, "w").close()
+    stop_beats.set()
+    return 0
+
+
+class _Launch:
+    """``python -m paddle_tpu_torch.distributed.launch`` of one trainer
+    (``launch_child``) with one relaunch allowed, the elastic heartbeat
+    store, the auto-checkpoint directory, worker logs and the launcher's
+    own output under ``workdir``, started in the background."""
+
+    def __init__(self, root, workdir, corpus, sentinel, gate):
+        os.makedirs(workdir)
+        self.workdir = workdir
+        elastic_dir = os.path.join(workdir, "elastic")
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--nproc_per_node", "1", "--max_restarts", "1",
+               "--restart_delay", "0",
+               "--elastic_dir", elastic_dir,
+               "--elastic_timeout", str(LAUNCH_STALE_S),
+               "--auto_checkpoint_dir", os.path.join(workdir, "ckpt"),
+               "--log_dir", os.path.join(workdir, "log"),
+               os.path.join(root, "chip_smoke.py"), "--launch-child",
+               workdir, corpus, elastic_dir, sentinel, gate]
+        self._out = open(os.path.join(workdir, "launcher.out"), "w+")
+        self._err = open(os.path.join(workdir, "launcher.err"), "w+")
+        self.t0 = time.perf_counter()
+        # a session of its own: the launcher, its trainers and theirs
+        # (loader workers a killed trainer orphans) share one process group
+        self.proc = subprocess.Popen(cmd, cwd=root, stdout=self._out,
+                                     stderr=self._err, text=True,
+                                     start_new_session=True)
+
+    def wait(self):
+        """(return code, the launcher's stderr, {(step, start): loss},
+        {start: record}, the starts, wall seconds)."""
+        from paddle_tpu_torch.distributed.fleet.utils.fs import LocalFS
+
+        import signal
+
+        try:
+            rc = self.proc.wait(timeout=LAUNCH_TIMEOUT_S)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.terminate()
+                self.proc.wait()
+            # whatever is left of the group: SIGTERM, which the workers'
+            # shared-memory tracker ignores, so it outlives them and
+            # unlinks their segments
+            try:
+                os.killpg(self.proc.pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+        wall = time.perf_counter() - self.t0
+        self._err.seek(0)
+        stderr = self._err.read()
+        self._out.close()
+        self._err.close()
+        workdir = self.workdir
+        fs = LocalFS()
+        losses = {}
+        for name in fs.ls_dir(os.path.join(workdir, "losses"))[1]:
+            step, start, loss = name.split("_", 2)
+            losses[(int(step[4:]), int(start[4:]))] = float.fromhex(loss)
+        records = {}
+        for name in os.listdir(workdir):
+            if name.startswith("record_from"):
+                with open(os.path.join(workdir, name)) as f:
+                    rec = json.load(f)
+                records[rec["start"]] = rec
+        starts = sorted(int(n[6:]) for n in os.listdir(workdir)
+                        if n.startswith("start_"))
+        if rc != 0:
+            tail = ""
+            log_path = os.path.join(workdir, "log", "workerlog.0")
+            if os.path.exists(log_path):
+                with open(log_path) as f:
+                    tail = f.read()[-4000:]
+            log("launch failed (rc %d):\n%s\nworker log:\n%s"
+                % (rc, stderr[-4000:], tail))
+        return rc, stderr, losses, records, starts, wall
+
+
+def launch_imdb_ernie(root, imdb_mask):
+    """``launch_imdb_ernie``: config #4's ERNIE-base fine-tuned on the
+    aclImdb-format corpus (``imdb_corpus``) by a trainer that
+    ``distributed.launch`` starts (``launch_child``; its workdirs in the
+    git-ignored ``scratch_chip/launch/``), twice: uninterrupted, and with
+    the trainer killed by SIGKILL after step ``LAUNCH_FAIL_AFTER`` on its
+    first attempt, the second launch started as the first trainer begins
+    its fit (it reaches the card after the first trainer's
+    measurements).  The launcher must report the kill and relaunch the
+    gang; the relaunched trainer resumes at the step after its last
+    snapshot, and every loss of the interrupted launch must equal the
+    uninterrupted launch's bit for bit.  K3 must run bf16, forward and
+    backward, 12 launches a step each, in the trainer, whose first batch
+    must have ``imdb_mask``'s lengths.  Returns the record."""
+    import shutil
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = os.path.join(root, "scratch_chip", "launch")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    corpus, texts, _, corpus_s = imdb_corpus(root)
+    gate = os.path.join(base, "reference_measured")
+    try:
+        first = _Launch(root, os.path.join(base, "full"), corpus, "-", gate)
+        # the second launch starts once the first trainer has begun its
+        # fit: its launcher and trainer import meanwhile (the host only),
+        # and its trainer waits at the gate (the first trainer's
+        # measurements done) before it touches the card
+        while not os.path.exists(os.path.join(base, "full", "start_00")) \
+                and first.proc.poll() is None \
+                and time.perf_counter() - first.t0 < LAUNCH_TIMEOUT_S:
+            time.sleep(0.2)
+        second = _Launch(root, os.path.join(base, "relaunch"), corpus,
+                         os.path.join(base, "fail_once"), gate)
+        full_rc, _, full_losses, full_recs, full_starts, full_wall = \
+            first.wait()
+        if full_rc != 0:
+            second.proc.terminate()
+        cut_rc, cut_err, cut_losses, cut_recs, cut_starts, cut_wall = \
+            second.wait()
+        both_wall = time.perf_counter() - first.t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    assert full_rc == 0 and cut_rc == 0, (full_rc, cut_rc)
+    steps = list(range(LAUNCH_STEPS))
+    want = {s: full_losses[(s, 0)] for s in steps}
+    assert sorted(full_losses) == [(s, 0) for s in steps], sorted(full_losses)
+    # the last snapshot before the failure: after step LAUNCH_FAIL_AFTER - 2
+    resumed_at = LAUNCH_FAIL_AFTER - 1
+    assert "relaunching gang" in cut_err, cut_err[-2000:]
+    assert "exited with code -9" in cut_err, cut_err[-2000:]
+    assert cut_starts == [0, resumed_at] and full_starts == [0], cut_starts
+    first = {s: l for (s, st), l in cut_losses.items() if st == 0}
+    second = {s: l for (s, st), l in cut_losses.items() if st == resumed_at}
+    assert sorted(first) == list(range(LAUNCH_FAIL_AFTER + 1))
+    assert sorted(second) == list(range(resumed_at, LAUNCH_STEPS))
+    bit_equal = all(first[s] == want[s] for s in first) and all(
+        second[s] == want[s] for s in second)
+    assert bit_equal, (first, second, want)
+    rec = full_recs[0]
+    layers = 12
+    k3 = rec["k3_launches_by_dtype"]
+    for name in ("flash_attention_forward_kernel",
+                 "flash_attention_backward_kernel"):
+        assert k3[name]["bfloat16"] == layers * LAUNCH_STEPS \
+            and k3[name]["float32"] == 0, k3
+    assert rec["word_dict"] < ERNIE_VOCAB, rec["word_dict"]
+    assert rec["reviews"] == IMDB_TRAIN and all(np.isfinite(list(
+        want.values())))
+    assert rec["first_batch_lens"] == (imdb_mask[:, 0, 0, :] == 0).sum(
+        -1).tolist(), rec["first_batch_lens"]
+    failed, relaunched = cut_recs[0], cut_recs[resumed_at]
+    out = {"train_reviews": IMDB_TRAIN, "test_reviews": IMDB_TEST,
+           "corpus_words": sum(len(t.split()) for t in texts),
+           "word_dict": rec["word_dict"], "corpus_write_s": corpus_s,
+           "steps": LAUNCH_STEPS, "batch": ERNIE_BATCH, "seq": ERNIE_SEQ,
+           "failed_after": LAUNCH_FAIL_AFTER, "resumed_at": resumed_at,
+           "starts_interrupted": cut_starts, "bit_equal": bit_equal,
+           "losses": [want[s] for s in steps],
+           "launch_wall_s": full_wall, "relaunch_launch_wall_s": cut_wall,
+           "both_launches_wall_s": both_wall,
+           "startup_s": rec["startup_s"], "imports_s": rec["imports_s"],
+           "k3_load_s": rec["k3_load_s"], "dataset_s": rec["dataset_s"],
+           "relaunch_startup_s": relaunched["startup_s"],
+           "failure_to_first_step_s": relaunched["t_first_step"]
+           - failed["t_fail"],
+           "k3_launches_by_dtype": k3}
+    for key in ("fit_s", "step_period_ms", "step_period_ms_p50",
+                "bare_step_ms", "fit_host_ms_per_step",
+                "device_busy_ms_per_step", "device_idle_share_fit",
+                "device_idle_share_bare", "loader_wait_share",
+                "launches_per_step", "k3_profiled_launches_per_step",
+                "k3_ms_per_step", "gemm_ms_per_step", "profile_top",
+                "real_tokens_per_step", "tokens_per_s", "positions_per_s",
+                "peak_mem_gb", "first_batch_lens", "trace_kernel_events",
+                "trace_k3_events"):
+        out[key] = rec[key]
+    snaps = failed["snapshots_ms"] + relaunched["snapshots_ms"]
+    out["snapshots_interrupted"] = len(snaps)
+    out["snapshot_ms_mean"] = float(np.mean(snaps))
+    out["relaunched_step_period_ms"] = relaunched["step_period_ms"]
+    out["relaunched_loader_wait_share"] = relaunched["loader_wait_share"]
+    return out
+
+
+def _wordpiece_vocab(path, words):
+    """A 40,000-entry WordPiece vocabulary for the corpus: the special
+    tokens, punctuation, single letters and their ``##`` forms, the
+    ``WORDPIECE_WHOLE`` most frequent words whole, then the rarer words'
+    halves (the first half, ``##`` and the second), then ``##`` letter
+    pairs and ``[unused<i>]`` to fill."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ",", ".", "!",
+             "?"] + list(letters) + ["##" + c for c in letters]
+    vocab += words[:WORDPIECE_WHOLE]
+    seen = set(vocab)
+    pieces = []
+    for w in words[WORDPIECE_WHOLE:]:
+        for p in (w[:len(w) // 2], "##" + w[len(w) // 2:]):
+            if p not in seen:
+                seen.add(p)
+                pieces.append(p)
+    fill = ["##" + a + b for a in letters for b in letters]
+    for p in pieces + [f for f in fill if f not in seen]:
+        if len(vocab) == ERNIE_VOCAB:
+            break
+        vocab.append(p)
+    vocab += ["[unused%d]" % i for i in range(ERNIE_VOCAB - len(vocab))]
+    assert len(vocab) == len(set(vocab)) == ERNIE_VOCAB
+    with open(path, "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    return path
+
+
+def tokenize_imdb(root, texts, words):
+    """``tokenize_imdb``: every review of the corpus (train and test,
+    2,560) through ``text.WordpieceTokenizer`` over a 40,000-entry
+    vocabulary made for it (``_wordpiece_vocab``) three ways: the native
+    C++ core (built by ``g++`` at first use into ``_build/``), the Python
+    path, and the native core inside 2 ``DataLoader`` workers.  The ids
+    must be identical; documents a second on the host for each."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import text
+    from paddle_tpu_torch.io import DataLoader, Dataset
+
+    tmp = tempfile.mkdtemp(dir=os.path.join(root, "scratch_chip"))
+    try:
+        vocab = text.load_vocab(_wordpiece_vocab(
+            os.path.join(tmp, "vocab.txt"), words))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    assert text.native_available()
+    native = text.WordpieceTokenizer(vocab)
+    build_s = time.perf_counter() - t0
+    assert native._handle is not None
+    python = text.WordpieceTokenizer(vocab, use_native=False)
+    t0 = time.perf_counter()
+    native_ids = [native.tokenize(t) for t in texts]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python_ids = [python.tokenize(t) for t in texts]
+    python_s = time.perf_counter() - t0
+    width = max(len(ids) for ids in native_ids)
+
+    class Reviews(Dataset):
+        """Each review tokenized natively in the worker, padded with -1."""
+
+        def __len__(self):
+            return len(texts)
+
+        def __getitem__(self, i):
+            out = np.full(width, -1, np.int32)
+            ids = native.tokenize(texts[i])
+            out[:len(ids)] = ids
+            return out
+
+    t0 = time.perf_counter()
+    loaded = np.concatenate([b.numpy() for b in DataLoader(
+        Reviews(), batch_size=TOKENIZE_BATCH, num_workers=TOKENIZE_WORKERS,
+        device="cpu")])
+    loader_s = time.perf_counter() - t0
+    unk = vocab["[UNK]"]
+    for i, (a, b) in enumerate(zip(native_ids, python_ids)):
+        assert np.array_equal(a, b), i
+        assert np.array_equal(loaded[i, :len(a)], a) \
+            and (loaded[i, len(a):] == -1).all(), i
+    tokens = sum(len(a) for a in native_ids)
+    n = len(texts)
+    return {"documents": n, "vocab": len(vocab), "tokens": tokens,
+            "unk_share": sum(int((a == unk).sum()) for a in native_ids)
+            / tokens,
+            "native_build_and_load_s": build_s,
+            "native_docs_per_s": n / native_s,
+            "python_docs_per_s": n / python_s,
+            "loader_docs_per_s": n / loader_s,
+            "loader_workers": TOKENIZE_WORKERS,
+            "native_over_python": python_s / native_s, "identical": True}
+
+
+def run_check_and_profiler(launched):
+    """``run_check_and_profiler``: ``utils.run_check()`` on the card; the
+    op profiler over installed ops on the card under ``FLAGS_benchmark``
+    (its table names each with its call count); the Chrome trace
+    ``profiler.xla_trace`` wrote in the launched trainer (``launched``:
+    ``launch_imdb_ernie``'s record) holds its step's CUDA kernels, K3's
+    among them; ``device_peak_flops`` is the card's by its name;
+    ``StepTimer`` on a bf16 product."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import profiler
+
+    name = torch.cuda.get_device_name(0)
+    check = paddle.utils.run_check()
+    assert check["device"].startswith("cuda") and check["name"] == name
+    x = torch.randn(PROFILER_SIDE, PROFILER_SIDE, device="cuda")
+    paddle.set_flags({"FLAGS_benchmark": True})
+    try:
+        profiler.start_profiler("All")
+        for _ in range(PROFILER_CALLS):
+            y = paddle.matmul(x, x)
+            y = paddle.nn.functional.relu(y)
+            y = paddle.add(y, x)
+        paddle.nn.functional.softmax(y, axis=-1)
+        table = profiler.stop_profiler("total", os.devnull)
+    finally:
+        paddle.set_flags({"FLAGS_benchmark": False})
+    rows = {r.split()[0]: (int(r.split()[1]), float(r.split()[2]))
+            for r in table.splitlines()[1:]}
+    want = {"matmul": PROFILER_CALLS, "relu": PROFILER_CALLS,
+            "add": PROFILER_CALLS, "softmax": 1}
+    assert {k: c for k, (c, _) in rows.items()} == want, table
+    assert all(ms > 0 for _, ms in rows.values()), table
+    assert launched["trace_kernel_events"] > 0 \
+        and launched["trace_k3_events"] > 0, launched
+    peak = profiler.device_peak_flops()
+    assert peak == profiler.PEAK_BF16_FLOPS.get(name), (name, peak)
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    timer = profiler.StepTimer(flops_per_step=2 * 8192 ** 3)
+    torch.matmul(a, a)
+    for _ in range(5):
+        with timer:
+            torch.matmul(a, a)
+            torch.cuda.synchronize()
+    del x, y, a
+    torch.cuda.empty_cache()
+    return {"run_check": check, "op_table_ms": {
+        k: ms for k, (_, ms) in rows.items()},
+        "op_table_calls": {k: c for k, (c, _) in rows.items()},
+        "trainer_trace_kernel_events": launched["trace_kernel_events"],
+        "trainer_trace_k3_events": launched["trace_k3_events"],
+        "device_peak_flops": peak,
+        "bf16_gemm_8192_ms": timer.step_time * 1e3,
+        "bf16_gemm_8192_mfu": timer.mfu}
+
+
 def main() -> int:
     try:
         import torch
@@ -10133,6 +10761,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script runs only on the card", file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "paddle_tpu_torch")):
         print("chip_smoke: paddle_tpu_torch/ not found beside %s; run it "
@@ -10142,8 +10771,10 @@ def main() -> int:
     sys.path.insert(0, root)
     if sys.argv[1:2] == ["--crash-child"]:
         return crash_child(sys.argv[2])
-    if sys.argv[1:2] == ["--resume-child"]:
-        return resume_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--launch-child"]:
+        return launch_child(*sys.argv[2:7])
+    import shutil
+
     from paddle_tpu_torch import TransformerLM, gpt_1p3b_config
     from paddle_tpu_torch.ops import _build
 
@@ -10165,7 +10796,10 @@ def main() -> int:
 
     parity = check_kernels()
     check_aliased_tables()
-    parity.update(check_flash_kernels())
+    # the launched fine-tune's first batch, for K3's IMDB case: its corpus
+    # is written here, before any phase
+    imdb_mask = imdb_first_batch_mask(root)
+    parity.update(check_flash_kernels(imdb_mask))
     parity.update(check_custom_kernel())
     t0 = time.perf_counter()
     door = train_custom_op(custom_op_door())
@@ -10410,10 +11044,6 @@ def main() -> int:
     hapi["compress_ernie"] = compress_ernie()
     log("compress_ernie (QAT, PTQ to Int8Linear, ASP 2:4 on the classifier):",
         json.dumps(hapi["compress_ernie"]))
-    hapi["auto_resume"] = auto_resume(root)
-    log("auto_resume (AutoCheckpoint every %d steps, SIGKILL after step %d, "
-        "relaunch):" % (RESUME_EVERY, RESUME_KILL_AFTER),
-        json.dumps(hapi["auto_resume"]))
     hapi["fit_resnet50_workers"] = fit_resnet50_workers()
     log(card)
     log("fit_resnet50_workers (ResNet50 fp32 224 by Model.fit, batch %d, "
@@ -10424,7 +11054,27 @@ def main() -> int:
     t0 = time.perf_counter()
     deploy = deploy_phases(root)
     log("deployment phases: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    last = {}
+    last["launch_imdb_ernie"] = launch_imdb_ernie(root, imdb_mask)
+    log(card)
+    log("launch_imdb_ernie (ERNIE-base O2 bf16 by Model.fit under "
+        "distributed.launch on an aclImdb corpus of %d + %d reviews, %d "
+        "steps of %d x %d, a SIGKILL after step %d and the relaunch):"
+        % (IMDB_TRAIN, IMDB_TEST, LAUNCH_STEPS, ERNIE_BATCH, ERNIE_SEQ,
+           LAUNCH_FAIL_AFTER), json.dumps(last["launch_imdb_ernie"]))
+    last["tokenize_imdb"] = tokenize_imdb(root, *imdb_corpus(root)[1:3])
+    shutil.rmtree(os.path.dirname(imdb_corpus(root)[0]), ignore_errors=True)
+    _IMDB.clear()
+    log("tokenize_imdb (WordPiece over a %d-entry vocabulary; native, "
+        "Python, %d loader workers):" % (ERNIE_VOCAB, TOKENIZE_WORKERS),
+        json.dumps(last["tokenize_imdb"]))
+    last["run_check_and_profiler"] = run_check_and_profiler(
+        last["launch_imdb_ernie"])
+    log("run_check_and_profiler:", json.dumps(last["run_check_and_profiler"]))
+    log("last-module phases: %.1f s" % (time.perf_counter() - t0))
 
+    t0 = time.perf_counter()
     timing = time_kernels()
     timing.update(time_flash())
     timing.update({(name, "ernie", mode): rec
@@ -10437,6 +11087,9 @@ def main() -> int:
     timing.update(time_flash_dist())
     timing["scale_mul_kernel"] = time_custom_kernel()
     timing["flash_deploy"] = time_flash_deploy()
+    timing.update({(name, "imdb", mode): rec for (name, mode), rec
+                   in time_flash_ernie("bfloat16", imdb_mask).items()})
+    log("kernel timing: %.1f s" % (time.perf_counter() - t0))
     kernels = []
     for name, tpu, run, kv in (
             ("paged_decode_attention_kernel",
@@ -10494,8 +11147,8 @@ def main() -> int:
                 "library_ms": t["library_ms"]})
     # the fp32 ERNIE classifier's K3 (B 32 x H 12 x L 384 x D 64) as the
     # high-level API's captured steps give it the padding (a bias), with
-    # every fp32 launch of hapi_ernie_cls, compress_ernie and auto_resume
-    # (their eager warm-ups' and evaluations' lanes included)
+    # every fp32 launch of hapi_ernie_cls and compress_ernie (their eager
+    # warm-ups' and evaluations' lanes included)
     for name, direction in (("flash_attention_forward_kernel", "forward"),
                             ("flash_attention_backward_kernel",
                              "backward")):
@@ -10506,8 +11159,7 @@ def main() -> int:
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": "paddle_tpu/ops/flash_attention.py:78",
             "launches": sum(hapi[phase]["k3_fp32_launches"][name] for phase
-                            in ("hapi_ernie_cls", "compress_ernie",
-                                "auto_resume")),
+                            in ("hapi_ernie_cls", "compress_ernie")),
             "max_abs_err": parity[name + "_ernie_fp32"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -10643,6 +11295,23 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the launched trainer's K3 (bf16, bias mode, B 32 x H 12 x L 384 x D
+    # 64 on the IMDB batch's padding), with the uninterrupted launch's
+    # launches (the trainer's own counts over its fit)
+    for name, direction in (("flash_attention_forward_kernel", "forward"),
+                            ("flash_attention_backward_kernel",
+                             "backward")):
+        t = timing[(name, "imdb", "bias")]
+        kernels.append({
+            "name": "flash_attention_launch_imdb_%s" % direction,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/flash_attention.py:78",
+            "launches": last["launch_imdb_ernie"]["k3_launches_by_dtype"][
+                name]["bfloat16"],
+            "max_abs_err": parity[name + "_ernie_imdb"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     t = timing["scale_mul_kernel"]["float32"]
     kernels.append({
         "name": "scale_mul_kernel", "route": "cuda",
@@ -10660,10 +11329,12 @@ def main() -> int:
         json.dump({"card": card, "runs": runs, "train": train,
                    "seq2seq": s2s, "vision": vision, "hapi": hapi,
                    "distributed": dist_runs, "deploy": deploy,
+                   "last_modules": last,
                    "timing": {str(k): v for k, v in timing.items()},
                    "kernels": kernels}, f,
                   default=lambda o: o.item() if hasattr(o, "item")
                   else str(o))
+    log("smoke run: %.1f s" % (time.perf_counter() - t_main))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -54,6 +54,16 @@ Python or from C (``capi``).  ``onnx.export`` writes an ONNX file, and
 ``static`` builds and runs programs of deferred ops (``Program``,
 ``Executor``, ``optimizer.minimize``).  ``enable_static``/
 ``disable_static`` set the mode ``in_dynamic_mode`` reports.
+
+Processes and data: ``python -m paddle_tpu_torch.distributed.launch``
+(or ``distributed.spawn``) starts a gang of trainers that
+``distributed.init_parallel_env()`` joins into one ``torch.distributed``
+world, relaunched after a failure (``--max_restarts``); ``text``,
+``vision.datasets`` and the legacy ``dataset`` read the standard corpora
+from files on disk (``text.WordpieceTokenizer`` has a native core),
+``reader`` decorates sample generators, ``hub`` loads a repository's
+``hubconf.py``.  ``set_device`` picks the place ``device=None`` means;
+``profiler`` times installed ops and traces the card.
 """
 from . import amp  # noqa: F401
 from . import autograd  # noqa: F401
@@ -98,6 +108,75 @@ from .models.language_model import (  # noqa: F401
 from .serving import (AdmissionTightenedError,  # noqa: F401
                       DeadlineUnattainableError, QueueFullError,
                       ServingEngine, ServingHTTPFrontend)
+from . import compat  # noqa: F401
+from . import dataset  # noqa: F401
+from . import device  # noqa: F401
+from . import hub  # noqa: F401
+from . import reader  # noqa: F401
+from . import sysconfig  # noqa: F401
+from . import text  # noqa: F401
+from .core.device import (CPUPlace, CUDAPinnedPlace,  # noqa: F401
+                          CUDAPlace, NPUPlace, Place, TPUPlace, XPUPlace,
+                          get_device, set_device)
+from .version import __version__  # noqa: F401
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """paddle.set_printoptions: numpy's print options (what ``.numpy()``
+    reprs use, as the reference sets them) and torch's, for the port's
+    tensors."""
+    import builtins
+
+    import numpy as np
+    import torch
+
+    kw = {}
+    if precision is not None:
+        kw["precision"] = int(precision)
+    if threshold is not None:
+        kw["threshold"] = int(threshold)
+    if edgeitems is not None:
+        kw["edgeitems"] = int(edgeitems)
+    if linewidth is not None:
+        kw["linewidth"] = int(linewidth)
+    np_kw = dict(kw)
+    if sci_mode is not None:
+        np_kw["suppress"] = not builtins.bool(sci_mode)
+        kw["sci_mode"] = builtins.bool(sci_mode)
+    np.set_printoptions(**np_kw)
+    torch.set_printoptions(**kw)
+
+
+def batch(reader, batch_size, drop_last=False):
+    """paddle.batch: an instance reader made a batch reader (lists of
+    ``batch_size`` samples; the short tail kept unless ``drop_last``)."""
+    def batch_reader():
+        buf = []
+        for instance in reader():
+            buf.append(instance)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+
+    return batch_reader
+
+
+def check_shape(shape, op_name="", expected_shape_type=(list, tuple),
+                expected_element_type=(int,),
+                expected_tensor_dtype=("int32", "int64")):
+    """Validate a shape argument's types (paddle's data_feeder.py:142)."""
+    if not isinstance(shape, expected_shape_type):
+        raise InvalidArgumentError(
+            "%s: shape must be %s, got %r" % (op_name, expected_shape_type,
+                                              type(shape)))
+    for item in shape:
+        if not isinstance(item, expected_element_type):
+            raise InvalidArgumentError(
+                "%s: shape element must be %s, got %r"
+                % (op_name, expected_element_type, type(item)))
 
 
 def create_parameter(shape, dtype="float32", name=None, attr=None,

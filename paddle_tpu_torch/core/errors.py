@@ -10,7 +10,7 @@ that raised it, as the reference's.
 from __future__ import annotations
 
 import traceback
-from typing import Optional
+from typing import Any, NoReturn, Optional
 
 
 class EnforceNotMet(RuntimeError):
@@ -73,6 +73,35 @@ class FatalError(EnforceNotMet):
 
 class ExternalError(EnforceNotMet):
     code = "EXTERNAL"
+
+
+def enforce(cond: Any, message: str, exc: type = InvalidArgumentError,
+            hint: Optional[str] = None) -> None:
+    """PADDLE_ENFORCE: raise ``exc(message, hint=hint)`` when ``cond`` is
+    falsy.  A host-side check: never pass it a device tensor, whose truth
+    value would read the card back."""
+    if not cond:
+        raise exc(message, hint=hint)
+
+
+def enforce_eq(a: Any, b: Any, what: str = "value") -> None:
+    if a != b:
+        raise InvalidArgumentError(f"expected {what} == {b!r}, got {a!r}")
+
+
+def enforce_shape(x: Any, expected: tuple, what: str = "tensor") -> None:
+    """``x.shape`` against ``expected``; -1 or None matches any size."""
+    shape = tuple(x.shape)
+    if len(shape) != len(expected) or any(
+            e not in (-1, None, s) for s, e in zip(shape, expected)):
+        raise InvalidArgumentError(
+            f"{what} shape mismatch: expected {expected}, got {shape}")
+
+
+def raise_unimplemented(feature: str) -> NoReturn:
+    raise UnimplementedError(
+        f"{feature} is not implemented in paddle_tpu_torch yet",
+        hint="see ROADMAP.md for what is still to port")
 
 
 def current_python_callstack(limit: int = 8) -> str:

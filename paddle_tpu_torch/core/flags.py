@@ -8,11 +8,11 @@ help.  Where their readers are ported they act as the reference's do:
 ``FLAGS_check_nan_inf`` (the op shim's output scan,
 ``framework/dispatch.py``), ``FLAGS_seq_block_size``
 (``ops/flash_attention.py``), ``FLAGS_log_level`` (``core/errors.py``)
-and ``FLAGS_amp_dtype`` (``amp``).  ``FLAGS_prefetch_depth``,
-``FLAGS_jit_cache``, ``FLAGS_use_donated_buffers``, ``FLAGS_eager_mode``,
-``FLAGS_deterministic`` and ``FLAGS_benchmark`` are defined and
-round-trip; their readers (io, the static jit, the sampler, the
-profiler) are not ported yet.
+and ``FLAGS_amp_dtype`` (``amp``) and ``FLAGS_benchmark`` (the op shim's
+per-op timing, ``profiler``).  ``FLAGS_prefetch_depth``,
+``FLAGS_jit_cache``, ``FLAGS_use_donated_buffers``, ``FLAGS_eager_mode``
+and ``FLAGS_deterministic`` are defined and round-trip; their readers
+(io, the static jit, the sampler) are not ported yet.
 """
 from __future__ import annotations
 

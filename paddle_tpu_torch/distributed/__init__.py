@@ -23,9 +23,14 @@ port keeps that, with every rank of a mesh on one device (``cuda:0``, or
 - ``qcollectives``, ``sharded``: the quantized model-parallel reductions
   and per-shard caches of the sharded decode step (``jit.mesh``).
 
-Not ported yet (ROADMAP queue 1, item 4's remainder): ``launch``,
-``spawn``, the parameter-server data sets (``ps_compat``),
-``fleet.elastic`` and ``fleet.utils.fs``.
+- ``launch`` (``python -m paddle_tpu_torch.distributed.launch``) and
+  ``spawn``: a gang of trainer processes with the ``PADDLE_TRAINER_*``
+  environment, watched, killed on a failure and relaunched
+  (``--max_restarts``; ``fleet.elastic``'s heartbeats); under them
+  ``init_parallel_env()`` makes a process-backed world over
+  ``torch.distributed`` (``collective``).
+- ``ps_compat``: the parameter-server era's slot-file data generators and
+  datasets as numpy batches; ``fleet.utils.fs``: ``LocalFS``.
 """
 from . import qcollectives  # noqa: F401
 from .qcollectives import (COLLECTIVE_QUANT_MODES,  # noqa: F401
@@ -46,6 +51,10 @@ from .parallel import (DataParallel, ParallelEnv, scale_loss,  # noqa: F401
                        shard_batch)
 from . import meta_parallel  # noqa: F401
 from .comm_hooks import CompressedAllReduceStep  # noqa: F401
+from . import launch  # noqa: F401
+from .ps_compat import (CountFilterEntry, InMemoryDataset,  # noqa: F401
+                        ProbabilityEntry, QueueDataset)
+from .spawn import ParallelContext, spawn  # noqa: F401
 
 __all__ = [
     "split", "Group", "ReduceOp", "all_gather", "all_reduce", "all_to_all",
@@ -58,5 +67,7 @@ __all__ = [
     "CompressedAllReduceStep", "qcollectives", "COLLECTIVE_QUANT_MODES",
     "COLLECTIVE_QUANT_SCALES", "QUANT_BLOCK", "quantize_int8",
     "dequantize_int8", "qpsum", "qall_gather", "psum_wire_bytes",
-    "qpsum_wire_bytes", "row_parallel_linear",
+    "qpsum_wire_bytes", "row_parallel_linear", "launch", "spawn",
+    "ParallelContext", "InMemoryDataset", "QueueDataset", "CountFilterEntry",
+    "ProbabilityEntry",
 ]

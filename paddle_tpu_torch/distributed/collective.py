@@ -12,6 +12,16 @@ float32 as ``qcollectives.row_parallel_linear`` does.  A group over
 several distinct devices raises :class:`UnimplementedError`: a grid across
 cards needs a transport between them, which is not ported.
 
+A launched world is the one exception.  Under the launcher
+(``distributed.launch``) or ``spawn``, with ``PADDLE_TRAINERS_NUM`` above 1
+and no ``world_size`` given, :func:`init_parallel_env` rendezvouses the
+processes through ``torch.distributed.init_process_group`` (gloo for CPU
+children, NCCL where each child has its own card), as the reference
+rendezvouses them through ``jax.distributed``.  The world group is then
+process-backed: :func:`get_rank` is the process's rank, and
+``all_reduce``, ``reduce``, ``broadcast``, ``all_gather`` and ``barrier``
+take each process's own tensor and go through ``torch.distributed``.
+
 The reference's *traced* form (a collective inside ``shard_map`` on the
 per-rank shard) has no torch counterpart.  Where a layer needs a
 collective in the middle of a per-rank body it writes the body over the
@@ -28,7 +38,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.errors import InvalidArgumentError, UnimplementedError
+from ..core.errors import (InvalidArgumentError, UnavailableError,
+                           UnimplementedError)
 
 __all__ = [
     "ReduceOp", "Group", "new_group", "get_group", "destroy_process_group",
@@ -83,10 +94,16 @@ class Group:
     _next_id = 0
 
     def __init__(self, ranks: Sequence[int], device, axis_name: str = "dp",
-                 gid: Optional[int] = None):
+                 gid: Optional[int] = None, process_group=None,
+                 rank: int = 0):
         self.ranks = list(ranks)
         self.device = torch.device(device)
         self.axis_name = axis_name
+        # a launched world: the torch.distributed group (None: the default
+        # one) whose processes are the ranks, and this process's rank
+        self._pg = process_group
+        self._rank = int(rank)
+        self.process_backed = process_group is not None
         if gid is None:
             gid = Group._next_id
         Group._next_id = max(Group._next_id, gid) + 1
@@ -100,12 +117,13 @@ class Group:
 
     @property
     def rank(self) -> int:
-        # single controller: the controller is rank 0 of every group
-        return 0
+        # single controller: the controller is rank 0 of every group; a
+        # launched world: this process's rank in the group
+        return self._rank
 
     @property
     def process_group(self):
-        return self
+        return self._pg if self.process_backed else self
 
     def get_group_rank(self, rank: int) -> int:
         return self.ranks.index(rank) if rank in self.ranks else -1
@@ -122,13 +140,66 @@ _group_map: dict = {}
 _default_group: Optional[Group] = None
 
 
+def _launched_world_size() -> int:
+    """``PADDLE_TRAINERS_NUM`` from the launcher's environment (1 when
+    unset)."""
+    import os
+
+    return int(os.environ.get("PADDLE_TRAINERS_NUM", "1") or "1")
+
+
+def _init_process_world(device) -> Group:
+    """Rendezvous the launched processes (the reference's
+    ``_bootstrap_multihost``): ``init_process_group`` at ``PADDLE_MASTER``
+    from ``PADDLE_TRAINER_ID``/``PADDLE_TRAINERS_NUM``; gloo on the CPU,
+    NCCL on the card, where each rank of this node takes its own card."""
+    import os
+
+    import torch.distributed as tdist
+
+    n = _launched_world_size()
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    endpoints = [e for e in os.environ.get(
+        "PADDLE_TRAINER_ENDPOINTS", "").split(",") if e]
+    master = os.environ.get("PADDLE_MASTER") or endpoints[0]
+    dev = resolve_device(device)
+    backend = "gloo"
+    if dev.type == "cuda":
+        here = endpoints[rank].rsplit(":", 1)[0] if endpoints else ""
+        on_node = [i for i, e in enumerate(endpoints)
+                   if e.rsplit(":", 1)[0] == here] or list(range(n))
+        cards = torch.cuda.device_count()
+        if len(on_node) > cards:
+            raise UnavailableError(
+                "%d launched ranks share this node's %d CUDA card(s); NCCL "
+                "takes one rank a card -- launch fewer processes a node, or "
+                "pass init_parallel_env(device=\"cpu\") to run the gang on "
+                "the CPU over gloo" % (len(on_node), cards))
+        dev = torch.device("cuda", on_node.index(rank) % cards)
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    if not tdist.is_initialized():
+        tdist.init_process_group(backend, init_method="tcp://" + master,
+                                 world_size=n, rank=rank)
+    return Group(list(range(n)), dev, "dp", gid=0,
+                 process_group=tdist.group.WORLD, rank=rank)
+
+
 def init_parallel_env(world_size: Optional[int] = None, device=None,
                       devices=None) -> Group:
     """The world group (the reference's ``init_parallel_env``): a logical
     mesh of ``world_size`` ranks (``len(devices)`` when given, else 1) on
     one device -- ``cuda:0`` unless ``device``/``devices`` say otherwise.
-    A later call returns the group already made."""
+    Under the launcher (``PADDLE_TRAINERS_NUM`` above 1) with neither
+    ``world_size`` nor ``devices`` given, the world is the launched
+    processes, rendezvoused through ``torch.distributed`` on ``device``
+    (the card unless it says ``"cpu"``).  A later call returns the group
+    already made."""
     global _default_group
+    if _default_group is None and world_size is None and devices is None \
+            and _launched_world_size() > 1:
+        _default_group = _init_process_world(device)
+        _group_map[0] = _default_group
     if _default_group is None:
         n = int(world_size if world_size is not None
                 else (len(devices) if devices is not None else 1))
@@ -148,6 +219,10 @@ def is_initialized() -> bool:
 def destroy_process_group(group: Optional[Group] = None) -> None:
     global _default_group
     if group is None:
+        if _default_group is not None and _default_group.process_backed:
+            import torch.distributed as tdist
+
+            tdist.destroy_process_group()
         _group_map.clear()
         _default_group = None
     else:
@@ -165,7 +240,13 @@ def get_group(gid: int = 0) -> Optional[Group]:
 
 
 def get_rank(group: Optional[Group] = None) -> int:
-    """The controller's process index: 0 (one process holds every rank)."""
+    """The process's rank in a launched world (in ``group`` when it is one
+    of its groups); 0 for the single controller, which holds every
+    rank."""
+    if group is not None and group.process_backed:
+        return group.rank
+    if _default_group is not None and _default_group.process_backed:
+        return _default_group.rank
     return 0
 
 
@@ -187,6 +268,16 @@ def new_group(ranks: Optional[Sequence[int]] = None, backend=None,
     if any(r < 0 or r >= n for r in ranks):
         raise InvalidArgumentError(
             "new_group ranks %s out of range [0, %d)" % (ranks, n))
+    if world.process_backed:
+        import torch.distributed as tdist
+
+        # every process makes the group, members or not (torch's rule)
+        pg = tdist.new_group(ranks)
+        g = Group(ranks, world.device, "sub", process_group=pg,
+                  rank=ranks.index(world.rank) if world.rank in ranks
+                  else -1)
+        _group_map[g.id] = g
+        return g
     g = Group(ranks, world.device, "sub")
     _group_map[g.id] = g
     return g
@@ -265,13 +356,65 @@ def _commit(tensor, out):
     return out
 
 
+# -- a launched world: each process holds its own tensor --------------------
+
+def _process_tensor(tensor, group: Group):
+    """This process's tensor on the group's device: a tensor argument
+    itself when it already lies there (the collective writes into it)."""
+    if torch.is_tensor(tensor) and tensor.device == group.device:
+        return tensor
+    return torch.as_tensor(np.asarray(tensor) if not torch.is_tensor(tensor)
+                           else tensor, device=group.device).clone()
+
+
+def _dist_op(op):
+    import torch.distributed as tdist
+
+    table = {ReduceOp.SUM: tdist.ReduceOp.SUM, ReduceOp.AVG: tdist.ReduceOp.SUM,
+             ReduceOp.MAX: tdist.ReduceOp.MAX, ReduceOp.MIN: tdist.ReduceOp.MIN,
+             ReduceOp.PROD: tdist.ReduceOp.PRODUCT}
+    if op not in table:
+        raise InvalidArgumentError("unknown ReduceOp %r" % (op,))
+    return table[op]
+
+
+def _process_reduce(tensor, op, group: Group, dst: Optional[int]):
+    """``all_reduce`` (``dst`` None) or ``reduce`` across the processes;
+    AVG is a sum divided by the world, as gloo has no average."""
+    import torch.distributed as tdist
+
+    x = _process_tensor(tensor, group)
+    if dst is None:
+        tdist.all_reduce(x, op=_dist_op(op), group=group._pg)
+    else:
+        tdist.reduce(x, dst, op=_dist_op(op), group=group._pg)
+    if op == ReduceOp.AVG and (dst is None or tdist.get_rank() == dst):
+        with torch.no_grad():
+            if x.is_floating_point():
+                x.div_(group.nranks)
+            else:
+                x.floor_divide_(group.nranks)
+    return _commit(tensor, x) if x is not tensor else tensor
+
+
+def _process_only(api: str):
+    raise UnimplementedError(
+        "%s across launched processes is not ported: a process-backed "
+        "world runs all_reduce, reduce, broadcast, all_gather and barrier"
+        % api)
+
+
 # -- collectives ------------------------------------------------------------
 
 def all_reduce(tensor, op=ReduceOp.SUM, group: Optional[Group] = None,
                sync_op: bool = True, use_calc_stream: bool = False):
     """``[nranks, ...]`` in, ``[nranks, ...]`` out: every slot holds the
-    reduction (written in place into a tensor, as paddle's)."""
+    reduction (written in place into a tensor, as paddle's).  In a
+    launched world: this process's tensor in, the reduction over the
+    processes out (in place)."""
     group = group or _get_default_group()
+    if group.process_backed:
+        return _process_reduce(tensor, op, group, None)
     x = _as_tensor(tensor, group)
     _check_rank_axis(x, group, "all_reduce")
     red = _reduce_ranks(x, op, group.nranks)
@@ -283,6 +426,9 @@ def reduce(tensor, dst: int = 0, op=ReduceOp.SUM,
     """The reduction lands in ``dst``'s slot; the other ranks' slots keep
     their input (NCCL reduce leaves non-root buffers untouched)."""
     group = group or _get_default_group()
+    if group.process_backed:
+        _root_index(dst, group, "reduce")
+        return _process_reduce(tensor, op, group, dst)
     x = _as_tensor(tensor, group)
     dst_local = _root_index(dst, group, "reduce")
     _check_rank_axis(x, group, "reduce")
@@ -299,6 +445,16 @@ def all_gather(tensor_list: Optional[List], tensor=None,
     if tensor is None:
         tensor, tensor_list = tensor_list, None
     group = group or _get_default_group()
+    if group.process_backed:
+        import torch.distributed as tdist
+
+        x = _process_tensor(tensor, group)
+        parts = [torch.empty_like(x) for _ in range(group.nranks)]
+        tdist.all_gather(parts, x, group=group._pg)
+        if tensor_list is not None:
+            tensor_list.extend(parts)
+            return tensor_list
+        return torch.stack(parts)
     x = _as_tensor(tensor, group)
     _check_rank_axis(x, group, "all_gather")
     if tensor_list is not None:
@@ -317,6 +473,8 @@ def reduce_scatter(tensor, tensor_or_tensor_list=None, op=ReduceOp.SUM,
     if tensor_or_tensor_list is not None:
         out_slot, src = tensor, tensor_or_tensor_list
     group = group or _get_default_group()
+    if group.process_backed:
+        _process_only("reduce_scatter")
     n = group.nranks
     if isinstance(src, (list, tuple)):
         if len(src) != n:
@@ -340,8 +498,17 @@ def reduce_scatter(tensor, tensor_or_tensor_list=None, op=ReduceOp.SUM,
 
 def broadcast(tensor, src: int = 0, group: Optional[Group] = None,
               sync_op: bool = True, use_calc_stream: bool = False):
-    """Every slot of the stacked view becomes slot ``src``'s."""
+    """Every slot of the stacked view becomes slot ``src``'s.  In a
+    launched world: process ``src``'s tensor written into every
+    process's."""
     group = group or _get_default_group()
+    if group.process_backed:
+        import torch.distributed as tdist
+
+        x = _process_tensor(tensor, group)
+        _root_index(src, group, "broadcast")
+        tdist.broadcast(x, src, group=group._pg)
+        return _commit(tensor, x) if x is not tensor else tensor
     x = _as_tensor(tensor, group)
     src_local = _root_index(src, group, "broadcast")
     _check_rank_axis(x, group, "broadcast")
@@ -355,6 +522,8 @@ def scatter(tensor, tensor_list=None, src: int = 0,
     matches).  Without it, the stacked ``[nranks, n*k, ...]`` input:
     rank i receives the i-th chunk of slot ``src``."""
     group = group or _get_default_group()
+    if group.process_backed:
+        _process_only("scatter")
     n = group.nranks
     src_local = _root_index(src, group, "scatter")
     if tensor_list is not None:
@@ -373,6 +542,8 @@ def alltoall(in_tensor_or_list, out_tensor_or_list=None,
     ``nranks`` per-rank tensors, returning (and appending to
     ``out_tensor_or_list``) the per-rank results."""
     group = group or _get_default_group()
+    if group.process_backed:
+        _process_only("alltoall")
     n = group.nranks
     was_list = isinstance(in_tensor_or_list, (list, tuple))
     if was_list:
@@ -460,8 +631,14 @@ p2p = _P2P()
 
 
 def barrier(group: Optional[Group] = None) -> None:
-    """Block the host until the group's device has finished its work."""
+    """Block the host until the group's device has finished its work (in
+    a launched world: until every process has reached the barrier)."""
     group = group or _get_default_group()
+    if group.process_backed:
+        import torch.distributed as tdist
+
+        tdist.barrier(group=group._pg)
+        return
     if group.device.type == "cuda":
         torch.cuda.synchronize(group.device)
 

@@ -441,3 +441,11 @@ class UtilBase:
 
 
 util = UtilBase()
+
+from . import elastic  # noqa: E402,F401
+from ..ps_compat import (  # noqa: E402,F401
+    MultiSlotDataGenerator, MultiSlotStringDataGenerator,
+)
+
+__all__ += ["elastic", "MultiSlotDataGenerator",
+            "MultiSlotStringDataGenerator"]

@@ -201,8 +201,11 @@ class FP16AllreduceOptimizer(_Wrapper):
 class LocalSGDOptimizer(_Wrapper):
     """Step locally, average the parameters every ``k_steps``.  One
     controller holds every replica of a single-controller program, so
-    they never diverge: the average is the identity and this is the inner
-    optimizer, counting its syncs."""
+    they never diverge there: the average is the identity and this is the
+    inner optimizer, counting its syncs.  In a launched world (the
+    launcher's or ``spawn``'s processes) each process steps its own
+    replica and the sync is the mean across the processes, as the
+    reference's ``c_allreduce_sum`` and scale."""
 
     def __init__(self, inner, k_steps: int = 1):
         if k_steps < 1:
@@ -217,3 +220,17 @@ class LocalSGDOptimizer(_Wrapper):
         if self._since_sync >= self.k_steps:
             self._since_sync = 0
             self.syncs += 1
+            self._sync_params()
+
+    @torch.no_grad()
+    def _sync_params(self) -> None:
+        """The mean of each parameter over the launched processes (nothing
+        to average under a single controller)."""
+        from .. import collective
+
+        world = collective._default_group
+        if world is None or not world.process_backed:
+            return
+        for p in self._inner._parameter_list or []:
+            collective.all_reduce(p.data, collective.ReduceOp.AVG,
+                                  group=world)

@@ -30,13 +30,18 @@ __all__ = ["ParallelEnv", "DataParallel", "get_rank", "get_world_size",
 
 
 class ParallelEnv:
-    """The process's view of the cluster: one controller process (rank 0
-    of 1), its card ``device_id`` 0, and the launcher's endpoints."""
+    """The process's view of the cluster: its rank and the number of
+    processes (a launched world's, from ``torch.distributed``; else rank
+    0 of 1), its card ``device_id`` and the launcher's endpoints."""
 
     def __init__(self):
-        self._rank = 0
-        self._world_size = 1
-        self._device_id = 0
+        import torch.distributed as dist
+
+        launched = dist.is_available() and dist.is_initialized()
+        self._rank = dist.get_rank() if launched else 0
+        self._world_size = dist.get_world_size() if launched else 1
+        self._device_id = torch.cuda.current_device() \
+            if launched and dist.get_backend() == "nccl" else 0
         self._trainer_endpoints = os.environ.get(
             "PADDLE_TRAINER_ENDPOINTS", "").split(",")
 

@@ -27,9 +27,15 @@ variable's program instead of running (``register_symbolic``, which
 ``static`` calls on import; the reference's static-graph bridge).  Until
 then the check costs one global read.
 
-The reference's Tensor facade, tape and profiler hooks (``FLAGS_benchmark``,
-``record_op_time``) have no counterpart here: ``torch.Tensor`` is the
-port's Tensor and torch's autograd records the graph.  Calls inside a
+While ``profiler.start_profiler`` runs, or while ``FLAGS_benchmark`` is
+set, an op synchronizes its device after it runs and records its wall
+time with ``profiler.record_op_time`` (the reference's ``_maybe_t0`` and
+``_post_op``); inside a CUDA-graph capture it records nothing.  With both
+off that costs two reads of a flag.
+
+The reference's Tensor facade and tape have no counterpart here:
+``torch.Tensor`` is the port's Tensor and torch's autograd records the
+graph.  Calls inside a
 functional module reach the raw functions, as the reference's inner
 ``jnp`` calls do.
 """
@@ -45,7 +51,8 @@ from ..core import amp_state
 from ..core.errors import InvalidArgumentError
 from ..core.flags import _REGISTRY as _FLAGS
 
-__all__ = ["make_op", "install_ops", "check_nan_inf", "register_symbolic"]
+__all__ = ["make_op", "install_ops", "check_nan_inf", "register_symbolic",
+           "set_op_timing", "op_timing_on"]
 
 
 def _target(st: amp_state.AmpAttrs, op_name: str):
@@ -100,6 +107,48 @@ def check_nan_inf(out, op_name: str) -> None:
 
 
 _NAN_FLAG = _FLAGS["FLAGS_check_nan_inf"]
+_BENCH_FLAG = _FLAGS["FLAGS_benchmark"]
+# whether the op profiler runs (``profiler.start_profiler``)
+_PROFILING = [False]
+
+
+def set_op_timing(on: bool) -> None:
+    """Turn the op profiler's timing on or off (the profiler's switch)."""
+    _PROFILING[0] = bool(on)
+
+
+def op_timing_on() -> bool:
+    return _PROFILING[0] or bool(_BENCH_FLAG.value)
+
+
+def _timed_call(fn, op_name: str, args, kwargs):
+    """``fn(*args, **kwargs)``, its device synchronized, its wall time
+    recorded under ``op_name``; nothing recorded while a CUDA graph
+    captures (no synchronize may run then)."""
+    import time
+
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    cuda = [t for t in _tensor_leaves(out) if t.is_cuda]
+    if cuda:
+        if torch.cuda.is_current_stream_capturing():
+            return out
+        torch.cuda.synchronize(cuda[0].device)
+    from .. import profiler
+
+    profiler.record_op_time(op_name, time.perf_counter() - t0)
+    return out
+
+
+def _tensor_leaves(v):
+    if isinstance(v, torch.Tensor):
+        yield v
+    elif isinstance(v, (tuple, list)):
+        for x in v:
+            yield from _tensor_leaves(x)
+    elif isinstance(v, dict):
+        for x in v.values():
+            yield from _tensor_leaves(x)
 
 
 def make_op(fn: Callable, op_name: str) -> Callable:
@@ -116,7 +165,10 @@ def make_op(fn: Callable, op_name: str) -> Callable:
             if tgt is not None:
                 args = _cast(args, tgt)
                 kwargs = _cast(kwargs, tgt)
-        out = fn(*args, **kwargs)
+        if _BENCH_FLAG.value or _PROFILING[0]:
+            out = _timed_call(fn, op_name, args, kwargs)
+        else:
+            out = fn(*args, **kwargs)
         if _NAN_FLAG.value:
             check_nan_inf(out, op_name)
         return out

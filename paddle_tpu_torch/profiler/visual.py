@@ -72,3 +72,32 @@ def chrome_trace_json(trace_events: List[dict],
         with open(path, "w") as f:
             f.write(s)
     return s
+
+
+def export_chrome_tracing(path: str, op_times: Optional[List] = None) -> str:
+    """Write the op profiler's table as Chrome trace events.
+
+    ``op_times``: a list of (name, seconds[, start_seconds]).  By default
+    the profiler's per-op totals (``start_profiler`` must have run), laid
+    out one after another: a cost breakdown, not a timeline (the table
+    keeps totals, not timestamps).  Loadable in chrome://tracing or
+    Perfetto."""
+    if op_times is None:
+        from . import _events
+
+        op_times = [(name, total) for name, (_cnt, total) in _events.items()]
+    events = []
+    cursor = 0.0
+    for rec in op_times:
+        name, dur = rec[0], float(rec[1])
+        start = float(rec[2]) if len(rec) > 2 else cursor
+        cursor = start + dur
+        events.append({
+            "name": name, "ph": "X", "pid": 0, "tid": 0,
+            "ts": start * 1e6, "dur": dur * 1e6,
+            "cat": "op",
+        })
+    if not path.endswith(".json"):
+        path += ".json"
+    chrome_trace_json(events, path)
+    return path

@@ -39,7 +39,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 from ..core.errors import InvalidArgumentError
 from ..nn import functional as F
@@ -235,6 +234,11 @@ def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> tuple:
     # batch's range.  A program whose M is known above 16 from its shape
     # (ERNIE's batch x 384) runs the product as it is.
     if a.is_cuda and k % 8 == 0 and n % 8 == 0:
+        # imported here: its module pulls in sympy, a second of every
+        # process's import of the package
+        from torch.fx.experimental.symbolic_shapes import \
+            statically_known_true
+
         if statically_known_true(m > 16):
             return torch._int_mm(a, b), "int_mm"
         if torch.compiler.is_compiling():
